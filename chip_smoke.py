@@ -1,0 +1,431 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # every phase, one card, about a minute
+
+Phases, each printing JSON lines:
+
+1. env        card name and power limit (nvidia-smi), torch and CUDA versions;
+              TF32 off so float32 products are float32.
+2. build      every CUDA source of the port compiled with nvcc for sm_90a,
+              all at once (``repro_torch.kernels._build``).
+3. kernel     the flash-attention kernel (K1) against its plain PyTorch
+              version on the card, on inputs whose softmax is peaked: the
+              reference kernel test sweep, a GQA case, kv_lens cases and
+              llama2-paper's prefill shapes (every prompt length the serve
+              phase sends, in bf16, and three timed lengths in both
+              dtypes), held to the limits at TOL / FRO_TOL / MAX_TOL below;
+              device times (CUDA graphs) of the kernel, the plain version
+              and SDPA as a yardstick, and the bound.
+4. serve      ``repro_torch.launch.serve.main`` on full-width llama2-paper
+              (bf16, random weights from a seed) with ``--attn-impl flash``:
+              8 requests, 4 slots, prompts of 65..900 tokens, 32 new tokens
+              each.  K1's launch count is reset just before and must equal
+              prefills x layers just after.
+5. crosscheck prefill of two of those prompts with ``flash`` and ``chunked``
+              attention on the same weights; logits must agree within the
+              bf16 tolerance below.
+6. profile    ``torch.profiler`` over 4 prefills and 8 decode ticks of the
+              same server: device busy time, idle share, top kernels.
+
+Any failure raises, so the exit code is non-zero and no result line is
+printed.  The last lines are the kernels summary, the nvidia-smi line and
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
+"""
+from __future__ import annotations
+
+import gc
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+H100_BF16_FLOPS = 989e12      # dense tensor-core peak, SXM data sheet
+H100_F32_FLOPS = 67e12        # float32 outside the tensor cores
+H100_HBM_BYTES_S = 3.35e12
+# K1's inputs: q and k are unit normals times QK_SCALE and v a unit normal,
+# so the scores q.k/sqrt(D) have a std of QK_SCALE**2 = 4 and every row's
+# softmax is peaked.  A dropped KV tile or a wrong running-max rescale then
+# moves an output by about the size of v.  (At 0.3 x randn the softmax is
+# near uniform and each output is about the mean of v, smaller than a bf16
+# tolerance: such faults would pass.)
+QK_SCALE = 2.0
+# A case passes when all three hold:
+#   |out - ref| <= TOL + TOL |ref| in every element;
+#   ||out - ref||_F <= FRO_TOL ||ref||_F;
+#   max |out - ref| <= MAX_TOL max |ref|.
+# bf16: P is rounded to bf16 for the P V product (2^-9 relative) and the
+# output to bf16 (half an ulp), so the kernel stays within an ulp or two of
+# the plain version; 2^-6 of max |ref| is 2 to 4 bf16 ulps of the largest
+# output.  f32: the two differ only in summation order, ~1e-6 relative.
+TOL = {"float32": 2e-3, "bfloat16": 2e-2}
+FRO_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+MAX_TOL = {"float32": 2.0 ** -14, "bfloat16": 2.0 ** -6}
+# The two attention paths of the cross-check differ only in summation order
+# inside each attention, then round the context to bf16 (a relative step of
+# 2^-8 = 3.9e-3).  Those roundings differ in some elements of each of the
+# 32 layers and propagate through random (untrained) weights, so the
+# logits are held to 5e-2 of their largest magnitude.
+CROSSCHECK_TOL = 5e-2
+
+SERVE_ARGS = ["--arch", "llama2-paper", "--attn-impl", "flash",
+              "--requests", "8", "--max-batch", "4", "--max-len", "1024",
+              "--min-prompt-len", "65", "--max-prompt-len", "900",
+              "--new-tokens", "32"]
+
+BOTH = ("float32", "bfloat16")
+# (B, Sq, Sk, H, Kh, D, causal, kv_lens, dtypes, timed)
+SWEEP_CASES = [
+    # tests/test_kernels.py::test_flash_attention_sweep
+    (2, 256, 256, 4, 2, 64, True, None, BOTH, False),
+    (1, 128, 384, 4, 4, 32, False, None, BOTH, False),
+    (2, 100, 100, 2, 1, 64, True, None, BOTH, False),
+    (1, 512, 512, 8, 1, 128, True, None, BOTH, False),
+    (1, 64, 192, 6, 3, 16, False, None, BOTH, False),
+    # GQA and kv_lens
+    (1, 384, 384, 32, 8, 128, True, None, BOTH, False),
+    (2, 300, 300, 8, 2, 64, False, (300, 137), BOTH, False),
+    (2, 256, 256, 8, 8, 128, True, (256, 100), BOTH, False),
+]
+TIMED_LENS = (77, 384, 901)      # llama2-paper prefill lengths that are timed
+SUMMARY_LEN = 901
+
+
+def llama2_cases(cfg):
+    """K1 at llama2-paper's prefill shapes: the timed lengths in both dtypes,
+    and every prompt length of the serve phase in bf16, as served."""
+    H, Kh, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    cases = [(1, S, S, H, Kh, D, True, None, BOTH, True) for S in TIMED_LENS]
+    cases += [(1, S, S, H, Kh, D, True, None, ("bfloat16",), False)
+              for S in map(len, serve_prompts(8, cfg.vocab_size))]
+    return cases
+
+
+def emit(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Time per call of ``fn`` called back to back (CUDA events): the device
+    time, or the host's dispatch time where that is longer."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 5) -> float:
+    """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, replayed ``reps`` times between CUDA events, so the host's
+    dispatch (Python, ctypes) is not in the time."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (iters * reps)
+    del graph
+    return ms
+
+
+def k1_inputs(gen, B, Sq, Sk, H, Kh, D, dtype, device, qk_scale=QK_SCALE,
+              v_scale=1.0):
+    """q (B,Sq,H,D), k and v (B,Sk,Kh,D) from ``gen``, in ``dtype``."""
+    import torch
+
+    def rand(scale, *shape):
+        return (torch.randn(*shape, generator=gen, device=device)
+                * scale).to(dtype)
+    return (rand(qk_scale, B, Sq, H, D), rand(qk_scale, B, Sk, Kh, D),
+            rand(v_scale, B, Sk, Kh, D))
+
+
+def k1_check(out, ref, dname: str) -> dict:
+    """K1's output against its plain version: the errors and whether they
+    are inside every limit (TOL, FRO_TOL, MAX_TOL above)."""
+    o, r = out.float(), ref.float()
+    diff = (o - r).abs()
+    err, scale = float(diff.max()), float(r.abs().max())
+    rel_fro = float(diff.norm() / r.norm())
+    tol = TOL[dname]
+    ok = (bool((diff <= tol + tol * r.abs()).all())
+          and rel_fro <= FRO_TOL[dname] and err <= MAX_TOL[dname] * scale)
+    return {"max_abs_err": err, "max_abs_ref": scale, "rel_fro": rel_fro,
+            "tol": tol, "fro_tol": FRO_TOL[dname],
+            "max_tol": MAX_TOL[dname] * scale, "ok": ok}
+
+
+def attention_bound(B, Sq, Sk, H, Kh, D, causal, kv_lens, dtype):
+    """Least time for the work these inputs need: q, k, v read once and o
+    written once over HBM bandwidth, against 4*D flops per unmasked
+    (query, key) pair per head over the peak rate of the input type."""
+    import torch
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = esize * (2 * B * Sq * H * D + 2 * B * Sk * Kh * D)
+    lens = kv_lens or (Sk,) * B
+    pairs = 0
+    for n in lens:
+        n = min(n, Sk)
+        pairs += (sum(min(q + 1, n) for q in range(Sq)) if causal
+                  else Sq * n)
+    flops = 4.0 * H * D * pairs
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    t_bytes, t_ops = nbytes / H100_HBM_BYTES_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kernel(device, cases):
+    """K1 against its plain version on every case; the timed cases also get
+    device times (CUDA graphs) of the kernel, the plain version and SDPA,
+    the kernel's back-to-back eager time, and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    rows = {}
+    for case in cases:
+        B, Sq, Sk, H, Kh, D, causal, kv_lens, dtypes, timed = case
+        for dname in dtypes:
+            dtype = getattr(torch, dname)
+            q, k, v = k1_inputs(gen, B, Sq, Sk, H, Kh, D, dtype, device)
+            lens = (None if kv_lens is None else
+                    torch.tensor(kv_lens, dtype=torch.int32, device=device))
+            out = ops.flash_attention(q, k, v, causal=causal, kv_lens=lens)
+            torch.cuda.synchronize()
+            ref = ops.flash_attention_plain(q, k, v, causal=causal,
+                                            kv_lens=lens)
+            row = {"shape": [B, Sq, Sk, H, Kh, D], "causal": causal,
+                   "kv_lens": kv_lens, "dtype": dname,
+                   **k1_check(out, ref, dname)}
+            if timed:
+                sm = 1.0 / math.sqrt(D)
+                row["ms"] = graph_ms(lambda: ops.flash_attention(
+                    q, k, v, causal=causal, kv_lens=lens))
+                row["eager_ms"] = cuda_ms(lambda: ops.flash_attention(
+                    q, k, v, causal=causal, kv_lens=lens))
+                row["plain_ms"] = graph_ms(lambda: ops.flash_attention_plain(
+                    q, k, v, causal=causal, kv_lens=lens), iters=5)
+                qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+                row["library_ms"] = graph_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal, scale=sm,
+                        **({"enable_gqa": True} if H != Kh else {})))
+                row["bound_ms"], row["bound_by"] = attention_bound(
+                    B, Sq, Sk, H, Kh, D, causal, kv_lens, dtype)
+            emit("kernel", name="flash_attention_fwd", **row)
+            if not row["ok"]:
+                raise AssertionError(f"flash_attention disagrees with its "
+                                     f"plain version: {row}")
+            rows[(case, dname)] = row
+    return rows
+
+
+def phase_serve(device):
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import serve
+
+    gc.collect()                       # the kernel phase's tensors and graphs
+    torch.cuda.empty_cache()
+    allocated_before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.flash_attention.launches = 0                  # count the main path only
+    stats = serve.main(SERVE_ARGS)
+    launches = ops.flash_attention.launches
+    n_req, n_new, n_layers = 8, 32, 32
+    lengths = {rid: len(toks) for rid, toks in stats["results"].items()}
+    if stats["completed"] != n_req or set(lengths.values()) != {n_new}:
+        raise AssertionError(f"serve: want {n_req} requests of {n_new} "
+                             f"tokens, got {lengths}")
+    prefills = stats["latency"]["prefill_ms"]["n"]
+    if prefills != n_req or launches != prefills * n_layers:
+        raise AssertionError(f"serve: flash_attention launched {launches} "
+                             f"times for {prefills} prefills x {n_layers} "
+                             "layers")
+    emit("serve", launches=launches, prefills=prefills,
+         prompt_lens=stats["prompt_lens"], tokens=stats["tokens"],
+         wall_s=stats["wall_s"], tokens_per_s=stats["tokens_per_s"],
+         ticks=stats["ticks"], tick_ms=stats["latency"]["tick_ms"],
+         prefill_ms=stats["latency"]["prefill_ms"],
+         max_memory_allocated=stats["max_memory_allocated"],
+         allocated_before=allocated_before)
+    return launches
+
+
+def serve_prompts(n: int, vocab: int):
+    """The first ``n`` prompts of the serve phase (RandomState(0) draws)."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    out = []
+    for _ in range(n):
+        size = rng.randint(65, 901)
+        out.append(rng.randint(0, vocab, size=size))
+    return out
+
+
+def phase_crosscheck(device, cfg, model):
+    import torch
+    from repro_torch.models import transformer as T
+
+    for prompt in serve_prompts(2, cfg.vocab_size):
+        toks = torch.as_tensor(prompt[None], dtype=torch.int64, device=device)
+        with torch.no_grad():
+            lf, _ = T.prefill(cfg.replace(attn_impl="flash"), model, toks, 1024)
+            lc, _ = T.prefill(cfg.replace(attn_impl="chunked"), model, toks,
+                              1024)
+        lf, lc = lf[0].float(), lc[0].float()
+        dmax = float((lf - lc).abs().max())
+        rel = dmax / float(lc.abs().max())
+        top2 = lc.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 2 * dmax   # argmax can't flip here
+        agree = lf.argmax(-1) == lc.argmax(-1)
+        row = {"prompt_len": len(prompt), "max_abs_dlogit": dmax,
+               "rel_dlogit": rel, "tol": CROSSCHECK_TOL,
+               "argmax_agree_last": bool(agree[-1]),
+               "argmax_agree_frac": float(agree.float().mean()),
+               "decided_positions": int(decided.sum()),
+               "decided_agree": bool(agree[decided].all())}
+        emit("crosscheck", **row)
+        if rel > CROSSCHECK_TOL or not row["decided_agree"]:
+            raise AssertionError(f"flash and chunked prefill disagree: {row}")
+
+
+def phase_profile(device, cfg, model):
+    """torch.profiler over two windows of the serving loop (4 prefills into
+    the 4 slots, then 8 decode ticks): device busy time is the sum of CUDA
+    kernel times (one stream, so kernels do not overlap), idle share is
+    1 - busy / wall, with wall on the host clock under the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs
+    from repro_torch.runtime.server import Server
+
+    srv = Server(cfg.replace(attn_impl="flash"), model, max_batch=4,
+                 max_len=1024)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def window(name, fn, n_steps):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kern = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy = sum(ms for _, ms, _ in kern)
+        kern.sort(key=lambda x: -x[1])
+        emit("profile", window=name, steps=n_steps, wall_ms=wall,
+             device_busy_ms=busy, idle_share=1 - busy / wall,
+             kernel_launches=sum(n for _, _, n in kern),
+             flash_ms=sum(ms for k, ms, _ in kern if "flash_fwd" in k),
+             top=[{"kernel": k[:80], "ms": ms, "n": n}
+                  for k, ms, n in kern[:8]])
+
+    prompts = serve_prompts(4, cfg.vocab_size)
+    window("prefill", lambda: [srv.submit(p, max_new_tokens=32)
+                               for p in prompts], len(prompts))
+    window("decode", lambda: [srv.tick() for _ in range(8)], 8)
+    obs.metrics().unregister_provider("server")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+
+    device = torch.device("cuda", 0)
+    smi = nvidia_smi_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("env", nvidia_smi=smi, torch=torch.__version__,
+         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count())
+
+    t0 = time.perf_counter()
+    paths = _build.build()
+    emit("build", seconds=time.perf_counter() - t0,
+         libraries={n: os.path.relpath(p, ROOT) for n, p in paths.items()},
+         ptxas=[ln.strip() for n, p in paths.items()
+                for ln in p.with_suffix(".log").read_text().splitlines()
+                if "registers" in ln or "spill" in ln])
+
+    import repro_torch.configs as C
+    from repro_torch.models import transformer as T
+    cfg = C.get_config("llama2-paper")
+    main_path = llama2_cases(cfg)
+    rows = phase_kernel(device, SWEEP_CASES + main_path)
+    launches = phase_serve(device)
+    gc.collect()                       # the serve phase's model is gone
+    torch.cuda.empty_cache()
+    model = T.init_model(cfg, seed=0, device=device)
+    phase_crosscheck(device, cfg, model)
+    phase_profile(device, cfg, model)
+
+    summary = next(rows[(c, "bfloat16")] for c in main_path
+                   if c[1] == SUMMARY_LEN)
+    print(json.dumps({"kernels": [{
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_fwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
+        "launches": launches,
+        # the largest error over every bf16 prefill shape of the main path
+        "max_abs_err": max(rows[(c, "bfloat16")]["max_abs_err"]
+                           for c in main_path),
+        "ms": summary["ms"], "plain_ms": summary["plain_ms"],
+        "bound_ms": summary["bound_ms"], "bound_by": summary["bound_by"],
+        "library_ms": summary["library_ms"],
+        "at": {"shape": summary["shape"], "dtype": "bfloat16"}}]}),
+        flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

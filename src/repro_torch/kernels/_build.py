@@ -1,0 +1,114 @@
+"""Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/*.cu`` file under ``repro_torch/kernels`` is compiled on its
+own into a shared library with a plain C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -o build/kernels/<stem>-<hash>.so <src>
+
+at first use, into ``build/kernels/`` at the repository root (listed in
+``.gitignore``).  The file name carries a hash of the source and the flags,
+so an edited source is rebuilt and a stale library is never loaded.
+``build()`` starts one ``nvcc`` per missing library, all at once, and
+raises with the compiler's output if any of them fails; the ``ptxas``
+report (registers, shared memory, spills) is kept beside each library as
+``<stem>-<hash>.log``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, Optional, Tuple
+
+KERNELS_DIR = Path(__file__).resolve().parent
+REPO_ROOT = KERNELS_DIR.parents[2]
+BUILD_DIR = REPO_ROOT / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# library name -> CUDA source (one library per source file)
+SOURCES: Dict[str, Path] = {
+    "flash_attention_fwd":
+        KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention_fwd.cu",
+}
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found (neither on PATH nor in "
+                       "/usr/local/cuda/bin); the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    src = SOURCES[name]
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def compile_all(jobs: Dict[str, Tuple[Path, Path]]) -> None:
+    """Compile name -> (source, library) with one ``nvcc`` per job, all
+    started together, so the build takes as long as its slowest source.
+    Each library is written under a temporary name and renamed into place:
+    pytest workers on one card may build the same library at once, and none
+    of them may load half a file."""
+    nvcc = nvcc_path()
+    procs = {}
+    for n, (src, lib) in jobs.items():
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs[n] = (lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for n, (lib, tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        lib.with_suffix(".log").write_text(out)
+        if proc.returncode != 0:
+            failed.append(f"{n}: nvcc exit {proc.returncode}\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+    """Compile every named library that is missing; return name -> library
+    path for all of them."""
+    names = list(SOURCES if names is None else names)
+    paths = {n: library_path(n) for n in names}
+    todo = {n: (SOURCES[n], paths[n]) for n in names if not paths[n].exists()}
+    if todo:
+        compile_all(todo)
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``name``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([name])[name]))
+        _loaded[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a non-zero ``cudaError_t``; every
+    library exports ``cuda_error_string`` for the message."""
+    if err != 0:
+        fn = lib.cuda_error_string
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"{what}: CUDA error {err} "
+                           f"({fn(err).decode(errors='replace')})")

@@ -1,0 +1,60 @@
+"""ctypes binding of the CUDA flash-attention forward (``csrc/flash_attention_fwd.cu``).
+
+Port of the Pallas kernel ``repro/kernels/flash_attention/kernel.py::
+flash_attention_fwd``.  The library is built and loaded at the first
+launch (``kernels/_build.py``), never at import, so the CPU tests can
+import this module.  The kernel reads the model layout (B, S, H, D)
+directly; ``ops.flash_attention`` checks the arguments before this runs.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+LIB = "flash_attention_fwd"
+HEAD_DIMS = (16, 32, 64, 128)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lib: Optional[ctypes.CDLL] = None
+_fn = None
+
+
+def bind(lib: ctypes.CDLL):
+    """The typed C entry point ``flash_attention_fwd`` of a loaded library."""
+    fn = lib.flash_attention_fwd
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, vp,            # q k v o kv_lens
+                   ci, ci, ci, ci, ci, ci, ci,    # B H Kh Sq Sk D dtype
+                   ctypes.c_float, ci, vp]        # sm_scale causal stream
+    fn.restype = ci
+    return fn
+
+
+def _entry():
+    global _lib, _fn
+    if _fn is None:
+        _lib = _build.load(LIB)
+        _fn = bind(_lib)
+    return _lib, _fn
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, kv_lens: Optional[torch.Tensor], *,
+                        causal: bool, sm_scale: float) -> None:
+    """Launch on the current stream of ``q``'s device and return without
+    synchronising.  q/out (B,Sq,H,D), k/v (B,Sk,Kh,D), contiguous, one dtype;
+    kv_lens (B,) int32 on the same device, or None."""
+    B, Sq, H, D = q.shape
+    Sk, Kh = k.shape[1], k.shape[2]
+    lib, fn = _entry()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if kv_lens is None else kv_lens.data_ptr(),
+                 B, H, Kh, Sq, Sk, D, DTYPE_CODES[q.dtype], float(sm_scale),
+                 int(causal), stream)
+    _build.check(lib, err, "flash_attention_fwd launch")

@@ -1,0 +1,105 @@
+"""Model-layout wrapper of the flash-attention forward, and its plain version.
+
+``flash_attention`` takes the model zoo's layout, q (B,Sq,H,D) and k/v
+(B,Sk,Kh,D), as ``repro/kernels/flash_attention/ops.py`` does.  The CUDA
+kernel masks ragged Sq/Sk edges itself, so the reference's pad-to-block,
+transpose and slice are gone.  Semantics, shared by the kernel and
+``flash_attention_plain``: the top-left causal mask ``qpos >= kpos`` of
+``models/attention.py`` (not ``attention_ref``'s bottom-right one), keys
+at or past ``kv_lens[b]`` masked, f32 softmax and sums, output in
+``q.dtype``; a row with no valid key gives zeros.
+
+Tensors on the CPU go to ``flash_attention_plain``; CUDA tensors launch
+the kernel or raise, with no fallback.  The wrapper is forward only: an
+input that requires grad raises (the backward kernel comes with the
+training slice).  ``flash_attention.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import kernel as K
+
+NEG_INF = -1e30
+
+
+def _check_shapes(q, k, v, kv_lens):
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"want q (B,Sq,H,D), k/v (B,Sk,Kh,D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, _, H, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} "
+                         "disagree on batch, head dim or head grouping")
+    if kv_lens is not None and tuple(kv_lens.shape) != (B,):
+        raise ValueError(f"kv_lens must have shape ({B},), got "
+                         f"{tuple(kv_lens.shape)}")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool, sm_scale: Optional[float] = None,
+                          kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the same masks, the same f32
+    arithmetic, one (Sq, Sk) score matrix per head instead of tiles."""
+    _check_shapes(q, k, v, kv_lens)
+    B, Sq, H, D = q.shape
+    Sk, Kh = k.shape[1], k.shape[2]
+    G = H // Kh
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    qf = q.float().reshape(B, Sq, Kh, G, D) * sm_scale
+    s = torch.einsum("bqkgd,bckd->bkgqc", qf, k.float())
+    kpos = torch.arange(Sk, device=q.device)
+    mask = torch.ones(B, Sq, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        qpos = torch.arange(Sq, device=q.device)
+        mask = mask & (qpos[:, None] >= kpos[None, :])
+    if kv_lens is not None:
+        lens = kv_lens.to(device=q.device, dtype=torch.int64)
+        mask = mask & (kpos[None, None, :] < lens[:, None, None])
+    mask = mask[:, None, None]                       # (B,1,1,Sq,Sk)
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * mask
+    l = p.sum(dim=-1, keepdim=True)
+    ctx = torch.einsum("bkgqc,bckd->bkgqd", p, v.float())
+    ctx = ctx / torch.clamp(l, min=1e-30)
+    return ctx.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, sm_scale: Optional[float] = None,
+                    kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B,Sq,H,D); k/v (B,Sk,Kh,D); kv_lens (B,) or None -> (B,Sq,H,D)."""
+    _check_shapes(q, k, v, kv_lens)
+    if any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention is forward only; call it under "
+                           "torch.no_grad() (the backward kernel is not "
+                           "ported yet)")
+    D = q.shape[3]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     sm_scale=sm_scale, kv_lens=kv_lens)
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise RuntimeError(f"flash_attention runs on one CUDA device or on the "
+                           f"CPU; got {q.device}, {k.device}, {v.device}")
+    if q.dtype not in K.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes float32 or bfloat16 q/k/v of "
+                        f"one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if D not in K.HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {K.HEAD_DIMS}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if kv_lens is not None:
+        kv_lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty_like(q)
+    K.flash_attention_fwd(q, k, v, out, kv_lens, causal=causal,
+                          sm_scale=sm_scale)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,114 @@
+"""Serving entry point: batched decode over the slot server.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-paper \\
+        --attn-impl flash --requests 8 --max-batch 4 --max-len 1024 \\
+        --min-prompt-len 65 --max-prompt-len 900 --new-tokens 32
+
+Port of ``repro/launch/serve.py`` without the host-tier, autotune and
+policy-store flags (later slices).  Weights are random, drawn on the
+device from seed 0; prompts are drawn from ``RandomState(0)`` as the
+reference draws them.  Runs on ``cuda`` unless ``--device cpu``.
+``main(argv)`` returns the run's stats dict.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import List, Optional
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--max-batch", type=int, default=4,
+                    help="device-resident decode slots")
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--min-prompt-len", type=int, default=4)
+    ap.add_argument("--max-prompt-len", type=int, default=15,
+                    help="prompt lengths are drawn uniformly from "
+                         "[min, max], both included")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; the CPU only when asked for")
+    ap.add_argument("--attn-impl", choices=["dense", "chunked", "flash"],
+                    default=None,
+                    help="attention implementation (default: the config's); "
+                         "flash sends every prefill attention to the CUDA "
+                         "kernel")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome trace-event JSON here on exit "
+                         "(open in Perfetto / chrome://tracing)")
+    ap.add_argument("--metrics-out", default="",
+                    help="write one metrics-registry snapshot (JSONL) here "
+                         "on exit")
+    return ap
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    args = _parser().parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    import repro_torch.configs as C
+    from repro_torch import obs
+    from repro_torch.common.device import resolve_device
+    from repro_torch.models.registry import get_api
+    from repro_torch.runtime.server import Server
+
+    device = resolve_device(args.device)
+    cfg = C.get_reduced(args.arch) if args.reduced else C.get_config(args.arch)
+    if args.attn_impl:
+        cfg = cfg.replace(attn_impl=args.attn_impl)
+    api = get_api(cfg)
+    model = api.init(cfg, seed=0, device=device)
+    srv = Server(cfg, model, max_batch=args.max_batch, max_len=args.max_len)
+    rng = np.random.RandomState(0)
+    prompt_lens = []
+    t0 = time.perf_counter()      # submit() already prefills the first slots
+    for _ in range(args.requests):
+        n = rng.randint(args.min_prompt_len, args.max_prompt_len + 1)
+        prompt_lens.append(int(n))
+        srv.submit(rng.randint(0, cfg.vocab_size, size=n),
+                   max_new_tokens=args.new_tokens)
+    results = srv.run_until_done(max_ticks=10_000)
+    dt = time.perf_counter() - t0
+    toks = sum(len(v) for v in results.values())
+    lat = srv.latency_stats()
+    print(f"{len(results)} requests, {toks} tokens, {dt:.2f}s, "
+          f"{toks / dt:.1f} tok/s, {srv.ticks} ticks, on {device}")
+    print(f"tick p50 {lat['tick_ms']['p50']:.1f} ms / "
+          f"p95 {lat['tick_ms']['p95']:.1f} ms, "
+          f"occupancy {lat['slot_occupancy']:.1%}, "
+          f"queue-wait p95 {lat['queue_wait_ticks']['p95']:.0f} ticks")
+    if args.metrics_out:
+        obs.metrics().write_jsonl(args.metrics_out)
+    obs.metrics().unregister_provider("server")    # drop the model with srv
+    if args.trace_out:
+        obs.export_chrome_trace(args.trace_out, obs.tracer(),
+                                meta={"arch": args.arch,
+                                      "requests": args.requests})
+        print(f"trace: {args.trace_out} "
+              f"({obs.tracer().stats()['retained']} events)")
+    return {
+        "arch": cfg.name,
+        "device": str(device),
+        "attn_impl": cfg.attn_impl,
+        "requests": args.requests,
+        "prompt_lens": prompt_lens,
+        "results": {int(r): list(map(int, v)) for r, v in results.items()},
+        "completed": len(results),
+        "tokens": toks,
+        "wall_s": dt,
+        "tokens_per_s": toks / dt if dt > 0 else 0.0,
+        "ticks": srv.ticks,
+        "latency": lat,
+        "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
+                                 if device.type == "cuda" else None),
+    }
+
+
+if __name__ == "__main__":
+    main()

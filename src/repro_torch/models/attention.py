@@ -1,0 +1,208 @@
+"""GQA attention: dense / chunked (online-softmax) / flash impls, plus the
+decode path over an explicit KV cache.
+
+Port of ``repro/models/attention.py``.  ``chunked`` is the memory-safe
+plain-PyTorch default (a loop over KV chunks with running (m, l)
+statistics); ``flash`` routes every prefill attention to the hand-written
+CUDA kernel in ``repro_torch.kernels.flash_attention``, the place where
+the reference routes ``pallas`` to its TPU kernel.  Decode stays on the
+chunked path, as in the reference.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.core.sites import tag
+from repro_torch.models.layers import (_const, apply_rope, dense_init,
+                                       rope_frequencies, torch_dtype)
+
+NEG_INF = -1e30
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, *,
+                 generator: Optional[torch.Generator], device: torch.device):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.wq = dense_init(cfg.d_model, cfg.q_dim, cfg, **kw)
+        self.wk = dense_init(cfg.d_model, cfg.kv_dim, cfg, **kw)
+        self.wv = dense_init(cfg.d_model, cfg.kv_dim, cfg, **kw)
+        self.wo = dense_init(cfg.q_dim, cfg.d_model, cfg, **kw)
+        if cfg.qkv_bias:
+            self.bq = _const((cfg.q_dim,), 0.0, cfg, device)
+            self.bk = _const((cfg.kv_dim,), 0.0, cfg, device)
+            self.bv = _const((cfg.kv_dim,), 0.0, cfg, device)
+
+
+def _project_q(cfg: ModelConfig, p: Attention, x):
+    q = x @ p.wq
+    if cfg.qkv_bias:
+        q = q + p.bq.to(q.dtype)
+    B, S = q.shape[:2]
+    return q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+
+
+def _project_kv(cfg: ModelConfig, p: Attention, x):
+    k = x @ p.wk
+    v = x @ p.wv
+    if cfg.qkv_bias:
+        k = k + p.bk.to(k.dtype)
+        v = v + p.bv.to(v.dtype)
+    B, S = k.shape[:2]
+    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    return k, v
+
+
+# ------------------------------------------------------------------ core
+def dense_attention(cfg: ModelConfig, q, k, v, *, causal: bool,
+                    q_offset: int = 0, kv_len: Optional[torch.Tensor] = None):
+    """Reference O(S^2)-memory attention. q (B,Sq,H,D), k/v (B,Sk,Kh,D)."""
+    B, Sq, H, D = q.shape
+    Sk, Kh = k.shape[1], k.shape[2]
+    G = H // Kh
+    qf = q.reshape(B, Sq, Kh, G, D).float()
+    scores = torch.einsum("bqkgd,bckd->bkgqc", qf, k.float())
+    scores = scores * (1.0 / math.sqrt(D))
+    if causal:
+        qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        scores = scores.masked_fill(~(qpos >= kpos), NEG_INF)
+    if kv_len is not None:
+        valid = torch.arange(Sk, device=q.device)[None, :] < kv_len[:, None]
+        scores = scores.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bkgqc,bckd->bqkgd", w, v.float())
+    return ctx.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def chunked_attention(cfg: ModelConfig, q, k, v, *, causal: bool,
+                      q_offset: int = 0, kv_len: Optional[torch.Tensor] = None):
+    """Online-softmax attention over KV chunks: O(Sq·chunk) memory.
+
+    The reference wraps the no-``kv_len`` case in ``jax.checkpoint`` so no
+    per-chunk probabilities are saved for backward; that is a training
+    concern and comes with the training slice."""
+    B, Sq, H, D = q.shape
+    Sk, Kh = k.shape[1], k.shape[2]
+    G = H // Kh
+    C = min(cfg.attn_chunk, Sk)
+    if Sk % C:  # pad KV to a chunk multiple with masked tail
+        pad = C - Sk % C
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        base_len = torch.full((B,), Sk, dtype=torch.int64, device=q.device)
+        kv_len = base_len if kv_len is None else torch.minimum(kv_len, base_len)
+        Sk = Sk + pad
+    n_chunks = Sk // C
+    qf = q.reshape(B, Sq, Kh, G, D).float() / math.sqrt(D)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+
+    m = torch.full((B, Kh, G, Sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, Kh, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Kh, G, Sq, D), dtype=torch.float32,
+                      device=q.device)
+    for idx in range(n_chunks):
+        kb = k[:, idx * C:(idx + 1) * C].float()
+        vb = v[:, idx * C:(idx + 1) * C].float()
+        kpos = idx * C + torch.arange(C, device=q.device)
+        s = torch.einsum("bqkgd,bckd->bkgqc", qf, kb)
+        if causal:
+            s = s.masked_fill(~(qpos[:, None] >= kpos[None, :]), NEG_INF)
+        if kv_len is not None:
+            valid = kpos[None, :] < kv_len[:, None]
+            s = s.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        scale = torch.exp(m - m_new)
+        l = l * scale + p.sum(dim=-1)
+        acc = acc * scale[..., None] + torch.einsum("bkgqc,bckd->bkgqd", p, vb)
+        m = m_new
+    ctx = acc / torch.clamp(l, min=1e-30)[..., None]
+    ctx = ctx.movedim(3, 1)  # (B, Sq, Kh, G, D)
+    return ctx.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def _attend(cfg: ModelConfig, q, k, v, *, causal: bool, q_offset: int = 0,
+            kv_len=None):
+    if cfg.attn_impl == "flash":
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        if kv_len is None and q.shape[1] > 1:
+            return fa_ops.flash_attention(q, k, v, causal=causal)
+    if cfg.attn_impl == "dense" and kv_len is None:
+        return dense_attention(cfg, q, k, v, causal=causal, q_offset=q_offset)
+    return chunked_attention(cfg, q, k, v, causal=causal, q_offset=q_offset,
+                             kv_len=kv_len)
+
+
+# -------------------------------------------------------------- fwd paths
+def self_attention(cfg: ModelConfig, p: Attention, x, positions, *,
+                   causal: bool = True, return_kv: bool = False):
+    """Full-sequence self-attention (train / prefill). x (B,S,d).
+
+    With ``return_kv`` it also returns the rope'd (k, v) it attended over,
+    which is what ``transformer.prefill`` stores in the decode cache."""
+    cos, sin = rope_frequencies(cfg, positions)
+    q = apply_rope(_project_q(cfg, p, x), cos, sin)
+    k, v = _project_kv(cfg, p, x)
+    k = apply_rope(k, cos, sin)
+    q = tag(q, "qkv_proj")
+    k = tag(k, "qkv_proj")
+    v = tag(v, "qkv_proj")
+    ctx = _attend(cfg, q, k, v, causal=causal)
+    ctx = tag(ctx, "attn_ctx")
+    out = _out_proj(cfg, p, ctx)
+    return (out, (k, v)) if return_kv else out
+
+
+def _out_proj(cfg: ModelConfig, p: Attention, ctx):
+    B, S = ctx.shape[:2]
+    out = ctx.reshape(B, S, cfg.q_dim) @ p.wo
+    return tag(out, "attn_out")
+
+
+# ------------------------------------------------------------ decode path
+class KVCache(NamedTuple):
+    k: torch.Tensor       # (L, B, Smax, Kh, D)
+    v: torch.Tensor       # (L, B, Smax, Kh, D)
+    length: torch.Tensor  # (B,) int64 — tokens already in cache
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                  device: torch.device) -> KVCache:
+    dtype = torch_dtype(cfg.dtype)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros((batch,), dtype=torch.int64, device=device))
+
+
+def decode_self_attention(cfg: ModelConfig, p: Attention, x, layer_cache,
+                          positions):
+    """One-token decode. x (B,1,d); layer_cache (k,v) (B,Smax,Kh,D);
+    positions (B,) current index. Returns (out, (k,v) updated).
+
+    The cache is updated in place.  The reference blends with a one-hot
+    row, ``ck * (1 - oh) + oh * k_new``; writing ``k_new`` at
+    ``[b, positions[b]]`` gives identical values, and a position at or
+    past ``Smax`` leaves the row unchanged, as the all-zero one-hot does."""
+    ck, cv = layer_cache
+    cos, sin = rope_frequencies(cfg, positions[:, None])
+    q = apply_rope(_project_q(cfg, p, x), cos, sin)
+    k_new, v_new = _project_kv(cfg, p, x)
+    k_new = apply_rope(k_new, cos, sin)
+    B, Smax = ck.shape[:2]
+    rows = torch.arange(B, device=ck.device)
+    idx = torch.clamp(positions, max=Smax - 1)
+    keep = (positions < Smax)[:, None, None]
+    ck[rows, idx] = torch.where(keep, k_new[:, 0].to(ck.dtype), ck[rows, idx])
+    cv[rows, idx] = torch.where(keep, v_new[:, 0].to(cv.dtype), cv[rows, idx])
+    ctx = _attend(cfg, q, ck, cv, causal=False, kv_len=positions + 1)
+    ctx = tag(ctx, "attn_ctx")
+    return _out_proj(cfg, p, ctx), (ck, cv)

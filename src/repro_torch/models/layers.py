@@ -1,0 +1,146 @@
+"""Shared building blocks: init, norms, RoPE, MLP, embeddings.
+
+Port of ``repro/models/layers.py``.  Parameters live in ``nn.Module``s
+whose attribute names are the reference's dict keys (``scale``, ``wi_up``,
+``tok`` ...), and weights keep the reference's ``(in, out)`` layout, so
+``x @ w`` here is the reference's ``einsum("bsd,df->bsf", x, w)`` and
+``models.convert`` copies a reference pytree leaf for leaf.  Each module
+draws its weights from the ``torch.Generator`` it is given, on the target
+device; with no generator it allocates them uninitialised, to be filled by
+``models.convert.params_from_reference``.  The dense configs use SiLU-GLU,
+RoPE and no logit soft-cap; the reference's GELU, non-gated MLP, learned
+positions and soft-cap come with the families that use them
+(``transformer.check_family`` refuses them until then).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.core.sites import tag
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def _param_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch_dtype(cfg.param_dtype)
+
+
+def dense_init(in_dim: int, out_dim: int, cfg: ModelConfig, *,
+               generator: Optional[torch.Generator],
+               device: torch.device) -> nn.Parameter:
+    """``N(0, 1) / sqrt(in_dim)`` of shape ``(in_dim, out_dim)``, drawn in
+    f32 on ``device`` and cast to the parameter dtype."""
+    return _normal((in_dim, out_dim), 1.0 / math.sqrt(in_dim), cfg,
+                   generator=generator, device=device)
+
+
+def _normal(shape, std: float, cfg: ModelConfig, *,
+            generator: Optional[torch.Generator],
+            device: torch.device) -> nn.Parameter:
+    if generator is None:
+        t = torch.empty(shape, dtype=_param_dtype(cfg), device=device)
+    else:
+        t = (torch.randn(shape, generator=generator, device=device,
+                         dtype=torch.float32) * std).to(_param_dtype(cfg))
+    return nn.Parameter(t)
+
+
+def _const(shape, value: float, cfg: ModelConfig,
+           device: torch.device) -> nn.Parameter:
+    return nn.Parameter(torch.full(shape, value, dtype=_param_dtype(cfg),
+                                   device=device))
+
+
+# ----------------------------------------------------------------- norms
+class Norm(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, device: torch.device):
+        super().__init__()
+        self.scale = _const((cfg.d_model,), 1.0, cfg, device)
+        if cfg.norm != "rmsnorm":
+            self.bias = _const((cfg.d_model,), 0.0, cfg, device)
+
+
+def apply_norm(cfg: ModelConfig, p: Norm, x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm == "rmsnorm":
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + 1e-6)
+        return (y * p.scale.float()).to(x.dtype)
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mean) ** 2, dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + 1e-5)
+    return (y * p.scale.float() + p.bias.float()).to(x.dtype)
+
+
+# ------------------------------------------------------------------ RoPE
+def rope_frequencies(cfg: ModelConfig, positions: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (..., S) -> cos/sin of shape (..., S, head_dim/2), f32."""
+    half = cfg.head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32,
+                        device=positions.device) / half
+    inv = 1.0 / (cfg.rope_theta ** exps)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, hd); cos/sin (..., S, hd/2). Rotate-half convention."""
+    half = x.shape[-1] // 2
+    c = cos[..., None, :].float()
+    s = sin[..., None, :].float()
+    x1f, x2f = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1f * c - x2f * s, x2f * c + x1f * s],
+                     dim=-1).to(x.dtype)
+
+
+# ------------------------------------------------------------------- MLP
+class Mlp(nn.Module):
+    def __init__(self, cfg: ModelConfig, *,
+                 generator: Optional[torch.Generator], device: torch.device):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.wi_gate = dense_init(cfg.d_model, cfg.d_ff, cfg, **kw)
+        self.wi_up = dense_init(cfg.d_model, cfg.d_ff, cfg, **kw)
+        self.wo = dense_init(cfg.d_ff, cfg.d_model, cfg, **kw)
+
+
+def apply_mlp(cfg: ModelConfig, p: Mlp, x: torch.Tensor) -> torch.Tensor:
+    """SiLU-GLU: x (B, S, d) -> (B, S, d)."""
+    up = tag(x @ p.wi_up, "ffn_pre")
+    gate = tag(x @ p.wi_gate, "ffn_pre")
+    h = tag(F.silu(gate) * up, "ffn_act")
+    return tag(h @ p.wo, "ffn_out")
+
+
+# ------------------------------------------------------------- embedding
+class Embedding(nn.Module):
+    def __init__(self, cfg: ModelConfig, *,
+                 generator: Optional[torch.Generator], device: torch.device):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.tok = _normal((cfg.vocab_size, cfg.d_model), 0.02, cfg, **kw)
+        if not cfg.tie_embeddings:
+            self.unembed = dense_init(cfg.d_model, cfg.vocab_size, cfg, **kw)
+
+
+def embed_tokens(cfg: ModelConfig, p: Embedding,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    x = p.tok[tokens].to(torch_dtype(cfg.dtype))
+    return tag(x, "embed_out")
+
+
+def unembed(cfg: ModelConfig, p: Embedding, x: torch.Tensor) -> torch.Tensor:
+    w = p.tok.T if cfg.tie_embeddings else p.unembed
+    return x @ w.to(x.dtype)

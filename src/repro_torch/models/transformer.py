@@ -1,0 +1,194 @@
+"""Decoder-only LM, dense family.
+
+Port of the dense family of ``repro/models/transformer.py``.  The layer
+stack is a Python loop over an ``nn.ModuleList`` where the reference scans
+over stacked parameters.  The other families raise ``NotImplementedError``
+naming the slice of ROADMAP.md queue 1 that ports them.
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.common.device import resolve_device
+from repro_torch.core.sites import tag
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+
+PORTED_FAMILIES = ("dense",)
+# family -> the slice of ROADMAP.md queue 1 that ports it
+_FAMILY_SLICE = {"ssm": "slice 6 (K4 with the SSM family)",
+                 "hybrid": "slice 6 (K4 with the SSM family)"}
+
+
+def check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        where = _FAMILY_SLICE.get(cfg.family, "slice 7 (the rest of the model zoo)")
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet: it comes with {where} "
+            f"of ROADMAP.md queue 1; the port runs {PORTED_FAMILIES}")
+    if (cfg.act, cfg.glu, cfg.pos_embedding, cfg.logits_softcap) != (
+            "silu", True, "rope", 0.0):
+        raise NotImplementedError(
+            "the dense port runs SiLU-GLU with RoPE and no logit soft-cap; "
+            "other variants come with slice 7 of ROADMAP.md queue 1")
+
+
+# ===================================================================== init
+class DenseBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, *,
+                 generator: Optional[torch.Generator], device: torch.device):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.ln1 = L.Norm(cfg, device=device)
+        self.attn = attn.Attention(cfg, **kw)
+        self.ln2 = L.Norm(cfg, device=device)
+        self.mlp = L.Mlp(cfg, **kw)
+
+
+class Model(nn.Module):
+    """Parameters of a dense decoder; attribute names follow the
+    reference's parameter pytree (``embed``, ``ln_f``, ``blocks``)."""
+
+    def __init__(self, cfg: ModelConfig, *,
+                 generator: Optional[torch.Generator], device: torch.device):
+        super().__init__()
+        check_family(cfg)
+        kw = dict(generator=generator, device=device)
+        self.embed = L.Embedding(cfg, **kw)
+        self.ln_f = L.Norm(cfg, device=device)
+        self.blocks = nn.ModuleList(
+            [DenseBlock(cfg, **kw) for _ in range(cfg.num_layers)])
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.tok.device
+
+
+def init_model(cfg: ModelConfig, *, seed: int = 0,
+               device: Union[str, torch.device, None] = None) -> Model:
+    """Random weights drawn on ``device`` (default ``cuda``) from a
+    ``torch.Generator`` seeded with ``seed``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return Model(cfg, generator=gen, device=dev)
+
+
+# ================================================================= blocks
+def dense_block(cfg: ModelConfig, p: DenseBlock, x, positions, *,
+                causal: bool = True, return_kv: bool = False):
+    """Pre-norm transformer block; returns (x, aux), or (x, aux, (k, v))
+    with ``return_kv``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = tag(x, "ln_in")
+    h = L.apply_norm(cfg, p.ln1, x)
+    a = attn.self_attention(cfg, p.attn, h, positions, causal=causal,
+                            return_kv=return_kv)
+    a_out, kv = a if return_kv else (a, None)
+    x = tag(x + a_out, "resid_mid")
+    h = L.apply_norm(cfg, p.ln2, x)
+    x = tag(x + L.apply_mlp(cfg, p.mlp, h), "resid_post")
+    return (x, aux, kv) if return_kv else (x, aux)
+
+
+# ============================================================ full forward
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, device=device)[None, :].expand(B, S)
+
+
+def _forward(cfg: ModelConfig, model: Model, tokens, positions, causal: bool,
+             kv_sink: Optional[List[Tuple[torch.Tensor, torch.Tensor]]]):
+    check_family(cfg)
+    x = L.embed_tokens(cfg, model.embed, tokens)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk in model.blocks:
+        if kv_sink is None:
+            x, a = dense_block(cfg, blk, x, positions, causal=causal)
+        else:
+            x, a, kv = dense_block(cfg, blk, x, positions, causal=causal,
+                                   return_kv=True)
+            kv_sink.append(kv)
+        aux_total = aux_total + a
+    x = L.apply_norm(cfg, model.ln_f, x)
+    x = tag(x, "final_norm")
+    return L.unembed(cfg, model.embed, x), aux_total
+
+
+def forward(cfg: ModelConfig, model: Model, tokens, *, positions=None,
+            causal: bool = True):
+    """tokens (B,S) -> (logits (B,S,V), aux)."""
+    B, S = tokens.shape
+    if positions is None:
+        positions = _positions(B, S, tokens.device)
+    return _forward(cfg, model, tokens, positions, causal, None)
+
+
+# ============================================================ decode paths
+class DecodeState(NamedTuple):
+    """Per-request generation state (stacked over layers where applicable).
+    Fields of the other families stay ``None`` in the dense port."""
+    attn_k: Optional[torch.Tensor]    # (L_attn, B, Smax, Kh, D)
+    attn_v: Optional[torch.Tensor]
+    ssm_conv: Optional[torch.Tensor]  # (L_ssm, B, W-1, ch)
+    ssm_ssd: Optional[torch.Tensor]   # (L_ssm, B, H, P, N)
+    cross_k: Optional[torch.Tensor]   # (L_cross, B, T_mem, Kh, D)
+    cross_v: Optional[torch.Tensor]
+    pos: torch.Tensor                 # (B,) int64 next write index
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      params: Optional[Model] = None, *,
+                      device: Union[str, torch.device, None] = None
+                      ) -> DecodeState:
+    """Zeroed cache on ``params``' device when given, else on ``device``
+    (default ``cuda``)."""
+    check_family(cfg)
+    dev = params.device if params is not None else resolve_device(device)
+    cache = attn.init_kv_cache(cfg, batch, max_len, device=dev)
+    return DecodeState(cache.k, cache.v, None, None, None, None, cache.length)
+
+
+def _dense_decode_block(cfg, p: DenseBlock, x, kv, positions):
+    h = L.apply_norm(cfg, p.ln1, x)
+    a_out, kv = attn.decode_self_attention(cfg, p.attn, h, kv, positions)
+    x = x + a_out
+    h = L.apply_norm(cfg, p.ln2, x)
+    return x + L.apply_mlp(cfg, p.mlp, h), kv
+
+
+def decode_step(cfg: ModelConfig, model: Model, tokens, state: DecodeState):
+    """tokens (B,1) -> (logits (B,1,V), new state).  The KV cache tensors
+    of ``state`` are updated in place; the returned state shares them."""
+    check_family(cfg)
+    positions = state.pos
+    x = L.embed_tokens(cfg, model.embed, tokens)
+    for i, blk in enumerate(model.blocks):
+        x, _ = _dense_decode_block(cfg, blk, x,
+                                   (state.attn_k[i], state.attn_v[i]),
+                                   positions)
+    x = L.apply_norm(cfg, model.ln_f, x)
+    logits = L.unembed(cfg, model.embed, x)
+    return logits, state._replace(pos=state.pos + 1)
+
+
+def prefill(cfg: ModelConfig, model: Model, tokens, max_len: int):
+    """Run the full-sequence forward and build the decode state.
+
+    The reference runs the layer stack a second time to re-project K/V;
+    here the rope'd K/V that each layer attended over are collected in the
+    same pass, which gives the same cache and the same logits."""
+    B, S = tokens.shape
+    if S > max_len:
+        raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
+    kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
+    logits, _ = _forward(cfg, model, tokens, _positions(B, S, tokens.device),
+                         True, kvs)
+    state = init_decode_state(cfg, B, max_len, params=model)
+    for i, (k, v) in enumerate(kvs):
+        state.attn_k[i, :, :S] = k.to(state.attn_k.dtype)
+        state.attn_v[i, :, :S] = v.to(state.attn_v.dtype)
+    return logits, state._replace(pos=torch.full((B,), S, dtype=torch.int64,
+                                                 device=tokens.device))

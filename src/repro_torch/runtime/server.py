@@ -1,0 +1,219 @@
+"""Batched serving: slot-based continuous batching over the decode step.
+
+Port of ``repro/runtime/server.py``.  Requests prefill into a free slot of
+the shared decode state (an indexed write along the batch dim), then every
+``tick()`` advances all active slots by one token.  Completed slots free
+immediately and the admission queue backfills them.
+
+The model runs eagerly under ``torch.no_grad()``; the reference's
+``jax.jit`` has no counterpart here.  Over-subscription (``max_active >
+max_batch``), the host-memory tier, the policy store and the async
+adaptation modes come with the host-tier slice and raise until then.
+"""
+from __future__ import annotations
+
+import collections
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import obs
+from repro_torch.common.config import ModelConfig
+from repro_torch.models.registry import get_api
+from repro_torch.models.transformer import Model
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray
+    max_new_tokens: int
+    eos_id: Optional[int] = None
+    generated: List[int] = field(default_factory=list)
+    slot: int = -1
+    done: bool = False
+    # tick-level latency bookkeeping
+    submit_tick: int = 0           # tick at which the request was submitted
+    first_token_tick: int = -1     # tick at which prefill produced token 0
+    done_tick: int = -1            # tick at which the request completed
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Server:
+    def __init__(self, cfg: ModelConfig, params: Model, *, max_batch: int = 8,
+                 max_len: int = 512, max_active: Optional[int] = None,
+                 hostmem=None, policystore=None, adapt_mode: str = "inline"):
+        self.api = get_api(cfg)             # raises for unported families
+        max_active = max_active if max_active is not None else max_batch
+        if max_active > max_batch or hostmem is not None:
+            raise NotImplementedError(
+                "max_active > max_batch needs the host-memory tier (KV spill), "
+                "which comes with the host-tier slice of the port")
+        if policystore is not None or adapt_mode != "inline":
+            raise NotImplementedError(
+                "the policy store and async adaptation come with later "
+                "slices of the port; serve with adapt_mode='inline'")
+        self.cfg, self.params = cfg, params
+        self.device = params.device
+        self.max_batch, self.max_len = max_batch, max_len
+        self.max_active = max_active
+        self.state = self.api.init_decode_state(cfg, max_batch, max_len,
+                                                params=params)
+        self.free_slots = list(range(max_batch))
+        self.active: Dict[int, Request] = {}       # resident in a slot
+        self.completed: Dict[int, Request] = {}
+        self.queue: collections.deque = collections.deque()
+        self._rid = 0
+        self.ticks = 0
+        # tick-level batching log: (resident slots at decode, wall seconds,
+        # tokens emitted) per tick, and per-prefill wall seconds.  Bounded:
+        # a long-running server keeps a sliding window, not full history
+        self.tick_log: collections.deque = collections.deque(maxlen=4096)
+        self.prefill_log: collections.deque = collections.deque(maxlen=4096)
+        obs.metrics().register_provider("server", self.latency_stats)
+
+    # ----------------------------------------------------------- admission
+    def submit(self, prompt: np.ndarray, max_new_tokens: int = 16,
+               eos_id: Optional[int] = None) -> int:
+        self._rid += 1
+        self.queue.append(Request(self._rid, np.asarray(prompt, np.int32),
+                                  max_new_tokens, eos_id,
+                                  submit_tick=self.ticks))
+        self._admit()
+        return self._rid
+
+    def _admit(self):
+        while self.queue and len(self.active) < self.max_active and self.free_slots:
+            req = self.queue.popleft()
+            self._place(req, self.free_slots.pop())
+
+    @torch.no_grad()
+    def _place(self, req: Request, slot: int) -> None:
+        req.slot = slot
+        toks = torch.as_tensor(req.prompt[None, :], dtype=torch.int64,
+                               device=self.device)
+        t0 = time.perf_counter()
+        with obs.tracer().span(obs.LANE_COMPUTE, "prefill",
+                               arg=(req.rid, len(req.prompt))):
+            logits, pstate = self.api.prefill(self.cfg, self.params, toks,
+                                              self.max_len)
+            _sync(self.device)
+        self.prefill_log.append(time.perf_counter() - t0)
+        # write the single-request prefill state into the shared slots
+        self._write_slot(pstate, slot, len(req.prompt))
+        first = int(torch.argmax(logits[0, -1]))
+        req.generated.append(first)
+        if req.first_token_tick < 0:
+            req.first_token_tick = self.ticks
+        self.active[req.rid] = req
+
+    def _write_slot(self, pstate, slot: int, plen: int) -> None:
+        """In place: batch row ``slot`` of every state tensor takes the
+        prefill state (the reference's ``.at[:, slot].set``)."""
+        for name in self.state._fields:
+            cur = getattr(self.state, name)
+            new = getattr(pstate, name, None)
+            if cur is None or new is None:
+                continue
+            if name == "pos":
+                cur[slot] = plen
+            else:
+                # (L, B, ...) — write batch row `slot`
+                cur[:, slot] = new[:, 0].to(cur.dtype)
+
+    # ---------------------------------------------------------------- tick
+    @torch.no_grad()
+    def tick(self) -> Dict[int, int]:
+        """Advance all resident slots one token; returns {rid: token}."""
+        t0 = time.perf_counter()
+        self._admit()
+        if not self.active:
+            return {}
+        n_resident = len(self.active)
+        tokens = np.zeros((self.max_batch, 1), np.int64)
+        for req in self.active.values():
+            tokens[req.slot, 0] = req.generated[-1]
+        with obs.tracer().span(obs.LANE_COMPUTE, "decode_tick",
+                               arg=(self.ticks, n_resident)):
+            logits, self.state = self.api.decode_step(
+                self.cfg, self.params,
+                torch.as_tensor(tokens, device=self.device), self.state)
+            nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        out = {}
+        finished = []
+        for req in self.active.values():
+            tok = int(nxt[req.slot])
+            req.generated.append(tok)
+            out[req.rid] = tok
+            if (len(req.generated) >= req.max_new_tokens
+                    or (req.eos_id is not None and tok == req.eos_id)):
+                req.done = True
+                finished.append(req.rid)
+        for rid in finished:
+            req = self.active.pop(rid)
+            req.done_tick = self.ticks
+            self.completed[rid] = req
+            self.free_slots.append(req.slot)
+        self.ticks += 1
+        self._admit()
+        self.tick_log.append((n_resident, time.perf_counter() - t0, len(out)))
+        return out
+
+    def run_until_done(self, max_ticks: int = 1000) -> Dict[int, List[int]]:
+        for _ in range(max_ticks):
+            if not self.active and not self.queue:
+                break
+            self.tick()
+        return {rid: req.generated for rid, req in self.completed.items()}
+
+    # --------------------------------------------------------------- stats
+    @staticmethod
+    def _pct(xs: List[float], q: float) -> float:
+        if not xs:
+            return 0.0
+        xs = sorted(xs)
+        return xs[min(int(q * len(xs)), len(xs) - 1)]
+
+    def latency_stats(self) -> dict:
+        """Tick-level batching stats: per-tick wall time, slot occupancy,
+        per-request queue-wait / completion-span percentiles (in ticks) and
+        per-prefill wall time.  Tick-derived numbers cover the
+        ``tick_log`` window (last 4096 ticks)."""
+        done = list(self.completed.values())
+        waits = [float(r.first_token_tick - r.submit_tick)
+                 for r in done if r.first_token_tick >= 0]
+        spans = [float(r.done_tick - r.submit_tick)
+                 for r in done if r.done_tick >= 0]
+        tick_s = [dt for _, dt, _ in self.tick_log]
+        occ = [n / self.max_batch for n, _, _ in self.tick_log]
+        toks = sum(k for _, _, k in self.tick_log)
+        total_s = sum(tick_s)
+        pre_s = list(self.prefill_log)
+        return {
+            "n_completed": len(done),
+            "ticks": len(self.tick_log),
+            "tokens": toks,
+            "tokens_per_s": toks / total_s if total_s > 0 else 0.0,
+            "tokens_per_tick": toks / max(len(self.tick_log), 1),
+            "slot_occupancy": float(np.mean(occ)) if occ else 0.0,
+            "tick_ms": {"p50": self._pct(tick_s, 0.5) * 1e3,
+                        "p95": self._pct(tick_s, 0.95) * 1e3,
+                        "max": (max(tick_s) if tick_s else 0.0) * 1e3},
+            "prefill_ms": {"n": len(pre_s),
+                           "p50": self._pct(pre_s, 0.5) * 1e3,
+                           "p95": self._pct(pre_s, 0.95) * 1e3,
+                           "max": (max(pre_s) if pre_s else 0.0) * 1e3},
+            "queue_wait_ticks": {"p50": self._pct(waits, 0.5),
+                                 "p95": self._pct(waits, 0.95),
+                                 "max": max(waits) if waits else 0.0},
+            "completion_ticks": {"p50": self._pct(spans, 0.5),
+                                 "p95": self._pct(spans, 0.95),
+                                 "max": max(spans) if spans else 0.0},
+        }

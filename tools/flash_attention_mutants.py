@@ -1,0 +1,136 @@
+#!/usr/bin/env python3
+"""Mutation check of ``chip_smoke.py``'s flash-attention (K1) check, on one
+NVIDIA GPU:
+
+    python3 tools/flash_attention_mutants.py
+
+Plants each fault of ``MUTANTS`` in its own copy of
+``src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu``
+under ``build/mutants/``, builds the copies (one ``nvcc`` each, all at
+once), and runs every copy, and the unchanged kernel as a control, through
+two checks at llama2-paper's bf16 prefill shapes (the serve phase's prompt
+lengths and the timed lengths of ``chip_smoke.py``):
+
+  peaked   ``chip_smoke.py``'s own check: q and k at QK_SCALE x randn, v a
+           unit normal, limits TOL, FRO_TOL and MAX_TOL;
+  uniform  a weaker check for comparison: q, k and v at 0.3 x randn, so the
+           softmax is near uniform, and the elementwise limit TOL only.
+
+A mutant is caught by a check when at least one shape fails it.  Prints one
+JSON line per (kernel, check) and exits non-zero if the peaked check misses
+a mutant or fails the control.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import chip_smoke  # noqa: E402  (puts src/ on the path as well)
+
+# name -> (text of the bf16 kernel, the text that replaces it)
+MUTANTS = {
+    # late rows only: a query tile that reads more than 12 KV tiles (causal
+    # rows from 768 on) never reads its last one, the diagonal tile
+    "skip_late_kv_tile": (
+        "for (int tile = 0; tile < n_tiles; ++tile) {",
+        "for (int tile = 0; tile < (n_tiles > 12 ? n_tiles - 1 : n_tiles); "
+        "++tile) {"),
+    # the running sum and accumulator are not rescaled when the running max
+    # rises (alpha = 1)
+    "no_rescale": (
+        "const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);",
+        "const float a0 = 1.f, a1 = 1.f;"),
+    # each row also sees the key just after it
+    "causal_one_late": (
+        "const bool valid = key < kv_len && (!causal || key <= row);",
+        "const bool valid = key < kv_len && (!causal || key <= row + 1);"),
+}
+
+
+def build_mutants():
+    from repro_torch.kernels import _build
+    src = _build.SOURCES["flash_attention_fwd"]
+    text = src.read_text()
+    out_dir = _build.BUILD_DIR.parent / "mutants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name, (old, new) in MUTANTS.items():
+        if text.count(old) != 1:
+            raise RuntimeError(f"mutant {name}: {old!r} is not in {src} "
+                               "exactly once")
+        cu = out_dir / f"{name}.cu"
+        cu.write_text(text.replace(old, new))
+        jobs[name] = (cu, out_dir / f"{name}.so")
+    _build.compile_all(jobs)
+    return {name: lib for name, (_, lib) in jobs.items()}
+
+
+def run_check(device, cases, mode: str) -> dict:
+    """Run one check over ``cases`` with whatever library ``kernel`` holds."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    failed, worst_fro = [], 0.0
+    for B, Sq, Sk, H, Kh, D, causal, kv_lens, _, _ in cases:
+        if mode == "peaked":
+            q, k, v = chip_smoke.k1_inputs(gen, B, Sq, Sk, H, Kh, D,
+                                           torch.bfloat16, device)
+        else:
+            q, k, v = chip_smoke.k1_inputs(gen, B, Sq, Sk, H, Kh, D,
+                                           torch.bfloat16, device,
+                                           qk_scale=0.3, v_scale=0.3)
+        out = ops.flash_attention(q, k, v, causal=causal)
+        ref = ops.flash_attention_plain(q, k, v, causal=causal)
+        res = chip_smoke.k1_check(out, ref, "bfloat16")
+        if mode == "uniform":
+            diff = (out.float() - ref.float()).abs()
+            tol = res["tol"]
+            res["ok"] = bool((diff <= tol + tol * ref.float().abs()).all())
+        worst_fro = max(worst_fro, res["rel_fro"])
+        if not res["ok"]:
+            failed.append(Sq)
+    return {"caught": bool(failed), "failed_lens": failed,
+            "worst_rel_fro": worst_fro}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("flash_attention_mutants: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    import repro_torch.configs as C
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    print(chip_smoke.nvidia_smi_line(), flush=True)
+    cases = chip_smoke.llama2_cases(C.get_config("llama2-paper"))
+    libs = {"control": _build.build(["flash_attention_fwd"])
+            ["flash_attention_fwd"], **build_mutants()}
+    bad = []
+    for name, path in libs.items():
+        lib = ctypes.CDLL(str(path))
+        K._lib, K._fn = lib, K.bind(lib)
+        for mode in ("peaked", "uniform"):
+            row = run_check(device, cases, mode)
+            print(json.dumps({"kernel": name, "check": mode, **row}),
+                  flush=True)
+            if mode == "peaked" and row["caught"] != (name != "control"):
+                bad.append((name, mode))
+    K._lib = K._fn = None
+    if bad:
+        print(f"the peaked check got these wrong: {bad}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
