@@ -17,16 +17,36 @@ Phases, each printing JSON lines:
               dtypes), held to the limits at TOL / FRO_TOL / MAX_TOL below;
               device times (CUDA graphs) of the kernel, the plain version
               and SDPA as a yardstick, and the bound.
-4. serve      ``repro_torch.launch.serve.main`` on full-width llama2-paper
+4. quant      the int8 quantize (K2a) and dequantize (K2b) kernels against
+              their plain versions, bit for bit (``torch.equal`` on payload,
+              scales and output): the reference sweep shapes, ragged row
+              counts, and the KV spill's own case, a strided slot row of a
+              (32, 4, 1024, 32, 128) bf16 cache; device times (CUDA graphs)
+              of each kernel and its plain version there, the bound, and
+              for K2b a library yardstick (``torch.mul`` into the row).
+5. serve      ``repro_torch.launch.serve.main`` on full-width llama2-paper
               (bf16, random weights from a seed) with ``--attn-impl flash``:
               8 requests, 4 slots, prompts of 65..900 tokens, 32 new tokens
               each.  K1's launch count is reset just before and must equal
               prefills x layers just after.
-5. crosscheck prefill of two of those prompts with ``flash`` and ``chunked``
+6. serve_spill the same run with ``--max-active 8``: 8 requests over the 4
+              slots, preempted slots parked in pinned host memory and
+              rotated back every tick.  Raw spill (``--spill-compression
+              none``) must emit exactly the resident run's tokens; the int8
+              run must complete every request with K2a launched twice per
+              spill and K2b twice per restore (counts reset just before).
+7. crosscheck prefill of two of those prompts with ``flash`` and ``chunked``
               attention on the same weights; logits must agree within the
               bf16 tolerance below.
-6. profile    ``torch.profiler`` over 4 prefills and 8 decode ticks of the
+8. profile    ``torch.profiler`` over 4 prefills and 8 decode ticks of the
               same server: device busy time, idle share, top kernels.
+9. spill      on a full-width server, one slot spilled (raw, then int8) and
+              overwritten on the compute stream at once, then restored into
+              another slot: raw must come back ``torch.equal`` (K/V rows and
+              pos), int8 within half a quantization step plus one bf16
+              rounding of every element.
+10. calibrate ``HostMemTier.calibrate`` on the card: the host link's curve,
+              size -> GB/s in each direction.
 
 Any failure raises, so the exit code is non-zero and no result line is
 printed.  The last lines are the kernels summary, the nvidia-smi line and
@@ -77,6 +97,8 @@ SERVE_ARGS = ["--arch", "llama2-paper", "--attn-impl", "flash",
               "--requests", "8", "--max-batch", "4", "--max-len", "1024",
               "--min-prompt-len", "65", "--max-prompt-len", "900",
               "--new-tokens", "32"]
+SPILL_ARGS = ["--max-active", "8"]
+
 
 BOTH = ("float32", "bfloat16")
 # (B, Sq, Sk, H, Kh, D, causal, kv_lens, dtypes, timed)
@@ -94,6 +116,16 @@ SWEEP_CASES = [
 ]
 TIMED_LENS = (77, 384, 901)      # llama2-paper prefill lengths that are timed
 SUMMARY_LEN = 901
+
+# K2a / K2b inputs, every shape in both dtypes: the reference sweep of
+# tests/test_kernels.py::test_quant_matches_ref, then ragged row counts (not
+# a multiple of the kernels' 8 rows per block).
+QUANT_SHAPES = [(4, 96, 128), (256, 64), (3, 7, 33), (1001, 128), (13, 96)]
+# The KV spill's case: slot row 1 of the full-width (L, B, Smax, Kh, D)
+# cache, written up to position KV_FILLED and zero past it, as a served
+# slot is.
+KV_CACHE_SHAPE = (32, 4, 1024, 32, 128)
+KV_FILLED = 749
 
 
 def llama2_cases(cfg):
@@ -257,15 +289,104 @@ def phase_kernel(device, cases):
     return rows
 
 
+def quant_bound(rows, features, in_bytes, out_bytes, flops_per_elem):
+    """Least time for K2a (in = x, out = q) or K2b (in = q, out = x): x and
+    q read or written once, 4 bytes of scale per row, against
+    ``flops_per_elem`` f32 operations per element over the f32 peak."""
+    nbytes = rows * features * (in_bytes + out_bytes) + 4 * rows
+    t_bytes = nbytes / H100_HBM_BYTES_S
+    t_ops = flops_per_elem * rows * features / H100_F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def quant_check(x, out_like=None) -> dict:
+    """K2a and K2b against their plain versions on ``x``, bit for bit.  K2b
+    writes into ``out_like`` when given (a strided slot row), else into a
+    new tensor.  Raises on any difference."""
+    import torch
+    from repro_torch.kernels.quant_offload import ops as Q
+
+    q, s = Q.quantize(x)
+    torch.cuda.synchronize()
+    qp, sp = Q.quantize_plain(x)
+    out = Q.dequantize(q, s, x.dtype, out=out_like)
+    torch.cuda.synchronize()
+    xp = Q.dequantize_plain(q, s, x.dtype)
+    row = {"shape": list(x.shape), "dtype": str(x.dtype).split(".")[-1],
+           "strided": not x.is_contiguous(),
+           "q_equal": torch.equal(q, qp), "scales_equal": torch.equal(s, sp),
+           "out_equal": torch.equal(out, xp),
+           "q_max_abs_diff": int((q.int() - qp.int()).abs().max()),
+           "out_max_abs_diff": float((out.float() - xp.float()).abs().max())}
+    emit("quant", **row)
+    if not (row["q_equal"] and row["scales_equal"] and row["out_equal"]):
+        raise AssertionError(f"int8 kernels differ from their plain "
+                             f"versions: {row}")
+    return row
+
+
+def phase_quant(device):
+    """K2a and K2b against their plain versions on every case, then device
+    times (CUDA graphs) at the KV spill's strided slot row, with the bound."""
+    import torch
+    from repro_torch.kernels.quant_offload import ops as Q
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    rows = []
+    for shape in QUANT_SHAPES:
+        for dname in BOTH:
+            x = torch.randn(*shape, generator=gen, device=device).to(
+                getattr(torch, dname))
+            rows.append(quant_check(x))
+    cache = torch.randn(*KV_CACHE_SHAPE, generator=gen, device=device,
+                        dtype=torch.bfloat16)
+    cache[:, :, KV_FILLED:] = 0
+    restored = torch.zeros_like(cache)
+    x, dst = cache[:, 1], restored[:, 1]
+    main = quant_check(x, out_like=dst)
+    rows.append(main)
+    q, s = Q.quantize(x)
+    L, S, Kh, F = x.shape
+    R = L * S * Kh
+    # K2b's library yardstick: one broadcast multiply, computed in f32 and
+    # rounded to bf16 as it is stored into the strided row
+    torch.mul(q, s, out=dst)
+    library_equal = torch.equal(dst, Q.dequantize_plain(q, s, torch.bfloat16))
+    timed = {
+        "quantize_rows": {
+            "ms": graph_ms(lambda: Q.quantize(x)),
+            "plain_ms": graph_ms(lambda: Q.quantize_plain(x), iters=5),
+            "bound": quant_bound(R, F, 2, 1, 5),
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes row-wise "
+                       "absmax int8 quantization"},
+        "dequantize_rows": {
+            "ms": graph_ms(lambda: Q.dequantize(q, s, out=dst)),
+            "plain_ms": graph_ms(
+                lambda: dst.copy_(Q.dequantize_plain(q, s, torch.bfloat16)),
+                iters=5),
+            "bound": quant_bound(R, F, 1, 2, 2),
+            "library_ms": graph_ms(lambda: torch.mul(q, s, out=dst)),
+            "library": "torch.mul(q, s, out=row)",
+            "library_equal": library_equal},
+    }
+    for name, t in timed.items():
+        t["bound_ms"], t["bound_by"] = t.pop("bound")
+        emit("quant_time", name=name, shape=main["shape"], rows=R,
+             features=F, dtype="bfloat16", strided=True, **t)
+    del cache, restored, x, dst, q, s
+    max_q = max(r["q_max_abs_diff"] for r in rows)
+    max_out = max(r["out_max_abs_diff"] for r in rows)
+    return timed, max_q, max_out
+
+
 def phase_serve(device):
     import torch
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch import serve
 
-    gc.collect()                       # the kernel phase's tensors and graphs
-    torch.cuda.empty_cache()
-    allocated_before = torch.cuda.memory_allocated(device)
-    torch.cuda.reset_peak_memory_stats(device)
+    allocated_before = release_device_memory(device)
     ops.flash_attention.launches = 0                  # count the main path only
     stats = serve.main(SERVE_ARGS)
     launches = ops.flash_attention.launches
@@ -286,6 +407,105 @@ def phase_serve(device):
          prefill_ms=stats["latency"]["prefill_ms"],
          max_memory_allocated=stats["max_memory_allocated"],
          allocated_before=allocated_before)
+    return launches, stats["results"]
+
+
+def release_device_memory(device) -> int:
+    """Free what earlier phases left allocated before a serve run, and
+    return what is still allocated.  Besides garbage and the caching
+    allocator's free blocks, that is one cuBLAS workspace for each stream
+    that ran a matrix product (the kernel phase's CUDA-graph timing runs
+    the plain versions on side streams)."""
+    import torch
+    gc.collect()
+    after_gc = torch.cuda.memory_allocated(device)
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    allocated = torch.cuda.memory_allocated(device)
+    emit("memory", allocated_after_gc=after_gc,
+         cublas_workspaces_cleared=clear is not None,
+         allocated_after=allocated)
+    torch.cuda.reset_peak_memory_stats(device)
+    return allocated
+
+
+def spill_metrics(stats: dict) -> dict:
+    """The host tier's end-to-end numbers of one serve run."""
+    kv = stats["kv_spill_class"]
+    pool = stats["hostmem"]["pool"]
+    gbps = lambda b, t: b / t / 1e9 if t > 0 else None   # noqa: E731
+    return {
+        "preemptions": stats["preemptions"],
+        "spills": stats["kvspill"]["n_spills"],
+        "restores": stats["kvspill"]["n_restores"],
+        "bytes_raw": stats["kvspill"]["bytes_raw"],
+        "bytes_spilled": stats["kvspill"]["bytes_spilled"],
+        "compression_ratio": stats["kvspill"]["compression_ratio"],
+        "kv_spill_d2h_bytes": kv["bytes_out"], "kv_spill_d2h_s": kv["time_out_s"],
+        "kv_spill_h2d_bytes": kv["bytes_in"], "kv_spill_h2d_s": kv["time_in_s"],
+        "link_d2h_gbps": gbps(kv["bytes_out"], kv["time_out_s"]),
+        "link_h2d_gbps": gbps(kv["bytes_in"], kv["time_in_s"]),
+        "pool_peak_reserved": pool["peak_reserved"],
+        "pool_bytes_in_use": pool["bytes_in_use"],
+        "pool_hit_rate": pool["hit_rate"],
+    }
+
+
+def phase_serve_spill(device, resident):
+    """The serve run over-subscribed (8 requests admitted over 4 slots):
+    raw spill must reproduce the resident run's tokens exactly; int8 spill
+    must complete every request through K2a / K2b.  Returns the int8 run's
+    launch counts of K2a and K2b."""
+    from repro_torch.kernels.quant_offload import ops as Q
+    from repro_torch.launch import serve
+
+    n_req, n_new = 8, 32
+    launches = {}
+    for comp in ("none", "int8"):
+        allocated_before = release_device_memory(device)
+        Q.quantize.launches = Q.dequantize.launches = 0   # this run only
+        stats = serve.main(SERVE_ARGS + SPILL_ARGS
+                           + ["--spill-compression", comp])
+        launches = {"quantize_rows": Q.quantize.launches,
+                    "dequantize_rows": Q.dequantize.launches}
+        m = spill_metrics(stats)
+        got = stats["results"]
+        lengths = {rid: len(t) for rid, t in got.items()}
+        agree = [a == b for rid in resident
+                 for a, b in zip(got.get(rid, []), resident[rid])]
+        emit("serve_spill", compression=comp, tokens=stats["tokens"],
+             wall_s=stats["wall_s"], tokens_per_s=stats["tokens_per_s"],
+             ticks=stats["ticks"], tick_ms=stats["latency"]["tick_ms"],
+             prefill_ms=stats["latency"]["prefill_ms"],
+             max_memory_allocated=stats["max_memory_allocated"],
+             allocated_before=allocated_before,
+             tokens_agree_with_resident=sum(agree) / max(len(agree), 1),
+             requests_equal_to_resident=sum(got.get(r) == t
+                                            for r, t in resident.items()),
+             launches=launches, **m)
+        if stats["completed"] != n_req or set(lengths.values()) != {n_new}:
+            raise AssertionError(f"serve_spill ({comp}): want {n_req} "
+                                 f"requests of {n_new} tokens, got {lengths}")
+        if m["preemptions"] <= 0 or m["spills"] != m["restores"]:
+            raise AssertionError(f"serve_spill ({comp}): want preemptions "
+                                 f"and spills == restores, got {m}")
+        if m["pool_bytes_in_use"] != 0:
+            raise AssertionError(f"serve_spill ({comp}): pool still holds "
+                                 f"{m['pool_bytes_in_use']} bytes")
+        if comp == "none":
+            if got != resident:
+                raise AssertionError("serve_spill (raw): tokens differ from "
+                                     "the resident serve run")
+            if launches != {"quantize_rows": 0, "dequantize_rows": 0}:
+                raise AssertionError(f"raw spill launched the int8 kernels: "
+                                     f"{launches}")
+        elif (launches["quantize_rows"] != 2 * m["spills"]
+              or launches["dequantize_rows"] != 2 * m["restores"]):
+            raise AssertionError(f"serve_spill (int8): launches {launches} "
+                                 f"for {m['spills']} spills and "
+                                 f"{m['restores']} restores")
     return launches
 
 
@@ -368,6 +588,91 @@ def phase_profile(device, cfg, model):
     obs.metrics().unregister_provider("server")
 
 
+def phase_spill(device, cfg, model):
+    """One slot of a full-width server spilled, overwritten on the compute
+    stream at once (zeroed, then given a new request's prefill), and
+    restored into the free slot: raw must come back bit for bit, int8
+    within half a quantization step of its row plus one bf16 rounding."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.common.config import HostMemConfig
+    from repro_torch.hostmem import HostMemTier
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.server import Server
+
+    fcfg = cfg.replace(attn_impl="flash")
+    first, second = serve_prompts(2, cfg.vocab_size)
+    for comp in ("none", "int8"):
+        tier = HostMemTier(HostMemConfig(spill_compression=comp),
+                           device=device)
+        srv = Server(fcfg, model, max_batch=2, max_len=1024)
+        rid = srv.submit(first, max_new_tokens=32)
+        srv.tick()
+        slot = srv.active[rid].slot
+        free = 1 - slot
+        st = srv.state
+        k0, v0 = st.attn_k[:, slot].clone(), st.attn_v[:, slot].clone()
+        pos0 = int(st.pos[slot])
+        sp = tier.kvspill.spill(st, slot, tag="smoke")
+        st.attn_k[:, slot].zero_()           # the compute stream, at once
+        st.attn_v[:, slot].zero_()
+        toks = torch.as_tensor(second[None], dtype=torch.int64, device=device)
+        with torch.no_grad():
+            _, pst = T.prefill(fcfg, model, toks, 1024)
+        st.attn_k[:, slot] = pst.attn_k[:, 0]
+        st.attn_v[:, slot] = pst.attn_v[:, 0]
+        st.pos[slot] = len(second)
+        srv.state = tier.kvspill.restore(st, sp, free)
+        torch.cuda.synchronize()
+        k1, v1 = st.attn_k[:, free], st.attn_v[:, free]
+        row = {"compression": comp, "nbytes": sp.nbytes,
+               "pos_equal": int(st.pos[free]) == pos0,
+               "overwritten_row_is_new_prefill":
+                   torch.equal(st.attn_k[:, slot], pst.attn_k[:, 0])}
+        if comp == "none":
+            row["k_equal"] = torch.equal(k1, k0)
+            row["v_equal"] = torch.equal(v1, v0)
+            ok = row["k_equal"] and row["v_equal"]
+        else:
+            worst = 0.0
+            for got, ref in ((k1, k0), (v1, v0)):
+                r = ref.float()
+                amax = r.abs().amax(dim=-1, keepdim=True)
+                # half a quantization step (with 2^-12 of it for the f32
+                # quotient and product), plus one bf16 rounding of the
+                # result: half an ulp, at most 2^-8 of the value before
+                # rounding, which is within 2^-7 of the rounded one
+                lim = (amax / 254 * (1 + 2.0 ** -12)
+                       + got.float().abs() * 2.0 ** -8 * (1 + 2.0 ** -7)
+                       + 1e-30)
+                worst = max(worst, float(((got.float() - r).abs()
+                                          / lim).max()))
+            row["worst_err_over_limit"] = worst
+            ok = worst <= 1.0
+        ok = ok and row["pos_equal"] and row["overwritten_row_is_new_prefill"]
+        row["pool_bytes_in_use"] = tier.pool.bytes_in_use
+        emit("spill", **row)
+        obs.metrics().unregister_provider("server")
+        if not ok or tier.pool.bytes_in_use:
+            raise AssertionError(f"spill round trip ({comp}) failed: {row}")
+        del srv, st, k0, v0, k1, v1, pst, tier
+
+
+def phase_calibrate(device):
+    """The host link, swap-out and swap-in round trips through the engine
+    at each size: the per-direction minima as GB/s."""
+    from repro_torch.common.config import HOSTMEM_CALIBRATION_SIZES
+    from repro_torch.hostmem import HostMemTier
+
+    tier = HostMemTier(device=device)
+    tier.calibrate(sizes=HOSTMEM_CALIBRATION_SIZES + (1 << 27, 1 << 29))
+    curve = [{"bytes": n, "d2h_s": d2h, "h2d_s": h2d,
+              "d2h_gbps": n / d2h / 1e9, "h2d_gbps": n / h2d / 1e9}
+             for n, (d2h, h2d) in sorted(tier.link_curve.items())]
+    emit("calibrate", curve=curve,
+         pool_peak_reserved=tier.pool.peak_reserved)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -397,12 +702,16 @@ def main() -> int:
     cfg = C.get_config("llama2-paper")
     main_path = llama2_cases(cfg)
     rows = phase_kernel(device, SWEEP_CASES + main_path)
-    launches = phase_serve(device)
-    gc.collect()                       # the serve phase's model is gone
+    quant_times, quant_q_err, quant_out_err = phase_quant(device)
+    launches, resident = phase_serve(device)
+    quant_launches = phase_serve_spill(device, resident)
+    gc.collect()                       # the serve phases' models are gone
     torch.cuda.empty_cache()
     model = T.init_model(cfg, seed=0, device=device)
     phase_crosscheck(device, cfg, model)
     phase_profile(device, cfg, model)
+    phase_spill(device, cfg, model)
+    phase_calibrate(device)
 
     summary = next(rows[(c, "bfloat16")] for c in main_path
                    if c[1] == SUMMARY_LEN)
@@ -418,7 +727,23 @@ def main() -> int:
         "ms": summary["ms"], "plain_ms": summary["plain_ms"],
         "bound_ms": summary["bound_ms"], "bound_by": summary["bound_by"],
         "library_ms": summary["library_ms"],
-        "at": {"shape": summary["shape"], "dtype": "bfloat16"}}]}),
+        "at": {"shape": summary["shape"], "dtype": "bfloat16"}}] + [{
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/quant_offload/csrc/"
+                  "quant_offload.cu",
+        "replaces": f"src/repro/kernels/quant_offload/kernel.py:{line}",
+        "launches": quant_launches[name],
+        # over every quant case: int8 steps for K2a, output for K2b (0 = the
+        # kernel is bit-identical to its plain version)
+        "max_abs_err": err,
+        "ms": quant_times[name]["ms"], "plain_ms": quant_times[name]["plain_ms"],
+        "bound_ms": quant_times[name]["bound_ms"],
+        "bound_by": quant_times[name]["bound_by"],
+        "library_ms": quant_times[name]["library_ms"],
+        "at": {"shape": list(KV_CACHE_SHAPE[:1] + KV_CACHE_SHAPE[2:]),
+               "dtype": "bfloat16", "strided": True}}
+        for name, line, err in (("quantize_rows", 43, quant_q_err),
+                                ("dequantize_rows", 61, quant_out_err))]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

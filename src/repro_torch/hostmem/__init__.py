@@ -1,0 +1,129 @@
+"""repro_torch.hostmem — the host-memory tier.  Port of ``repro.hostmem``.
+
+One shared substrate under both branches of the system:
+
+  * **training** (§5.4 policy execution, a later slice): the simulator
+    prices swaps with the measured :class:`BandwidthModel`, the policy's
+    free-times hand off to the :class:`TransferEngine`'s swap-out
+    completion events, and every staged tensor recycles through the
+    :class:`PinnedSlabPool`;
+  * **serving**: :class:`KVSpillManager` parks idle decode slots in the
+    same pool so admission exceeds device-resident slots.
+
+``HostMemTier`` bundles the four components with consistent wiring on one
+device: ``cuda`` unless the caller asks for the CPU (pinned slabs and one
+CUDA stream pair per traffic class on the card; plain slabs and
+synchronous copies on the CPU).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.common.config import ChameleonConfig, HostMemConfig
+from repro_torch.common.device import resolve_device
+from repro_torch.hostmem import metrics as _metrics
+from repro_torch.hostmem.bwmodel import BandwidthModel
+from repro_torch.hostmem.engine import (TC_CHECKPOINT, TC_KV_SPILL,
+                                        TC_POLICY_SWAP, TRAFFIC_CLASSES,
+                                        TransferEngine, TransferEvent)
+from repro_torch.hostmem.kvspill import KVSpillManager, SpilledSlot
+from repro_torch.hostmem.pool import HostBlock, HostMemError, PinnedSlabPool
+
+__all__ = [
+    "BandwidthModel", "HostBlock", "HostMemConfig", "HostMemError",
+    "HostMemTier", "KVSpillManager", "PinnedSlabPool", "SpilledSlot",
+    "TC_CHECKPOINT", "TC_KV_SPILL", "TC_POLICY_SWAP", "TRAFFIC_CLASSES",
+    "TransferEngine", "TransferEvent",
+]
+
+_AUTOTUNE_SLICE = ("the kernel autotuner comes with slice 10 of ROADMAP.md "
+                   "queue 1")
+
+
+class HostMemTier:
+    """Pool + engine + bandwidth model + kv-spill, wired together."""
+
+    def __init__(self, cfg: Optional[HostMemConfig] = None, *,
+                 constant_gbps: float = 32.0, resilience=None,
+                 device: Union[str, torch.device, None] = None):
+        self.cfg = cfg or HostMemConfig()
+        self.device = resolve_device(device)
+        if self.cfg.spill_compression == "auto":
+            raise NotImplementedError(
+                f"spill compression 'auto' needs the compression advisor: "
+                f"{_AUTOTUNE_SLICE}")
+        self.pool = PinnedSlabPool(
+            capacity_bytes=self.cfg.pool_bytes or None,
+            min_class_bytes=self.cfg.min_class_bytes,
+            pinned=self.device.type == "cuda")
+        self.bwmodel = BandwidthModel(constant_gbps)
+        self.engine = TransferEngine(self.pool, depth=self.cfg.engine_depth,
+                                     bwmodel=self.bwmodel,
+                                     class_depths=dict(self.cfg.class_depths),
+                                     resilience=resilience,
+                                     device=self.device)
+        self.kvspill = KVSpillManager(
+            self.pool, self.engine,
+            compression=self.cfg.spill_compression,
+            compress_min_bytes=self.cfg.spill_compress_min_bytes)
+        # size -> (D2H seconds, H2D seconds), minima of the last calibrate()
+        self.link_curve: Dict[int, Tuple[float, float]] = {}
+        if self.cfg.calibrate:
+            self.calibrate()
+
+    @classmethod
+    def from_chameleon(cls, ccfg: ChameleonConfig, *,
+                       device: Union[str, torch.device, None] = None
+                       ) -> Optional["HostMemTier"]:
+        """Build the tier a ChameleonConfig asks for (None when disabled)."""
+        if not ccfg.hostmem.enabled:
+            return None
+        tier = cls(ccfg.hostmem, constant_gbps=ccfg.host_link_gbps,
+                   resilience=ccfg.resilience, device=device)
+        if ccfg.autotune.enabled:
+            tier.autotune(ccfg.autotune)
+        return tier
+
+    def autotune(self, atcfg=None, *, device_kind=None):
+        """Tune the swap-path kernels against the roofline (reference:
+        ``repro.kernels.autotune``)."""
+        raise NotImplementedError(f"HostMemTier.autotune: {_AUTOTUNE_SLICE}")
+
+    def calibrate(self, sizes=None, iters=None) -> BandwidthModel:
+        """Calibration transfers through the *production* path: each size
+        does real swap-out/swap-in round trips via the engine, so the curve
+        prices exactly the copies the tier will later run.  The engine's
+        per-copy EMA feed is bypassed during the sweep: the per-size
+        *minima* of warm runs go into the curve (the first round trip per
+        size pays slab pinning and stream creation), and each direction's
+        minimum is kept in ``link_curve``."""
+        sizes = sizes if sizes is not None else self.cfg.calibration_sizes
+        iters = iters if iters is not None else self.cfg.calibration_iters
+        eng = self.engine
+        saved, eng.bwmodel = eng.bwmodel, None
+        try:
+            warm = torch.zeros(1024, dtype=torch.uint8, device=self.device)
+            eng.wait(eng.submit_swap_in(
+                eng.wait(eng.submit_swap_out(warm, "warm")), "warm"))
+            for size in sizes:
+                arr = torch.zeros(size, dtype=torch.uint8, device=self.device)
+                outs, ins = [], []
+                for i in range(max(iters, 1) + 1):
+                    ev = eng.wait(eng.submit_swap_out(arr, "calib"))
+                    ev2 = eng.wait(eng.submit_swap_in(ev, "calib"))
+                    if i:                        # drop the cold run
+                        outs.append(ev.seconds)
+                        ins.append(ev2.seconds)
+                self.link_curve[int(size)] = (min(outs), min(ins))
+                self.bwmodel.observe(size, (min(outs) + min(ins)) / 2)
+        finally:
+            eng.bwmodel = saved
+        return self.bwmodel
+
+    def stats(self) -> dict:
+        return _metrics.collect(self)
+
+    def summary(self) -> str:
+        return _metrics.format_summary(self.stats())

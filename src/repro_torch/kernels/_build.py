@@ -34,6 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES: Dict[str, Path] = {
     "flash_attention_fwd":
         KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention_fwd.cu",
+    "quant_offload":
+        KERNELS_DIR / "quant_offload" / "csrc" / "quant_offload.cu",
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -4,11 +4,16 @@
         --attn-impl flash --requests 8 --max-batch 4 --max-len 1024 \\
         --min-prompt-len 65 --max-prompt-len 900 --new-tokens 32
 
-Port of ``repro/launch/serve.py`` without the host-tier, autotune and
-policy-store flags (later slices).  Weights are random, drawn on the
-device from seed 0; prompts are drawn from ``RandomState(0)`` as the
-reference draws them.  Runs on ``cuda`` unless ``--device cpu``.
-``main(argv)`` returns the run's stats dict.
+Over-subscription: ``--max-active`` beyond ``--max-batch`` admits more
+concurrent requests than device-resident slots by spilling preempted
+decode state into the pinned host pool (``repro_torch.hostmem``), raw or,
+with ``--spill-compression int8``, row-quantized by the int8 kernels.
+
+Port of ``repro/launch/serve.py`` without the autotune and policy-store
+flags (slices 10 and 8) and ``--spill-compression auto`` (slice 10).
+Weights are random, drawn on the device from seed 0; prompts are drawn
+from ``RandomState(0)`` as the reference draws them.  Runs on ``cuda``
+unless ``--device cpu``.  ``main(argv)`` returns the run's stats dict.
 """
 from __future__ import annotations
 
@@ -24,6 +29,16 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--max-batch", type=int, default=4,
                     help="device-resident decode slots")
+    ap.add_argument("--max-active", type=int, default=0,
+                    help="admitted concurrency (> max-batch spills KV state "
+                         "to the host pool; 0 = max-batch)")
+    ap.add_argument("--spill-compression", choices=["none", "int8"],
+                    default="none",
+                    help="int8: KV spill crosses the link row-quantized by "
+                         "the int8 kernels (about 1.9x fewer bytes for bf16, "
+                         "at most half a quantization step per element)")
+    ap.add_argument("--calibrate-link", action="store_true",
+                    help="measure the host link before serving")
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--min-prompt-len", type=int, default=4)
@@ -54,7 +69,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
     import repro_torch.configs as C
     from repro_torch import obs
+    from repro_torch.common.config import HostMemConfig
     from repro_torch.common.device import resolve_device
+    from repro_torch.hostmem import HostMemTier
     from repro_torch.models.registry import get_api
     from repro_torch.runtime.server import Server
 
@@ -64,7 +81,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
         cfg = cfg.replace(attn_impl=args.attn_impl)
     api = get_api(cfg)
     model = api.init(cfg, seed=0, device=device)
-    srv = Server(cfg, model, max_batch=args.max_batch, max_len=args.max_len)
+    max_active = args.max_active or args.max_batch
+    hostmem = None
+    if (max_active > args.max_batch or args.calibrate_link
+            or args.spill_compression != "none"):
+        hostmem = HostMemTier(HostMemConfig(
+            spill_compression=args.spill_compression), device=device)
+        if args.calibrate_link:
+            hostmem.calibrate()        # engine-path sweep
+    srv = Server(cfg, model, max_batch=args.max_batch, max_len=args.max_len,
+                 max_active=max_active, hostmem=hostmem)
     rng = np.random.RandomState(0)
     prompt_lens = []
     t0 = time.perf_counter()      # submit() already prefills the first slots
@@ -77,17 +103,28 @@ def main(argv: Optional[List[str]] = None) -> dict:
     dt = time.perf_counter() - t0
     toks = sum(len(v) for v in results.values())
     lat = srv.latency_stats()
+    srv_stats = srv.stats()
     print(f"{len(results)} requests, {toks} tokens, {dt:.2f}s, "
-          f"{toks / dt:.1f} tok/s, {srv.ticks} ticks, on {device}")
+          f"{toks / dt:.1f} tok/s, {srv.ticks} ticks, "
+          f"{srv.n_preemptions} preemptions, on {device}")
     print(f"tick p50 {lat['tick_ms']['p50']:.1f} ms / "
           f"p95 {lat['tick_ms']['p95']:.1f} ms, "
           f"occupancy {lat['slot_occupancy']:.1%}, "
           f"queue-wait p95 {lat['queue_wait_ticks']['p95']:.0f} ticks")
+    if hostmem is not None:
+        print(hostmem.summary())          # includes per-traffic-class lines
+        ks = hostmem.kvspill.stats()
+        if ks["compression"] != "none" and ks["n_spills"]:
+            print(f"spill compression ({ks['compression']}): "
+                  f"{ks['bytes_raw'] / 2**20:.1f} MiB raw -> "
+                  f"{ks['bytes_spilled'] / 2**20:.1f} MiB staged "
+                  f"({ks['compression_ratio']:.2f}x)")
     if args.metrics_out:
         obs.metrics().write_jsonl(args.metrics_out)
     obs.metrics().unregister_provider("server")    # drop the model with srv
     if args.trace_out:
         obs.export_chrome_trace(args.trace_out, obs.tracer(),
+                                counters=obs.ledger().counter_tracks(),
                                 meta={"arch": args.arch,
                                       "requests": args.requests})
         print(f"trace: {args.trace_out} "
@@ -105,6 +142,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
         "tokens_per_s": toks / dt if dt > 0 else 0.0,
         "ticks": srv.ticks,
         "latency": lat,
+        "max_active": max_active,
+        "preemptions": srv.n_preemptions,
+        "kv_spill_class": srv_stats["kv_spill_class"],
+        "hostmem": srv_stats["hostmem"],
+        "kvspill": srv_stats["hostmem"]["kvspill"] if hostmem else None,
+        "link_curve": ({int(k): list(v) for k, v in hostmem.link_curve.items()}
+                       if hostmem else None),
         "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
                                  if device.type == "cuda" else None),
     }

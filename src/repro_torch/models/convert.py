@@ -6,6 +6,8 @@ blocks stacked along a leading layer axis ``(L, ...)`` and weights in
 numpy leaves (the caller converts from JAX; the port never imports it) and
 copies every leaf into the matching parameter of a
 ``transformer.Model``: module attribute names equal the pytree's keys.
+``decode_state_from_reference`` does the same for a decode state, so both
+packages can spill the same bytes.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from torch import nn
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import DecodeState, Model
 
 
 def _tensor(a) -> torch.Tensor:
@@ -61,3 +63,27 @@ def params_from_reference(cfg: ModelConfig, np_params: Mapping[str, Any],
     if missing:
         raise ValueError(f"reference pytree lacks {missing}")
     return model
+
+
+def decode_state_from_reference(np_state, device: Union[str, torch.device,
+                                                        None] = None
+                                ) -> DecodeState:
+    """A port ``DecodeState`` on ``device`` (default ``cuda``) holding a
+    reference decode state whose fields are numpy arrays (the caller
+    converts from JAX) or None.  Cache fields keep their dtype (a bfloat16
+    cache stays bfloat16, exactly); ``pos`` becomes int64."""
+    dev = resolve_device(device)
+    fields = {}
+    for name in DecodeState._fields:
+        a = getattr(np_state, name, None)
+        if a is None:
+            fields[name] = None
+            continue
+        bf16 = np.asarray(a).dtype.name == "bfloat16"
+        t = _tensor(a).to(dev)
+        if name == "pos":
+            t = t.to(torch.int64)
+        elif bf16:
+            t = t.to(torch.bfloat16)
+        fields[name] = t
+    return DecodeState(**fields)

@@ -1,28 +1,39 @@
-"""repro_torch.obs — always-on span tracing and the metrics registry.
+"""repro_torch.obs — always-on span tracing, the metrics registry, the
+audit log and the memory ledger.
 
 The port's copy of the reference ``repro.obs`` core: the ring-buffered
-:class:`SpanTracer` over five fixed lanes with Chrome-trace export, and
-the :class:`MetricsRegistry` that ``stats()`` providers register into.
-Process-wide defaults are reached through :func:`tracer` and
-:func:`metrics`; tests swap them with :func:`set_tracer` /
-:func:`set_metrics` (each returns the previous instance).
+:class:`SpanTracer` over five fixed lanes with Chrome-trace export, the
+:class:`MetricsRegistry` that ``stats()`` providers register into, the
+:class:`AuditLog` of structured events (fault injection, link-health
+transitions, engine retries and fallbacks) and the :class:`MemoryLedger`
+that the transfer engine and the KV spill report staged bytes to.
+Process-wide defaults are reached through :func:`tracer`, :func:`metrics`,
+:func:`audit` and :func:`ledger`; tests swap them with :func:`set_tracer`
+/ :func:`set_metrics` / :func:`set_audit` / :func:`set_ledger` (each
+returns the previous instance).
 """
 from __future__ import annotations
 
+from repro_torch.obs.audit import AuditLog
+from repro_torch.obs.memledger import LEDGER_TRACKS, MemoryLedger
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.tracer import (LANE_ADAPT, LANE_CHECKPOINT, LANE_COMPUTE,
                                     LANE_ID, LANE_KV_SPILL, LANE_POLICY_SWAP,
                                     LANES, SpanTracer, export_chrome_trace)
 
 __all__ = [
-    "MetricsRegistry", "SpanTracer",
+    "AuditLog", "MemoryLedger", "MetricsRegistry", "SpanTracer",
+    "LEDGER_TRACKS",
     "LANES", "LANE_ID", "LANE_COMPUTE", "LANE_POLICY_SWAP", "LANE_KV_SPILL",
     "LANE_CHECKPOINT", "LANE_ADAPT", "export_chrome_trace",
-    "tracer", "metrics", "set_tracer", "set_metrics",
+    "tracer", "metrics", "audit", "ledger",
+    "set_tracer", "set_metrics", "set_audit", "set_ledger",
 ]
 
 _tracer = SpanTracer()
 _metrics = MetricsRegistry()
+_audit = AuditLog()
+_ledger = MemoryLedger()
 
 
 def tracer() -> SpanTracer:
@@ -35,6 +46,16 @@ def metrics() -> MetricsRegistry:
     return _metrics
 
 
+def audit() -> AuditLog:
+    """The process-wide default audit log."""
+    return _audit
+
+
+def ledger() -> MemoryLedger:
+    """The process-wide default memory ledger (always on)."""
+    return _ledger
+
+
 def set_tracer(t: SpanTracer) -> SpanTracer:
     global _tracer
     old, _tracer = _tracer, t
@@ -44,4 +65,16 @@ def set_tracer(t: SpanTracer) -> SpanTracer:
 def set_metrics(m: MetricsRegistry) -> MetricsRegistry:
     global _metrics
     old, _metrics = _metrics, m
+    return old
+
+
+def set_audit(a: AuditLog) -> AuditLog:
+    global _audit
+    old, _audit = _audit, a
+    return old
+
+
+def set_ledger(l: MemoryLedger) -> MemoryLedger:
+    global _ledger
+    old, _ledger = _ledger, l
     return old

@@ -5,10 +5,17 @@ the shared decode state (an indexed write along the batch dim), then every
 ``tick()`` advances all active slots by one token.  Completed slots free
 immediately and the admission queue backfills them.
 
+With a host-memory tier attached (``hostmem=HostMemTier()``), admission
+can exceed the device-resident slot count: ``max_active`` requests run
+concurrently over ``max_batch`` physical slots by parking preempted
+slots' decode state in the pinned host pool (``repro_torch.hostmem.
+kvspill``) and rotating them back in round-robin.  Raw spill → restore is
+bit-exact, so a request decodes the same tokens whether or not it was
+ever parked.
+
 The model runs eagerly under ``torch.no_grad()``; the reference's
-``jax.jit`` has no counterpart here.  Over-subscription (``max_active >
-max_batch``), the host-memory tier, the policy store and the async
-adaptation modes come with the host-tier slice and raise until then.
+``jax.jit`` has no counterpart here.  The policy store and the async
+adaptation modes come with slice 8 of ROADMAP.md queue 1 and raise.
 """
 from __future__ import annotations
 
@@ -35,6 +42,8 @@ class Request:
     generated: List[int] = field(default_factory=list)
     slot: int = -1
     done: bool = False
+    resident_since: int = 0        # tick at which it last entered a slot
+    n_spills: int = 0
     # tick-level latency bookkeeping
     submit_tick: int = 0           # tick at which the request was submitted
     first_token_tick: int = -1     # tick at which prefill produced token 0
@@ -49,29 +58,34 @@ def _sync(device: torch.device) -> None:
 class Server:
     def __init__(self, cfg: ModelConfig, params: Model, *, max_batch: int = 8,
                  max_len: int = 512, max_active: Optional[int] = None,
-                 hostmem=None, policystore=None, adapt_mode: str = "inline"):
+                 hostmem=None, policystore=None,
+                 adapt_mode: str = "inline"):
         self.api = get_api(cfg)             # raises for unported families
-        max_active = max_active if max_active is not None else max_batch
-        if max_active > max_batch or hostmem is not None:
-            raise NotImplementedError(
-                "max_active > max_batch needs the host-memory tier (KV spill), "
-                "which comes with the host-tier slice of the port")
         if policystore is not None or adapt_mode != "inline":
             raise NotImplementedError(
-                "the policy store and async adaptation come with later "
-                "slices of the port; serve with adapt_mode='inline'")
+                "the policy store and async adaptation come with slice 8 of "
+                "ROADMAP.md queue 1; serve with adapt_mode='inline'")
         self.cfg, self.params = cfg, params
         self.device = params.device
         self.max_batch, self.max_len = max_batch, max_len
-        self.max_active = max_active
+        self.max_active = max_active if max_active is not None else max_batch
+        if self.max_active > max_batch and hostmem is None:
+            from repro_torch.hostmem import HostMemTier
+            # over-subscription needs the tier
+            hostmem = HostMemTier(device=self.device)
+        self.hostmem = hostmem
         self.state = self.api.init_decode_state(cfg, max_batch, max_len,
                                                 params=params)
         self.free_slots = list(range(max_batch))
         self.active: Dict[int, Request] = {}       # resident in a slot
+        self.spilled: Dict[int, Request] = {}      # parked in the host pool
+        self._spill_images: Dict[int, object] = {} # rid -> SpilledSlot
         self.completed: Dict[int, Request] = {}
         self.queue: collections.deque = collections.deque()
         self._rid = 0
         self.ticks = 0
+        self.n_preemptions = 0
+        self.adapt_mode = adapt_mode
         # tick-level batching log: (resident slots at decode, wall seconds,
         # tokens emitted) per tick, and per-prefill wall seconds.  Bounded:
         # a long-running server keeps a sliding window, not full history
@@ -89,14 +103,31 @@ class Server:
         self._admit()
         return self._rid
 
+    @property
+    def n_active(self) -> int:
+        """Concurrently admitted requests (resident + host-parked)."""
+        return len(self.active) + len(self.spilled)
+
     def _admit(self):
-        while self.queue and len(self.active) < self.max_active and self.free_slots:
+        self._restore_waiting()
+        while self.queue and self.n_active < self.max_active:
+            slot = self._acquire_slot()
+            if slot is None:
+                break
             req = self.queue.popleft()
-            self._place(req, self.free_slots.pop())
+            self._place(req, slot)
+
+    def _acquire_slot(self) -> Optional[int]:
+        if self.free_slots:
+            return self.free_slots.pop()
+        if self.hostmem is not None and self.active:
+            return self._preempt()
+        return None
 
     @torch.no_grad()
     def _place(self, req: Request, slot: int) -> None:
         req.slot = slot
+        req.resident_since = self.ticks
         toks = torch.as_tensor(req.prompt[None, :], dtype=torch.int64,
                                device=self.device)
         t0 = time.perf_counter()
@@ -127,6 +158,48 @@ class Server:
             else:
                 # (L, B, ...) — write batch row `slot`
                 cur[:, slot] = new[:, 0].to(cur.dtype)
+
+    # ------------------------------------------------------- kv-cache spill
+    def _preempt(self) -> int:
+        """Park the longest-resident request's slot state in the host pool
+        and hand its slot to the caller.  The spill fences the current
+        stream, so the caller may overwrite the row at once."""
+        victim = min(self.active.values(),
+                     key=lambda r: (r.resident_since, r.rid))
+        del self.active[victim.rid]
+        self._spill_images[victim.rid] = self.hostmem.kvspill.spill(
+            self.state, victim.slot, tag=f"req{victim.rid}")
+        slot, victim.slot = victim.slot, -1
+        victim.n_spills += 1
+        self.spilled[victim.rid] = victim
+        self.n_preemptions += 1
+        return slot
+
+    @torch.no_grad()
+    def _restore_one(self, req: Request, slot: int) -> None:
+        sp = self._spill_images.pop(req.rid)
+        del self.spilled[req.rid]
+        self.state = self.hostmem.kvspill.restore(self.state, sp, slot)
+        req.slot = slot
+        req.resident_since = self.ticks
+        self.active[req.rid] = req
+
+    def _restore_waiting(self) -> None:
+        """Oldest parked requests take any free slots before new admission."""
+        while self.free_slots and self.spilled:
+            req = min(self.spilled.values(), key=lambda r: r.rid)
+            self._restore_one(req, self.free_slots.pop())
+
+    def _rotate(self) -> None:
+        """Round-robin: one parked request trades places with the
+        longest-resident slot every tick, so nobody starves.  (The
+        reference's ``rotate_every`` quantum is left out: every caller
+        rotates every tick.)"""
+        if not self.spilled or self.hostmem is None or not self.active:
+            return
+        waiter = min(self.spilled.values(), key=lambda r: r.rid)
+        slot = self._preempt()
+        self._restore_one(waiter, slot)
 
     # ---------------------------------------------------------------- tick
     @torch.no_grad()
@@ -163,12 +236,13 @@ class Server:
             self.free_slots.append(req.slot)
         self.ticks += 1
         self._admit()
+        self._rotate()
         self.tick_log.append((n_resident, time.perf_counter() - t0, len(out)))
         return out
 
     def run_until_done(self, max_ticks: int = 1000) -> Dict[int, List[int]]:
         for _ in range(max_ticks):
-            if not self.active and not self.queue:
+            if not self.active and not self.queue and not self.spilled:
                 break
             self.tick()
         return {rid: req.generated for rid, req in self.completed.items()}
@@ -216,4 +290,25 @@ class Server:
             "completion_ticks": {"p50": self._pct(spans, 0.5),
                                  "p95": self._pct(spans, 0.95),
                                  "max": max(spans) if spans else 0.0},
+        }
+
+    def stats(self) -> dict:
+        hm = self.hostmem.stats() if self.hostmem else None
+        # surface the serving-relevant traffic class directly: spill time
+        # lost to other link traffic is a tick-latency component
+        kv_cls = (hm["engine"]["classes"]["kv_spill"]
+                  if hm is not None else None)
+        return {
+            "ticks": self.ticks,
+            "active": len(self.active),
+            "spilled": len(self.spilled),
+            "queued": len(self.queue),
+            "completed": len(self.completed),
+            "preemptions": self.n_preemptions,
+            "kv_spill_class": kv_cls,
+            "hostmem": hm,
+            "latency": self.latency_stats(),
+            "policystore": None,
+            "adapt": {"mode": self.adapt_mode, "store_refreshes": 0,
+                      "store_records_refreshed": 0},
         }

@@ -68,3 +68,107 @@ def test_flash_attention_rejects_unsupported_head_dim(card):
     q = torch.zeros(1, 8, 2, 48, device=card, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention(q, q, q, causal=True)
+
+
+# ------------------------------------------- int8 quantize / dequantize
+from repro_torch.kernels.quant_offload import ops as Q  # noqa: E402
+
+# tests/test_kernels.py::test_quant_matches_ref, then ragged row counts (not
+# a multiple of the kernels' 8 rows per block) and F below one warp
+QUANT_SHAPES = [(4, 96, 128), (256, 64), (3, 7, 33), (1001, 128), (13, 96),
+                (5, 17)]
+
+
+def _quant_both(x, out=None):
+    """K2a and K2b on ``x`` and their plain versions; K2b writes into
+    ``out`` when given.  Returns kernel and plain (q, s, x) triples."""
+    before = (Q.quantize.launches, Q.dequantize.launches)
+    q, s = Q.quantize(x)
+    y = Q.dequantize(q, s, x.dtype, out=out)
+    torch.cuda.synchronize()
+    assert (Q.quantize.launches, Q.dequantize.launches) == (before[0] + 1,
+                                                            before[1] + 1)
+    qp, sp = Q.quantize_plain(x)
+    return (q, s, y), (qp, sp, Q.dequantize_plain(q, s, x.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", QUANT_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quant_kernels_bit_exact(card, shape, dtype):
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 3).to(
+        card, getattr(torch, dtype))
+    (q, s, y), (qp, sp, yp) = _quant_both(x)
+    assert q.dtype == torch.int8 and q.shape == x.shape
+    assert s.dtype == torch.float32 and s.shape == x.shape[:-1] + (1,)
+    assert torch.equal(q, qp) and torch.equal(s, sp) and torch.equal(y, yp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quant_kernels_strided_slot_row(card, dtype):
+    """A KV slot row cache[:, b] of an (L, B, Smax, Kh, D) cache: quantized
+    and restored in place, zero rows past the filled positions included;
+    the other slots are untouched."""
+    rng = np.random.RandomState(1)
+    cache = torch.from_numpy(rng.randn(4, 3, 64, 4, 128).astype(np.float32)
+                             ).to(card, getattr(torch, dtype))
+    cache[:, :, 40:] = 0
+    restored = torch.full_like(cache, 7.0)
+    x, dst = cache[:, 1], restored[:, 1]
+    assert not x.is_contiguous()
+    (q, s, y), (qp, sp, yp) = _quant_both(x, out=dst)
+    assert y.data_ptr() == dst.data_ptr()
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+    assert torch.equal(restored[:, 1], yp)
+    assert bool((restored[:, 0] == 7).all()) and bool((restored[:, 2] == 7).all())
+    assert float(s[:, 40:].max()) == float(np.float32(1e-12) / np.float32(127))
+
+
+@pytest.mark.cuda
+def test_quant_kernel_rounds_half_to_even(card):
+    """amax 127 gives scale 1, so x / scale lands on exact halves."""
+    row = np.array([127.0, 2.5, -3.5, 0.5, -0.5, 1.5, 126.5, -126.5],
+                   np.float32)
+    x = torch.from_numpy(row[None]).to(card)
+    q, s = Q.quantize(x)
+    torch.cuda.synchronize()
+    assert float(s) == 1.0
+    np.testing.assert_array_equal(q.cpu().numpy()[0],
+                                  np.round(row).astype(np.int8))
+
+
+@pytest.mark.cuda
+def test_quant_kernels_reject_what_they_do_not_take(card):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        Q.quantize(torch.zeros(4, 8, device=card, dtype=torch.float16))
+    with pytest.raises(ValueError, match="contiguous rows"):
+        Q.quantize(torch.zeros(8, 4, device=card).t())
+    with pytest.raises(RuntimeError, match="one CUDA device or on the CPU"):
+        Q.dequantize(torch.zeros(2, 4, dtype=torch.int8, device=card),
+                     torch.ones(2, 1), torch.float32)
+
+
+@pytest.mark.cuda
+def test_swap_out_source_released_at_issue(card):
+    """A swap-out's device source is marked with record_stream on its
+    class's D2H stream and dropped at issue: an int8 payload is no longer
+    allocated once the caller lets go of it, before the engine retires the
+    copy, and the staged bytes are still the payload's."""
+    from repro_torch.hostmem import HostMemTier
+    from repro_torch.hostmem.engine import TC_KV_SPILL
+    eng = HostMemTier(device=card).engine
+    q, s = Q.quantize(torch.randn(4096, 128, device=card))
+    want = torch.cat([q.reshape(-1).view(torch.uint8),
+                      s.reshape(-1).view(torch.uint8)]).cpu()
+    nbytes = q.numel() + 4 * s.numel()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(card)
+    ev = eng.submit_swap_out([q, s], "payload", cls=TC_KV_SPILL)
+    assert ev._source is None and not ev.done
+    del q, s
+    assert torch.cuda.memory_allocated(card) <= before - nbytes
+    back = eng.wait(eng.submit_swap_in(ev)).result
+    torch.cuda.synchronize()
+    assert torch.equal(back.cpu(), want)

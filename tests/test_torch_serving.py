@@ -127,11 +127,15 @@ def test_server_flash_matches_reference_pallas(pair):
 
 
 def test_server_refuses_unported_options(pair):
+    """The policy store and async adaptation (slice 8) still raise;
+    over-subscription no longer does (tests/test_torch_kvspill.py)."""
     _, _, pcfg, model = pair
-    with pytest.raises(NotImplementedError):
-        Server(pcfg, model, max_batch=2, max_active=4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="slice 8"):
+        Server(pcfg, model, max_batch=2, policystore=object())
+    with pytest.raises(NotImplementedError, match="slice 8"):
         Server(pcfg, model, max_batch=2, adapt_mode="async")
+    srv = Server(pcfg, model, max_batch=2, max_active=4)
+    assert srv.hostmem is not None and srv.hostmem.device.type == "cpu"
 
 
 def test_serve_cli_on_cpu():
