@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase, one card, about a minute
+    python3 chip_smoke.py            # every phase, one card, a few minutes
 
 Phases, each printing JSON lines:
 
@@ -24,29 +24,49 @@ Phases, each printing JSON lines:
               (32, 4, 1024, 32, 128) bf16 cache; device times (CUDA graphs)
               of each kernel and its plain version there, the bound, and
               for K2b a library yardstick (``torch.mul`` into the row).
-5. serve      ``repro_torch.launch.serve.main`` on full-width llama2-paper
+5. decode_kernel  the flash-decode kernel (K3) against its plain version in
+              both dtypes, K1's limits: the reference sweep, GQA, a zero
+              length, and llama2-paper's decode shape (a (4, 1024, 32, 128)
+              layer cache) at ragged lens and at the serve phase's first
+              tick, timed there beside its plain version, SDPA with a length
+              mask, and the bound.
+6. ssd_kernel the SSD-scan kernel (K4) against its plain version, y and the
+              final state, at mamba2-780m's widths for prefill lengths 77,
+              384 and 901 in both dtypes (SSD_TOL); bf16 timed beside its
+              plain version and the bound.
+7. serve      ``repro_torch.launch.serve.main`` on full-width llama2-paper
               (bf16, random weights from a seed) with ``--attn-impl flash``:
               8 requests, 4 slots, prompts of 65..900 tokens, 32 new tokens
-              each.  K1's launch count is reset just before and must equal
-              prefills x layers just after.
-6. serve_spill the same run with ``--max-active 8``: 8 requests over the 4
+              each.  K1's and K3's launch counts are reset just before and
+              must equal prefills x layers and decode ticks x layers just
+              after.
+8. serve_spill the same run with ``--max-active 8``: 8 requests over the 4
               slots, preempted slots parked in pinned host memory and
               rotated back every tick.  Raw spill (``--spill-compression
               none``) must emit exactly the resident run's tokens; the int8
               run must complete every request with K2a launched twice per
               spill and K2b twice per restore (counts reset just before).
-7. crosscheck prefill of two of those prompts with ``flash`` and ``chunked``
-              attention on the same weights; logits must agree within the
-              bf16 tolerance below.
-8. profile    ``torch.profiler`` over 4 prefills and 8 decode ticks of the
-              same server: device busy time, idle share, top kernels.
-9. spill      on a full-width server, one slot spilled (raw, then int8) and
+9. crosscheck prefill of two of those prompts with ``flash`` and ``chunked``
+              attention on the same weights, then 4 decode ticks of each
+              from one prefill state; logits must agree within the bf16
+              tolerance below.
+10. profile   ``torch.profiler`` over 4 prefills and 8 decode ticks of the
+              same server, then 8 more ticks with the chunked decode of the
+              reference (the path before K3): device busy time, idle
+              share, top kernels.
+11. spill     on a full-width server, one slot spilled (raw, then int8) and
               overwritten on the compute stream at once, then restored into
               another slot: raw must come back ``torch.equal`` (K/V rows and
               pos), int8 within half a quantization step plus one bf16
               rounding of every element.
-10. calibrate ``HostMemTier.calibrate`` on the card: the host link's curve,
+12. calibrate ``HostMemTier.calibrate`` on the card: the host link's curve,
               size -> GB/s in each direction.
+13. serve_ssm ``serve.main`` on full-width mamba2-780m (bf16, random weights
+              from a seed), 8 requests as in serve; K4's launch count must
+              equal prefills x 48 layers.
+14. ssm_crosscheck  mamba2-780m prefill logits of a 64-token prompt against
+              token-by-token decode, in f32 and in bf16 (limits below), and
+              a profile of its serving loop.
 
 Any failure raises, so the exit code is non-zero and no result line is
 printed.  The last lines are the kernels summary, the nvidia-smi line and
@@ -126,6 +146,61 @@ QUANT_SHAPES = [(4, 96, 128), (256, 64), (3, 7, 33), (1001, 128), (13, 96)]
 # slot is.
 KV_CACHE_SHAPE = (32, 4, 1024, 32, 128)
 KV_FILLED = 749
+
+# K3 (flash-decode) cases: (B, Sk, H, Kh, D, lens, timed).  Every case runs
+# in both dtypes and is held to K1's limits (TOL, FRO_TOL, MAX_TOL): the
+# kernel keeps P in f32, so in bf16 only the output's rounding differs.
+# The reference sweep (tests/test_kernels.py::test_flash_decode_sweep), GQA
+# groups of 4 and 8, a zero length (zeros, by the kernel's contract), then
+# llama2-paper's decode shape: one layer's (4, 1024, 32, 128) cache with the
+# lens of the serve phase's first decode tick (its four resident prompts'
+# lengths + 1), and ragged lens.  q and k are peaked (QK_SCALE) and the
+# cache is random past lens too, so a kernel that reads those rows differs.
+DECODE_CASES = [
+    (2, 160, 4, 2, 32, (100, 37), False),
+    (2, 128, 4, 2, 32, (128, 1), False),
+    (2, 512, 4, 2, 32, (512, 300), False),
+    (2, 256, 16, 4, 64, (200, 3), False),
+    (1, 300, 8, 1, 128, (299,), False),
+    (2, 64, 4, 2, 32, (0, 5), False),
+    (4, 1024, 32, 32, 128, (1, 37, 1000, 1024), False),
+]
+# K4 (SSD scan) at mamba2-780m's widths (48 heads of P 64, N 128, chunk 256):
+# prefill lengths with a ragged tail and 1, 2 and 4 chunks; x, Bm and Cm are
+# views into one convolution output as the model passes them, dt in
+# [0.01, 1] and A = -(1..48) as the model's A_log gives, so decay and the
+# carried state both matter.  Limits (elementwise, relative Frobenius) for
+# y: f32 arithmetic in both in another order (the running sum of dt * A
+# reaches ~6e3 in a chunk, so exp(cs_i - cs_j) carries ~1e-4 relative error
+# in the terms that count); bf16 adds the rounding of y (2^-9).  The final
+# state is f32 in both: (2e-3, 1e-4).
+SSD_LENS = (77, 384, 901)
+SSD_TOL = {"float32": (2e-3, 1e-4), "bfloat16": (2e-2, 1e-2)}
+SSD_STATE_TOL = (2e-3, 1e-4)
+SSM_SERVE_ARGS = ["--arch", "mamba2-780m", "--requests", "8",
+                  "--max-batch", "4", "--max-len", "1024",
+                  "--min-prompt-len", "65", "--max-prompt-len", "900",
+                  "--new-tokens", "32"]
+# Prefill (K4) against token-by-token decode (the recurrence) of one
+# 64-token prompt on full-width mamba2-780m.  In f32 the two paths differ
+# only in summation order: the logits are held to 5e-3 of their largest
+# magnitude, the tolerance of the reference's own decode-vs-forward test.
+# In bf16, as served, prefill rounds the convolution and y to bf16 where
+# decode keeps them in f32 (the reference does the same: its own bf16
+# prefill and decode differ by 1.7e-2 of max |logit| at 6 narrow layers on
+# the CPU, and 48 full-width layers compound it), so the bf16 run is held
+# to finite logits and to the same greedy token wherever the top-2 margin
+# exceeds twice the largest logit difference.
+SSM_CROSSCHECK_LEN = 64
+SSM_CROSSCHECK_TOL = 5e-3
+
+
+def decode_cases(cfg):
+    """K3's cases: DECODE_CASES, then llama2-paper's decode shape at the
+    lens of the serve phase's first decode tick (timed)."""
+    lens = tuple(len(p) + 1 for p in serve_prompts(4, cfg.vocab_size))
+    return DECODE_CASES + [(4, 1024, cfg.num_heads, cfg.num_kv_heads,
+                            cfg.head_dim, lens, True)]
 
 
 def llama2_cases(cfg):
@@ -223,16 +298,18 @@ def k1_check(out, ref, dname: str) -> dict:
 
 
 def attention_bound(B, Sq, Sk, H, Kh, D, causal, kv_lens, dtype):
-    """Least time for the work these inputs need: q, k, v read once and o
-    written once over HBM bandwidth, against 4*D flops per unmasked
-    (query, key) pair per head over the peak rate of the input type."""
+    """Least time for the work these inputs need: q, the valid rows of k
+    and v (all Sk without kv_lens) read once and o written once over HBM
+    bandwidth, against 4*D flops per unmasked (query, key) pair per head
+    over the peak rate of the input type."""
     import torch
     esize = torch.finfo(dtype).bits // 8
-    nbytes = esize * (2 * B * Sq * H * D + 2 * B * Sk * Kh * D)
     lens = kv_lens or (Sk,) * B
+    nbytes = esize * (2 * B * Sq * H * D
+                      + 2 * Kh * D * sum(min(max(n, 0), Sk) for n in lens))
     pairs = 0
     for n in lens:
-        n = min(n, Sk)
+        n = min(max(n, 0), Sk)
         pairs += (sum(min(q + 1, n) for q in range(Sq)) if causal
                   else Sq * n)
     flops = 4.0 * H * D * pairs
@@ -381,6 +458,174 @@ def phase_quant(device):
     return timed, max_q, max_out
 
 
+def decode_rows(device, cases):
+    """K3 against its plain version on every case in both dtypes, with no
+    timing; returns the rows (``ok`` says whether a row is inside every
+    limit).  The K3 check of this script and of the mutation tool."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    rows = []
+    for B, Sk, H, Kh, D, lens, timed in cases:
+        for dname in BOTH:
+            dtype = getattr(torch, dname)
+            q, k, v = k1_inputs(gen, B, 1, Sk, H, Kh, D, dtype, device)
+            lens_t = torch.tensor(lens, dtype=torch.int32, device=device)
+            out = ops.flash_decode(q, k, v, lens_t)
+            torch.cuda.synchronize()
+            ref = ops.flash_decode_plain(q, k, v, lens_t)
+            row = {"shape": [B, Sk, H, Kh, D], "lens": list(lens),
+                   "dtype": dname, **k1_check(out, ref, dname)}
+            zero = [b for b, n in enumerate(lens) if n <= 0]
+            row["zero_rows_zero"] = all(not out[b].any() for b in zero)
+            row["ok"] = row["ok"] and row["zero_rows_zero"]
+            rows.append((row, (q, k, v, lens_t) if timed else None))
+    return rows
+
+
+def phase_decode_kernel(device, cases):
+    """K3 against its plain version on every case; at the serve decode
+    shape also device times (CUDA graphs) of the kernel, the plain version
+    and SDPA over all Smax slots with a boolean length mask, and the
+    bound.  Returns the timed bf16 row and the largest bf16 error at the
+    serve decode shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+
+    timed_row, main_err = None, 0.0
+    for row, inputs in decode_rows(device, cases):
+        if inputs is not None:
+            q, k, v, lens = inputs
+            B, Sk, H, Kh, D = row["shape"]
+            row["ms"] = graph_ms(lambda: ops.flash_decode(q, k, v, lens))
+            row["eager_ms"] = cuda_ms(lambda: ops.flash_decode(q, k, v, lens))
+            row["plain_ms"] = graph_ms(
+                lambda: ops.flash_decode_plain(q, k, v, lens), iters=5)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            mask = (torch.arange(Sk, device=device)[None, :]
+                    < lens[:, None])[:, None, None, :]
+            row["library_ms"] = graph_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask,
+                    **({"enable_gqa": True} if H != Kh else {})))
+            row["bound_ms"], row["bound_by"] = attention_bound(
+                B, 1, Sk, H, Kh, D, False, row["lens"], q.dtype)
+            if row["dtype"] == "bfloat16":
+                timed_row = row
+        if row["shape"][1:] == [1024, 32, 32, 128] and row["dtype"] == "bfloat16":
+            main_err = max(main_err, row["max_abs_err"])
+        emit("decode_kernel", name="flash_decode_fwd", **row)
+        if not row["ok"]:
+            raise AssertionError(f"flash_decode disagrees with its plain "
+                                 f"version: {row}")
+    return timed_row, main_err
+
+
+def ssd_inputs(gen, B, S, H, P, N, dtype, device):
+    """x (B,S,H,P), dt (B,S,H) f32 in [0.01, 1], A = -(1..H), and Bm/Cm
+    (B,S,N): x, Bm and Cm are views into one (B, S, H*P + 2N) tensor, as
+    the model's convolution output gives them."""
+    import torch
+    xbc = torch.cat([torch.randn(B, S, H * P, generator=gen, device=device)
+                     * 0.5,
+                     torch.randn(B, S, 2 * N, generator=gen, device=device)
+                     * 0.3], dim=-1).to(dtype)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    dt = 0.01 + 0.99 * torch.rand(B, S, H, generator=gen, device=device)
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=device)
+    return x, dt, A, xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+
+
+def ssd_check(y, yr, st, sr, dname) -> dict:
+    """K4's y and final state against its plain version: finite, and inside
+    the elementwise and relative Frobenius limits of SSD_TOL and
+    SSD_STATE_TOL."""
+    import torch
+    row, ok = {}, True
+    for key, got, want, (tol, fro) in (("y", y, yr, SSD_TOL[dname]),
+                                       ("state", st, sr, SSD_STATE_TOL)):
+        g, w = got.float(), want.float()
+        diff = (g - w).abs()
+        rel_fro = float(diff.norm() / w.norm())
+        row[f"{key}_max_abs_err"] = float(diff.max())
+        row[f"{key}_max_abs_ref"] = float(w.abs().max())
+        row[f"{key}_rel_fro"] = rel_fro
+        ok = (ok and bool(torch.isfinite(g).all()) and rel_fro <= fro
+              and bool((diff <= tol + tol * w.abs()).all()))
+    row["ok"] = ok
+    return row
+
+
+def ssd_bound(B, S, H, P, N, chunk, esize):
+    """Least time for the SSD scan on these inputs: x, Bm, Cm, dt and A
+    read once, y and the f32 state written once over HBM bandwidth, against
+    the f32 multiply-adds the chunked algorithm needs (C B^T once per chunk
+    over its causal pairs, and per head the masked product with x, the
+    carried state's term and the state update) over the f32 peak: the
+    reference's arithmetic, and the limits above, are f32."""
+    macs = 0
+    for c0 in range(0, S, chunk):
+        c = min(chunk, S - c0)
+        pairs = c * (c + 1) // 2
+        macs += B * (pairs * N + H * (pairs * P + 2 * c * P * N))
+    nbytes = (2 * B * S * H * P * esize + 2 * B * S * N * esize
+              + 4 * B * S * H + 4 * H + 4 * B * H * P * N)
+    t_bytes, t_ops = nbytes / H100_HBM_BYTES_S, 2 * macs / H100_F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ssd_rows(device, cfg, lens, dtypes):
+    """K4 against its plain version at mamba2-780m's widths for every
+    prefill length and dtype, with no timing; returns (row, inputs)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as SSD
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    H, P, N, chunk = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                      cfg.ssm_chunk)
+    rows = []
+    for S in lens:
+        for dname in dtypes:
+            ins = ssd_inputs(gen, 1, S, H, P, N, getattr(torch, dname), device)
+            y, st = SSD.ssd_scan(*ins, chunk=chunk)
+            torch.cuda.synchronize()
+            yr, sr = SSD.ssd_scan_plain(*ins, chunk=chunk)
+            row = {"shape": [1, S, H, P, N], "chunk": chunk, "dtype": dname,
+                   **ssd_check(y, yr, st, sr, dname)}
+            rows.append((row, ins))
+    return rows
+
+
+def phase_ssd_kernel(device, cfg):
+    """K4 against its plain version (y and final state) at every prefill
+    length, bf16 as served and f32; device times (CUDA graphs) of the
+    kernel and its plain version in bf16, and the bound.  Returns the bf16
+    rows by length."""
+    from repro_torch.kernels.ssd_scan import ops as SSD
+
+    timed = {}
+    for row, ins in ssd_rows(device, cfg, SSD_LENS, BOTH):
+        if row["dtype"] == "bfloat16":
+            chunk = row["chunk"]
+            row["ms"] = graph_ms(lambda: SSD.ssd_scan(*ins, chunk=chunk))
+            row["plain_ms"] = graph_ms(
+                lambda: SSD.ssd_scan_plain(*ins, chunk=chunk), iters=3)
+            row["bound_ms"], row["bound_by"] = ssd_bound(*row["shape"],
+                                                         chunk, 2)
+            row["library_ms"] = None
+            row["library"] = ("none: no single PyTorch call computes the "
+                              "SSD chunked scan")
+            timed[row["shape"][1]] = row
+        emit("ssd_kernel", name="ssd_scan_fwd", **row)
+        if not row["ok"]:
+            raise AssertionError(f"ssd_scan disagrees with its plain "
+                                 f"version: {row}")
+    return timed
+
+
 def phase_serve(device):
     import torch
     from repro_torch.kernels.flash_attention import ops
@@ -388,8 +633,10 @@ def phase_serve(device):
 
     allocated_before = release_device_memory(device)
     ops.flash_attention.launches = 0                  # count the main path only
+    ops.flash_decode.launches = 0
     stats = serve.main(SERVE_ARGS)
     launches = ops.flash_attention.launches
+    decode_launches = ops.flash_decode.launches
     n_req, n_new, n_layers = 8, 32, 32
     lengths = {rid: len(toks) for rid, toks in stats["results"].items()}
     if stats["completed"] != n_req or set(lengths.values()) != {n_new}:
@@ -400,14 +647,19 @@ def phase_serve(device):
         raise AssertionError(f"serve: flash_attention launched {launches} "
                              f"times for {prefills} prefills x {n_layers} "
                              "layers")
-    emit("serve", launches=launches, prefills=prefills,
+    if decode_launches != stats["ticks"] * n_layers:
+        raise AssertionError(f"serve: flash_decode launched "
+                             f"{decode_launches} times for {stats['ticks']} "
+                             f"decode ticks x {n_layers} layers")
+    emit("serve", launches=launches, decode_launches=decode_launches,
+         prefills=prefills,
          prompt_lens=stats["prompt_lens"], tokens=stats["tokens"],
          wall_s=stats["wall_s"], tokens_per_s=stats["tokens_per_s"],
          ticks=stats["ticks"], tick_ms=stats["latency"]["tick_ms"],
          prefill_ms=stats["latency"]["prefill_ms"],
          max_memory_allocated=stats["max_memory_allocated"],
          allocated_before=allocated_before)
-    return launches, stats["results"]
+    return launches, decode_launches, stats["results"]
 
 
 def release_device_memory(device) -> int:
@@ -545,13 +797,48 @@ def phase_crosscheck(device, cfg, model):
         emit("crosscheck", **row)
         if rel > CROSSCHECK_TOL or not row["decided_agree"]:
             raise AssertionError(f"flash and chunked prefill disagree: {row}")
+    crosscheck_decode(device, cfg, model)
+
+
+def crosscheck_decode(device, cfg, model, ticks: int = 4):
+    """Decode under ``flash`` (K3) and ``chunked`` from one prefill state
+    (cloned), feeding both the chunked path's greedy tokens: the logits of
+    each tick must agree within CROSSCHECK_TOL of their largest
+    magnitude."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    fcfg, ccfg = cfg.replace(attn_impl="flash"), cfg.replace(attn_impl="chunked")
+    prompt = serve_prompts(1, cfg.vocab_size)[0]
+    toks = torch.as_tensor(prompt[None], dtype=torch.int64, device=device)
+    with torch.no_grad():
+        logits, sf = T.prefill(fcfg, model, toks, 1024)
+        sc = sf._replace(attn_k=sf.attn_k.clone(), attn_v=sf.attn_v.clone(),
+                         pos=sf.pos.clone())
+        nxt = logits[:, -1].argmax(-1, keepdim=True)
+        for t in range(ticks):
+            lf, sf = T.decode_step(fcfg, model, nxt, sf)
+            lc, sc = T.decode_step(ccfg, model, nxt, sc)
+            lf, lc = lf[0, 0].float(), lc[0, 0].float()
+            dmax = float((lf - lc).abs().max())
+            rel = dmax / float(lc.abs().max())
+            row = {"decode_tick": t, "pos": int(sc.pos[0]) - 1,
+                   "max_abs_dlogit": dmax, "rel_dlogit": rel,
+                   "tol": CROSSCHECK_TOL,
+                   "argmax_agree": bool(lf.argmax() == lc.argmax())}
+            emit("crosscheck_decode", **row)
+            if rel > CROSSCHECK_TOL:
+                raise AssertionError(f"flash and chunked decode disagree: "
+                                     f"{row}")
+            nxt = lc.argmax().reshape(1, 1)
 
 
 def phase_profile(device, cfg, model):
-    """torch.profiler over two windows of the serving loop (4 prefills into
-    the 4 slots, then 8 decode ticks): device busy time is the sum of CUDA
-    kernel times (one stream, so kernels do not overlap), idle share is
-    1 - busy / wall, with wall on the host clock under the profiler."""
+    """torch.profiler over two windows of the serving loop of ``cfg`` (4
+    prefills into the 4 slots, then 8 decode ticks): device busy time is the
+    sum of CUDA kernel times (one stream, so kernels do not overlap), idle
+    share is 1 - busy / wall, with wall on the host clock under the
+    profiler; the port's kernels' device times by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -574,10 +861,13 @@ def phase_profile(device, cfg, model):
                 if e.device_type == DeviceType.CUDA]
         busy = sum(ms for _, ms, _ in kern)
         kern.sort(key=lambda x: -x[1])
-        emit("profile", window=name, steps=n_steps, wall_ms=wall,
-             device_busy_ms=busy, idle_share=1 - busy / wall,
-             kernel_launches=sum(n for _, _, n in kern),
-             flash_ms=sum(ms for k, ms, _ in kern if "flash_fwd" in k),
+        ours = {name: sum(ms for k, ms, _ in kern if key in k)
+                for name, key in (("flash_ms", "flash_fwd"),
+                                  ("flash_decode_ms", "flash_decode"),
+                                  ("ssd_scan_ms", "ssd_scan"))}
+        emit("profile", model=cfg.name, window=name, steps=n_steps,
+             wall_ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall,
+             kernel_launches=sum(n for _, _, n in kern), **ours,
              top=[{"kernel": k[:80], "ms": ms, "n": n}
                   for k, ms, n in kern[:8]])
 
@@ -585,6 +875,10 @@ def phase_profile(device, cfg, model):
     window("prefill", lambda: [srv.submit(p, max_new_tokens=32)
                                for p in prompts], len(prompts))
     window("decode", lambda: [srv.tick() for _ in range(8)], 8)
+    if cfg.family == "dense":
+        # the decode path before K3, on the same server 8 positions later
+        srv.cfg = cfg.replace(attn_impl="chunked")
+        window("decode_chunked", lambda: [srv.tick() for _ in range(8)], 8)
     obs.metrics().unregister_provider("server")
 
 
@@ -658,6 +952,92 @@ def phase_spill(device, cfg, model):
         del srv, st, k0, v0, k1, v1, pst, tier
 
 
+def phase_serve_ssm(device):
+    """``repro_torch.launch.serve.main`` on full-width mamba2-780m (bf16,
+    random weights from a seed): 8 requests, 4 slots, prompts of 65..900
+    tokens, 32 new tokens each.  K4's launch count is reset just before and
+    must equal prefills x layers just after.  Returns the launches."""
+    from repro_torch.kernels.ssd_scan import ops as SSD
+    from repro_torch.launch import serve
+
+    allocated_before = release_device_memory(device)
+    SSD.ssd_scan.launches = 0                       # count the main path only
+    stats = serve.main(SSM_SERVE_ARGS)
+    launches = SSD.ssd_scan.launches
+    n_req, n_new, n_layers = 8, 32, 48
+    lengths = {rid: len(toks) for rid, toks in stats["results"].items()}
+    if stats["completed"] != n_req or set(lengths.values()) != {n_new}:
+        raise AssertionError(f"serve_ssm: want {n_req} requests of {n_new} "
+                             f"tokens, got {lengths}")
+    prefills = stats["latency"]["prefill_ms"]["n"]
+    if prefills != n_req or launches != n_req * n_layers:
+        raise AssertionError(f"serve_ssm: ssd_scan launched {launches} "
+                             f"times for {prefills} prefills x {n_layers} "
+                             "layers")
+    emit("serve_ssm", arch=stats["arch"], launches=launches,
+         prefills=prefills, prompt_lens=stats["prompt_lens"],
+         tokens=stats["tokens"], wall_s=stats["wall_s"],
+         tokens_per_s=stats["tokens_per_s"], ticks=stats["ticks"],
+         tick_ms=stats["latency"]["tick_ms"],
+         prefill_ms=stats["latency"]["prefill_ms"],
+         max_memory_allocated=stats["max_memory_allocated"],
+         allocated_before=allocated_before)
+    return launches
+
+
+def ssm_prefill_vs_decode(device, cfg, model) -> dict:
+    """Prefill logits of one SSM_CROSSCHECK_LEN-token prompt (K4) against
+    token-by-token decode from an empty state (the recurrence)."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    prompt = serve_prompts(1, cfg.vocab_size)[0][:SSM_CROSSCHECK_LEN]
+    toks = torch.as_tensor(prompt[None], dtype=torch.int64, device=device)
+    with torch.no_grad():
+        lp, _ = T.prefill(cfg, model, toks, SSM_CROSSCHECK_LEN)
+        state = T.init_decode_state(cfg, 1, SSM_CROSSCHECK_LEN, params=model)
+        steps = []
+        for t in range(SSM_CROSSCHECK_LEN):
+            lg, state = T.decode_step(cfg, model, toks[:, t:t + 1], state)
+            steps.append(lg[0, 0].float())
+    lp, ld = lp[0].float(), torch.stack(steps)
+    dmax = float((lp - ld).abs().max())
+    top2 = ld.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * dmax
+    agree = lp.argmax(-1) == ld.argmax(-1)
+    return {"dtype": cfg.dtype, "prompt_len": SSM_CROSSCHECK_LEN,
+            "max_abs_dlogit": dmax, "max_abs_logit": float(lp.abs().max()),
+            "rel_dlogit": dmax / float(lp.abs().max()),
+            "finite": bool(torch.isfinite(lp).all()
+                           and torch.isfinite(ld).all()),
+            "argmax_agree_frac": float(agree.float().mean()),
+            "decided_positions": int(decided.sum()),
+            "decided_agree": bool(agree[decided].all())}
+
+
+def phase_ssm_crosscheck(device, cfg, model):
+    """Full-width mamba2-780m, prefill against token-by-token decode: in
+    f32 (weights drawn from the same seed) within SSM_CROSSCHECK_TOL of the
+    largest |logit|; in bf16, as served, finite and with the same greedy
+    token at every decided position."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    f32 = cfg.replace(dtype="float32", param_dtype="float32")
+    row = ssm_prefill_vs_decode(device, f32,
+                                T.init_model(f32, seed=0, device=device))
+    row["tol"] = SSM_CROSSCHECK_TOL
+    emit("ssm_crosscheck", **row)
+    gc.collect()                       # the f32 model is gone
+    torch.cuda.empty_cache()
+    if not row["finite"] or row["rel_dlogit"] > SSM_CROSSCHECK_TOL:
+        raise AssertionError(f"mamba2 prefill and decode disagree: {row}")
+    row = ssm_prefill_vs_decode(device, cfg, model)
+    emit("ssm_crosscheck", **row)
+    if not row["finite"] or not row["decided_agree"]:
+        raise AssertionError(f"mamba2 prefill and decode disagree: {row}")
+
+
 def phase_calibrate(device):
     """The host link, swap-out and swap-in round trips through the engine
     at each size: the per-direction minima as GB/s."""
@@ -700,10 +1080,13 @@ def main() -> int:
     import repro_torch.configs as C
     from repro_torch.models import transformer as T
     cfg = C.get_config("llama2-paper")
+    scfg = C.get_config("mamba2-780m")
     main_path = llama2_cases(cfg)
     rows = phase_kernel(device, SWEEP_CASES + main_path)
     quant_times, quant_q_err, quant_out_err = phase_quant(device)
-    launches, resident = phase_serve(device)
+    decode_row, decode_err = phase_decode_kernel(device, decode_cases(cfg))
+    ssd_times = phase_ssd_kernel(device, scfg)
+    launches, decode_launches, resident = phase_serve(device)
     quant_launches = phase_serve_spill(device, resident)
     gc.collect()                       # the serve phases' models are gone
     torch.cuda.empty_cache()
@@ -712,6 +1095,14 @@ def main() -> int:
     phase_profile(device, cfg, model)
     phase_spill(device, cfg, model)
     phase_calibrate(device)
+    del model
+    ssd_launches = phase_serve_ssm(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = T.init_model(scfg, seed=0, device=device)
+    phase_ssm_crosscheck(device, scfg, model)
+    phase_profile(device, scfg, model)
+    del model
 
     summary = next(rows[(c, "bfloat16")] for c in main_path
                    if c[1] == SUMMARY_LEN)
@@ -743,7 +1134,33 @@ def main() -> int:
         "at": {"shape": list(KV_CACHE_SHAPE[:1] + KV_CACHE_SHAPE[2:]),
                "dtype": "bfloat16", "strided": True}}
         for name, line, err in (("quantize_rows", 43, quant_q_err),
-                                ("dequantize_rows", 61, quant_out_err))]}),
+                                ("dequantize_rows", 61, quant_out_err))] + [{
+        "name": "flash_decode_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_decode_fwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:147",
+        "launches": decode_launches,
+        # the largest bf16 error at llama2-paper's decode shape
+        "max_abs_err": decode_err,
+        "ms": decode_row["ms"], "plain_ms": decode_row["plain_ms"],
+        "bound_ms": decode_row["bound_ms"],
+        "bound_by": decode_row["bound_by"],
+        "library_ms": decode_row["library_ms"],
+        "at": {"shape": decode_row["shape"], "lens": decode_row["lens"],
+               "dtype": "bfloat16"}}, {
+        "name": "ssd_scan_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_fwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:64",
+        "launches": ssd_launches,
+        # the largest bf16 error of y over mamba2-780m's prefill lengths
+        "max_abs_err": max(r["y_max_abs_err"] for r in ssd_times.values()),
+        "ms": ssd_times[max(SSD_LENS)]["ms"],
+        "plain_ms": ssd_times[max(SSD_LENS)]["plain_ms"],
+        "bound_ms": ssd_times[max(SSD_LENS)]["bound_ms"],
+        "bound_by": ssd_times[max(SSD_LENS)]["bound_by"],
+        "library_ms": None,
+        "at": {"shape": ssd_times[max(SSD_LENS)]["shape"],
+               "chunk": scfg.ssm_chunk, "dtype": "bfloat16"}}]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,8 +34,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES: Dict[str, Path] = {
     "flash_attention_fwd":
         KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention_fwd.cu",
+    "flash_decode_fwd":
+        KERNELS_DIR / "flash_attention" / "csrc" / "flash_decode_fwd.cu",
     "quant_offload":
         KERNELS_DIR / "quant_offload" / "csrc" / "quant_offload.cu",
+    "ssd_scan_fwd":
+        KERNELS_DIR / "ssd_scan" / "csrc" / "ssd_scan_fwd.cu",
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,10 +1,13 @@
-"""ctypes binding of the CUDA flash-attention forward (``csrc/flash_attention_fwd.cu``).
+"""ctypes bindings of the CUDA flash-attention forward
+(``csrc/flash_attention_fwd.cu``) and flash-decode
+(``csrc/flash_decode_fwd.cu``) kernels.
 
-Port of the Pallas kernel ``repro/kernels/flash_attention/kernel.py::
-flash_attention_fwd``.  The library is built and loaded at the first
-launch (``kernels/_build.py``), never at import, so the CPU tests can
-import this module.  The kernel reads the model layout (B, S, H, D)
-directly; ``ops.flash_attention`` checks the arguments before this runs.
+Ports of the Pallas kernels ``repro/kernels/flash_attention/kernel.py::
+flash_attention_fwd`` and ``::flash_decode_fwd``.  Each library is built
+and loaded at its first launch (``kernels/_build.py``), never at import, so
+the CPU tests can import this module.  The kernels read the model layout
+(B, S, H, D) directly; ``ops.flash_attention`` and ``ops.flash_decode``
+check the arguments before these run.
 """
 from __future__ import annotations
 
@@ -16,11 +19,14 @@ import torch
 from repro_torch.kernels import _build
 
 LIB = "flash_attention_fwd"
+DECODE_LIB = "flash_decode_fwd"
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib: Optional[ctypes.CDLL] = None
 _fn = None
+_decode_lib: Optional[ctypes.CDLL] = None
+_decode_fn = None
 
 
 def bind(lib: ctypes.CDLL):
@@ -58,3 +64,39 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  B, H, Kh, Sq, Sk, D, DTYPE_CODES[q.dtype], float(sm_scale),
                  int(causal), stream)
     _build.check(lib, err, "flash_attention_fwd launch")
+
+
+def bind_decode(lib: ctypes.CDLL):
+    """The typed C entry point ``flash_decode_fwd`` of a loaded library."""
+    fn = lib.flash_decode_fwd
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, vp,            # q k v o lens
+                   ci, ci, ci, ci, ci, ci,        # B H Kh Sk D dtype
+                   ctypes.c_float, vp]            # sm_scale stream
+    fn.restype = ci
+    return fn
+
+
+def _decode_entry():
+    global _decode_lib, _decode_fn
+    if _decode_fn is None:
+        _decode_lib = _build.load(DECODE_LIB)
+        _decode_fn = bind_decode(_decode_lib)
+    return _decode_lib, _decode_fn
+
+
+def flash_decode_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     out: torch.Tensor, lens: torch.Tensor, *,
+                     sm_scale: float) -> None:
+    """Launch on the current stream of ``q``'s device and return without
+    synchronising.  q/out (B,1,H,D), k/v (B,Sk,Kh,D), contiguous, one
+    dtype, 16-byte aligned; lens (B,) int32 on the same device."""
+    B, _, H, D = q.shape
+    Sk, Kh = k.shape[1], k.shape[2]
+    lib, fn = _decode_entry()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lens.data_ptr(), B, H, Kh, Sk, D, DTYPE_CODES[q.dtype],
+                 float(sm_scale), stream)
+    _build.check(lib, err, "flash_decode_fwd launch")

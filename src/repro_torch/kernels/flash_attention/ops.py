@@ -1,4 +1,5 @@
-"""Model-layout wrapper of the flash-attention forward, and its plain version.
+"""Model-layout wrappers of the flash-attention forward and flash-decode
+kernels, and their plain versions.
 
 ``flash_attention`` takes the model zoo's layout, q (B,Sq,H,D) and k/v
 (B,Sk,Kh,D), as ``repro/kernels/flash_attention/ops.py`` does.  The CUDA
@@ -9,10 +10,17 @@ transpose and slice are gone.  Semantics, shared by the kernel and
 at or past ``kv_lens[b]`` masked, f32 softmax and sums, output in
 ``q.dtype``; a row with no valid key gives zeros.
 
-Tensors on the CPU go to ``flash_attention_plain``; CUDA tensors launch
-the kernel or raise, with no fallback.  The wrapper is forward only: an
+``flash_decode`` is one query token over a KV cache, as the decode step
+calls it: q (B,1,H,D), the cache k/v (B,Smax,Kh,D) read in place, and the
+valid lengths ``lens`` (B,) on the device.  Rows at or past ``lens[b]`` are
+masked (the kernel never reads them); a row with ``lens[b] <= 0`` gives
+zeros, in the kernel and in ``flash_decode_plain`` alike.
+
+Tensors on the CPU go to the plain versions; CUDA tensors launch the
+kernels or raise, with no fallback.  The wrappers are forward only: an
 input that requires grad raises (the backward kernel comes with the
-training slice).  ``flash_attention.launches`` counts kernel launches.
+training slice).  ``flash_attention.launches`` and
+``flash_decode.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -103,3 +111,60 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def _check_decode(q, k, v, lens):
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"flash_decode takes one query token, q (B,1,H,D); "
+                         f"got {tuple(q.shape)}")
+    _check_shapes(q, k, v, lens)
+
+
+def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       lens: torch.Tensor, *,
+                       sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version of the decode kernel: a masked softmax in f32
+    over the first ``lens[b]`` cache rows; zeros where ``lens[b] <= 0``."""
+    _check_decode(q, k, v, lens)
+    return flash_attention_plain(q, k, v, causal=False, sm_scale=sm_scale,
+                                 kv_lens=lens)
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 lens: torch.Tensor, *,
+                 sm_scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,1,H,D); k/v (B,Smax,Kh,D), contiguous; lens (B,) -> (B,1,H,D)."""
+    _check_decode(q, k, v, lens)
+    if any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_decode is forward only; call it under "
+                           "torch.no_grad()")
+    D = q.shape[3]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    if all(t.device.type == "cpu" for t in (q, k, v, lens)):
+        return flash_decode_plain(q, k, v, lens, sm_scale=sm_scale)
+    if (q.device.type != "cuda"
+            or any(t.device != q.device for t in (k, v, lens))):
+        raise RuntimeError(f"flash_decode runs on one CUDA device or on the "
+                           f"CPU; got {q.device}, {k.device}, {v.device}, "
+                           f"{lens.device}")
+    if q.dtype not in K.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_decode takes float32 or bfloat16 q/k/v of "
+                        f"one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if D not in K.HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {K.HEAD_DIMS}")
+    if not (k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_decode reads the cache in place: k and v "
+                         "must be contiguous (B,Smax,Kh,D)")
+    q = q.contiguous()
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_decode loads 16-byte vectors: q, k and v "
+                         "must start 16-byte aligned")
+    lens = lens.to(dtype=torch.int32).contiguous()
+    out = torch.empty_like(q)
+    K.flash_decode_fwd(q, k, v, out, lens, sm_scale=sm_scale)
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0

@@ -4,6 +4,12 @@
         --attn-impl flash --requests 8 --max-batch 4 --max-len 1024 \\
         --min-prompt-len 65 --max-prompt-len 900 --new-tokens 32
 
+``--arch mamba2-780m`` serves the Mamba-2 (ssm) family: every prefill's
+SSD scan runs on the hand-written SSD-scan kernel, decode is the one-token
+recurrence; ``--attn-impl`` does not apply to it.  With ``--attn-impl
+flash`` a dense model's prefills run on the flash-attention kernel and its
+decode attention on the flash-decode kernel.
+
 Over-subscription: ``--max-active`` beyond ``--max-batch`` admits more
 concurrent requests than device-resident slots by spilling preempted
 decode state into the pinned host pool (``repro_torch.hostmem``), raw or,
@@ -50,8 +56,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--attn-impl", choices=["dense", "chunked", "flash"],
                     default=None,
                     help="attention implementation (default: the config's); "
-                         "flash sends every prefill attention to the CUDA "
-                         "kernel")
+                         "flash sends every prefill attention and every "
+                         "decode attention to the CUDA kernels")
     ap.add_argument("--trace-out", default="",
                     help="write a Chrome trace-event JSON here on exit "
                          "(open in Perfetto / chrome://tracing)")

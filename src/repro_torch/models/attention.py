@@ -4,9 +4,12 @@ decode path over an explicit KV cache.
 Port of ``repro/models/attention.py``.  ``chunked`` is the memory-safe
 plain-PyTorch default (a loop over KV chunks with running (m, l)
 statistics); ``flash`` routes every prefill attention to the hand-written
-CUDA kernel in ``repro_torch.kernels.flash_attention``, the place where
-the reference routes ``pallas`` to its TPU kernel.  Decode stays on the
-chunked path, as in the reference.
+CUDA flash-attention kernel in ``repro_torch.kernels.flash_attention``,
+the place where the reference routes ``pallas`` to its TPU kernel, and
+every decode attention (one query row with ``kv_len``) to the flash-decode
+kernel of the same package, which reads only the valid cache rows in the
+cache's dtype.  The reference never calls its decode kernel from a model;
+its decode stays on the chunked path, which ``flash`` decode matches.
 """
 from __future__ import annotations
 
@@ -135,6 +138,8 @@ def _attend(cfg: ModelConfig, q, k, v, *, causal: bool, q_offset: int = 0,
         from repro_torch.kernels.flash_attention import ops as fa_ops
         if kv_len is None and q.shape[1] > 1:
             return fa_ops.flash_attention(q, k, v, causal=causal)
+        if kv_len is not None and q.shape[1] == 1:
+            return fa_ops.flash_decode(q, k, v, kv_len)
     if cfg.attn_impl == "dense" and kv_len is None:
         return dense_attention(cfg, q, k, v, causal=causal, q_offset=q_offset)
     return chunked_attention(cfg, q, k, v, causal=causal, q_offset=q_offset,

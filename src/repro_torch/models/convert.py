@@ -1,13 +1,16 @@
 """Load a reference parameter pytree into the port's model.
 
-The reference keeps parameters as nested dicts of arrays, with the dense
-blocks stacked along a leading layer axis ``(L, ...)`` and weights in
-``(in, out)`` layout.  ``params_from_reference`` takes that pytree with
+The reference keeps parameters as nested dicts of arrays, with the blocks
+(dense, or ssm with ``ln`` and the eight ``ssm`` leaves) stacked along a
+leading layer axis ``(L, ...)`` and weights in ``(in, out)`` layout.  ``params_from_reference`` takes that pytree with
 numpy leaves (the caller converts from JAX; the port never imports it) and
 copies every leaf into the matching parameter of a
-``transformer.Model``: module attribute names equal the pytree's keys.
-``decode_state_from_reference`` does the same for a decode state, so both
-packages can spill the same bytes.
+``transformer.Model``: module attribute names equal the pytree's keys, and
+each leaf takes its parameter's dtype (the ssm block's ``A_log``,
+``dt_bias`` and ``D`` are f32 parameters, so they stay f32).
+``decode_state_from_reference`` does the same for a decode state (KV
+cache, or the ssm family's ``ssm_conv`` and ``ssm_ssd``), so both packages
+can spill the same bytes.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """Family dispatch: one uniform API over the model zoo.
 
-Port of ``repro/models/registry.py`` for the dense family.  ``loss_fn``
-joins with the training slice; other families raise until their slice
-(``transformer.check_family``).
+Port of ``repro/models/registry.py`` for the dense and ssm families.
+``loss_fn`` joins with the training slice; other families raise until their
+slice (``transformer.check_family``).
 """
 from __future__ import annotations
 

@@ -1,0 +1,137 @@
+"""Mamba-2 (SSD, state-space duality) block.
+
+Port of ``repro/models/ssm.py``.  The full-sequence block runs the chunked
+SSD scan through ``repro_torch.kernels.ssd_scan.ops.ssd_scan``: the
+hand-written CUDA kernel on the card, its plain version (``ssd_chunked``
+ported) on the CPU.  The scan returns the final state with y, so a prefill
+takes its decode state from the same pass (``apply_ssm(return_state=
+True)``); the reference runs the scan a second time for it.  Decode is the
+one-token recurrence over the persistent (conv, ssd) state, in plain
+PyTorch as in the reference, which has no kernel for it.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.core.sites import tag
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.models.layers import _const, _normal, dense_init, torch_dtype
+
+
+class Ssm(nn.Module):
+    """Parameters of one Mamba-2 block, named as the reference's dict keys.
+    The fused in-projection is [z (di), x (di), B (ds), C (ds), dt (nh)];
+    ``A_log``, ``dt_bias`` and ``D`` stay f32 whatever the parameter dtype."""
+
+    def __init__(self, cfg: ModelConfig, *,
+                 generator: Optional[torch.Generator], device: torch.device):
+        super().__init__()
+        d, di, ds, nh = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
+        kw = dict(generator=generator, device=device)
+        ch = di + 2 * ds
+        self.in_proj = dense_init(d, 2 * di + 2 * ds + nh, cfg, **kw)
+        self.conv_w = _normal((cfg.ssm_conv_width, ch), 0.1, cfg, **kw)
+        self.conv_b = _const((ch,), 0.0, cfg, device)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.A_log = nn.Parameter(torch.log(torch.arange(1, nh + 1, **f32)))
+        self.dt_bias = nn.Parameter(torch.zeros(nh, **f32))
+        self.D = nn.Parameter(torch.ones(nh, **f32))
+        self.norm_scale = _const((di,), 1.0, cfg, device)
+        self.out_proj = dense_init(di, d, cfg, **kw)
+
+
+def _split_proj(cfg: ModelConfig, proj):
+    di, ds = cfg.ssm_d_inner, cfg.ssm_state
+    return proj[..., :di], proj[..., di:2 * di + 2 * ds], proj[..., 2 * di + 2 * ds:]
+
+
+def _causal_conv(cfg: ModelConfig, p: Ssm, xbc):
+    """Depthwise causal conv over (B, S, channels), in xbc's dtype."""
+    W, S = cfg.ssm_conv_width, xbc.shape[1]
+    pads = F.pad(xbc, (0, 0, W - 1, 0))
+    out = pads[:, 0:S] * p.conv_w[0]
+    for i in range(1, W):
+        out = out + pads[:, i:i + S] * p.conv_w[i]
+    return F.silu(out + p.conv_b.to(out.dtype))
+
+
+def _gated_norm(p: Ssm, y, z, dtype):
+    """y * silu(z), then RMSNorm over d_inner scaled by ``norm_scale``."""
+    y = y * F.silu(tag(z, "ssm_gate"))
+    yf = y.float()
+    y = (yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + 1e-6)
+         ).to(dtype)
+    return y * p.norm_scale.to(dtype)
+
+
+class SSMState(NamedTuple):
+    conv: torch.Tensor   # (L, B, W-1, di + 2*ds) in the activation dtype
+    ssd: torch.Tensor    # (L, B, H, P, N) f32
+
+
+def init_ssm_state(cfg: ModelConfig, batch: int, *,
+                   device: torch.device) -> SSMState:
+    di, ds, L = cfg.ssm_d_inner, cfg.ssm_state, cfg.num_layers
+    return SSMState(
+        torch.zeros((L, batch, cfg.ssm_conv_width - 1, di + 2 * ds),
+                    dtype=torch_dtype(cfg.dtype), device=device),
+        torch.zeros((L, batch, cfg.ssm_heads, cfg.ssm_head_dim, ds),
+                    dtype=torch.float32, device=device))
+
+
+def apply_ssm(cfg: ModelConfig, p: Ssm, x, *, return_state: bool = False):
+    """Full-sequence Mamba-2 block.  x (B,S,d) -> (B,S,d); with
+    ``return_state`` also the (conv (B,W-1,ch), ssd (B,H,P,N) f32) state
+    after the last token, which is what ``prefill`` stores."""
+    B, S, _ = x.shape
+    di, ds, nh, hp = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    proj = tag(x @ p.in_proj, "ssm_in")
+    z, xbc_raw, dt_raw = _split_proj(cfg, proj)
+    xbc = tag(_causal_conv(cfg, p, xbc_raw), "ssm_conv")
+    xs = xbc[..., :di].reshape(B, S, nh, hp)       # views: the kernel takes strides
+    Bm = xbc[..., di:di + ds]
+    Cm = xbc[..., di + ds:]
+    dt = F.softplus(dt_raw.float() + p.dt_bias)
+    A = -torch.exp(p.A_log)
+    y, ssd_state = ssd_ops.ssd_scan(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+    y = y.to(x.dtype) + xs * p.D.to(x.dtype)[None, None, :, None]
+    y = _gated_norm(p, y.reshape(B, S, di), z, x.dtype)
+    out = tag(y @ p.out_proj, "ssm_out")
+    if not return_state:
+        return out
+    W = cfg.ssm_conv_width
+    conv_state = (xbc_raw[:, S - (W - 1):] if S >= W - 1
+                  else F.pad(xbc_raw, (0, 0, W - 1 - S, 0)))
+    return out, (conv_state, ssd_state)
+
+
+def decode_ssm(cfg: ModelConfig, p: Ssm, x, state: Tuple[torch.Tensor,
+                                                          torch.Tensor]):
+    """One-token decode.  x (B,1,d); state (conv (B,W-1,ch), ssd (B,H,P,N)).
+    Returns (out (B,1,d), (new conv, new ssd)); the state is not modified."""
+    B = x.shape[0]
+    di, ds, nh, hp = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    conv_state, ssd_state = state
+    proj = x @ p.in_proj
+    z, xbc, dt_raw = _split_proj(cfg, proj)
+    window = torch.cat([conv_state, xbc[:, 0][:, None].to(conv_state.dtype)],
+                       dim=1)                                   # (B, W, ch)
+    conv_out = torch.einsum("bwc,wc->bc", window.float(), p.conv_w.float())
+    conv_out = F.silu(conv_out + p.conv_b.float())
+    new_conv = window[:, 1:]
+    xs = conv_out[..., :di].reshape(B, nh, hp)
+    Bm = conv_out[..., di:di + ds]
+    Cm = conv_out[..., di + ds:]
+    dt = F.softplus(dt_raw[:, 0].float() + p.dt_bias)           # (B, nh)
+    dA = torch.exp(dt * -torch.exp(p.A_log)[None, :])
+    new_ssd = (ssd_state * dA[:, :, None, None]
+               + torch.einsum("bhp,bn->bhpn", xs * dt[..., None], Bm))
+    y = torch.einsum("bhpn,bn->bhp", new_ssd, Cm)
+    y = y + xs * p.D[None, :, None]
+    y = _gated_norm(p, y.reshape(B, 1, di).to(x.dtype), z, x.dtype)
+    return y @ p.out_proj, (new_conv, new_ssd)

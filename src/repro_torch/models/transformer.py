@@ -1,9 +1,10 @@
-"""Decoder-only LM, dense family.
+"""Decoder-only LM, dense and ssm (Mamba-2) families.
 
-Port of the dense family of ``repro/models/transformer.py``.  The layer
-stack is a Python loop over an ``nn.ModuleList`` where the reference scans
-over stacked parameters.  The other families raise ``NotImplementedError``
-naming the slice of ROADMAP.md queue 1 that ports them.
+Port of the dense and ssm families of ``repro/models/transformer.py``.  The
+layer stack is a Python loop over an ``nn.ModuleList`` where the reference
+scans over stacked parameters.  The other families raise
+``NotImplementedError`` naming the slice of ROADMAP.md queue 1 that ports
+them.
 """
 from __future__ import annotations
 
@@ -17,11 +18,12 @@ from repro_torch.common.device import resolve_device
 from repro_torch.core.sites import tag
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as ssm_lib
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "ssm")
 # family -> the slice of ROADMAP.md queue 1 that ports it
-_FAMILY_SLICE = {"ssm": "slice 6 (K4 with the SSM family)",
-                 "hybrid": "slice 6 (K4 with the SSM family)"}
+_FAMILY_SLICE = {"hybrid": "slice 7 (the rest of the model zoo, with the "
+                           "hybrid family's shared attention block)"}
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -30,7 +32,14 @@ def check_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: it comes with {where} "
             f"of ROADMAP.md queue 1; the port runs {PORTED_FAMILIES}")
-    if (cfg.act, cfg.glu, cfg.pos_embedding, cfg.logits_softcap) != (
+    if cfg.family == "ssm":
+        if (cfg.pos_embedding, cfg.tie_embeddings, cfg.logits_softcap) != (
+                "none", True, 0.0):
+            raise NotImplementedError(
+                "the ssm port runs tied embeddings with no position "
+                "embedding and no logit soft-cap; other variants come with "
+                "slice 7 of ROADMAP.md queue 1")
+    elif (cfg.act, cfg.glu, cfg.pos_embedding, cfg.logits_softcap) != (
             "silu", True, "rope", 0.0):
         raise NotImplementedError(
             "the dense port runs SiLU-GLU with RoPE and no logit soft-cap; "
@@ -49,8 +58,16 @@ class DenseBlock(nn.Module):
         self.mlp = L.Mlp(cfg, **kw)
 
 
+class SsmBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, *,
+                 generator: Optional[torch.Generator], device: torch.device):
+        super().__init__()
+        self.ln = L.Norm(cfg, device=device)
+        self.ssm = ssm_lib.Ssm(cfg, generator=generator, device=device)
+
+
 class Model(nn.Module):
-    """Parameters of a dense decoder; attribute names follow the
+    """Parameters of a dense or ssm decoder; attribute names follow the
     reference's parameter pytree (``embed``, ``ln_f``, ``blocks``)."""
 
     def __init__(self, cfg: ModelConfig, *,
@@ -60,8 +77,9 @@ class Model(nn.Module):
         kw = dict(generator=generator, device=device)
         self.embed = L.Embedding(cfg, **kw)
         self.ln_f = L.Norm(cfg, device=device)
+        block = SsmBlock if cfg.family == "ssm" else DenseBlock
         self.blocks = nn.ModuleList(
-            [DenseBlock(cfg, **kw) for _ in range(cfg.num_layers)])
+            [block(cfg, **kw) for _ in range(cfg.num_layers)])
 
     @property
     def device(self) -> torch.device:
@@ -94,6 +112,17 @@ def dense_block(cfg: ModelConfig, p: DenseBlock, x, positions, *,
     return (x, aux, kv) if return_kv else (x, aux)
 
 
+def ssm_block(cfg: ModelConfig, p: SsmBlock, x, *, return_state: bool = False):
+    """Pre-norm Mamba-2 block; returns x, or (x, (conv, ssd)) with
+    ``return_state``."""
+    x = tag(x, "ln_in")
+    h = L.apply_norm(cfg, p.ln, x)
+    out = ssm_lib.apply_ssm(cfg, p.ssm, h, return_state=return_state)
+    out, st = out if return_state else (out, None)
+    x = tag(x + out, "resid_post")
+    return (x, st) if return_state else x
+
+
 # ============================================================ full forward
 def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device)[None, :].expand(B, S)
@@ -101,10 +130,19 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 def _forward(cfg: ModelConfig, model: Model, tokens, positions, causal: bool,
              kv_sink: Optional[List[Tuple[torch.Tensor, torch.Tensor]]]):
+    """The layer stack.  ``kv_sink`` collects each layer's decode state:
+    (k, v) for dense blocks, (conv, ssd) for ssm blocks."""
     check_family(cfg)
     x = L.embed_tokens(cfg, model.embed, tokens)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in model.blocks:
+        if cfg.family == "ssm":
+            if kv_sink is None:
+                x = ssm_block(cfg, blk, x)
+            else:
+                x, st = ssm_block(cfg, blk, x, return_state=True)
+                kv_sink.append(st)
+            continue
         if kv_sink is None:
             x, a = dense_block(cfg, blk, x, positions, causal=causal)
         else:
@@ -129,7 +167,7 @@ def forward(cfg: ModelConfig, model: Model, tokens, *, positions=None,
 # ============================================================ decode paths
 class DecodeState(NamedTuple):
     """Per-request generation state (stacked over layers where applicable).
-    Fields of the other families stay ``None`` in the dense port."""
+    Fields a family does not use stay ``None``."""
     attn_k: Optional[torch.Tensor]    # (L_attn, B, Smax, Kh, D)
     attn_v: Optional[torch.Tensor]
     ssm_conv: Optional[torch.Tensor]  # (L_ssm, B, W-1, ch)
@@ -144,11 +182,17 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device: Union[str, torch.device, None] = None
                       ) -> DecodeState:
     """Zeroed cache on ``params``' device when given, else on ``device``
-    (default ``cuda``)."""
+    (default ``cuda``).  The ssm family keeps no KV cache: its state is the
+    conv window (L,B,W-1,ch) in the activation dtype and the SSD state
+    (L,B,H,P,N) in f32, whatever ``max_len``."""
     check_family(cfg)
     dev = params.device if params is not None else resolve_device(device)
+    pos = torch.zeros((batch,), dtype=torch.int64, device=dev)
+    if cfg.family == "ssm":
+        st = ssm_lib.init_ssm_state(cfg, batch, device=dev)
+        return DecodeState(None, None, st.conv, st.ssd, None, None, pos)
     cache = attn.init_kv_cache(cfg, batch, max_len, device=dev)
-    return DecodeState(cache.k, cache.v, None, None, None, None, cache.length)
+    return DecodeState(cache.k, cache.v, None, None, None, None, pos)
 
 
 def _dense_decode_block(cfg, p: DenseBlock, x, kv, positions):
@@ -159,13 +203,26 @@ def _dense_decode_block(cfg, p: DenseBlock, x, kv, positions):
     return x + L.apply_mlp(cfg, p.mlp, h), kv
 
 
+def _ssm_decode_block(cfg, p: SsmBlock, x, state):
+    h = L.apply_norm(cfg, p.ln, x)
+    out, state = ssm_lib.decode_ssm(cfg, p.ssm, h, state)
+    return x + out, state
+
+
 def decode_step(cfg: ModelConfig, model: Model, tokens, state: DecodeState):
-    """tokens (B,1) -> (logits (B,1,V), new state).  The KV cache tensors
-    of ``state`` are updated in place; the returned state shares them."""
+    """tokens (B,1) -> (logits (B,1,V), new state).  The cache / SSM state
+    tensors of ``state`` are updated in place; the returned state shares
+    them."""
     check_family(cfg)
     positions = state.pos
     x = L.embed_tokens(cfg, model.embed, tokens)
     for i, blk in enumerate(model.blocks):
+        if cfg.family == "ssm":
+            x, (conv, ssd) = _ssm_decode_block(
+                cfg, blk, x, (state.ssm_conv[i], state.ssm_ssd[i]))
+            state.ssm_conv[i] = conv
+            state.ssm_ssd[i] = ssd
+            continue
         x, _ = _dense_decode_block(cfg, blk, x,
                                    (state.attn_k[i], state.attn_v[i]),
                                    positions)
@@ -177,9 +234,10 @@ def decode_step(cfg: ModelConfig, model: Model, tokens, state: DecodeState):
 def prefill(cfg: ModelConfig, model: Model, tokens, max_len: int):
     """Run the full-sequence forward and build the decode state.
 
-    The reference runs the layer stack a second time to re-project K/V;
-    here the rope'd K/V that each layer attended over are collected in the
-    same pass, which gives the same cache and the same logits."""
+    The reference runs the layer stack a second time to re-project K/V or
+    to rerun each SSM layer's scan for its final state; here each layer's
+    rope'd K/V, or its conv window and the SSD scan's final state, are
+    collected in the same pass, which gives the same state and logits."""
     B, S = tokens.shape
     if S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
@@ -187,8 +245,13 @@ def prefill(cfg: ModelConfig, model: Model, tokens, max_len: int):
     logits, _ = _forward(cfg, model, tokens, _positions(B, S, tokens.device),
                          True, kvs)
     state = init_decode_state(cfg, B, max_len, params=model)
+    pos = torch.full((B,), S, dtype=torch.int64, device=tokens.device)
+    if cfg.family == "ssm":
+        for i, (conv, ssd) in enumerate(kvs):
+            state.ssm_conv[i] = conv
+            state.ssm_ssd[i] = ssd
+        return logits, state._replace(pos=pos)
     for i, (k, v) in enumerate(kvs):
         state.attn_k[i, :, :S] = k.to(state.attn_k.dtype)
         state.attn_v[i, :, :S] = v.to(state.attn_v.dtype)
-    return logits, state._replace(pos=torch.full((B,), S, dtype=torch.int64,
-                                                 device=tokens.device))
+    return logits, state._replace(pos=pos)

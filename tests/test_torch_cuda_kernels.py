@@ -172,3 +172,125 @@ def test_swap_out_source_released_at_issue(card):
     back = eng.wait(eng.submit_swap_in(ev)).result
     torch.cuda.synchronize()
     assert torch.equal(back.cpu(), want)
+
+
+# ------------------------------------------------------- flash-decode (K3)
+# (B, Sk, H, Kh, D, lens): tests/test_kernels.py::test_flash_decode_sweep,
+# then GQA groups of 4 and 8, head dim 16, llama2-paper's decode shape with
+# ragged lens, and a zero length (zeros, by the kernel's contract)
+DECODE_SWEEP = [
+    (2, 160, 4, 2, 32, (100, 37)),
+    (2, 128, 4, 2, 32, (128, 1)),
+    (2, 512, 4, 2, 32, (512, 300)),
+    (2, 256, 16, 4, 64, (200, 3)),
+    (1, 300, 8, 1, 128, (299,)),
+    (3, 96, 6, 3, 16, (96, 50, 0)),
+    (4, 1024, 32, 32, 128, (1, 37, 700, 1024)),
+]
+
+
+def _decode_inputs(card, B, Sk, H, Kh, D, dtype, seed=0):
+    """Peaked q and k (2 x randn) and a random cache everywhere, rows past
+    ``lens`` included: a kernel that reads them gives another answer."""
+    rng = np.random.RandomState(seed)
+    return (torch.from_numpy(rng.randn(*shape).astype(np.float32) * scale)
+            .to(card, getattr(torch, dtype))
+            for shape, scale in (((B, 1, H, D), QK_SCALE),
+                                 ((B, Sk, Kh, D), QK_SCALE),
+                                 ((B, Sk, Kh, D), 1.0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sk,H,Kh,D,lens", DECODE_SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_kernel_matches_plain(card, B, Sk, H, Kh, D, lens, dtype):
+    q, k, v = _decode_inputs(card, B, Sk, H, Kh, D, dtype)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=card)
+    before = ops.flash_decode.launches
+    out = ops.flash_decode(q, k, v, lens_t)
+    torch.cuda.synchronize()
+    assert ops.flash_decode.launches == before + 1
+    ref = ops.flash_decode_plain(q, k, v, lens_t)
+    o, r = out.float().cpu().numpy(), ref.float().cpu().numpy()
+    np.testing.assert_allclose(o, r, rtol=TOL[dtype], atol=TOL[dtype])
+    assert np.linalg.norm(o - r) <= FRO_TOL[dtype] * np.linalg.norm(r)
+    assert np.abs(o - r).max() <= MAX_TOL[dtype] * np.abs(r).max()
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert not o[b].any()
+
+
+@pytest.mark.cuda
+def test_flash_decode_rejects_a_strided_cache(card):
+    q, k, v = _decode_inputs(card, 2, 64, 4, 2, 32, "bfloat16")
+    lens = torch.tensor([3, 4], dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_decode(q, k.transpose(0, 1).contiguous().transpose(0, 1),
+                         v, lens)
+
+
+# ----------------------------------------------------------- SSD scan (K4)
+from repro_torch.kernels.ssd_scan import ops as SSD  # noqa: E402
+
+# (B, S, H, P, N, chunk): tests/test_kernels.py::test_ssd_scan_sweep (padded
+# tail and N 128 included), then mamba2-780m's widths at a ragged length
+SSD_SWEEP = [
+    (2, 256, 3, 32, 16, 64),
+    (1, 128, 2, 64, 32, 128),
+    (1, 100, 1, 16, 8, 32),
+    (2, 64, 4, 32, 128, 64),
+    (1, 301, 8, 64, 128, 256),
+]
+# y: f32 arithmetic in both, in another order (the running sum of dt * A
+# reaches ~1e3 inside a chunk, so exp(cs_i - cs_j) carries ~1e-4 relative
+# error in the terms that matter); bf16 adds the rounding of y (2^-9).
+SSD_TOL = {"float32": (2e-3, 1e-4), "bfloat16": (2e-2, 1e-2)}
+
+
+def ssd_inputs(card, B, S, H, P, N, dtype, seed=0):
+    """The model's layout: x, Bm and Cm are views into one (B, S, H*P + 2N)
+    convolution output; dt in [0.01, 1] and A = -(1..H), as the model's
+    A_log gives, so decay and the carried state both matter."""
+    rng = np.random.RandomState(seed)
+    xbc = np.concatenate([rng.randn(B, S, H * P) * 0.5,
+                          rng.randn(B, S, 2 * N) * 0.3], axis=-1)
+    xbc = torch.from_numpy(xbc.astype(np.float32)).to(card, getattr(torch, dtype))
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dt = torch.from_numpy(rng.uniform(0.01, 1.0, (B, S, H)).astype(np.float32)
+                          ).to(card)
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=card)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_kernel_matches_plain(card, B, S, H, P, N, chunk, dtype):
+    x, dt, A, Bm, Cm = ssd_inputs(card, B, S, H, P, N, dtype)
+    assert not x.is_contiguous() and not Bm.is_contiguous()
+    before = SSD.ssd_scan.launches
+    y, st = SSD.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert SSD.ssd_scan.launches == before + 1
+    yr, sr = SSD.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    assert y.dtype == x.dtype and st.dtype == torch.float32
+    tol, fro = SSD_TOL[dtype]
+    for got, want, t, f in ((y, yr, tol, fro), (st, sr, 2e-3, 1e-4)):
+        g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, w, rtol=t, atol=t)
+        assert np.linalg.norm(g - w) <= f * np.linalg.norm(w)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_rejects_what_it_does_not_take(card):
+    x, dt, A, Bm, Cm = ssd_inputs(card, 1, 64, 2, 16, 8, "float32")
+    with pytest.raises(TypeError, match="one dtype"):
+        SSD.ssd_scan(x, dt, A, Bm.bfloat16(), Cm, chunk=32)
+    with pytest.raises(ValueError, match="unit stride"):
+        SSD.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A,
+                     Bm, Cm, chunk=32)
+    big = torch.zeros(1, 64, 256, device=card)
+    with pytest.raises(ValueError, match="multiple of 4 up to"):
+        SSD.ssd_scan(x, dt, A, big, big, chunk=32)

@@ -163,8 +163,8 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
 def test_unported_family_raises():
     with pytest.raises(NotImplementedError, match="model zoo"):
         PT.init_model(PC.get_reduced("qwen3-moe-30b-a3b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="SSM"):
-        PT.init_model(PC.get_reduced("mamba2-780m"), device="cpu")
+    with pytest.raises(NotImplementedError, match="hybrid family"):
+        PT.init_model(PC.get_reduced("zamba2-1.2b"), device="cpu")
 
 
 @pytest.mark.parametrize("name", RC.ALL_IDS)
