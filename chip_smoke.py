@@ -8,7 +8,8 @@ Phases, each printing JSON lines:
 1. env        card name and power limit (nvidia-smi), torch and CUDA versions;
               TF32 off so float32 products are float32.
 2. build      every CUDA source of the port compiled with nvcc for sm_90a,
-              all at once (``repro_torch.kernels._build``).
+              all at once (``repro_torch.kernels._build``), with ptxas's
+              registers, spills and C75xx notes per library.
 3. kernel     the flash-attention kernel (K1) against its plain PyTorch
               version on the card, on inputs whose softmax is peaked: the
               reference kernel test sweep, a GQA case, kv_lens cases and
@@ -16,7 +17,7 @@ Phases, each printing JSON lines:
               phase sends, in bf16, and three timed lengths in both
               dtypes), held to the limits at TOL / FRO_TOL / MAX_TOL below;
               device times (CUDA graphs) of the kernel, the plain version
-              and SDPA as a yardstick, and the bound.
+              and SDPA as a yardstick, K1 / SDPA, and the bound.
 4. quant      the int8 quantize (K2a) and dequantize (K2b) kernels against
               their plain versions, bit for bit (``torch.equal`` on payload,
               scales and output): the reference sweep shapes, ragged row
@@ -33,7 +34,9 @@ Phases, each printing JSON lines:
 6. ssd_kernel the SSD-scan kernel (K4) against its plain version, y and the
               final state, at mamba2-780m's widths for prefill lengths 77,
               384 and 901 in both dtypes (SSD_TOL); bf16 timed beside its
-              plain version and the bound.
+              plain version, with the tensor-core bound (``ssd_bound``),
+              the f32-FMA bound (``bound_f32_ms``) and the device kernels
+              one call launches (``passes``, torch.profiler).
 7. serve      ``repro_torch.launch.serve.main`` on full-width llama2-paper
               (bf16, random weights from a seed) with ``--attn-impl flash``:
               8 requests, 4 slots, prompts of 65..900 tokens, 32 new tokens
@@ -358,6 +361,7 @@ def phase_kernel(device, cases):
                         **({"enable_gqa": True} if H != Kh else {})))
                 row["bound_ms"], row["bound_by"] = attention_bound(
                     B, Sq, Sk, H, Kh, D, causal, kv_lens, dtype)
+                row["sdpa_ratio"] = row["ms"] / row["library_ms"]
             emit("kernel", name="flash_attention_fwd", **row)
             if not row["ok"]:
                 raise AssertionError(f"flash_attention disagrees with its "
@@ -558,23 +562,67 @@ def ssd_check(y, yr, st, sr, dname) -> dict:
     return row
 
 
-def ssd_bound(B, S, H, P, N, chunk, esize):
-    """Least time for the SSD scan on these inputs: x, Bm, Cm, dt and A
-    read once, y and the f32 state written once over HBM bandwidth, against
-    the f32 multiply-adds the chunked algorithm needs (C B^T once per chunk
-    over its causal pairs, and per head the masked product with x, the
-    carried state's term and the state update) over the f32 peak: the
-    reference's arithmetic, and the limits above, are f32."""
+def ssd_bytes(B, S, H, P, N, esize):
+    """Bytes the SSD scan must move: x, Bm, Cm, dt and A read once, y and
+    the f32 state written once."""
+    return (2 * B * S * H * P * esize + 2 * B * S * N * esize
+            + 4 * B * S * H + 4 * H + 4 * B * H * P * N)
+
+
+def ssd_bound_f32(B, S, H, P, N, chunk, esize):
+    """The SSD scan's bound with every product an f32 FMA (kept beside
+    ``ssd_bound`` so earlier measurements compare): the bytes over HBM
+    bandwidth against the f32 multiply-adds of the chunked algorithm (C B^T
+    once per chunk over its causal pairs, and per head the masked product
+    with x, the carried state's term and the state update) over the f32
+    peak.  Returns ms."""
     macs = 0
     for c0 in range(0, S, chunk):
         c = min(chunk, S - c0)
         pairs = c * (c + 1) // 2
         macs += B * (pairs * N + H * (pairs * P + 2 * c * P * N))
-    nbytes = (2 * B * S * H * P * esize + 2 * B * S * N * esize
-              + 4 * B * S * H + 4 * H + 4 * B * H * P * N)
-    t_bytes, t_ops = nbytes / H100_HBM_BYTES_S, 2 * macs / H100_F32_FLOPS
+    t_bytes = ssd_bytes(B, S, H, P, N, esize) / H100_HBM_BYTES_S
+    return max(t_bytes, 2 * macs / H100_F32_FLOPS) * 1e3
+
+
+def ssd_bound(B, S, H, P, N, chunk, esize):
+    """Least time for the bf16 SSD scan on these inputs, with its products
+    on the tensor cores: the bytes over HBM bandwidth against the larger of
+    (a) the tensor-core work at the dense bf16 peak, C B^T once per chunk
+    over its causal pairs, and per head the masked product with x, the
+    carried state's term (chunks after the first: the first has no state)
+    and the state update, each twice (its f32 operand split into two bf16
+    halves), and (b) the work on the f32 units at the f32 peak, one
+    operation per exp (exp(cs_i - cs_j) per causal pair, exp(cs) and the
+    state-update weight per token) and per multiply of M = CB L dt (two per
+    pair).  The two units run at once.  Returns (ms, "bytes" or
+    "operations")."""
+    tc_macs = f32_ops = 0
+    for c0 in range(0, S, chunk):
+        c = min(chunk, S - c0)
+        pairs = c * (c + 1) // 2
+        inter = c * P * N if c0 else 0
+        tc_macs += B * (pairs * N + 2 * H * (pairs * P + inter + c * P * N))
+        f32_ops += B * H * (3 * pairs + 2 * c)
+    t_bytes = ssd_bytes(B, S, H, P, N, esize) / H100_HBM_BYTES_S
+    t_ops = max(2 * tc_macs / H100_BF16_FLOPS, f32_ops / H100_F32_FLOPS)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def device_kernels(fn, key: str) -> int:
+    """Device kernels whose name contains ``key`` that one call of ``fn``
+    launches (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and key in e.key)
 
 
 def ssd_rows(device, cfg, lens, dtypes):
@@ -615,6 +663,9 @@ def phase_ssd_kernel(device, cfg):
                 lambda: SSD.ssd_scan_plain(*ins, chunk=chunk), iters=3)
             row["bound_ms"], row["bound_by"] = ssd_bound(*row["shape"],
                                                          chunk, 2)
+            row["bound_f32_ms"] = ssd_bound_f32(*row["shape"], chunk, 2)
+            row["passes"] = device_kernels(
+                lambda: SSD.ssd_scan(*ins, chunk=chunk), "ssd_scan")
             row["library_ms"] = None
             row["library"] = ("none: no single PyTorch call computes the "
                               "SSD chunked scan")
@@ -1073,9 +1124,11 @@ def main() -> int:
     paths = _build.build()
     emit("build", seconds=time.perf_counter() - t0,
          libraries={n: os.path.relpath(p, ROOT) for n, p in paths.items()},
-         ptxas=[ln.strip() for n, p in paths.items()
-                for ln in p.with_suffix(".log").read_text().splitlines()
-                if "registers" in ln or "spill" in ln])
+         ptxas={n: [ln.strip() for ln in
+                    p.with_suffix(".log").read_text().splitlines()
+                    if any(k in ln for k in ("entry function", "registers",
+                                             "spill", "C75"))]
+                for n, p in paths.items()})
 
     import repro_torch.configs as C
     from repro_torch.models import transformer as T

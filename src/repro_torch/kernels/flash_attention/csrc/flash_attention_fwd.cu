@@ -14,27 +14,40 @@
 // the H100's ~295 bf16 flops per byte, so moving q, k, v and o once is the
 // bound, with tensor-core time close behind at the longest prompts.
 //
-// What the design does.  Both kernels run one thread block per (query tile
-// of 64 rows, head, batch): the reference's sequential KV grid axis becomes
-// a loop inside the block, and each K/V tile is read from device memory
-// once per block and staged in shared memory.  Ragged Sq / Sk edges are
-// masked from indices (no padded copies).
-//   * bf16 (the serving path): 4 warps, 16 query rows each, products on the
-//     tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate).  Q stays
-//     in registers as A fragments for the whole loop; S = Q K^T comes out in
-//     the accumulator layout, which is also the A-fragment layout of P for
-//     P V, so the probabilities never touch shared memory (P is rounded to
-//     bf16 for that product, as in FlashAttention-2).  Rows are padded by 8
-//     elements so fragment loads hit 32 distinct banks.  Tiles are loaded
-//     with 16-byte vector loads, synchronously: no cp.async / TMA double
-//     buffering and no wgmma yet, which is where the rest of the gap to the
-//     bound lies.
+// What the design does.
+//   * bf16 (the serving path): one block per (head, query tile, batch row)
+//     with one or two consumer warpgroups of 64 query rows each and one
+//     producer warpgroup.  One producer thread issues TMA copies
+//     (cp.async.bulk.tensor through 4-D tensor maps (D, heads, S, B), so a
+//     tile that runs past S is zero-filled and never reads the next batch
+//     row): Q once, and K/V tiles of KT keys into a ring of STAGES stages,
+//     each K and each V tile with its own full and empty mbarriers.  The
+//     consumers wait on a tile's phase, compute S = Q K^T with wgmma
+//     (m64 n128 k16, Q and K read from shared memory, K-major) and release
+//     K; mask only the tiles that cross the diagonal or kv_len; run the
+//     online softmax in registers; convert P to bf16 A fragments in
+//     registers (the accumulator layout of S is the A-fragment layout of P,
+//     as in FlashAttention-2/3; P rounded to bf16 for P V); and compute
+//     O += P V with wgmma (A from registers, V the MN-major shared operand,
+//     transpose bit set), then release V.  Tile t's Q K^T is issued before
+//     tile t-1's P V, so tile t's softmax runs while that P V is on the
+//     tensor cores, and two consumer warpgroups take turns to issue their
+//     products (named barriers), so one's softmax runs while the other's
+//     products do (FlashAttention-3's ping-pong).  The softmax is one FFMA
+//     and one ex2.approx per score.  Tiles are stored with the widest
+//     swizzle a D-wide row slice allows (128 B at D 64 and 128, split into
+//     two 64-column atom columns at D 128; 64 B at D 32; 32 B at D 16),
+//     which is what the wgmma descriptors read.  The producer gives its
+//     registers to the consumers with setmaxnreg.  Query tiles are issued
+//     longest first (blockIdx.y reversed, heads fastest), so the grid's
+//     tail runs the short causal tiles.
 //   * f32: scalar FMAs from shared memory (tensor cores would round f32 to
 //     TF32); each thread owns 4 rows x 4 keys of S and the same 4 rows x
 //     D/16 output columns, with rows padded to D + 1 floats.  A correctness
 //     path for float32 models: no configuration served on the card is f32,
 //     and at llama2 prefill shapes it is slower than the plain version.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,8 +56,8 @@
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per block
-constexpr int BK = 64;          // keys per KV tile
+constexpr int BQ = 64;          // f32: query rows per block
+constexpr int BK = 64;          // f32: keys per KV tile
 constexpr float NEG_INF = -1e30f;
 
 // ------------------------------------------------------------- f32 kernel
@@ -196,15 +209,106 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ------------------------------------------------------------ bf16 kernel
-constexpr int NT16 = 128;       // 4 warps x 16 query rows
+constexpr int KT = 128;         // keys per K/V tile: the n of S = Q K^T
+constexpr int STAGES = 2;       // depth of the K/V ring
+constexpr int PRODUCER_REGS = 24;
 
-template <int D>
-constexpr int smem_bytes_bf16() {
-  return 3 * BQ * (D + 8) * (int)sizeof(__nv_bfloat16);   // Q, K, V tiles
+// Registers a thread starts with (the launch bound) and what a consumer
+// raises them to once the producer warpgroup has lowered its own to
+// PRODUCER_REGS: the two changes balance, so setmaxnreg never waits.
+template <int NWG> struct Regs {
+  static constexpr int ENTRY = NWG == 2 ? 168 : 128;
+  static constexpr int CONSUMER = (ENTRY + (ENTRY - PRODUCER_REGS) / NWG) / 8 * 8;
+  static constexpr int MIN_BLOCKS = NWG == 2 ? 1 : 2;
+};
+
+// How a D-wide bf16 row slice sits in shared memory: rows of SW bytes (SWE
+// elements) swizzled over SW bytes, NA atom columns across D.
+template <int D> struct Geo {
+  static constexpr int SW = D * 2 >= 128 ? 128 : D * 2;
+  static constexpr int SWE = SW / 2;
+  static constexpr int NA = D / SWE;
+  static constexpr int LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;   // wgmma descriptor
+};
+
+template <int D, int NWG> struct Smem {
+  static constexpr int BQ16 = 64 * NWG;
+  static constexpr int Q_BYTES = BQ16 * D * 2;
+  static constexpr int KV_BYTES = KT * D * 2;           // one K or V tile
+  static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 4 * STAGES) + 1024;  // + alignment
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n"
+      :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle layout.
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo, int layout) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4)
+         | (uint64_t)((lbo >> 4) & 0x3FFF) << 16
+         | (uint64_t)((sbo >> 4) & 0x3FFF) << 32
+         | (uint64_t)layout << 62;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Keep the compiler from moving reads or writes of an accumulator across a
+// wgmma fence or wait: the asynchronous product owns the registers between.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int R> __device__ __forceinline__ void regs_raise() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+template <int R> __device__ __forceinline__ void regs_lower() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -212,259 +316,592 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// d += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// d (m64 x n128, f32) (+)= A (m64 x k16, shared, K-major) * B (k16 x n128,
+// shared, K-major); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// rows [row0, row0 + 64) of a (rows, D) matrix with `stride` elements between
-// rows, into a shared tile with row stride LD; rows >= n_rows are zeroed.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int n_rows, int64_t stride) {
-  constexpr int V = D / 8;      // 16-byte vectors per row
-  for (int i = threadIdx.x; i < BQ * V; i += NT16) {
-    const int r = i / V, c = (i % V) * 8, pos = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (pos < n_rows) val = *reinterpret_cast<const uint4*>(src + pos * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
+// d (m64 x n16, f32) += A (m64 x k16, bf16 registers) * B (k16 x n16,
+// shared, MN-major: the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
-// Fragment layout of mma m16n8k16 (g = lane / 4, t = lane % 4):
-//   A (16x16): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
-//   B (16x8):  b0 (k = 2t..2t+1, n = g), b1 (k = 2t+8..2t+9, n = g)
-//   C (16x8):  c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1)
+// d (m64 x n32, f32) += A (m64 x k16, bf16 registers) * B (k16 x n32,
+// shared, MN-major: the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// d (m64 x n64, f32) += A (m64 x k16, bf16 registers) * B (k16 x n64,
+// shared, MN-major: the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// d (m64 x n128, f32) += A (m64 x k16, bf16 registers) * B (k16 x n128,
+// shared, MN-major: the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+
+// O (m64 x D) += P (m64 x k16, registers) V (k16 x D, shared, MN-major)
 template <int D>
-__global__ void __launch_bounds__(NT16)
-flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
-               const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-               const int* __restrict__ kv_lens, int H, int Kh, int Sq, int Sk,
-               float sm_scale, int causal) {
-  constexpr int LD = D + 8;     // shared row stride: fragment loads conflict-free
-  constexpr int KS = D / 16;    // k-steps over the head dim for S = Q K^T
-  constexpr int ND = D / 8;     // n-tiles over the head dim for O
-  constexpr int NK = BK / 8;    // n-tiles over the keys of a tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + BQ * LD;
-  __nv_bfloat16* sV = sK + BK * LD;
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 16) wgmma_rs_n16(d, a, db);
+  else if constexpr (D == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (D == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kh = h / (H / Kh);
-  const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t = threadIdx.x & 3;
-
-  const int64_t q_stride = (int64_t)H * D;
-  const int64_t kv_stride = (int64_t)Kh * D;
-  const __nv_bfloat16* qb = q + ((int64_t)b * Sq * H + h) * D;
-  const __nv_bfloat16* kb = k + ((int64_t)b * Sk * Kh + kh) * D;
-  const __nv_bfloat16* vb = v + ((int64_t)b * Sk * Kh + kh) * D;
-  __nv_bfloat16* ob = o + ((int64_t)b * Sq * H + h) * D;
-
-  const int kv_len = kv_lens ? min(max(kv_lens[b], 0), Sk) : Sk;
-  int k_end = kv_len;
-  if (causal) k_end = min(k_end, min(q0 + BQ, Sq));
-  const int n_tiles = (k_end + BK - 1) / BK;
-
-  load_tile<D, LD>(sQ, qb, q0, Sq, q_stride);
-  __syncthreads();
-  const int wr = warp * 16;     // this warp's first row in the tile
-  uint32_t qf[KS][4];
+template <int N> __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&p)[N][4]) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const __nv_bfloat16* p = sQ + (wr + g) * LD + ks * 16 + 2 * t;
-    qf[ks][0] = ld32(p);
-    qf[ks][1] = ld32(p + 8 * LD);
-    qf[ks][2] = ld32(p + 8);
-    qf[ks][3] = ld32(p + 8 * LD + 8);
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(p[i][j]) :: "memory");
+}
+
+// S = Q K^T for one K tile, over the head dim 16 columns a step: issued and
+// committed as one group, not waited for.
+template <int D, int BQ16>
+__device__ __forceinline__ void issue_qk(float (&sacc)[KT / 2],
+                                         const unsigned char* q_wg,
+                                         const unsigned char* k_s) {
+  using G = Geo<D>;
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int a = kk * 16 / G::SWE, off = (kk * 16 % G::SWE) * 2;
+    wgmma_ss_n128(sacc, gmma_desc(q_wg + a * BQ16 * G::SW + off, 16, 8 * G::SW, G::LAYOUT),
+                  gmma_desc(k_s + a * KT * G::SW + off, 16, 8 * G::SW, G::LAYOUT), kk > 0);
   }
-  const int row0 = q0 + wr + g, row1 = row0 + 8;   // this thread's two rows
+  wg_commit();
+}
 
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;   // l: this thread's part
-  float oacc[ND][4];
+// O += P V for one V tile, 16 keys a step: issued and committed as one
+// group, not waited for.  P's registers and O's belong to the product until
+// it is waited for.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
+                                         const uint32_t (&pa)[KT / 16][4],
+                                         const unsigned char* v_s) {
+  using G = Geo<D>;
+  constexpr uint32_t V_LBO = G::NA > 1 ? KT * G::SW : 16;   // next atom column
+  wg_fence();
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  for (int kk = 0; kk < KT / 16; ++kk)
+    wgmma_pv<D>(oacc, pa[kk], gmma_desc(v_s + kk * 16 * G::SW, V_LBO, 8 * G::SW, G::LAYOUT));
+  wg_commit();
+}
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * BK;
-    __syncthreads();            // every warp is done with the previous K / V
-    load_tile<D, LD>(sK, kb, k0, Sk, kv_stride);
-    load_tile<D, LD>(sV, vb, k0, Sk, kv_stride);
-    __syncthreads();
+// Ping-pong between two consumer warpgroups (named barriers 1 and 2): a
+// warpgroup issues its products only in its turn and then passes the turn,
+// so one warpgroup's softmax runs while the other's products do.
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+template <int NWG>
+__device__ __forceinline__ void turn_wait(int wg) {
+  if constexpr (NWG == 2)
+    asm volatile("bar.sync %0, 256;\n" :: "r"(1 + wg) : "memory");
+}
+template <int NWG>
+__device__ __forceinline__ void turn_pass(int wg) {
+  if constexpr (NWG == 2) named_arrive(2 - wg);
+}
 
-    float s[NK][4];
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const __nv_bfloat16* p = sK + (n * 8 + g) * LD + ks * 16 + 2 * t;
-        mma_bf16(s[n], qf[ks], ld32(p), ld32(p + 8));
-      }
-    }
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-    // scale, mask (-inf: exp gives exactly 0), row max over the 4 lanes of a row
-    float mx0 = NEG_INF, mx1 = NEG_INF;
+// Online softmax of one tile of raw scores, in place, for the thread's rows
+// row0 and row1: mask where `edge` (the tile crosses kv_len or the
+// diagonal; -inf, so exp2 gives exactly 0), raise the running maxima m0/m1
+// (log2 domain: scores times scale_log2) over the 4 lanes of a row, turn
+// the scores into exp2(s scale_log2 - m) (one FFMA and one MUFU.EX2 each),
+// and rescale the running sums l0/l1 by alpha before adding them.  Returns
+// alpha (a0, a1) for the accumulator.
+__device__ __forceinline__ void softmax_tile(float (&sacc)[KT / 2], int k0,
+                                             bool edge, int kv_len, int causal,
+                                             int row0, int row1, int t4,
+                                             float scale_log2, float& m0,
+                                             float& m1, float& l0, float& l1,
+                                             float& a0, float& a1) {
+  float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int n = 0; n < NK; ++n) {
+  for (int j = 0; j < KT / 8; ++j) {
+    if (edge) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + 2 * t + (e & 1);
+        const int key = k0 + 8 * j + 2 * t4 + (e & 1);
         const int row = e < 2 ? row0 : row1;
         const bool valid = key < kv_len && (!causal || key <= row);
-        s[n][e] = valid ? s[n][e] * sm_scale : -INFINITY;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    l0 *= a0;
-    l1 *= a1;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      oacc[n][0] *= a0;
-      oacc[n][1] *= a0;
-      oacc[n][2] *= a1;
-      oacc[n][3] *= a1;
-    }
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-      s[n][0] = expf(s[n][0] - mn0);
-      s[n][1] = expf(s[n][1] - mn0);
-      s[n][2] = expf(s[n][2] - mn1);
-      s[n][3] = expf(s[n][3] - mn1);
-      l0 += s[n][0] + s[n][1];
-      l1 += s[n][2] + s[n][3];
-    }
-
-    // O += P V: the C fragments of key n-tiles 2j, 2j+1 are P's A fragment j
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-      const __nv_bfloat16* vr = sV + (j * 16 + 2 * t) * LD + g;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const __nv_bfloat16* p = vr + n * 8;
-        mma_bf16(oacc[n], pa, pack_raw(p[0], p[LD]),
-                 pack_raw(p[8 * LD], p[9 * LD]));
+        if (!valid) sacc[4 * j + e] = -INFINITY;
       }
     }
+    mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
   }
-
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
   }
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  const float mn0 = fmaxf(m0, mx0 * scale_log2), mn1 = fmaxf(m1, mx1 * scale_log2);
+  a0 = fast_exp2(m0 - mn0);
+  a1 = fast_exp2(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float r0 = 0.f, r1 = 0.f;
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (row0 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + row0 * q_stride + col) =
-          pack_bf16(oacc[n][0] * inv0, oacc[n][1] * inv0);
-    if (row1 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + row1 * q_stride + col) =
-          pack_bf16(oacc[n][2] * inv1, oacc[n][3] * inv1);
+  for (int j = 0; j < KT / 8; ++j) {
+    sacc[4 * j] = fast_exp2(fmaf(sacc[4 * j], scale_log2, -mn0));
+    sacc[4 * j + 1] = fast_exp2(fmaf(sacc[4 * j + 1], scale_log2, -mn0));
+    sacc[4 * j + 2] = fast_exp2(fmaf(sacc[4 * j + 2], scale_log2, -mn1));
+    sacc[4 * j + 3] = fast_exp2(fmaf(sacc[4 * j + 3], scale_log2, -mn1));
+    r0 += sacc[4 * j] + sacc[4 * j + 1];
+    r1 += sacc[4 * j + 2] + sacc[4 * j + 3];
+  }
+  l0 = l0 * a0 + r0;
+  l1 = l1 * a1 + r1;
+}
+
+// P (bf16) as wgmma A fragments: keys 16k..16k+15 are accumulator tiles
+// 2k and 2k + 1.
+__device__ __forceinline__ void to_frags(const float (&p)[KT / 2],
+                                         uint32_t (&pa)[KT / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j) {
+    pa[j / 2][(j & 1) * 2] = pack_bf16(p[4 * j], p[4 * j + 1]);
+    pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(p[4 * j + 2], p[4 * j + 3]);
+  }
+}
+
+// Accumulator layout of wgmma m64nN (warp w of the warpgroup, g = lane / 4,
+// t = lane % 4): d[4j + e] holds row 16w + g (e < 2) or 16w + g + 8 (e >= 2),
+// column 8j + 2t + (e & 1).  That is mma.sync's C layout per 8-column tile,
+// and keys 16k..16k+15 of S (tiles 2k, 2k+1) are P's A fragment k.
+//
+// q, o: (B, Sq, H, D); k, v: (B, Sk, Kh, D); all contiguous, read through
+// the tensor maps tq / tk / tv.  kv_lens: (B,) int32 or null.
+// grid = (H, ceil(Sq / (64 NWG)), B); block = 128 (NWG + 1) threads.
+template <int D, int NWG>
+__global__ void __launch_bounds__(128 * (NWG + 1), Regs<NWG>::MIN_BLOCKS)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               __nv_bfloat16* __restrict__ o, const int* __restrict__ kv_lens,
+               int H, int Kh, int Sq, int Sk, float scale_log2, int causal) {
+  using G = Geo<D>;
+  using L = Smem<D, NWG>;
+  constexpr int BQ16 = L::BQ16;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzled tiles start on a 1024-byte boundary (the 128-byte swizzle's period)
+  unsigned char* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sK = sQ + L::Q_BYTES;                  // STAGES K tiles
+  unsigned char* sV = sK + STAGES * L::KV_BYTES;        // STAGES V tiles
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sQ + L::BAR_OFF);
+  uint64_t* full_k = bar_q + 1;
+  uint64_t* full_v = full_k + STAGES;
+  uint64_t* empty_k = full_v + STAGES;
+  uint64_t* empty_v = empty_k + STAGES;
+
+  const int h = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ16;   // longest tiles first
+  const int b = blockIdx.z;
+  const int kh = h / (H / Kh);             // GQA: the KV head of head h
+  const int kv_len = kv_lens ? min(max(kv_lens[b], 0), Sk) : Sk;
+  int k_end = kv_len;           // keys at or past k_end are masked for every row
+  if (causal) k_end = min(k_end, min(q0 + BQ16, Sq));
+  const int n_tiles = (k_end + KT - 1) / KT;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_k + s, 1);
+      mbar_init(full_v + s, 1);
+      mbar_init(empty_k + s, 128 * NWG);  // every consumer thread releases
+      mbar_init(empty_v + s, 128 * NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == NWG) {
+    // ---- producer warpgroup: one thread issues every copy
+    regs_lower<PRODUCER_REGS>();
+    if (threadIdx.x == 128 * NWG) {
+      mbar_expect_tx(bar_q, L::Q_BYTES);
+#pragma unroll
+      for (int a = 0; a < G::NA; ++a)
+        tma_load_4d(sQ + a * BQ16 * G::SW, &tq, bar_q, a * G::SWE, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        const int free_parity = ((t / STAGES) & 1) ^ 1;   // round 0 passes at once
+        mbar_wait(empty_k + s, free_parity);
+        mbar_expect_tx(full_k + s, L::KV_BYTES);
+#pragma unroll
+        for (int a = 0; a < G::NA; ++a)
+          tma_load_4d(sK + s * L::KV_BYTES + a * KT * G::SW, &tk, full_k + s,
+                      a * G::SWE, kh, t * KT, b);
+        mbar_wait(empty_v + s, free_parity);
+        mbar_expect_tx(full_v + s, L::KV_BYTES);
+#pragma unroll
+        for (int a = 0; a < G::NA; ++a)
+          tma_load_4d(sV + s * L::KV_BYTES + a * KT * G::SW, &tv, full_v + s,
+                      a * G::SWE, kh, t * KT, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroup wg: query rows q0 + 64 wg .. + 63
+    regs_raise<Regs<NWG>::CONSUMER>();
+    const int tid = threadIdx.x % 128;
+    const int g = (tid & 31) >> 2, t4 = tid & 3;
+    const int wrow = q0 + wg * 64;                 // this warpgroup's first row
+    const int row0 = wrow + (tid >> 5) * 16 + g, row1 = row0 + 8;
+    const unsigned char* q_wg = sQ + wg * 64 * G::SW;
+
+    float oacc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+    float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;   // l: this thread's part
+    float sacc[KT / 2] = {};
+    uint32_t pa[KT / 16][4];
+    mbar_wait(bar_q, 0);
+
+    // Tile t's S = Q K^T is issued before tile t-1's O += P V, and its
+    // softmax runs while that product is on the tensor cores; with two
+    // consumer warpgroups they also take turns to issue, so one's softmax
+    // runs while the other's products do.  Tile 0 is peeled, so every wgmma
+    // of the loop is issued on every pass.
+    if (NWG == 2 && wg == 1) named_arrive(1);    // warpgroup 0 goes first
+    if (n_tiles > 0) {
+      turn_wait<NWG>(wg);
+      mbar_wait(full_k, 0);
+      issue_qk<D, BQ16>(sacc, q_wg, sK);
+      turn_pass<NWG>(wg);
+      wg_wait<0>();
+      fence_regs(sacc);
+      mbar_arrive(empty_k);
+      float a0, a1;                               // oacc is 0: nothing to rescale
+      softmax_tile(sacc, 0, KT > kv_len || (causal && KT - 1 > wrow), kv_len,
+                   causal, row0, row1, t4, scale_log2, m0, m1, l0, l1, a0, a1);
+      to_frags(sacc, pa);
+    }
+    for (int tile = 1; tile < n_tiles; ++tile) {
+      const int s = tile % STAGES, phase = (tile / STAGES) & 1;
+      const int ps = (tile - 1) % STAGES, pphase = ((tile - 1) / STAGES) & 1;
+      turn_wait<NWG>(wg);
+      mbar_wait(full_k + s, phase);
+      issue_qk<D, BQ16>(sacc, q_wg, sK + s * L::KV_BYTES);
+      mbar_wait(full_v + ps, pphase);
+      issue_pv<D>(oacc, pa, sV + ps * L::KV_BYTES);
+      turn_pass<NWG>(wg);
+      wg_wait<1>();                               // S of this tile is done
+      fence_regs(sacc);
+      mbar_arrive(empty_k + s);                   // K of this tile is consumed
+      const int k0 = tile * KT;
+      const bool edge = k0 + KT > kv_len || (causal && k0 + KT - 1 > wrow);
+      float a0, a1;
+      softmax_tile(sacc, k0, edge, kv_len, causal, row0, row1, t4, scale_log2,
+                   m0, m1, l0, l1, a0, a1);
+      wg_wait<0>();                               // the previous P V is done
+      fence_regs(oacc);
+      fence_frags(pa);
+      mbar_arrive(empty_v + ps);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        oacc[4 * n] *= a0;
+        oacc[4 * n + 1] *= a0;
+        oacc[4 * n + 2] *= a1;
+        oacc[4 * n + 3] *= a1;
+      }
+      to_frags(sacc, pa);
+    }
+    if (n_tiles > 0) {
+      const int ps = (n_tiles - 1) % STAGES;
+      turn_wait<NWG>(wg);
+      mbar_wait(full_v + ps, ((n_tiles - 1) / STAGES) & 1);
+      issue_pv<D>(oacc, pa, sV + ps * L::KV_BYTES);
+      turn_pass<NWG>(wg);
+      wg_wait<0>();
+      fence_regs(oacc);
+      fence_frags(pa);
+      mbar_arrive(empty_v + ps);
+    }
+
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+    const int64_t q_stride = (int64_t)H * D;
+    __nv_bfloat16* ob = o + ((int64_t)b * Sq * H + h) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = n * 8 + 2 * t4;
+      if (row0 < Sq)
+        *reinterpret_cast<uint32_t*>(ob + row0 * q_stride + col) =
+            pack_bf16(oacc[4 * n] * inv0, oacc[4 * n + 1] * inv0);
+      if (row1 < Sq)
+        *reinterpret_cast<uint32_t*>(ob + row1 * q_stride + col) =
+            pack_bf16(oacc[4 * n + 2] * inv1, oacc[4 * n + 3] * inv1);
+    }
   }
 }
 
 // ---------------------------------------------------------------- launch
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o,
-           const int* kv_lens, int B, int H, int Kh, int Sq, int Sk,
-           float sm_scale, int causal, cudaStream_t stream) {
-  constexpr bool kBf16 = sizeof(T) == 2;
-  const int smem = kBf16 ? smem_bytes_bf16<D>() : smem_bytes_f32<D>();
-  const int threads = kBf16 ? NT16 : NT32;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  // The shared-memory limit is raised once per device for this instantiation,
-  // not on every launch: bit d of `ready` says it is done on device d.
-  static std::atomic<uint64_t> ready{0};
+// Raise a kernel's dynamic shared-memory limit once per device, not on every
+// launch: bit d of `ready` says it is done on device d.
+inline int allow_smem(const void* fn, int smem, std::atomic<uint64_t>& ready) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   const uint64_t bit = dev < 64 ? 1ull << dev : 0;
   if (!(ready.load(std::memory_order_acquire) & bit)) {
-    const void* fn = kBf16 ? reinterpret_cast<const void*>(flash_fwd_bf16<D>)
-                           : reinterpret_cast<const void*>(flash_fwd_f32<D>);
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     ready.fetch_or(bit, std::memory_order_release);
   }
-  if constexpr (kBf16) {
-    flash_fwd_bf16<D><<<grid, threads, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-        kv_lens, H, Kh, Sq, Sk, sm_scale, causal);
-  } else {
-    flash_fwd_f32<D><<<grid, threads, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), kv_lens, H, Kh,
-        Sq, Sk, sm_scale, causal);
-  }
+  return 0;
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               const int* kv_lens, int B, int H, int Kh, int Sq, int Sk,
+               float sm_scale, int causal, cudaStream_t stream) {
+  constexpr int smem = smem_bytes_f32<D>();
+  static std::atomic<uint64_t> ready{0};
+  const int err = allow_smem(reinterpret_cast<const void*>(flash_fwd_f32<D>), smem, ready);
+  if (err) return err;
+  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  flash_fwd_f32<D><<<grid, NT32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), kv_lens, H, Kh, Sq,
+      Sk, sm_scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
-               const int* kv_lens, int B, int H, int Kh, int Sq, int Sk,
-               float sm_scale, int causal, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, o, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, stream);
-    default: return (int)cudaErrorInvalidValue;
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, looked up once through the runtime
+// (this library links no libcuda).
+int tensor_map_encoder(EncodeTiled* out) {
+  static std::atomic<EncodeTiled> cached{nullptr};
+  EncodeTiled fn = cached.load(std::memory_order_acquire);
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || !p) return (int)cudaErrorSymbolNotFound;
+    fn = reinterpret_cast<EncodeTiled>(p);
+    cached.store(fn, std::memory_order_release);
   }
+  *out = fn;
+  return 0;
+}
+
+// A 4-D map over a contiguous (B, S, heads, D) bf16 tensor, innermost first
+// (D, heads, S, B), whose box is `rows` positions of one head's SWE-column
+// atom slice, swizzled as the wgmma descriptors of the kernel read it.
+// Positions past S are zero-filled, so no box reads another batch row.
+template <int D>
+int make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int heads,
+             int S, int B, int rows) {
+  using G = Geo<D>;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)G::SWE, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = G::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : G::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                            const_cast<void*>(ptr), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int D, int NWG>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                const int* kv_lens, int B, int H, int Kh, int Sq, int Sk,
+                float sm_scale, int causal, cudaStream_t stream) {
+  constexpr int smem = Smem<D, NWG>::BYTES;
+  static std::atomic<uint64_t> ready{0};
+  int err = allow_smem(reinterpret_cast<const void*>(flash_fwd_bf16<D, NWG>), smem, ready);
+  if (err) return err;
+  EncodeTiled encode = nullptr;
+  if ((err = tensor_map_encoder(&encode))) return err;
+  CUtensorMap tq, tk, tv;     // the pointers change per call: encoded per launch
+  if ((err = make_map<D>(&tq, encode, q, H, Sq, B, 64 * NWG)) ||
+      (err = make_map<D>(&tk, encode, k, Kh, Sk, B, KT)) ||
+      (err = make_map<D>(&tv, encode, v, Kh, Sk, B, KT)))
+    return err;
+  const dim3 grid(H, (Sq + 64 * NWG - 1) / (64 * NWG), B);
+  flash_fwd_bf16<D, NWG><<<grid, 128 * (NWG + 1), smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), kv_lens, H, Kh, Sq, Sk,
+      sm_scale * 1.4426950408889634f, causal);
+  return (int)cudaGetLastError();
+}
+
+// Consumer warpgroups per block when the caller does not choose: two (128
+// query rows a block, each K/V tile read once for both) unless the prompt
+// fits in one such tile, where 64-row blocks give twice the blocks
+// (tools/k1_tiles.py on the H100: S 77 0.0057 ms with one, 0.0065 with two;
+// S 384 and 901 faster with two).
+inline int default_wgs(int Sq) { return Sq <= 128 ? 1 : 2; }
+
+template <int D>
+int launch_d(int dtype, int wgs, const void* q, const void* k, const void* v,
+             void* o, const int* kv_lens, int B, int H, int Kh, int Sq, int Sk,
+             float sm_scale, int causal, cudaStream_t st) {
+  if (dtype == 0)
+    return launch_f32<D>(q, k, v, o, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (wgs == 0) wgs = default_wgs(Sq);
+  if (wgs == 1)
+    return launch_bf16<D, 1>(q, k, v, o, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
+  if (wgs == 2)
+    return launch_bf16<D, 2>(q, k, v, o, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// C entry point.  dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t
-// (0 on success): the launch status from cudaGetLastError, or
-// cudaErrorInvalidValue for a head dim or dtype the kernel does not take.
+// C entry point with the bf16 kernel's consumer warpgroups per block chosen
+// by the caller (1: 64 query rows a block, 2: 128; 0: the default rule).
+// dtype: 0 = float32, 1 = bfloat16; q, k, v, o contiguous and 16-byte
+// aligned.  Returns a cudaError_t (0 on success): the launch status from
+// cudaGetLastError, or cudaErrorInvalidValue for a head dim, dtype or
+// warpgroup count the kernel does not take or a tensor map the driver
+// refuses.
+extern "C" int flash_attention_fwd_wgs(const void* q, const void* k,
+                                       const void* v, void* o,
+                                       const int* kv_lens, int B, int H,
+                                       int Kh, int Sq, int Sk, int D,
+                                       int dtype, float sm_scale, int causal,
+                                       int wgs, void* stream) {
+  if (B <= 0 || H <= 0 || Kh <= 0 || H % Kh != 0 || Sq <= 0 || Sk <= 0 ||
+      H > 65535 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch_d<16>(dtype, wgs, q, k, v, o, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
+    case 32: return launch_d<32>(dtype, wgs, q, k, v, o, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
+    case 64: return launch_d<64>(dtype, wgs, q, k, v, o, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
+    case 128: return launch_d<128>(dtype, wgs, q, k, v, o, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// C entry point.  The same, with the default rule for the bf16 kernel.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, const int* kv_lens, int B, int H,
                                    int Kh, int Sq, int Sk, int D, int dtype,
                                    float sm_scale, int causal, void* stream) {
-  if (B <= 0 || H <= 0 || Kh <= 0 || H % Kh != 0 || Sq <= 0 || Sk <= 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, o, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
-  return (int)cudaErrorInvalidValue;
+  return flash_attention_fwd_wgs(q, k, v, o, kv_lens, B, H, Kh, Sq, Sk, D,
+                                 dtype, sm_scale, causal, 0, stream);
 }
 
 // Name of a cudaError_t returned above, for the Python wrapper's message.

@@ -52,7 +52,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, kv_lens: Optional[torch.Tensor], *,
                         causal: bool, sm_scale: float) -> None:
     """Launch on the current stream of ``q``'s device and return without
-    synchronising.  q/out (B,Sq,H,D), k/v (B,Sk,Kh,D), contiguous, one dtype;
+    synchronising.  q/out (B,Sq,H,D), k/v (B,Sk,Kh,D), contiguous, 16-byte
+    aligned (the bf16 kernel reads them through tensor maps), one dtype;
     kv_lens (B,) int32 on the same device, or None."""
     B, Sq, H, D = q.shape
     Sk, Kh = k.shape[1], k.shape[2]

@@ -101,6 +101,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if D not in K.HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {K.HEAD_DIMS}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention reads q, k and v through tensor "
+                         "maps: they must start 16-byte aligned")
     if kv_lens is not None:
         kv_lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)

@@ -4,15 +4,17 @@
 ops.py`` does: x (B,S,H,P) in the activation dtype, dt (B,S,H) f32 after
 softplus, A (H,) f32 (negative), Bm/Cm (B,S,N) shared by all heads.  It
 returns what ``repro/models/ssm.py::ssd_chunked`` returns: y (B,S,H,P), here
-in x's dtype, and the final state (B,H,P,N) in f32, from one launch.  The
-CUDA kernel reads its inputs through their strides (the model passes column
-slices of its convolution output) and masks a ragged last chunk by index,
-so the reference wrapper's pad and transposes are gone; the final state is
-the state after token S - 1, as the reference's zero padding leaves it.
+in x's dtype, and the final state (B,H,P,N) in f32, from one call.  The
+CUDA kernels read their inputs through their strides (the model passes
+column slices of its convolution output) and mask a ragged last chunk by
+index, so the reference wrapper's pad and transposes are gone; the final
+state is the state after token S - 1, as the reference's zero padding
+leaves it.  In bf16 one call runs three passes that are parallel over
+chunks, with scratch that this wrapper allocates; in f32 one kernel.
 
 Tensors on the CPU go to ``ssd_scan_plain``; CUDA tensors launch the kernel
 or raise, with no fallback.  Forward only.  ``ssd_scan.launches`` counts
-kernel launches.
+calls that launch the kernel: one per call, whatever the passes.
 """
 from __future__ import annotations
 
@@ -113,10 +115,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dt = dt.to(torch.float32)
     A = A.to(torch.float32).contiguous()
     B, S, H, P = x.shape
+    N, chunk = Bm.shape[2], min(chunk, S)
     y = torch.empty(B, S, H, P, dtype=x.dtype, device=x.device)
-    state = torch.empty(B, H, P, Bm.shape[2], dtype=torch.float32,
-                        device=x.device)
-    K.ssd_scan_fwd(x, dt, A, Bm, Cm, y, state, chunk=min(chunk, S))
+    state = torch.empty(B, H, P, N, dtype=torch.float32, device=x.device)
+    n = K.scratch_floats(B, S, H, P, N, chunk, x.dtype)
+    scratch = (torch.empty(n, dtype=torch.float32, device=x.device)
+               if n else None)
+    K.ssd_scan_fwd(x, dt, A, Bm, Cm, y, state, scratch, chunk=chunk)
     ssd_scan.launches += 1
     return y, state
 

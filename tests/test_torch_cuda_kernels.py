@@ -21,6 +21,15 @@ SWEEP = [                      # tests/test_kernels.py::test_flash_attention_swe
     (1, 100, 300, 4, 2, 32, True, None),        # causal, Sq != Sk (top-left)
     (1, 300, 100, 4, 2, 32, True, None),
     (2, 256, 256, 8, 2, 128, True, (256, 77)),  # kv_lens
+    # the bf16 kernel's edges: Sq not a multiple of its 64- or 128-row query
+    # tile or of its 128-key tile, Sk > Sq with kv_lens (a partly valid key
+    # tile), head dims 16 / 32 / 64 (32- and 64-byte swizzles), GQA 32 / 8,
+    # and B 2 (a tile past S must not read the next batch row)
+    (2, 200, 200, 8, 2, 16, True, None),
+    (2, 130, 330, 4, 4, 32, False, (330, 201)),
+    (1, 193, 257, 4, 2, 64, True, (250,)),
+    (2, 160, 160, 32, 8, 128, True, None),
+    (2, 77, 300, 32, 8, 128, False, (300, 129)),
 ]
 # q and k at 2 x randn give scores q.k/sqrt(D) with a std of 4, so each
 # row's softmax is peaked and a lost KV tile or a missing rescale moves the
@@ -240,6 +249,12 @@ SSD_SWEEP = [
     (1, 100, 1, 16, 8, 32),
     (2, 64, 4, 32, 128, 64),
     (1, 301, 8, 64, 128, 256),
+    # the bf16 passes' edges at mamba2's widths: S < chunk, S = chunk,
+    # S = 2 chunk + 1 (a one-token last chunk), and B 2 with N 64
+    (1, 100, 4, 64, 128, 256),
+    (1, 256, 4, 64, 128, 256),
+    (1, 513, 4, 64, 128, 256),
+    (2, 300, 3, 64, 64, 128),
 ]
 # y: f32 arithmetic in both, in another order (the running sum of dt * A
 # reaches ~1e3 inside a chunk, so exp(cs_i - cs_j) carries ~1e-4 relative

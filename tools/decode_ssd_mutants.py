@@ -43,18 +43,29 @@ MUTANTS = {
     # K4 drops the carried state's contribution to y
     "ssd_no_inter_chunk": (
         "ssd_scan_fwd",
-        "const float e = expf(sCs[i0 + ty + 16 * r]);",
-        "const float e = 0.f;"),
+        "if (c > 0) {                            // the state carried into this chunk",
+        "if (c < 0) {"),
     # K4 masks with i > j: the diagonal term is lost
     "ssd_strict_mask": (
         "ssd_scan_fwd",
-        "const float arg = j <= i ? sCs[i] - sCs[j] : -INFINITY;",
-        "const float arg = j < i ? sCs[i] - sCs[j] : -INFINITY;"),
-    # K4 carries the state without the chunk's decay exp(cs_last)
+        "const float arg = j <= i ? sCsI[r] - sCsJ[col + u] : -INFINITY;",
+        "const float arg = j < i ? sCsI[r] - sCsJ[col + u] : -INFINITY;"),
+    # K4 carries the state without the chunks' decay exp(cs_last)
     "ssd_no_state_decay": (
         "ssd_scan_fwd",
-        "*st = fmaf(*st, dec, supd[r][k]);",
-        "*st = fmaf(*st, 1.f, supd[r][k]);"),
+        "const float decay = expf(cs[bch * chunk + chunk - 1]);",
+        "const float decay = 1.f;"),
+    # K4's state recurrence skips the decay of one chunk (the second)
+    "ssd_skip_one_decay": (
+        "ssd_scan_fwd",
+        "const float decay = expf(",
+        "const float decay = c == 1 ? 1.f : expf("),
+    # K4 drops the lo half of the split weighted-x operand of the state
+    # update: one bf16 rounding, ~1.5e-3 relative (SSD_STATE_TOL is 1e-4)
+    "ssd_state_lo_dropped": (
+        "ssd_scan_fwd",
+        "        mma_bf16(acc[nt], xw_lo, b0, b1);\n",
+        ""),
 }
 
 
@@ -84,7 +95,8 @@ def install(lib_name: str, path) -> None:
     if lib_name == "flash_decode_fwd":
         FK._decode_lib, FK._decode_fn = lib, FK.bind_decode(lib)
     else:
-        SK._lib, SK._fn = lib, SK.bind(lib)
+        SK._lib = lib
+        SK._fn, SK._scratch_fn = SK.bind(lib)
 
 
 def run_check(device, lib_name: str, dcfg, scfg) -> dict:
@@ -128,7 +140,8 @@ def main() -> int:
               flush=True)
         if row["caught"] != (not name.startswith("control_")):
             bad.append(name)
-    FK._decode_lib = FK._decode_fn = SK._lib = SK._fn = None
+    FK._decode_lib = FK._decode_fn = None
+    SK._lib = SK._fn = SK._scratch_fn = None
     if bad:
         print(f"the checks got these wrong: {bad}", file=sys.stderr)
         return 1

@@ -8,8 +8,9 @@ Plants each fault of ``MUTANTS`` in its own copy of
 ``src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu``
 under ``build/mutants/``, builds the copies (one ``nvcc`` each, all at
 once), and runs every copy, and the unchanged kernel as a control, through
-two checks at llama2-paper's bf16 prefill shapes (the serve phase's prompt
-lengths and the timed lengths of ``chip_smoke.py``):
+two checks in bf16 over ``chip_smoke.py``'s sweep (GQA, kv_lens, every head
+dim) and llama2-paper's prefill shapes (the serve phase's prompt lengths
+and the timed lengths of ``chip_smoke.py``):
 
   peaked   ``chip_smoke.py``'s own check: q and k at QK_SCALE x randn, v a
            unit normal, limits TOL, FRO_TOL and MAX_TOL;
@@ -35,21 +36,32 @@ import chip_smoke  # noqa: E402  (puts src/ on the path as well)
 
 # name -> (text of the bf16 kernel, the text that replaces it)
 MUTANTS = {
-    # late rows only: a query tile that reads more than 12 KV tiles (causal
-    # rows from 768 on) never reads its last one, the diagonal tile
+    # late rows only: a query tile that reads more than 6 KV tiles (causal
+    # rows from 768 on) skips its last loop pass, so the diagonal tile's
+    # scores never reach the softmax and its P V uses the tile before's P
     "skip_late_kv_tile": (
-        "for (int tile = 0; tile < n_tiles; ++tile) {",
-        "for (int tile = 0; tile < (n_tiles > 12 ? n_tiles - 1 : n_tiles); "
-        "++tile) {"),
+        "    for (int tile = 1; tile < n_tiles; ++tile) {",
+        "    for (int tile = 1; tile < n_tiles - (n_tiles > 6); ++tile) {"),
     # the running sum and accumulator are not rescaled when the running max
     # rises (alpha = 1)
     "no_rescale": (
-        "const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);",
-        "const float a0 = 1.f, a1 = 1.f;"),
+        "  a0 = fast_exp2(m0 - mn0);\n  a1 = fast_exp2(m1 - mn1);",
+        "  a0 = 1.f;\n  a1 = 1.f;"),
     # each row also sees the key just after it
     "causal_one_late": (
         "const bool valid = key < kv_len && (!causal || key <= row);",
         "const bool valid = key < kv_len && (!causal || key <= row + 1);"),
+    # heads are mapped to KV heads interleaved instead of grouped (GQA)
+    "wrong_gqa_head": (
+        "const int kh = h / (H / Kh);             // GQA: the KV head of head h",
+        "const int kh = h % Kh;"),
+    # the consumers compute S from the ring stage of the previous K tile,
+    # one phase behind the barrier they waited on: a stale tile, or one the
+    # producer is refilling (waiting on the wrong barrier phase instead would
+    # release the stage before its copy lands and hang the producer)
+    "stale_stage": (
+        "      issue_qk<D, BQ16>(sacc, q_wg, sK + s * L::KV_BYTES);",
+        "      issue_qk<D, BQ16>(sacc, q_wg, sK + ps * L::KV_BYTES);"),
 }
 
 
@@ -86,8 +98,10 @@ def run_check(device, cases, mode: str) -> dict:
             q, k, v = chip_smoke.k1_inputs(gen, B, Sq, Sk, H, Kh, D,
                                            torch.bfloat16, device,
                                            qk_scale=0.3, v_scale=0.3)
-        out = ops.flash_attention(q, k, v, causal=causal)
-        ref = ops.flash_attention_plain(q, k, v, causal=causal)
+        lens = (None if kv_lens is None else
+                torch.tensor(kv_lens, dtype=torch.int32, device=device))
+        out = ops.flash_attention(q, k, v, causal=causal, kv_lens=lens)
+        ref = ops.flash_attention_plain(q, k, v, causal=causal, kv_lens=lens)
         res = chip_smoke.k1_check(out, ref, "bfloat16")
         if mode == "uniform":
             diff = (out.float() - ref.float()).abs()
@@ -95,8 +109,8 @@ def run_check(device, cases, mode: str) -> dict:
             res["ok"] = bool((diff <= tol + tol * ref.float().abs()).all())
         worst_fro = max(worst_fro, res["rel_fro"])
         if not res["ok"]:
-            failed.append(Sq)
-    return {"caught": bool(failed), "failed_lens": failed,
+            failed.append([B, Sq, Sk, H, Kh, D])
+    return {"caught": bool(failed), "failed_shapes": failed,
             "worst_rel_fro": worst_fro}
 
 
@@ -112,7 +126,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
     print(chip_smoke.nvidia_smi_line(), flush=True)
-    cases = chip_smoke.llama2_cases(C.get_config("llama2-paper"))
+    cases = (chip_smoke.SWEEP_CASES
+             + chip_smoke.llama2_cases(C.get_config("llama2-paper")))
     libs = {"control": _build.build(["flash_attention_fwd"])
             ["flash_attention_fwd"], **build_mutants()}
     bad = []
