@@ -22,15 +22,18 @@ Phases, each printing JSON lines:
               their plain versions, bit for bit (``torch.equal`` on payload,
               scales and output): the reference sweep shapes, ragged row
               counts, and the KV spill's own case, a strided slot row of a
-              (32, 4, 1024, 32, 128) bf16 cache; device times (CUDA graphs)
+              (32, 4, 1024, 32, 128) bf16 cache, which must take K2a's
+              vector kernel (``quant_path``); device times (CUDA graphs)
               of each kernel and its plain version there, the bound, and
               for K2b a library yardstick (``torch.mul`` into the row).
 5. decode_kernel  the flash-decode kernel (K3) against its plain version in
               both dtypes, K1's limits: the reference sweep, GQA, a zero
-              length, and llama2-paper's decode shape (a (4, 1024, 32, 128)
-              layer cache) at ragged lens and at the serve phase's first
-              tick, timed there beside its plain version, SDPA with a length
-              mask, and the bound.
+              length, split boundaries, and llama2-paper's decode shape (a
+              (4, 1024, 32, 128) layer cache) at ragged lens and at the
+              serve phase's first tick, timed there beside its plain
+              version, SDPA with a length mask, and the bound, warm (one
+              layer's cache replayed) and cold (``decode_cold_ms``: one
+              launch per layer of a 32-layer cache).
 6. ssd_kernel the SSD-scan kernel (K4) against its plain version, y and the
               final state, at mamba2-780m's widths for prefill lengths 77,
               384 and 901 in both dtypes (SSD_TOL); bf16 timed beside its
@@ -56,7 +59,7 @@ Phases, each printing JSON lines:
 10. profile   ``torch.profiler`` over 4 prefills and 8 decode ticks of the
               same server, then 8 more ticks with the chunked decode of the
               reference (the path before K3): device busy time, idle
-              share, top kernels.
+              share, top kernels, and K3's device time per call in situ.
 11. spill     on a full-width server, one slot spilled (raw, then int8) and
               overwritten on the compute stream at once, then restored into
               another slot: raw must come back ``torch.equal`` (K/V rows and
@@ -159,6 +162,10 @@ KV_FILLED = 749
 # lens of the serve phase's first decode tick (its four resident prompts'
 # lengths + 1), and ragged lens.  q and k are peaked (QK_SCALE) and the
 # cache is random past lens too, so a kernel that reads those rows differs.
+# The last three are the split-KV kernel's edges (``kernel.split_keys``
+# picks 256 keys per split for the first two shapes, 128 for the third):
+# lens on a split boundary, one past and one short of it, and Smax; B 1 with
+# Smax 4096 and 16 splits with keys; B 8 with one long row and seven short.
 DECODE_CASES = [
     (2, 160, 4, 2, 32, (100, 37), False),
     (2, 128, 4, 2, 32, (128, 1), False),
@@ -167,7 +174,18 @@ DECODE_CASES = [
     (1, 300, 8, 1, 128, (299,), False),
     (2, 64, 4, 2, 32, (0, 5), False),
     (4, 1024, 32, 32, 128, (1, 37, 1000, 1024), False),
+    (4, 1024, 32, 32, 128, (256, 512, 257, 255), False),
+    (1, 4096, 32, 32, 128, (4000,), False),
+    (8, 1024, 32, 8, 128, (1000, 1, 2, 3, 5, 9, 17, 33), False),
 ]
+# K3's cold-L2 yardstick: one CUDA-graph replay launches the kernel once per
+# layer over the layer slices of a (DECODE_COLD_LAYERS, B, Smax, Kh, D) K and
+# V cache, as a decode step does.  Each layer's valid rows (38.1 MB at the
+# serve decode shape, in bf16) were last read DECODE_COLD_LAYERS - 1 launches
+# earlier, so a replay reads 1.2 GB, 24 times the card's 50 MB L2: every
+# launch finds its cache rows cold, as served.  (``graph_ms`` replays one
+# layer's cache, whose valid rows fit in L2.)
+DECODE_COLD_LAYERS = 32
 # K4 (SSD scan) at mamba2-780m's widths (48 heads of P 64, N 128, chunk 256):
 # prefill lengths with a ragged tail and 1, 2 and 4 chunks; x, Bm and Cm are
 # views into one convolution output as the model passes them, dt in
@@ -381,10 +399,11 @@ def quant_bound(rows, features, in_bytes, out_bytes, flops_per_elem):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def quant_check(x, out_like=None) -> dict:
+def quant_check(x, out_like=None, strict=True) -> dict:
     """K2a and K2b against their plain versions on ``x``, bit for bit.  K2b
     writes into ``out_like`` when given (a strided slot row), else into a
-    new tensor.  Raises on any difference."""
+    new tensor.  With ``strict``, raises on any difference; ``ok`` says
+    whether there was none."""
     import torch
     from repro_torch.kernels.quant_offload import ops as Q
 
@@ -400,18 +419,20 @@ def quant_check(x, out_like=None) -> dict:
            "out_equal": torch.equal(out, xp),
            "q_max_abs_diff": int((q.int() - qp.int()).abs().max()),
            "out_max_abs_diff": float((out.float() - xp.float()).abs().max())}
+    row["ok"] = row["q_equal"] and row["scales_equal"] and row["out_equal"]
     emit("quant", **row)
-    if not (row["q_equal"] and row["scales_equal"] and row["out_equal"]):
+    if strict and not row["ok"]:
         raise AssertionError(f"int8 kernels differ from their plain "
                              f"versions: {row}")
     return row
 
 
-def phase_quant(device):
-    """K2a and K2b against their plain versions on every case, then device
-    times (CUDA graphs) at the KV spill's strided slot row, with the bound."""
+def quant_rows(device, strict=True):
+    """``quant_check`` on every QUANT_SHAPES case in both dtypes, then on the
+    KV spill's strided slot row, with no timing.  Returns the rows and the
+    slot row's (x, dst), views of two (32, 4, 1024, 32, 128) bf16 caches.
+    The K2a/K2b check of this script and of the mutation tool."""
     import torch
-    from repro_torch.kernels.quant_offload import ops as Q
 
     gen = torch.Generator(device=device).manual_seed(0)
     rows = []
@@ -419,14 +440,47 @@ def phase_quant(device):
         for dname in BOTH:
             x = torch.randn(*shape, generator=gen, device=device).to(
                 getattr(torch, dname))
-            rows.append(quant_check(x))
+            rows.append(quant_check(x, strict=strict))
     cache = torch.randn(*KV_CACHE_SHAPE, generator=gen, device=device,
                         dtype=torch.bfloat16)
     cache[:, :, KV_FILLED:] = 0
     restored = torch.zeros_like(cache)
     x, dst = cache[:, 1], restored[:, 1]
-    main = quant_check(x, out_like=dst)
-    rows.append(main)
+    rows.append(quant_check(x, out_like=dst, strict=strict))
+    return rows, (x, dst)
+
+
+def quant_path(x) -> str:
+    """The K2a kernel that quantizes ``x``, by the name torch.profiler
+    records: "vector" (``quant_vec_rows``) or "scalar" (``quant_rows``).
+    The profiler can miss a kernel in a process's first sessions (on an
+    H100, 3 of the first 40 missed it), so a session that recorded neither
+    kernel is run again."""
+    from repro_torch.kernels.quant_offload import ops as Q
+    for _ in range(5):
+        counts = device_kernel_counts(lambda: Q.quantize(x))
+        vec = sum(n for k, n in counts.items() if "quant_vec_rows" in k)
+        scalar = sum(n for k, n in counts.items()
+                     if "quant_rows" in k and "dequant_rows" not in k)
+        if vec or scalar:
+            return "vector" if vec else "scalar"
+    raise AssertionError("torch.profiler recorded no K2a kernel in 5 "
+                         "sessions")
+
+
+def phase_quant(device):
+    """K2a and K2b against their plain versions on every case, then device
+    times (CUDA graphs) at the KV spill's strided slot row, with the bound;
+    the slot row must take K2a's vector kernel."""
+    import torch
+    from repro_torch.kernels.quant_offload import ops as Q
+
+    rows, (x, dst) = quant_rows(device)
+    main = rows[-1]
+    path = quant_path(x)
+    if path != "vector":
+        raise AssertionError("the KV spill's slot row did not take K2a's "
+                             "vector kernel (quant_vec_rows)")
     q, s = Q.quantize(x)
     L, S, Kh, F = x.shape
     R = L * S * Kh
@@ -436,6 +490,7 @@ def phase_quant(device):
     library_equal = torch.equal(dst, Q.dequantize_plain(q, s, torch.bfloat16))
     timed = {
         "quantize_rows": {
+            "path": path,
             "ms": graph_ms(lambda: Q.quantize(x)),
             "plain_ms": graph_ms(lambda: Q.quantize_plain(x), iters=5),
             "bound": quant_bound(R, F, 2, 1, 5),
@@ -456,7 +511,7 @@ def phase_quant(device):
         t["bound_ms"], t["bound_by"] = t.pop("bound")
         emit("quant_time", name=name, shape=main["shape"], rows=R,
              features=F, dtype="bfloat16", strided=True, **t)
-    del cache, restored, x, dst, q, s
+    del x, dst, q, s
     max_q = max(r["q_max_abs_diff"] for r in rows)
     max_out = max(r["out_max_abs_diff"] for r in rows)
     return timed, max_q, max_out
@@ -488,12 +543,53 @@ def decode_rows(device, cases):
     return rows
 
 
+def decode_cold_ms(q, lens, Sk, Kh, layers, fns=None) -> dict:
+    """Cold-L2 device time per launch of K3 and of SDPA (``cold_ms``,
+    ``library_cold_ms``): one CUDA graph launches each once per layer over
+    the slices of a (layers, B, Smax, Kh, D) K and V cache drawn here (q
+    and k peaked as in ``k1_inputs``), SDPA over per-layer (B, H, Smax, D)
+    copies made before capture.  ``fns`` maps more names to ``fn(q, k, v,
+    lens)`` to time the same way (``tools/k3_splits.py``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+
+    B, _, H, D = q.shape
+    gen = torch.Generator(device=q.device).manual_seed(1)
+    shape = (B, Sk, Kh, D)
+    kc = torch.empty((layers,) + shape, dtype=q.dtype, device=q.device)
+    vc = torch.empty_like(kc)
+    for l in range(layers):
+        kc[l] = torch.randn(shape, generator=gen, device=q.device) * QK_SCALE
+        vc[l] = torch.randn(shape, generator=gen, device=q.device)
+    fns = {"cold_ms": lambda q, k, v, n: ops.flash_decode(q, k, v, n),
+           **(fns or {})}
+    out = {}
+    for name, fn in fns.items():
+        out[name] = graph_ms(lambda: [fn(q, kc[l], vc[l], lens)
+                                      for l in range(layers)],
+                             iters=1, reps=10) / layers
+    qt = q.transpose(1, 2).contiguous()
+    kt = [kc[l].transpose(1, 2).contiguous() for l in range(layers)]
+    vt = [vc[l].transpose(1, 2).contiguous() for l in range(layers)]
+    del kc, vc
+    mask = (torch.arange(Sk, device=q.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    gqa = {"enable_gqa": True} if H != Kh else {}
+    out["library_cold_ms"] = graph_ms(
+        lambda: [F.scaled_dot_product_attention(qt, kt[l], vt[l],
+                                                attn_mask=mask, **gqa)
+                 for l in range(layers)], iters=1, reps=10) / layers
+    out["cold_layers"] = layers
+    return out
+
+
 def phase_decode_kernel(device, cases):
     """K3 against its plain version on every case; at the serve decode
     shape also device times (CUDA graphs) of the kernel, the plain version
     and SDPA over all Smax slots with a boolean length mask, and the
-    bound.  Returns the timed bf16 row and the largest bf16 error at the
-    serve decode shape."""
+    bound; in bf16 also both cold (``decode_cold_ms``).  Returns the timed
+    bf16 row and the largest bf16 error at the serve decode shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -517,6 +613,8 @@ def phase_decode_kernel(device, cases):
             row["bound_ms"], row["bound_by"] = attention_bound(
                 B, 1, Sk, H, Kh, D, False, row["lens"], q.dtype)
             if row["dtype"] == "bfloat16":
+                row.update(decode_cold_ms(q, lens, Sk, Kh,
+                                          DECODE_COLD_LAYERS))
                 timed_row = row
         if row["shape"][1:] == [1024, 32, 32, 128] and row["dtype"] == "bfloat16":
             main_err = max(main_err, row["max_abs_err"])
@@ -610,9 +708,9 @@ def ssd_bound(B, S, H, P, N, chunk, esize):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_kernels(fn, key: str) -> int:
-    """Device kernels whose name contains ``key`` that one call of ``fn``
-    launches (torch.profiler)."""
+def device_kernel_counts(fn) -> dict:
+    """Device kernel name -> launches of one call of ``fn``
+    (torch.profiler)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -621,8 +719,14 @@ def device_kernels(fn, key: str) -> int:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and key in e.key)
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def device_kernels(fn, key: str) -> int:
+    """Device kernels whose name contains ``key`` that one call of ``fn``
+    launches (torch.profiler)."""
+    return sum(n for k, n in device_kernel_counts(fn).items() if key in k)
 
 
 def ssd_rows(device, cfg, lens, dtypes):
@@ -894,6 +998,7 @@ def phase_profile(device, cfg, model):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import obs
+    from repro_torch.kernels.flash_attention import ops
     from repro_torch.runtime.server import Server
 
     srv = Server(cfg.replace(attn_impl="flash"), model, max_batch=4,
@@ -902,11 +1007,13 @@ def phase_profile(device, cfg, model):
 
     def window(name, fn, n_steps):
         torch.cuda.synchronize()
+        calls = ops.flash_decode.launches
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
+        calls = ops.flash_decode.launches - calls
         kern = [(e.key, e.self_device_time_total / 1e3, e.count)
                 for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
@@ -916,6 +1023,11 @@ def phase_profile(device, cfg, model):
                 for name, key in (("flash_ms", "flash_fwd"),
                                   ("flash_decode_ms", "flash_decode"),
                                   ("ssd_scan_ms", "ssd_scan"))}
+        # K3 in situ: its kernels' device time per ops.flash_decode call
+        # (every layer reads its own cache, as the cold yardstick does)
+        ours["flash_decode_calls"] = calls
+        ours["flash_decode_ms_per_call"] = (ours["flash_decode_ms"] / calls
+                                            if calls else None)
         emit("profile", model=cfg.name, window=name, steps=n_steps,
              wall_ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall,
              kernel_launches=sum(n for _, _, n in kern), **ours,
@@ -1199,6 +1311,9 @@ def main() -> int:
         "bound_ms": decode_row["bound_ms"],
         "bound_by": decode_row["bound_by"],
         "library_ms": decode_row["library_ms"],
+        # cold L2, one launch per layer of a 32-layer cache (decode_cold_ms)
+        "cold_ms": decode_row["cold_ms"],
+        "library_cold_ms": decode_row["library_cold_ms"],
         "at": {"shape": decode_row["shape"], "lens": decode_row["lens"],
                "dtype": "bfloat16"}}, {
         "name": "ssd_scan_fwd", "route": "cuda",

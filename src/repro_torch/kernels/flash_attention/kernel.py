@@ -67,13 +67,35 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(lib, err, "flash_attention_fwd launch")
 
 
+# K3's keys per split (``split_keys``) and the split blocks it aims for: at
+# least DECODE_BLOCKS of them, two for each of the H100's 132 SMs.
+SPLIT_KEYS = (256, 128, 64)
+DECODE_BLOCKS = 2 * 132
+
+
+def split_keys(B: int, Kh: int, Sk: int) -> int:
+    """Keys per split of the decode kernel: the largest of SPLIT_KEYS that
+    gives at least DECODE_BLOCKS (KV head, batch row, split) blocks, else
+    the smallest.  From shapes only, never from the lens."""
+    for t in SPLIT_KEYS:
+        if Kh * B * -(-Sk // t) >= DECODE_BLOCKS:
+            return t
+    return SPLIT_KEYS[-1]
+
+
+def decode_workspace_floats(B: int, H: int, Sk: int, D: int, Tk: int) -> int:
+    """Floats of f32 workspace the decode kernel needs: each split's
+    unnormalised accumulator and its (m, l) per batch row and query head."""
+    return B * H * -(-Sk // Tk) * (D + 2)
+
+
 def bind_decode(lib: ctypes.CDLL):
     """The typed C entry point ``flash_decode_fwd`` of a loaded library."""
     fn = lib.flash_decode_fwd
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp,            # q k v o lens
+    fn.argtypes = [vp, vp, vp, vp, vp, vp,        # q k v o workspace lens
                    ci, ci, ci, ci, ci, ci,        # B H Kh Sk D dtype
-                   ctypes.c_float, vp]            # sm_scale stream
+                   ctypes.c_float, ci, vp]        # sm_scale Tk stream
     fn.restype = ci
     return fn
 
@@ -88,16 +110,21 @@ def _decode_entry():
 
 def flash_decode_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      out: torch.Tensor, lens: torch.Tensor, *,
-                     sm_scale: float) -> None:
-    """Launch on the current stream of ``q``'s device and return without
-    synchronising.  q/out (B,1,H,D), k/v (B,Sk,Kh,D), contiguous, one
-    dtype, 16-byte aligned; lens (B,) int32 on the same device."""
+                     sm_scale: float, split: Optional[int] = None) -> None:
+    """Launch the split and combine kernels on the current stream of
+    ``q``'s device and return without synchronising.  q/out (B,1,H,D), k/v
+    (B,Sk,Kh,D), contiguous, one dtype, 16-byte aligned; lens (B,) int32 on
+    the same device.  ``split`` keys per split (default ``split_keys``);
+    the f32 workspace is allocated here."""
     B, _, H, D = q.shape
     Sk, Kh = k.shape[1], k.shape[2]
+    tk = split_keys(B, Kh, Sk) if split is None else split
+    ws = torch.empty(decode_workspace_floats(B, H, Sk, D, tk),
+                     dtype=torch.float32, device=q.device)
     lib, fn = _decode_entry()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lens.data_ptr(), B, H, Kh, Sk, D, DTYPE_CODES[q.dtype],
-                 float(sm_scale), stream)
+                 ws.data_ptr(), lens.data_ptr(), B, H, Kh, Sk, D,
+                 DTYPE_CODES[q.dtype], float(sm_scale), tk, stream)
     _build.check(lib, err, "flash_decode_fwd launch")

@@ -20,7 +20,9 @@ Tensors on the CPU go to the plain versions; CUDA tensors launch the
 kernels or raise, with no fallback.  The wrappers are forward only: an
 input that requires grad raises (the backward kernel comes with the
 training slice).  ``flash_attention.launches`` and
-``flash_decode.launches`` count kernel launches.
+``flash_decode.launches`` count kernel launches; one ``flash_decode`` call
+is one launch, though on the card it runs two kernels (the split-KV pass
+and its combine, ``csrc/flash_decode_fwd.cu``).
 """
 from __future__ import annotations
 

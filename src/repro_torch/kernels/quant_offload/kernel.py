@@ -22,17 +22,24 @@ _lib: Optional[ctypes.CDLL] = None
 _quant = _dequant = None
 
 
+def bind(lib: ctypes.CDLL):
+    """The typed C entry points ``quantize_rows`` and ``dequantize_rows`` of
+    a loaded library."""
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    quant = lib.quantize_rows
+    quant.argtypes = [vp, ci, cl, cl, cl, ci, vp, vp, vp]
+    quant.restype = ci                    # x dtype rows rpo stride F q s stream
+    dequant = lib.dequantize_rows
+    dequant.argtypes = [vp, vp, ci, cl, cl, cl, ci, vp, vp]
+    dequant.restype = ci                  # q s dtype rows rpo stride F out stream
+    return quant, dequant
+
+
 def _entry():
     global _lib, _quant, _dequant
     if _lib is None:
         lib = _build.load(LIB)
-        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        _quant = lib.quantize_rows
-        _quant.argtypes = [vp, ci, cl, cl, cl, ci, vp, vp, vp]
-        _quant.restype = ci               # x dtype rows rpo stride F q s stream
-        _dequant = lib.dequantize_rows
-        _dequant.argtypes = [vp, vp, ci, cl, cl, cl, ci, vp, vp]
-        _dequant.restype = ci             # q s dtype rows rpo stride F out stream
+        _quant, _dequant = bind(lib)
         _lib = lib
     return _lib
 

@@ -135,6 +135,60 @@ def test_quant_kernels_strided_slot_row(card, dtype):
     assert float(s[:, 40:].max()) == float(np.float32(1e-12) / np.float32(127))
 
 
+def _quant_kernel(x):
+    """The K2a kernel ``Q.quantize(x)`` launches, by the name torch.profiler
+    records: "vector" (``quant_vec_rows``) or "scalar" (``quant_rows``).
+    The profiler can miss a kernel in a process's first sessions, so a
+    session that recorded neither kernel is run again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            Q.quantize(x)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA]
+        if any("quant_vec_rows" in k for k in names):
+            return "vector"
+        if any("quant_rows" in k and "dequant_rows" not in k for k in names):
+            return "scalar"
+    raise AssertionError("the profiler recorded no K2a kernel in 5 sessions")
+
+
+# K2a's kernel by layout: rows of 16 * 2^k bytes up to 512, 16-byte aligned
+# (the KV spill's strided slot rows in both dtypes), take the vector kernel;
+# F 96 in bf16 (12 lanes) or f32 (24), and F 33, take the warp-per-row one.
+QUANT_PATHS = [
+    ((6, 3, 96, 8, 128), "float32", True, "vector"),
+    ((6, 3, 96, 8, 128), "bfloat16", True, "vector"),
+    ((2, 40, 256), "bfloat16", False, "vector"),
+    ((13, 96), "bfloat16", False, "scalar"),
+    ((3, 7, 33), "float32", False, "scalar"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,slot_row,path", QUANT_PATHS)
+def test_quant_kernel_path_and_bits(card, shape, dtype, slot_row, path):
+    """Each layout takes the kernel it should (``quant_vec_rows`` or
+    ``quant_rows``), and both are bit-exact; a slot row cache[:, 1] is
+    quantized and restored in place, rows of zeros included."""
+    rng = np.random.RandomState(2)
+    full = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 3).to(
+        card, getattr(torch, dtype))
+    out = None
+    if slot_row:
+        full[:, :, 70:] = 0
+        x, out = full[:, 1], torch.zeros_like(full)[:, 1]
+    else:
+        x = full
+    assert _quant_kernel(x) == path
+    (q, s, y), (qp, sp, yp) = _quant_both(x, out=out)
+    assert torch.equal(q, qp) and torch.equal(s, sp) and torch.equal(y, yp)
+
+
 @pytest.mark.cuda
 def test_quant_kernel_rounds_half_to_even(card):
     """amax 127 gives scale 1, so x / scale lands on exact halves."""
@@ -195,6 +249,15 @@ DECODE_SWEEP = [
     (1, 300, 8, 1, 128, (299,)),
     (3, 96, 6, 3, 16, (96, 50, 0)),
     (4, 1024, 32, 32, 128, (1, 37, 700, 1024)),
+    # the split kernel's edges (256 keys per split for the first two shapes,
+    # 128 for the third, 64 with D 16): lens on a split boundary, one past
+    # and one short of it, and Smax; B 1 with Smax 4096 (16 splits with
+    # keys); B 8 with one long row and seven short; a split holding one key
+    (4, 1024, 32, 32, 128, (256, 512, 257, 255)),
+    (1, 4096, 32, 32, 128, (4000,)),
+    (8, 1024, 32, 8, 128, (1000, 1, 2, 3, 5, 9, 17, 33)),
+    (2, 200, 8, 2, 16, (129, 65)),
+    (2, 160, 4, 2, 32, (300, 37)),              # lens past Smax: all rows
 ]
 
 

@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Mutation check of ``chip_smoke.py``'s flash-decode (K3) and SSD-scan (K4)
-checks, on one NVIDIA GPU:
+"""Mutation check of ``chip_smoke.py``'s flash-decode (K3), SSD-scan (K4)
+and int8 quantize (K2a) checks, on one NVIDIA GPU:
 
     python3 tools/decode_ssd_mutants.py
 
 Plants each fault of ``MUTANTS`` in its own copy of the kernel's source
-(``src/repro_torch/kernels/flash_attention/csrc/flash_decode_fwd.cu`` or
-``src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_fwd.cu``) under
+(``src/repro_torch/kernels/flash_attention/csrc/flash_decode_fwd.cu``,
+``src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_fwd.cu`` or
+``src/repro_torch/kernels/quant_offload/csrc/quant_offload.cu``) under
 ``build/mutants/``, builds the copies (one ``nvcc`` each, all at once), and
 runs every copy, and each unchanged kernel as a control, through
 ``chip_smoke.py``'s own check of that kernel: ``decode_rows`` over K3's
-cases (peaked q and k, a random cache past lens, both dtypes) and
-``ssd_rows`` over K4's mamba2-780m prefill lengths (both dtypes).  A mutant
-is caught when at least one case fails the check.  Prints one JSON line per
-kernel and exits non-zero if a mutant is missed or a control fails.
+cases (peaked q and k, a random cache past lens, both dtypes, split
+boundaries), ``ssd_rows`` over K4's mamba2-780m prefill lengths (both
+dtypes) and ``quant_rows`` over K2a/K2b's shapes and the KV spill's slot
+row (bit for bit).  A mutant is caught when at least one case fails the
+check.  Prints one JSON line per kernel and exits non-zero if a mutant is
+missed or a control fails.
 """
 from __future__ import annotations
 
@@ -33,13 +36,41 @@ MUTANTS = {
     # K3 reads one row past lens[b]
     "decode_reads_past_lens": (
         "flash_decode_fwd",
-        "const int n = min(max(lens[b], 0), Sk);",
-        "const int n = min(max(lens[b], 0) + 1, Sk);"),
+        "return min(max(lens[b], 0), Sk);",
+        "return min(max(lens[b], 0) + 1, Sk);"),
     # K3 does not rescale l and acc when the running max rises
     "decode_no_alpha": (
         "flash_decode_fwd",
         "const float alpha = expf(m[g] - mx);",
         "const float alpha = 1.f;"),
+    # K3's combine drops the last split that has keys (when there are two
+    # or more)
+    "decode_combine_drops_last_split": (
+        "flash_decode_fwd",
+        "const bool in = s0 + j < ns;",
+        "const bool in = s0 + j < ns - (ns > 1);"),
+    # K3's splits start one key late: key 0 is read by no split
+    "decode_split_off_by_one": (
+        "flash_decode_fwd",
+        "const int k0 = split * Tk;",
+        "const int k0 = split * Tk + 1;"),
+    # K3's combine adds the splits without rescaling them to their max
+    "decode_combine_no_rescale": (
+        "flash_decode_fwd",
+        "const float f = expf(mv[j] - mx);",
+        "const float f = 1.f;"),
+    # K2a's absmax skips the last shuffle step: lanes of a row disagree
+    "quant_absmax_short_shuffle": (
+        "quant_offload",
+        "for (int off = lpr >> 1; off > 0; off >>= 1)",
+        "for (int off = lpr >> 1; off > 1; off >>= 1)"),
+    # K2a's vector path drops its tie check: x * rn(1 / scale) alone is an
+    # ulp off the IEEE quotient in some elements, so a few near-ties round
+    # the other way
+    "quant_no_tie_check": (
+        "quant_offload",
+        "if (fabsf(fabsf(t - r) - 0.5f) <= 6.103515625e-5f) r = rintf(f[e] / scale);",
+        ""),
     # K4 drops the carried state's contribution to y
     "ssd_no_inter_chunk": (
         "ssd_scan_fwd",
@@ -90,10 +121,14 @@ def build_mutants():
 def install(lib_name: str, path) -> None:
     """Make the wrappers launch the library at ``path``."""
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.quant_offload import kernel as QK
     from repro_torch.kernels.ssd_scan import kernel as SK
     lib = ctypes.CDLL(str(path))
     if lib_name == "flash_decode_fwd":
         FK._decode_lib, FK._decode_fn = lib, FK.bind_decode(lib)
+    elif lib_name == "quant_offload":
+        QK._lib = lib
+        QK._quant, QK._dequant = QK.bind(lib)
     else:
         SK._lib = lib
         SK._fn, SK._scratch_fn = SK.bind(lib)
@@ -106,6 +141,13 @@ def run_check(device, lib_name: str, dcfg, scfg) -> dict:
         failed = [[r["shape"][1], r["lens"], r["dtype"]] for r in rows
                   if not r["ok"]]
         worst = max(r["rel_fro"] for r in rows)
+    elif lib_name == "quant_offload":
+        rows, _ = chip_smoke.quant_rows(device, strict=False)
+        failed = [[r["shape"], r["dtype"], r["strided"]] for r in rows
+                  if not r["ok"]]
+        return {"caught": bool(failed), "failed": failed,
+                "cases": len(rows),
+                "worst_q_diff": max(r["q_max_abs_diff"] for r in rows)}
     else:
         rows = [r for r, _ in chip_smoke.ssd_rows(
             device, scfg, chip_smoke.SSD_LENS, chip_smoke.BOTH)]
@@ -123,13 +165,15 @@ def main() -> int:
     import repro_torch.configs as C
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.quant_offload import kernel as QK
     from repro_torch.kernels.ssd_scan import kernel as SK
 
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
     print(chip_smoke.nvidia_smi_line(), flush=True)
     dcfg, scfg = C.get_config("llama2-paper"), C.get_config("mamba2-780m")
-    controls = _build.build(["flash_decode_fwd", "ssd_scan_fwd"])
+    controls = _build.build(["flash_decode_fwd", "ssd_scan_fwd",
+                             "quant_offload"])
     libs = {f"control_{n}": (n, p) for n, p in controls.items()}
     libs.update(build_mutants())
     bad = []
@@ -142,6 +186,7 @@ def main() -> int:
             bad.append(name)
     FK._decode_lib = FK._decode_fn = None
     SK._lib = SK._fn = SK._scratch_fn = None
+    QK._lib = QK._quant = QK._dequant = None
     if bad:
         print(f"the checks got these wrong: {bad}", file=sys.stderr)
         return 1
