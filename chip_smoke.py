@@ -17,7 +17,17 @@ Phases, each printing JSON lines:
               phase sends, in bf16, and three timed lengths in both
               dtypes), held to the limits at TOL / FRO_TOL / MAX_TOL below;
               device times (CUDA graphs) of the kernel, the plain version
-              and SDPA as a yardstick, K1 / SDPA, and the bound.
+              and SDPA as a yardstick, K1 / SDPA, and the bound; then K1
+              and SDPA cold (``k1_cold_ms``: one launch per layer's own q,
+              k, v) at S 901 over 32 layers and at the training shape.
+3b. kernel_bwd  K1's backward against its plain version on the card, dq,
+              dk and dv each held to BWD_FRO_TOL / BWD_MAX_TOL and the
+              forward's lse to BWD_LSE_TOL: the reference sweep, causal
+              with Sq != Sk both ways, kv_lens with a batch row of no valid
+              key, GQA, head dims 16 to 128, both dtypes, and the training
+              shape (2 x 2048 tokens, 32 heads of 128, causal, bf16), timed
+              there warm and cold beside its plain version, SDPA's backward
+              and the bound (``attention_bwd_bound``).
 4. quant      the int8 quantize (K2a) and dequantize (K2b) kernels against
               their plain versions, bit for bit (``torch.equal`` on payload,
               scales and output): the reference sweep shapes, ragged row
@@ -73,6 +83,16 @@ Phases, each printing JSON lines:
 14. ssm_crosscheck  mamba2-780m prefill logits of a 64-token prompt against
               token-by-token decode, in f32 and in bf16 (limits below), and
               a profile of its serving loop.
+15. train     ``Trainer`` on full-width llama2-paper cut to 8 layers (bf16,
+              AdamW with f32 master, flash attention, Chameleon off), 2 x
+              2048 synthetic tokens, 6 steps: finite losses that fall, K1's
+              forward and backward launched 6 x 8 times each (counts reset
+              just before); step ms, tokens/s, peak memory; a profile of 2
+              more steps (device idle share, K1's shares); and one grad
+              step with flash against one with chunked attention
+              (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL).
+16. train_cli ``repro_torch.launch.train.main`` on the card, reduced
+              llama2-paper (f32: the f32 paths of both K1 kernels), 3 steps.
 
 Any failure raises, so the exit code is non-zero and no result line is
 printed.  The last lines are the kernels summary, the nvidia-smi line and
@@ -119,14 +139,74 @@ MAX_TOL = {"float32": 2.0 ** -14, "bfloat16": 2.0 ** -6}
 # logits are held to 5e-2 of their largest magnitude.
 CROSSCHECK_TOL = 5e-2
 
+# K1 backward (``flash_attention_bwd``) against ``flash_attention_bwd_plain``
+# on the same q, k, v, o, lse and dO (o and lse from the forward kernel), q
+# and k peaked as for K1, dO a unit normal.  dq, dk and dv are each held to
+#   ||out - ref||_F <= BWD_FRO_TOL ||ref||_F  and
+#   max |out - ref| <= BWD_MAX_TOL max |ref|.
+# bf16: the kernel rounds P to bf16 for dV and dS for dK and dQ (2^-9
+# relative each, as the forward rounds P) and its outputs to bf16 (2^-9);
+# the plain version keeps f32 throughout, so ~3e-3 relative Frobenius is
+# expected, and 2^-5 of max |ref| allows two to four bf16 ulps of the
+# largest gradient plus the rounded P and dS terms under it.  f32: the two
+# differ in summation order only, and dS = P (dP - delta) cancels where the
+# softmax is peaked (dP of the peak key ~ delta), so 1e-4 and 2^-12.  The
+# forward's lse is held to BWD_LSE_TOL (absolute, natural log) where finite
+# and must be -inf exactly where the plain lse is (a row with no valid key).
+BWD_FRO_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+BWD_MAX_TOL = {"float32": 2.0 ** -12, "bfloat16": 2.0 ** -5}
+BWD_LSE_TOL = 1e-3
+BOTH = ("float32", "bfloat16")
+# (B, Sq, Sk, H, Kh, D, causal, kv_lens, dtypes, timed): the reference
+# kernel-test sweep, causal with Sq != Sk both ways (the top-left mask),
+# kv_lens with a zero length (every row of that batch row has no valid
+# key) and ragged ones, GQA groups of 2, 4 and 8, head dims 16 to 128; then
+# the training shape (llama2-paper at full width, 2 x 2048 tokens), timed.
+BWD_CASES = [
+    (2, 256, 256, 4, 2, 64, True, None, BOTH, False),
+    (1, 128, 384, 4, 4, 32, False, None, BOTH, False),
+    (2, 100, 100, 2, 1, 64, True, None, BOTH, False),
+    (1, 512, 512, 8, 1, 128, True, None, BOTH, False),
+    (1, 64, 192, 6, 3, 16, False, None, BOTH, False),
+    (2, 200, 328, 4, 2, 64, True, None, BOTH, False),
+    (1, 300, 130, 4, 4, 32, True, None, BOTH, False),
+    (2, 300, 300, 8, 2, 64, False, (300, 0), BOTH, False),
+    (2, 256, 256, 8, 8, 128, True, (256, 100), BOTH, False),
+    (2, 130, 330, 4, 4, 32, False, (330, 201), BOTH, False),
+    (1, 384, 384, 32, 8, 128, True, None, BOTH, False),
+]
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+# K1 forward and backward cold: one launch per layer's own tensors, as K3's
+# decode_cold_ms does; the forward also at S 901 over 32 layers.
+TRAIN_LAYERS = 8
+K1_COLD_LAYERS = 32
+# The train phase: full-width llama2-paper (bf16 params, f32 AdamW master)
+# with the depth cut to TRAIN_LAYERS (full depth's AdamW state alone is
+# ~108 GB, past the card's 80 GB), flash attention, Chameleon off,
+# synthetic tokens TRAIN_BATCH x TRAIN_SEQ, no eval, no checkpoints; lr
+# 1e-4 after 1 warmup step (the reference's trainer tests' 1e-3, sized for
+# d 128, made this 4096-wide model's loss jump from 10.9 to 19.2 at its
+# third update on the H100).
+TRAIN_STEPS = 6
+TRAIN_LR, TRAIN_WARMUP = 1e-4, 1
+# Its crosscheck: one grad step with flash and with chunked attention on
+# the same weights and batch.  Both run the bf16 model, which rounds every
+# activation to bf16; they differ in the attention only (flash rounds P and
+# dS to bf16 in its products, chunked keeps them in f32 and rounds its
+# output), and those roundings pass through 8 layers of bf16 backward.  So
+# the losses are held to 2e-2 (absolute, ~2e-3 relative at a loss of ~10)
+# and every parameter's gradient to 5e-2 relative Frobenius.
+TRAIN_LOSS_TOL = 2e-2
+TRAIN_GRAD_TOL = 5e-2
+TRAIN_CLI_ARGS = ["--arch", "llama2-paper", "--reduced", "--steps", "3",
+                  "--no-chameleon", "--attn-impl", "flash"]
+
 SERVE_ARGS = ["--arch", "llama2-paper", "--attn-impl", "flash",
               "--requests", "8", "--max-batch", "4", "--max-len", "1024",
               "--min-prompt-len", "65", "--max-prompt-len", "900",
               "--new-tokens", "32"]
 SPILL_ARGS = ["--max-active", "8"]
 
-
-BOTH = ("float32", "bfloat16")
 # (B, Sq, Sk, H, Kh, D, causal, kv_lens, dtypes, timed)
 SWEEP_CASES = [
     # tests/test_kernels.py::test_flash_attention_sweep
@@ -338,6 +418,169 @@ def attention_bound(B, Sq, Sk, H, Kh, D, causal, kv_lens, dtype):
     t_bytes, t_ops = nbytes / H100_HBM_BYTES_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_bwd_bound(B, Sq, Sk, H, Kh, D, causal, kv_lens, dtype):
+    """Least time for the backward's work: five products (S, dP, dV, dK,
+    dQ) of 2*D flops per unmasked (query, key) pair and head over the peak
+    rate of the input type, against q, k, v, o, dO and lse read once and
+    dq, dk, dv written once over HBM bandwidth."""
+    import torch
+    esize = torch.finfo(dtype).bits // 8
+    lens = kv_lens or (Sk,) * B
+    pairs = 0
+    for n in lens:
+        n = min(max(n, 0), Sk)
+        pairs += (sum(min(q + 1, n) for q in range(Sq)) if causal
+                  else Sq * n)
+    flops = 10.0 * H * D * pairs
+    nbytes = (esize * (3 * 2 * B * Sq * H * D + 2 * 2 * B * Sk * Kh * D)
+              + 4 * B * H * Sq)
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    t_bytes, t_ops = nbytes / H100_HBM_BYTES_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bwd_check(got, ref, dname: str) -> dict:
+    """One of dq / dk / dv against its plain version: the errors and whether
+    they are inside BWD_FRO_TOL and BWD_MAX_TOL."""
+    o, r = got.float(), ref.float()
+    diff = (o - r).abs()
+    err, scale = float(diff.max()), float(r.abs().max())
+    rel_fro = float(diff.norm() / r.norm()) if float(r.norm()) > 0 else float(diff.norm())
+    ok = (rel_fro <= BWD_FRO_TOL[dname]
+          and err <= BWD_MAX_TOL[dname] * scale)
+    return {"max_abs_err": err, "max_abs_ref": scale, "rel_fro": rel_fro,
+            "ok": ok}
+
+
+def lse_check(lse, ref) -> dict:
+    """The forward kernel's lse against the plain one."""
+    import torch
+    inf = torch.isinf(ref)
+    same_inf = bool(torch.equal(torch.isinf(lse), inf)
+                    and (lse[inf] < 0).all())
+    fin = ~inf
+    err = float((lse[fin] - ref[fin]).abs().max()) if fin.any() else 0.0
+    return {"lse_max_abs_err": err, "lse_empty_rows": int(inf.sum()),
+            "lse_ok": same_inf and err <= BWD_LSE_TOL}
+
+
+def k1_cold_ms(B, S, H, Kh, D, layers, device) -> dict:
+    """Cold-L2 device time per launch of K1's forward and of SDPA, causal:
+    one CUDA graph launches each once per layer over its own q, k and v,
+    as a prefill or a train forward does (``graph_ms`` replays one input,
+    which stays in L2 when it fits)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    qkv = [k1_inputs(gen, B, S, S, H, Kh, D, torch.bfloat16, device)
+           for _ in range(layers)]
+    out = {"cold_ms": graph_ms(lambda: [ops.flash_attention(q, k, v,
+                                                            causal=True)
+                                        for q, k, v in qkv],
+                               iters=1, reps=10) / layers}
+    qkv = [tuple(t.transpose(1, 2).contiguous() for t in x) for x in qkv]
+    gqa = {"enable_gqa": True} if H != Kh else {}
+    out["library_cold_ms"] = graph_ms(
+        lambda: [F.scaled_dot_product_attention(q, k, v, is_causal=True, **gqa)
+                 for q, k, v in qkv], iters=1, reps=10) / layers
+    out["cold_layers"] = layers
+    return out
+
+
+def phase_kernel_bwd(device, cases):
+    """K1's backward against its plain version on every case (and the
+    forward's lse against the plain lse); at the training shape also device
+    times of the kernel warm (one input replayed, CUDA graph) and cold
+    (``TRAIN_LAYERS`` layers' own tensors in one graph), of the plain
+    version, of SDPA's backward (autograd of ``scaled_dot_product_attention``
+    on the same tensors, the backward alone), and the bound.  Returns the
+    timed row and the largest bf16 error at the training shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    timed_row = None
+    for case in cases:
+        B, Sq, Sk, H, Kh, D, causal, kv_lens, dtypes, timed = case
+        for dname in dtypes:
+            dtype = getattr(torch, dname)
+            q, k, v = k1_inputs(gen, B, Sq, Sk, H, Kh, D, dtype, device)
+            do = torch.randn(B, Sq, H, D, generator=gen,
+                             device=device).to(dtype)
+            lens = (None if kv_lens is None else
+                    torch.tensor(kv_lens, dtype=torch.int32, device=device))
+            sm = 1.0 / math.sqrt(D)
+            o, lse = ops._forward(q, k, v, causal=causal, sm_scale=sm,
+                                  kv_lens=lens, with_lse=True)
+            got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                          kv_lens=lens)
+            torch.cuda.synchronize()
+            _, lse_ref = ops.flash_attention_plain(
+                q, k, v, causal=causal, kv_lens=lens, return_lse=True)
+            ref = ops.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                causal=causal, kv_lens=lens)
+            row = {"shape": [B, Sq, Sk, H, Kh, D], "causal": causal,
+                   "kv_lens": kv_lens, "dtype": dname}
+            ok = True
+            for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+                c = bwd_check(g, r, dname)
+                row.update({f"{name}_{key}": val for key, val in c.items()})
+                ok = ok and c["ok"]
+            row.update(lse_check(lse, lse_ref))
+            row["fro_tol"], row["max_tol"] = BWD_FRO_TOL[dname], BWD_MAX_TOL[dname]
+            row["ok"] = ok and row["lse_ok"]
+            del ref, lse_ref
+            if timed:
+                def run():
+                    return ops.flash_attention_bwd(q, k, v, o, lse, do,
+                                                   causal=causal, kv_lens=lens)
+                row["ms"] = graph_ms(run, iters=5)
+                row["plain_ms"] = cuda_ms(lambda: ops.flash_attention_bwd_plain(
+                    q, k, v, o, lse, do, causal=causal, kv_lens=lens),
+                    iters=3, warmup=1)
+                qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                              for t in (q, k, v))
+                ot = F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal,
+                    **({"enable_gqa": True} if H != Kh else {}))
+                dot = do.transpose(1, 2).contiguous()
+                row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                    ot, (qt, kt, vt), dot, retain_graph=True))
+                del qt, kt, vt, ot, dot
+                row["bound_ms"], row["bound_by"] = attention_bwd_bound(
+                    B, Sq, Sk, H, Kh, D, causal, kv_lens, dtype)
+                row["sdpa_ratio"] = row["ms"] / row["library_ms"]
+                if dname == "bfloat16":
+                    row.update(bwd_cold_ms(q, k, v, o, lse, do, causal,
+                                           TRAIN_LAYERS))
+                    timed_row = row
+            emit("kernel_bwd", name="flash_attention_bwd", **row)
+            if not row["ok"]:
+                raise AssertionError(f"flash_attention_bwd disagrees with "
+                                     f"its plain version: {row}")
+    return timed_row
+
+
+def bwd_cold_ms(q, k, v, o, lse, do, causal, layers) -> dict:
+    """Cold-L2 device time per launch of K1's backward: one CUDA graph
+    launches it once per layer over ``layers`` copies of the inputs (each
+    layer's tensors last read ``layers`` - 1 launches earlier)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    sets = [tuple(t.clone() for t in (q, k, v, o, lse, do))
+            for _ in range(layers)]
+    ms = graph_ms(lambda: [ops.flash_attention_bwd(*x[:5], x[5],
+                                                   causal=causal)
+                           for x in sets], iters=1, reps=5) / layers
+    del sets
+    torch.cuda.empty_cache()
+    return {"cold_ms": ms, "cold_layers": layers}
 
 
 def phase_kernel(device, cases):
@@ -1115,6 +1358,173 @@ def phase_spill(device, cfg, model):
         del srv, st, k0, v0, k1, v1, pst, tier
 
 
+def train_config():
+    """The train phase's TrainConfig; checkpoints off, but the trainer's
+    checkpoint manager still makes its directory, so a temporary one."""
+    import tempfile
+    from repro_torch.common.config import TrainConfig
+    return TrainConfig(steps=TRAIN_STEPS, learning_rate=TRAIN_LR,
+                       warmup_steps=TRAIN_WARMUP, eval_every=0,
+                       checkpoint_every=0,
+                       checkpoint_dir=tempfile.mkdtemp(prefix="chip_smoke_"))
+
+
+def phase_train(device):
+    """``Trainer`` on full-width llama2-paper cut to TRAIN_LAYERS layers
+    (see TRAIN_STEPS).  K1's forward and backward launch counts are reset
+    just before and must each equal steps x layers just after; every loss
+    finite and the last two below the first two on average.  Then a
+    torch.profiler window over 2 more steps (device busy, idle share, K1's
+    shares) and the flash-vs-chunked grad-step crosscheck.  Returns the
+    launches (forward, backward)."""
+    import shutil
+    import torch
+    import repro_torch.configs as C
+    from repro_torch.common.config import ChameleonConfig
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.runtime.trainer import Trainer
+
+    allocated_before = release_device_memory(device)
+    cfg = C.get_config("llama2-paper").replace(num_layers=TRAIN_LAYERS,
+                                               attn_impl="flash")
+    tcfg = train_config()
+    data = SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    tr = Trainer(cfg, tcfg, ChameleonConfig(enabled=False), data=data,
+                 device=device)
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    torch.cuda.synchronize()
+    ops.flash_attention.launches = 0                  # count the main path only
+    ops.flash_attention_bwd.launches = 0
+    rep = tr.train(TRAIN_STEPS)
+    fwd, bwd = ops.flash_attention.launches, ops.flash_attention_bwd.launches
+    losses = rep.losses
+    step_ms = sorted(rep.times[1:])[len(rep.times[1:]) // 2] * 1e3
+    row = {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "losses": losses, "step_ms": [t * 1e3 for t in rep.times],
+           "step_ms_p50": step_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(device),
+           "allocated_before": allocated_before,
+           "launches": fwd, "bwd_launches": bwd,
+           "skipped_steps": rep.skipped_steps}
+    want = TRAIN_STEPS * TRAIN_LAYERS
+    ok = (all(math.isfinite(x) for x in losses)
+          and sum(losses[-2:]) < sum(losses[:2])
+          and fwd == want and bwd == want and not rep.skipped_steps)
+    emit("train", ok=ok, **row)
+    if not ok:
+        raise AssertionError(f"train: want {TRAIN_STEPS} finite, falling "
+                             f"losses and {want} launches of K1's forward "
+                             f"and backward: {row}")
+    train_profile(tr)
+    train_crosscheck(tr)
+    shutil.rmtree(tcfg.checkpoint_dir, ignore_errors=True)
+    return fwd, bwd
+
+
+def train_profile(tr, n_steps: int = 2):
+    """torch.profiler over ``n_steps`` more train steps: device busy time
+    (sum of CUDA kernel times, one stream), idle share 1 - busy / wall, and
+    K1's forward and backward device time and share of busy time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train(n_steps)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(ms for _, ms, _ in kern)
+    kern.sort(key=lambda x: -x[1])
+    fwd = sum(ms for k, ms, _ in kern if "flash_fwd" in k)
+    bwd = sum(ms for k, ms, _ in kern if "bwd_dkdv" in k or "bwd_dq" in k
+              or "bwd_delta" in k)
+    # device time by kind: cuBLAS products (nvjet / gemm kernels), PyTorch's
+    # elementwise and reduction kernels, and the rest
+    kinds = {"gemm": ("nvjet", "gemm", "cutlass", "xmma"),
+             "elementwise": ("elementwise",), "reduce": ("reduce",)}
+    by_kind = {name: sum(ms for k, ms, _ in kern
+                         if any(w in k.lower() for w in words))
+               for name, words in kinds.items()}
+    by_kind["other"] = busy - fwd - bwd - sum(by_kind.values())
+    emit("train_profile", steps=n_steps, wall_ms=wall, device_busy_ms=busy,
+         idle_share=1 - busy / wall if wall else None,
+         k1_fwd_ms=fwd, k1_bwd_ms=bwd, by_kind_ms=by_kind,
+         k1_fwd_share=fwd / busy if busy else None,
+         k1_bwd_share=bwd / busy if busy else None,
+         kernel_launches=sum(n for _, _, n in kern),
+         top=[{"kernel": k[:80], "ms": ms, "n": n} for k, ms, n in kern[:10]])
+
+
+def train_crosscheck(tr):
+    """One grad step with flash attention and one with chunked attention on
+    the trainer's weights and one batch: losses within TRAIN_LOSS_TOL and
+    every parameter's gradient within TRAIN_GRAD_TOL relative Frobenius."""
+    import torch
+    from repro_torch.distributed import steps as S
+    batch = tr._device_batch(tr.data.batch_at(0))
+    lf, gf, ff = S.make_grad_step(tr.cfg, tr.tcfg)(tr.model, batch, 1.0)
+    lc, gc, fc = S.make_grad_step(tr.cfg.replace(attn_impl="chunked"),
+                                  tr.tcfg)(tr.model, batch, 1.0)
+    rel = {}
+    for n in gf:
+        d = float((gf[n] - gc[n]).norm() / gc[n].norm().clamp(min=1e-30))
+        rel[n] = d
+    del gf, gc
+    worst = max(rel, key=rel.get)
+    row = {"loss_flash": float(lf), "loss_chunked": float(lc),
+           "loss_diff": abs(float(lf) - float(lc)),
+           "grad_rel_fro_max": rel[worst], "grad_rel_fro_max_at": worst,
+           "grad_rel_fro_median": sorted(rel.values())[len(rel) // 2],
+           "finite": bool(ff) and bool(fc),
+           "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL}
+    row["ok"] = (row["finite"] and row["loss_diff"] <= TRAIN_LOSS_TOL
+                 and rel[worst] <= TRAIN_GRAD_TOL)
+    emit("train_crosscheck", **row)
+    torch.cuda.empty_cache()
+    if not row["ok"]:
+        raise AssertionError(f"flash and chunked training disagree: {row}")
+
+
+def phase_train_cli(device):
+    """``repro_torch.launch.train.main`` on the card with the reduced
+    llama2-paper (f32, so the f32 kernels of K1's forward and backward run
+    through the normal entry point): finite losses, and K1's backward
+    launched steps x layers times, its forward also for each eval."""
+    import shutil
+    import tempfile
+    import repro_torch.configs as C
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import train
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    ops.flash_attention.launches = 0
+    ops.flash_attention_bwd.launches = 0
+    try:
+        stats = train.main(TRAIN_CLI_ARGS + ["--ckpt-dir", ckpt])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    fwd, bwd = ops.flash_attention.launches, ops.flash_attention_bwd.launches
+    layers = C.get_reduced("llama2-paper").num_layers
+    steps, evals = stats["steps"], len(stats["eval_losses"])
+    ok = (all(math.isfinite(x) for x in stats["losses"])
+          and bwd == steps * layers and fwd == (steps + evals) * layers
+          and stats["device"].startswith("cuda"))
+    emit("train_cli", ok=ok, device=stats["device"], steps=steps,
+         losses=stats["losses"], eval_losses=stats["eval_losses"],
+         step_ms=[t * 1e3 for t in stats["times"]], launches=fwd,
+         bwd_launches=bwd)
+    if not ok:
+        raise AssertionError(f"train_cli: {stats}")
+
+
 def phase_serve_ssm(device):
     """``repro_torch.launch.serve.main`` on full-width mamba2-780m (bf16,
     random weights from a seed): 8 requests, 4 slots, prompts of 65..900
@@ -1248,6 +1658,16 @@ def main() -> int:
     scfg = C.get_config("mamba2-780m")
     main_path = llama2_cases(cfg)
     rows = phase_kernel(device, SWEEP_CASES + main_path)
+    H, Kh, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    k1_cold = {"serve": k1_cold_ms(1, SUMMARY_LEN, H, Kh, D, K1_COLD_LAYERS,
+                                   device),
+               "train": k1_cold_ms(TRAIN_BATCH, TRAIN_SEQ, H, Kh, D,
+                                   TRAIN_LAYERS, device)}
+    for where, row in k1_cold.items():
+        emit("kernel_cold", name="flash_attention_fwd", at=where, **row)
+    bwd_row = phase_kernel_bwd(device, BWD_CASES + [
+        (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, H, Kh, D, True, None,
+         ("bfloat16",), True)])
     quant_times, quant_q_err, quant_out_err = phase_quant(device)
     decode_row, decode_err = phase_decode_kernel(device, decode_cases(cfg))
     ssd_times = phase_ssd_kernel(device, scfg)
@@ -1268,6 +1688,10 @@ def main() -> int:
     phase_ssm_crosscheck(device, scfg, model)
     phase_profile(device, scfg, model)
     del model
+    gc.collect()                       # the serve phases' models are gone
+    torch.cuda.empty_cache()
+    train_launches, bwd_launches = phase_train(device)
+    phase_train_cli(device)
 
     summary = next(rows[(c, "bfloat16")] for c in main_path
                    if c[1] == SUMMARY_LEN)
@@ -1283,7 +1707,30 @@ def main() -> int:
         "ms": summary["ms"], "plain_ms": summary["plain_ms"],
         "bound_ms": summary["bound_ms"], "bound_by": summary["bound_by"],
         "library_ms": summary["library_ms"],
-        "at": {"shape": summary["shape"], "dtype": "bfloat16"}}] + [{
+        "at": {"shape": summary["shape"], "dtype": "bfloat16"},
+        # cold L2, one launch per layer's own q, k, v (k1_cold_ms)
+        "cold_ms": k1_cold["serve"]["cold_ms"],
+        "library_cold_ms": k1_cold["serve"]["library_cold_ms"],
+        # the train phase: steps x layers launches, and the cold time at
+        # its shape
+        "train_launches": train_launches,
+        "train_cold_ms": k1_cold["train"]["cold_ms"],
+        "train_library_cold_ms": k1_cold["train"]["library_cold_ms"]}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/ops.py:54",
+        "launches": bwd_launches,
+        # the largest bf16 error of dq, dk, dv at the training shape
+        "max_abs_err": max(bwd_row[f"{g}_max_abs_err"]
+                           for g in ("dq", "dk", "dv")),
+        "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],
+        "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
+        # the backward of scaled_dot_product_attention alone
+        "library_ms": bwd_row["library_ms"],
+        "cold_ms": bwd_row["cold_ms"],
+        "at": {"shape": bwd_row["shape"], "causal": True,
+               "dtype": "bfloat16"}}] + [{
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/quant_offload/csrc/"
                   "quant_offload.cu",

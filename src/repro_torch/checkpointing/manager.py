@@ -1,0 +1,359 @@
+"""Fault-tolerant checkpointing.
+
+Port of ``repro/checkpointing/manager.py``, with the same on-disk format:
+
+  * **atomicity** — writes go to ``step_N.tmp.<proc>`` and are renamed to
+    ``step_N`` only after the manifest (with a sha256 per shard file) is
+    fsynced; a crashed writer never leaves a ``step_N`` that restore would
+    trust;
+  * **async** — arrays are snapshotted to host memory when ``save()`` is
+    called and written by a background thread;
+  * **per-process shards** — each process writes ``<tree>.p<i>.npz`` (one
+    file per tree on one process) and ``manifest.p<i>.json``;
+  * **emergency saves** — the trainer calls ``save(..., block=True)`` from
+    its failure handler;
+  * **host-memory tier integration** — with a ``repro_torch.hostmem``
+    transfer engine attached, snapshot staging goes through the engine's
+    lowest-priority ``checkpoint`` traffic class (on the card: device
+    tensors copied on that class's D2H stream into pinned slabs), so
+    concurrent swaps and KV spills preempt the drain.
+
+Trees are nested dicts whose leaves are torch tensors, numpy arrays or
+scalars; ``None`` leaves are skipped.  Keys are the reference's: path
+components joined by ``/`` (``blocks/attn/wq``, ``m/embed/tok``), so a
+checkpoint written by either package restores in the other.  bf16 leaves are widened to f32 (exact), as numpy has no bf16;
+restore casts every leaf back to its template's dtype.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+import threading
+import time
+from typing import Any, Dict, List, Mapping, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import faults, obs
+
+
+def _leaves(tree, prefix=""):
+    """(key, leaf) of every non-None leaf, keys joined by ``/``."""
+    if tree is None:
+        return
+    if not isinstance(tree, Mapping):
+        yield prefix, tree
+        return
+    for k, child in tree.items():
+        yield from _leaves(child, f"{prefix}/{k}" if prefix else str(k))
+
+
+def _host(leaf) -> Any:
+    """A leaf as what gets saved: a numpy array (bf16 widened to f32), or a
+    tensor on the device when an engine stages it."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t
+    return np.asarray(leaf)
+
+
+def _to_numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _process_index() -> int:
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def _process_count() -> int:
+    dist = torch.distributed
+    return (dist.get_world_size()
+            if dist.is_available() and dist.is_initialized() else 1)
+
+
+class CheckpointManager:
+    # shard writes get a short bounded retry before the whole save fails —
+    # transient filesystem hiccups should not cost a checkpoint
+    WRITE_RETRIES = 2
+
+    def __init__(self, directory: str, keep: int = 3,
+                 process_index: Optional[int] = None, engine=None,
+                 on_error: str = "raise"):
+        if on_error not in ("raise", "degrade"):
+            raise ValueError(f"on_error must be 'raise' or 'degrade', "
+                             f"got {on_error!r}")
+        self.dir = directory
+        self.keep = keep
+        self.proc = _process_index() if process_index is None else process_index
+        os.makedirs(directory, exist_ok=True)
+        # optional repro_torch.hostmem TransferEngine: snapshot staging goes
+        # through its lowest-priority "checkpoint" traffic class
+        self.engine = engine
+        # "raise": an async write failure surfaces on the next wait().
+        # "degrade": it is audited and counted, and training continues with
+        # one fewer restore point.
+        self.on_error = on_error
+        self.n_write_failures = 0
+        self.n_restore_fallbacks = 0
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    # -------------------------------------------------- engine staging
+    def _stage(self, name: str, flat: Dict[str, Any]):
+        """Submit every array to the engine's checkpoint-class D2H stream;
+        the writer thread collects the staged bytes later.  On the card the
+        copies read the live tensors after the work already queued on the
+        current stream; the current stream then waits for them, so a later
+        in-place update cannot overwrite a tensor before it is staged."""
+        from repro_torch.hostmem.engine import TC_CHECKPOINT
+        staged = {}
+        for key, arr in flat.items():
+            src = (arr if isinstance(arr, torch.Tensor)
+                   else torch.from_numpy(np.ascontiguousarray(arr)))
+            if src.numel() == 0:         # pool rejects empty reservations
+                staged[key] = _to_numpy(src)
+                continue
+            ev = self.engine.submit_swap_out(
+                src.contiguous(), tag=f"ckpt/{name}/{key}", cls=TC_CHECKPOINT)
+            if ev._cuda is not None:
+                torch.cuda.current_stream(self.engine.device).wait_event(
+                    ev._cuda[1])
+            staged[key] = ev
+        return staged
+
+    def _collect(self, staged: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        """Drain the staged events back to plain arrays (writer side) and
+        recycle their slabs."""
+        out = {}
+        for key, ev in staged.items():
+            if isinstance(ev, np.ndarray):
+                out[key] = ev
+                continue
+            self.engine.wait(ev)
+            if ev.failed:
+                # staging failed terminally: the engine retained the
+                # source (ev.result) and freed the slab; copy it plainly
+                out[key] = _to_numpy(ev.result)
+                continue
+            out[key] = _to_numpy(ev.block.read())
+            self.engine.pool.free(ev.block)
+            # staged checkpoint bytes leave the host tier here, with no
+            # H2D copy — balance the ledger's per-class gauge
+            obs.ledger().note_release(ev.cls, ev.tag, ev.nbytes)
+        return out
+
+    # ---------------------------------------------------------------- save
+    def save(self, step: int, trees: Dict[str, Any],
+             extra: Optional[dict] = None, block: bool = False) -> str:
+        """Snapshot now, write async (unless block=True)."""
+        self.wait()
+        with obs.tracer().span(obs.LANE_CHECKPOINT, "ckpt.snapshot",
+                               arg=step):
+            snap = {name: {k: _host(v) for k, v in _leaves(tree)}
+                    for name, tree in trees.items() if tree is not None}
+            if self.engine is None:
+                snap = {name: {k: _to_numpy(v) for k, v in flat.items()}
+                        for name, flat in snap.items()}
+        if self.engine is not None:
+            from repro_torch.hostmem.engine import TC_CHECKPOINT
+            # widen the class window to the whole drain so no copy is
+            # forced inline here — the writer thread drains them all
+            self.engine.set_class_depth(
+                TC_CHECKPOINT,
+                sum(len(flat) for flat in snap.values()) + 2)
+            with obs.tracer().span(obs.LANE_CHECKPOINT, "ckpt.stage",
+                                   arg=step):
+                snap = {name: self._stage(name, flat)
+                        for name, flat in snap.items()}
+        extra = dict(extra or {})
+        final = os.path.join(self.dir, f"step_{step:08d}")
+        tmp = final + f".tmp.{self.proc}"
+
+        def write():
+            try:
+                with obs.tracer().span(obs.LANE_CHECKPOINT, "ckpt.write",
+                                       arg=step):
+                    self._write_body(step, snap, extra, tmp, final)
+            except BaseException as e:   # surfaced on next wait()
+                self._error = e
+                if self.engine is not None:   # recycle any staged slabs
+                    try:
+                        for flat in snap.values():
+                            for ev in flat.values():
+                                if isinstance(ev, np.ndarray):
+                                    continue
+                                self.engine.wait(ev)
+                                if ev.block is not None and not ev.block.freed:
+                                    self.engine.pool.free(ev.block)
+                                    obs.ledger().note_release(
+                                        ev.cls, ev.tag, ev.nbytes)
+                    except BaseException:
+                        pass
+
+        if block:
+            write()
+            self._raise_if_failed()
+        else:
+            self._thread = threading.Thread(target=write, daemon=True)
+            self._thread.start()
+        return final
+
+    def _write_body(self, step, snap, extra, tmp, final):
+        os.makedirs(tmp, exist_ok=True)
+        manifest = {"step": step, "time": time.time(),
+                    "process_count": _process_count(),
+                    "extra": extra, "trees": {}}
+        for name, flat in snap.items():
+            if self.engine is not None:
+                with obs.tracer().span(obs.LANE_CHECKPOINT, "ckpt.collect",
+                                       arg=name):
+                    flat = self._collect(flat)
+            fname = f"{name}.p{self.proc}.npz"
+            path = os.path.join(tmp, fname)
+            self._write_shard(path, fname, flat)
+            with open(path, "rb") as f:
+                digest = hashlib.sha256(f.read()).hexdigest()
+            manifest["trees"][name] = {
+                "file": fname, "sha256": digest,
+                "keys": sorted(flat.keys())}
+        mpath = os.path.join(tmp, f"manifest.p{self.proc}.json")
+        with open(mpath, "w") as f:
+            json.dump(manifest, f, indent=1)
+            f.flush()
+            os.fsync(f.fileno())
+        if not os.path.exists(final):
+            os.replace(tmp, final)
+        else:
+            shutil.rmtree(tmp, ignore_errors=True)
+        self._gc()
+
+    def _write_shard(self, path: str, fname: str, flat) -> None:
+        last: Optional[BaseException] = None
+        for attempt in range(self.WRITE_RETRIES + 1):
+            try:
+                if faults.inject("ckpt.write", key=fname) is not None:
+                    raise OSError(f"injected shard-write failure ({fname})")
+                np.savez(path, **flat)
+                return
+            except OSError as e:
+                last = e
+                obs.audit().event("ckpt.write_retry", file=fname,
+                                  attempt=attempt + 1, error=repr(e)[:120])
+                obs.metrics().counter("ckpt_write_retries")
+        raise last
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        self._raise_if_failed()
+
+    def _raise_if_failed(self):
+        if self._error is None:
+            return
+        err, self._error = self._error, None
+        self.n_write_failures += 1
+        if self.on_error == "degrade":
+            obs.audit().event("ckpt.write_failed", error=repr(err)[:200])
+            obs.metrics().counter("ckpt_write_failures")
+            return
+        raise RuntimeError(f"async checkpoint write failed: {err!r}")
+
+    def _gc(self):
+        steps = self.all_steps()
+        for s in steps[: max(0, len(steps) - self.keep)]:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s:08d}"),
+                          ignore_errors=True)
+
+    # -------------------------------------------------------------- restore
+    def all_steps(self) -> List[int]:
+        out = []
+        for d in os.listdir(self.dir):
+            if d.startswith("step_") and not d.endswith(".tmp"):
+                try:
+                    out.append(int(d.split("_")[1]))
+                except (ValueError, IndexError):
+                    pass
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, step: int, templates: Dict[str, Any],
+                fallback: bool = True):
+        """Rebuild trees shaped like ``templates``; returns (trees, extra).
+        A template leaf that is a tensor gives a tensor of its dtype on its
+        device (on the CPU for a ``meta`` template); any other leaf gives a
+        numpy array of its dtype.
+
+        When the requested checkpoint is unreadable (corrupt shard,
+        truncated manifest, missing file) and ``fallback`` is True, each
+        older ``step_N`` is tried in turn; the corruption is audited with the
+        shard named, and only when no checkpoint is readable does the first
+        error surface."""
+        candidates = [step]
+        if fallback:
+            candidates += [s for s in reversed(self.all_steps()) if s < step]
+        first_err: Optional[BaseException] = None
+        for s in candidates:
+            try:
+                return self._restore_one(s, templates)
+            except (OSError, KeyError, ValueError) as e:
+                if first_err is None:
+                    first_err = e
+                obs.audit().event("ckpt.restore_failed", step=s,
+                                  error=repr(e)[:200])
+                obs.metrics().counter("ckpt_restore_failures")
+                if s != candidates[-1]:
+                    self.n_restore_fallbacks += 1
+                    obs.audit().event("ckpt.restore_fallback", frm=s)
+        raise first_err
+
+    def _restore_one(self, step: int, templates: Dict[str, Any]):
+        d = os.path.join(self.dir, f"step_{step:08d}")
+        mpath = os.path.join(d, f"manifest.p{self.proc}.json")
+        with open(mpath) as f:
+            manifest = json.load(f)
+        out = {}
+        for name, template in templates.items():
+            if template is None:
+                out[name] = None
+                continue
+            info = manifest["trees"][name]
+            path = os.path.join(d, info["file"])
+            with open(path, "rb") as f:
+                digest = hashlib.sha256(f.read()).hexdigest()
+            if digest != info["sha256"]:
+                raise IOError(
+                    f"checkpoint corruption in shard {info['file']} of "
+                    f"step {step}: sha256 {digest[:12]} != manifest "
+                    f"{info['sha256'][:12]} ({path})")
+            with np.load(path) as z:
+                flat = dict(z)
+            out[name] = _rebuild(template, flat, "")
+        return out, manifest["extra"]
+
+
+def _rebuild(template, flat: Dict[str, np.ndarray], prefix: str):
+    if template is None:
+        return None
+    if not isinstance(template, Mapping):
+        arr = flat[prefix]
+        if isinstance(template, torch.Tensor):
+            dev = (torch.device("cpu") if template.device.type == "meta"
+                   else template.device)
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(
+                device=dev, dtype=template.dtype)
+        want = np.asarray(template).dtype
+        return arr.astype(want) if arr.dtype != want else arr
+    return {k: _rebuild(c, flat, f"{prefix}/{k}" if prefix else str(k))
+            for k, c in template.items()}

@@ -34,6 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES: Dict[str, Path] = {
     "flash_attention_fwd":
         KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention_fwd.cu",
+    "flash_attention_bwd":
+        KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention_bwd.cu",
     "flash_decode_fwd":
         KERNELS_DIR / "flash_attention" / "csrc" / "flash_decode_fwd.cu",
     "quant_offload":

@@ -6,6 +6,10 @@
 // accumulator acc stay in f32; GQA by reading K/V at head h / (H / Kh); a
 // per-batch kv_lens mask; the top-left causal mask qpos >= kpos; KV tiles
 // above the diagonal are never loaded.  A row with no valid key gives 0.
+// Given an lse pointer, the epilogue also writes each query row's
+// log-sum-exp of its scaled scores from the running max and sum, -inf for a
+// row with no valid key, for the backward (flash_attention_bwd.cu); a null
+// pointer, what every served call passes, leaves the served work unchanged.
 //
 // What bounds it on the card.  The work is 4*B*H*D*pairs flops (pairs = the
 // unmasked (query, key) pairs, about Sq*Sk/2 when causal) against
@@ -75,8 +79,8 @@ template <int D>
 __global__ void __launch_bounds__(NT32)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
-              const int* __restrict__ kv_lens, int H, int Kh, int Sq, int Sk,
-              float sm_scale, int causal) {
+              float* __restrict__ lse, const int* __restrict__ kv_lens, int H,
+              int Kh, int Sq, int Sk, float sm_scale, int causal) {
   constexpr int DP = D + 1;
   constexpr int NC = D / 16;    // output columns per thread
   extern __shared__ float smem[];
@@ -205,6 +209,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NC; ++c) ob[pos * q_stride + tx + 16 * c] = acc[i][c] / denom;
+    if (lse && tx == 0)
+      lse[((int64_t)b * H + h) * Sq + pos] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
   }
 }
 
@@ -573,8 +579,9 @@ __global__ void __launch_bounds__(128 * (NWG + 1), Regs<NWG>::MIN_BLOCKS)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
-               __nv_bfloat16* __restrict__ o, const int* __restrict__ kv_lens,
-               int H, int Kh, int Sq, int Sk, float scale_log2, int causal) {
+               __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+               const int* __restrict__ kv_lens, int H, int Kh, int Sq, int Sk,
+               float scale_log2, int causal) {
   using G = Geo<D>;
   using L = Smem<D, NWG>;
   constexpr int BQ16 = L::BQ16;
@@ -733,6 +740,11 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
         *reinterpret_cast<uint32_t*>(ob + row1 * q_stride + col) =
             pack_bf16(oacc[4 * n + 2] * inv1, oacc[4 * n + 3] * inv1);
     }
+    if (lse && t4 == 0) {       // m is in the log2 domain: lse = m ln 2 + ln l
+      float* lrow = lse + ((int64_t)b * H + h) * Sq;
+      if (row0 < Sq) lrow[row0] = l0 > 0.f ? m0 * 0.6931471805599453f + logf(l0) : -INFINITY;
+      if (row1 < Sq) lrow[row1] = l1 > 0.f ? m1 * 0.6931471805599453f + logf(l1) : -INFINITY;
+    }
   }
 }
 
@@ -754,7 +766,7 @@ inline int allow_smem(const void* fn, int smem, std::atomic<uint64_t>& ready) {
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               const int* kv_lens, int B, int H, int Kh, int Sq, int Sk,
+               float* lse, const int* kv_lens, int B, int H, int Kh, int Sq, int Sk,
                float sm_scale, int causal, cudaStream_t stream) {
   constexpr int smem = smem_bytes_f32<D>();
   static std::atomic<uint64_t> ready{0};
@@ -763,8 +775,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_f32<D><<<grid, NT32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), kv_lens, H, Kh, Sq,
-      Sk, sm_scale, causal);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, kv_lens, H, Kh,
+      Sq, Sk, sm_scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -825,7 +837,7 @@ int make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int heads,
 
 template <int D, int NWG>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                const int* kv_lens, int B, int H, int Kh, int Sq, int Sk,
+                float* lse, const int* kv_lens, int B, int H, int Kh, int Sq, int Sk,
                 float sm_scale, int causal, cudaStream_t stream) {
   constexpr int smem = Smem<D, NWG>::BYTES;
   static std::atomic<uint64_t> ready{0};
@@ -840,7 +852,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
     return err;
   const dim3 grid(H, (Sq + 64 * NWG - 1) / (64 * NWG), B);
   flash_fwd_bf16<D, NWG><<<grid, 128 * (NWG + 1), smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), kv_lens, H, Kh, Sq, Sk,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, kv_lens, H, Kh, Sq, Sk,
       sm_scale * 1.4426950408889634f, causal);
   return (int)cudaGetLastError();
 }
@@ -854,16 +866,16 @@ inline int default_wgs(int Sq) { return Sq <= 128 ? 1 : 2; }
 
 template <int D>
 int launch_d(int dtype, int wgs, const void* q, const void* k, const void* v,
-             void* o, const int* kv_lens, int B, int H, int Kh, int Sq, int Sk,
-             float sm_scale, int causal, cudaStream_t st) {
+             void* o, float* lse, const int* kv_lens, int B, int H, int Kh,
+             int Sq, int Sk, float sm_scale, int causal, cudaStream_t st) {
   if (dtype == 0)
-    return launch_f32<D>(q, k, v, o, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
+    return launch_f32<D>(q, k, v, o, lse, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (wgs == 0) wgs = default_wgs(Sq);
   if (wgs == 1)
-    return launch_bf16<D, 1>(q, k, v, o, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
+    return launch_bf16<D, 1>(q, k, v, o, lse, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
   if (wgs == 2)
-    return launch_bf16<D, 2>(q, k, v, o, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
+    return launch_bf16<D, 2>(q, k, v, o, lse, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -872,12 +884,14 @@ int launch_d(int dtype, int wgs, const void* q, const void* k, const void* v,
 // C entry point with the bf16 kernel's consumer warpgroups per block chosen
 // by the caller (1: 64 query rows a block, 2: 128; 0: the default rule).
 // dtype: 0 = float32, 1 = bfloat16; q, k, v, o contiguous and 16-byte
-// aligned.  Returns a cudaError_t (0 on success): the launch status from
+// aligned.  lse: (B, H, Sq) f32 or null; where given, each query row's
+// log-sum-exp of its scaled scores (natural log) is written there, -inf
+// for a row with no valid key (what the backward reads).  Returns a cudaError_t (0 on success): the launch status from
 // cudaGetLastError, or cudaErrorInvalidValue for a head dim, dtype or
 // warpgroup count the kernel does not take or a tensor map the driver
 // refuses.
 extern "C" int flash_attention_fwd_wgs(const void* q, const void* k,
-                                       const void* v, void* o,
+                                       const void* v, void* o, float* lse,
                                        const int* kv_lens, int B, int H,
                                        int Kh, int Sq, int Sk, int D,
                                        int dtype, float sm_scale, int causal,
@@ -887,20 +901,21 @@ extern "C" int flash_attention_fwd_wgs(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch_d<16>(dtype, wgs, q, k, v, o, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
-    case 32: return launch_d<32>(dtype, wgs, q, k, v, o, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
-    case 64: return launch_d<64>(dtype, wgs, q, k, v, o, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
-    case 128: return launch_d<128>(dtype, wgs, q, k, v, o, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
+    case 16: return launch_d<16>(dtype, wgs, q, k, v, o, lse, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
+    case 32: return launch_d<32>(dtype, wgs, q, k, v, o, lse, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
+    case 64: return launch_d<64>(dtype, wgs, q, k, v, o, lse, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
+    case 128: return launch_d<128>(dtype, wgs, q, k, v, o, lse, kv_lens, B, H, Kh, Sq, Sk, sm_scale, causal, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // C entry point.  The same, with the default rule for the bf16 kernel.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, const int* kv_lens, int B, int H,
-                                   int Kh, int Sq, int Sk, int D, int dtype,
-                                   float sm_scale, int causal, void* stream) {
-  return flash_attention_fwd_wgs(q, k, v, o, kv_lens, B, H, Kh, Sq, Sk, D,
+                                   void* o, float* lse, const int* kv_lens,
+                                   int B, int H, int Kh, int Sq, int Sk, int D,
+                                   int dtype, float sm_scale, int causal,
+                                   void* stream) {
+  return flash_attention_fwd_wgs(q, k, v, o, lse, kv_lens, B, H, Kh, Sq, Sk, D,
                                  dtype, sm_scale, causal, 0, stream);
 }
 

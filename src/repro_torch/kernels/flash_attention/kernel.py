@@ -1,9 +1,11 @@
 """ctypes bindings of the CUDA flash-attention forward
-(``csrc/flash_attention_fwd.cu``) and flash-decode
+(``csrc/flash_attention_fwd.cu``), flash-attention backward
+(``csrc/flash_attention_bwd.cu``) and flash-decode
 (``csrc/flash_decode_fwd.cu``) kernels.
 
 Ports of the Pallas kernels ``repro/kernels/flash_attention/kernel.py::
-flash_attention_fwd`` and ``::flash_decode_fwd``.  Each library is built
+flash_attention_fwd`` and ``::flash_decode_fwd``, and of the backward rule
+``repro/kernels/flash_attention/ops.py::_flash_bwd``.  Each library is built
 and loaded at its first launch (``kernels/_build.py``), never at import, so
 the CPU tests can import this module.  The kernels read the model layout
 (B, S, H, D) directly; ``ops.flash_attention`` and ``ops.flash_decode``
@@ -19,12 +21,15 @@ import torch
 from repro_torch.kernels import _build
 
 LIB = "flash_attention_fwd"
+BWD_LIB = "flash_attention_bwd"
 DECODE_LIB = "flash_decode_fwd"
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib: Optional[ctypes.CDLL] = None
 _fn = None
+_bwd_lib: Optional[ctypes.CDLL] = None
+_bwd_fn = None
 _decode_lib: Optional[ctypes.CDLL] = None
 _decode_fn = None
 
@@ -33,7 +38,7 @@ def bind(lib: ctypes.CDLL):
     """The typed C entry point ``flash_attention_fwd`` of a loaded library."""
     fn = lib.flash_attention_fwd
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp,            # q k v o kv_lens
+    fn.argtypes = [vp, vp, vp, vp, vp, vp,        # q k v o lse kv_lens
                    ci, ci, ci, ci, ci, ci, ci,    # B H Kh Sq Sk D dtype
                    ctypes.c_float, ci, vp]        # sm_scale causal stream
     fn.restype = ci
@@ -48,23 +53,74 @@ def _entry():
     return _lib, _fn
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, kv_lens: Optional[torch.Tensor], *,
-                        causal: bool, sm_scale: float) -> None:
+                        causal: bool, sm_scale: float,
+                        lse: Optional[torch.Tensor] = None) -> None:
     """Launch on the current stream of ``q``'s device and return without
     synchronising.  q/out (B,Sq,H,D), k/v (B,Sk,Kh,D), contiguous, 16-byte
     aligned (the bf16 kernel reads them through tensor maps), one dtype;
-    kv_lens (B,) int32 on the same device, or None."""
+    kv_lens (B,) int32 on the same device, or None; lse (B,H,Sq) f32 to
+    receive each row's log-sum-exp, or None."""
     B, Sq, H, D = q.shape
     Sk, Kh = k.shape[1], k.shape[2]
     lib, fn = _entry()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 None if kv_lens is None else kv_lens.data_ptr(),
+                 _ptr(lse), _ptr(kv_lens), B, H, Kh, Sq, Sk, D,
+                 DTYPE_CODES[q.dtype], float(sm_scale), int(causal), stream)
+    _build.check(lib, err, "flash_attention_fwd launch")
+
+
+def bind_bwd(lib: ctypes.CDLL):
+    """The typed C entry point ``flash_attention_bwd`` of a loaded library."""
+    fn = lib.flash_attention_bwd
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, vp,            # q k v o dout
+                   vp, vp,                        # lse delta
+                   vp, vp, vp, vp,                # dq dk dv kv_lens
+                   ci, ci, ci, ci, ci, ci, ci,    # B H Kh Sq Sk D dtype
+                   ctypes.c_float, ci, vp]        # sm_scale causal stream
+    fn.restype = ci
+    return fn
+
+
+def _bwd_entry():
+    global _bwd_lib, _bwd_fn
+    if _bwd_fn is None:
+        _bwd_lib = _build.load(BWD_LIB)
+        _bwd_fn = bind_bwd(_bwd_lib)
+    return _bwd_lib, _bwd_fn
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, dq: torch.Tensor,
+                        dk: torch.Tensor, dv: torch.Tensor,
+                        kv_lens: Optional[torch.Tensor], *, causal: bool,
+                        sm_scale: float) -> None:
+    """Launch the three backward kernels (delta, dK/dV, dQ) on the current
+    stream of ``q``'s device and return without synchronising.  q/o/dout/dq
+    (B,Sq,H,D), k/v/dk/dv (B,Sk,Kh,D), contiguous, 16-byte aligned, one
+    dtype; lse (B,H,Sq) f32 from the forward; kv_lens (B,) int32 or None.
+    The f32 delta scratch (B,H,Sq) is allocated here."""
+    B, Sq, H, D = q.shape
+    Sk, Kh = k.shape[1], k.shape[2]
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    lib, fn = _bwd_entry()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(kv_lens),
                  B, H, Kh, Sq, Sk, D, DTYPE_CODES[q.dtype], float(sm_scale),
                  int(causal), stream)
-    _build.check(lib, err, "flash_attention_fwd launch")
+    _build.check(lib, err, "flash_attention_bwd launch")
 
 
 # K3's keys per split (``split_keys``) and the split blocks it aims for: at

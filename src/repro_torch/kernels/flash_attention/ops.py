@@ -1,5 +1,5 @@
-"""Model-layout wrappers of the flash-attention forward and flash-decode
-kernels, and their plain versions.
+"""Model-layout wrappers of the flash-attention forward, flash-attention
+backward and flash-decode kernels, and their plain versions.
 
 ``flash_attention`` takes the model zoo's layout, q (B,Sq,H,D) and k/v
 (B,Sk,Kh,D), as ``repro/kernels/flash_attention/ops.py`` does.  The CUDA
@@ -16,13 +16,21 @@ valid lengths ``lens`` (B,) on the device.  Rows at or past ``lens[b]`` are
 masked (the kernel never reads them); a row with ``lens[b] <= 0`` gives
 zeros, in the kernel and in ``flash_decode_plain`` alike.
 
+Training: when grad is enabled and an input requires grad,
+``flash_attention`` goes through ``_FlashAttentionFn``, whose forward
+launches the forward kernel with its ``lse`` output and saves q, k, v, o
+and lse, and whose backward launches ``flash_attention_bwd`` (the port of
+the reference's ``_flash_bwd`` rule, with the forward's own masks: see
+``flash_attention_bwd_plain``).  Under ``torch.no_grad`` it stays the
+served forward-only call.  ``flash_decode`` is forward only.
+
 Tensors on the CPU go to the plain versions; CUDA tensors launch the
-kernels or raise, with no fallback.  The wrappers are forward only: an
-input that requires grad raises (the backward kernel comes with the
-training slice).  ``flash_attention.launches`` and
-``flash_decode.launches`` count kernel launches; one ``flash_decode`` call
-is one launch, though on the card it runs two kernels (the split-KV pass
-and its combine, ``csrc/flash_decode_fwd.cu``).
+kernels or raise, with no fallback.  ``flash_attention.launches``,
+``flash_attention_bwd.launches`` and ``flash_decode.launches`` count kernel
+launches; one ``flash_decode`` call is one launch, though on the card it
+runs two kernels (the split-KV pass and its combine,
+``csrc/flash_decode_fwd.cu``), and one ``flash_attention_bwd`` call is one
+launch of three kernels (delta, dK/dV, dQ).
 """
 from __future__ import annotations
 
@@ -49,11 +57,27 @@ def _check_shapes(q, k, v, kv_lens):
                          f"{tuple(kv_lens.shape)}")
 
 
+def _mask(B, Sq, Sk, causal, kv_lens, device) -> torch.Tensor:
+    """(B,1,1,Sq,Sk) bool: the top-left causal mask and kv_lens."""
+    kpos = torch.arange(Sk, device=device)
+    mask = torch.ones(B, Sq, Sk, dtype=torch.bool, device=device)
+    if causal:
+        qpos = torch.arange(Sq, device=device)
+        mask = mask & (qpos[:, None] >= kpos[None, :])
+    if kv_lens is not None:
+        lens = kv_lens.to(device=device, dtype=torch.int64)
+        mask = mask & (kpos[None, None, :] < lens[:, None, None])
+    return mask[:, None, None]
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool, sm_scale: Optional[float] = None,
-                          kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          kv_lens: Optional[torch.Tensor] = None,
+                          return_lse: bool = False):
     """Plain PyTorch version of the kernel: the same masks, the same f32
-    arithmetic, one (Sq, Sk) score matrix per head instead of tiles."""
+    arithmetic, one (Sq, Sk) score matrix per head instead of tiles.  With
+    ``return_lse`` it returns (out, lse): lse (B,H,Sq) f32 is each row's
+    log-sum-exp of its scaled scores, -inf for a row with no valid key."""
     _check_shapes(q, k, v, kv_lens)
     B, Sq, H, D = q.shape
     Sk, Kh = k.shape[1], k.shape[2]
@@ -62,56 +86,178 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sm_scale = 1.0 / math.sqrt(D)
     qf = q.float().reshape(B, Sq, Kh, G, D) * sm_scale
     s = torch.einsum("bqkgd,bckd->bkgqc", qf, k.float())
-    kpos = torch.arange(Sk, device=q.device)
-    mask = torch.ones(B, Sq, Sk, dtype=torch.bool, device=q.device)
-    if causal:
-        qpos = torch.arange(Sq, device=q.device)
-        mask = mask & (qpos[:, None] >= kpos[None, :])
-    if kv_lens is not None:
-        lens = kv_lens.to(device=q.device, dtype=torch.int64)
-        mask = mask & (kpos[None, None, :] < lens[:, None, None])
-    mask = mask[:, None, None]                       # (B,1,1,Sq,Sk)
+    mask = _mask(B, Sq, Sk, causal, kv_lens, q.device)
     s = s.masked_fill(~mask, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * mask
+    mx = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - mx) * mask
     l = p.sum(dim=-1, keepdim=True)
     ctx = torch.einsum("bkgqc,bckd->bkgqd", p, v.float())
     ctx = ctx / torch.clamp(l, min=1e-30)
-    return ctx.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    out = ctx.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = (mx + torch.log(l)).reshape(B, H, Sq)      # log(0) = -inf: no key
+    return out, lse
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor, *,
+                              causal: bool, sm_scale: Optional[float] = None,
+                              kv_lens: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of the backward kernel: whole (Sq, Sk) matrices
+    per head in f32.  For every valid pair (the forward's top-left causal
+    mask and kv_lens), P = exp(scale q.k - lse), dV = P^T dO, dP = dO V^T,
+    delta = rowsum(dO * O), dS = P (dP - delta), dQ = scale dS K,
+    dK = scale dS^T Q; dK and dV sum over a KV head's query heads.
+    Returns (dq, dk, dv) in the inputs' dtype; masked pairs add nothing."""
+    _check_shapes(q, k, v, kv_lens)
+    B, Sq, H, D = q.shape
+    Sk, Kh = k.shape[1], k.shape[2]
+    G = H // Kh
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    qf = q.float().reshape(B, Sq, Kh, G, D)
+    of = o.float().reshape(B, Sq, Kh, G, D)
+    dof = do.float().reshape(B, Sq, Kh, G, D)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgd,bckd->bkgqc", qf, kf) * sm_scale
+    mask = _mask(B, Sq, Sk, causal, kv_lens, q.device)
+    lse_ = lse.float().reshape(B, Kh, G, Sq, 1)
+    # where a row has no valid key lse is -inf and exp overflows: masked out
+    p = torch.where(mask, torch.exp(s - lse_), torch.zeros((), device=q.device))
+    dp = torch.einsum("bqkgd,bckd->bkgqc", dof, vf)
+    delta = (dof * of).sum(-1).permute(0, 2, 3, 1)[..., None]   # (B,Kh,G,Sq,1)
+    ds = p * (dp - delta)
+    dv = torch.einsum("bkgqc,bqkgd->bckd", p, dof)
+    dk = torch.einsum("bkgqc,bqkgd->bckd", ds, qf) * sm_scale
+    dq = torch.einsum("bkgqc,bckd->bqkgd", ds, kf) * sm_scale
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _on_cpu(*ts) -> bool:
+    return all(t is None or t.device.type == "cpu" for t in ts)
+
+
+def _check_cuda(name: str, q, *ts) -> None:
+    """What the CUDA kernels take: one device, one dtype, a head dim of
+    HEAD_DIMS, 16-byte aligned (after ``contiguous``)."""
+    if q.device.type != "cuda" or any(t.device != q.device for t in ts):
+        raise RuntimeError(f"{name} runs on one CUDA device or on the CPU; "
+                           f"got {[str(t.device) for t in (q, *ts)]}")
+    if q.dtype not in K.DTYPE_CODES or any(t.dtype != q.dtype for t in ts):
+        raise TypeError(f"{name} takes float32 or bfloat16 tensors of one "
+                        f"dtype; got {[t.dtype for t in (q, *ts)]}")
+    if q.shape[3] not in K.HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[3]} not in {K.HEAD_DIMS}")
+    if any(t.data_ptr() % 16 for t in (q, *ts)):
+        raise ValueError(f"{name} reads its tensors in 16-byte vectors or "
+                         "through tensor maps: they must start 16-byte "
+                         "aligned")
+
+
+def _lens32(kv_lens, device):
+    if kv_lens is None:
+        return None
+    return kv_lens.to(device=device, dtype=torch.int32).contiguous()
+
+
+def _forward(q, k, v, *, causal, sm_scale, kv_lens, with_lse: bool):
+    """The forward on the CPU (plain) or the card (the kernel); returns
+    (out, lse or None)."""
+    if _on_cpu(q, k, v):
+        if with_lse:
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         sm_scale=sm_scale, kv_lens=kv_lens,
+                                         return_lse=True)
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     sm_scale=sm_scale, kv_lens=kv_lens), None
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_cuda("flash_attention", q, k, v)
+    kv_lens = _lens32(kv_lens, q.device)
+    out = torch.empty_like(q)
+    lse = None
+    if with_lse:
+        B, Sq, H, _ = q.shape
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    K.flash_attention_fwd(q, k, v, out, kv_lens, causal=causal,
+                          sm_scale=sm_scale, lse=lse)
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool, sm_scale: Optional[float] = None,
+                        kv_lens: Optional[torch.Tensor] = None):
+    """q/o/do (B,Sq,H,D); k/v (B,Sk,Kh,D); lse (B,H,Sq) f32 from the forward
+    -> (dq, dk, dv) in the inputs' dtype.  CPU tensors take
+    ``flash_attention_bwd_plain``; CUDA tensors launch the kernel."""
+    _check_shapes(q, k, v, kv_lens)
+    B, Sq, H, D = q.shape
+    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    if tuple(lse.shape) != (B, H, Sq):
+        raise ValueError(f"lse must have shape {(B, H, Sq)}, got "
+                         f"{tuple(lse.shape)}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    if _on_cpu(q, k, v, o, lse, do):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         sm_scale=sm_scale, kv_lens=kv_lens)
+    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    _check_cuda("flash_attention_bwd", q, k, v, o, do)
+    if lse.dtype != torch.float32 or lse.device != q.device:
+        raise TypeError(f"lse must be float32 on {q.device}; got {lse.dtype} "
+                        f"on {lse.device}")
+    lse = lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    K.flash_attention_bwd(q, k, v, o, lse, do, dq, dk, dv,
+                          _lens32(kv_lens, q.device), causal=causal,
+                          sm_scale=sm_scale)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with its backward kernel: the forward saves q, k, v,
+    the output and its lse (nothing quadratic), the backward recomputes P."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, causal, sm_scale):
+        out, lse = _forward(q, k, v, causal=causal, sm_scale=sm_scale,
+                            kv_lens=kv_lens, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, kv_lens)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, kv_lens = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
+                                         causal=ctx.causal,
+                                         sm_scale=ctx.sm_scale,
+                                         kv_lens=kv_lens)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, sm_scale: Optional[float] = None,
                     kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q (B,Sq,H,D); k/v (B,Sk,Kh,D); kv_lens (B,) or None -> (B,Sq,H,D)."""
+    """q (B,Sq,H,D); k/v (B,Sk,Kh,D); kv_lens (B,) or None -> (B,Sq,H,D).
+    Differentiable in q, k and v through ``_FlashAttentionFn``."""
     _check_shapes(q, k, v, kv_lens)
-    if any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention is forward only; call it under "
-                           "torch.no_grad() (the backward kernel is not "
-                           "ported yet)")
-    D = q.shape[3]
     if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(D)
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     sm_scale=sm_scale, kv_lens=kv_lens)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise RuntimeError(f"flash_attention runs on one CUDA device or on the "
-                           f"CPU; got {q.device}, {k.device}, {v.device}")
-    if q.dtype not in K.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention takes float32 or bfloat16 q/k/v of "
-                        f"one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in K.HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {K.HEAD_DIMS}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention reads q, k and v through tensor "
-                         "maps: they must start 16-byte aligned")
-    if kv_lens is not None:
-        kv_lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
-    out = torch.empty_like(q)
-    K.flash_attention_fwd(q, k, v, out, kv_lens, causal=causal,
-                          sm_scale=sm_scale)
-    flash_attention.launches += 1
+        sm_scale = 1.0 / math.sqrt(q.shape[3])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttentionFn.apply(q, k, v, kv_lens, causal, sm_scale)
+    out, _ = _forward(q, k, v, causal=causal, sm_scale=sm_scale,
+                      kv_lens=kv_lens, with_lse=False)
     return out
 
 

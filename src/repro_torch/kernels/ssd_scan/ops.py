@@ -13,8 +13,13 @@ leaves it.  In bf16 one call runs three passes that are parallel over
 chunks, with scratch that this wrapper allocates; in f32 one kernel.
 
 Tensors on the CPU go to ``ssd_scan_plain``; CUDA tensors launch the kernel
-or raise, with no fallback.  Forward only.  ``ssd_scan.launches`` counts
-calls that launch the kernel: one per call, whatever the passes.
+or raise, with no fallback.  ``ssd_scan_plain`` is plain differentiable
+PyTorch, so on the CPU a train step runs through it, as the reference's
+``apply_ssm`` trains through its differentiable ``ssd_chunked``.  On the
+card the kernel is forward only: a CUDA input that requires grad raises
+(its backward, K4 backward, is owed to ROADMAP.md queue 1 item 7).
+``ssd_scan.launches`` counts calls that launch the kernel: one per call,
+whatever the passes.
 """
 from __future__ import annotations
 
@@ -94,11 +99,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     x's dtype, final state (B,H,P,N) f32)."""
     _check_shapes(x, dt, A, Bm, Cm, chunk)
     ts = (x, dt, A, Bm, Cm)
-    if any(t.requires_grad for t in ts):
-        raise RuntimeError("ssd_scan is forward only; call it under "
-                           "torch.no_grad()")
     if all(t.device.type == "cpu" for t in ts):
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError("ssd_scan is forward only on the card: the K4 "
+                           "backward kernel is not ported yet (ROADMAP.md "
+                           "queue 1 item 7); call it under torch.no_grad()")
     if x.device.type != "cuda" or any(t.device != x.device for t in ts):
         raise RuntimeError(f"ssd_scan runs on one CUDA device or on the CPU; "
                            f"got {[str(t.device) for t in ts]}")

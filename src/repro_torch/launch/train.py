@@ -1,0 +1,127 @@
+"""Training entry point, one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama2-paper \\
+        --reduced --device cpu --no-chameleon --steps 5
+
+Port of the single-device subset of ``repro/launch/train.py``.  Chameleon
+is not ported yet (ROADMAP.md queue 1 items 4a and 4b), so the run needs
+``--no-chameleon`` and raises without it; flags of later slices raise,
+naming the slice: ``--budget-gib`` and ``--stats-json`` (Chameleon's
+budget and runtime stats, item 4b), ``--policy-store-dir`` /
+``--no-policy-store`` / ``--adapt-mode`` (item 8), ``--autotune`` (item
+10), ``--mesh`` / ``--multihost`` (item 11).  Besides the reference's
+flags it takes ``--device`` (``cuda`` unless asked) and ``--attn-impl``
+(``flash`` trains every attention through the flash-attention forward and
+backward kernels), as ``launch/serve.py`` does.  Weights are random, drawn on the device from
+``TrainConfig.seed``; batches are the reference's synthetic tokens.
+``main(argv)`` returns the run's stats dict.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+from typing import List, Optional
+
+# flag -> (the value that means "not used", the ROADMAP.md slice it needs)
+_LATER = {
+    "budget_gib": (16.0, "queue 1 item 4b (Chameleon's HBM budget)"),
+    "policy_store_dir": ("", "queue 1 item 8 (policy store)"),
+    "no_policy_store": (False, "queue 1 item 8 (policy store)"),
+    "adapt_mode": ("inline", "queue 1 items 4b and 8 (adaptation)"),
+    "autotune": (False, "queue 1 item 10 (autotune)"),
+    "autotune_cache_dir": ("", "queue 1 item 10 (autotune)"),
+    "mesh": ("none", "queue 1 item 11 (distributed)"),
+    "multihost": (False, "queue 1 item 11 (distributed)"),
+    "stats_json": ("", "queue 1 item 4b (the Chameleon runtime's stats)"),
+}
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama2-paper")
+    ap.add_argument("--reduced", action="store_true",
+                    help="smoke-sized config (CPU-friendly)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq", type=int, default=None)
+    ap.add_argument("--global-batch", type=int, default=None)
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_train"))
+    ap.add_argument("--budget-gib", type=float, default=16.0)
+    ap.add_argument("--no-chameleon", action="store_true")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; the CPU only when asked for")
+    ap.add_argument("--attn-impl", choices=["dense", "chunked", "flash"],
+                    default=None,
+                    help="attention implementation (default: the config's)")
+    ap.add_argument("--metrics-out", default="",
+                    help="append metrics-registry snapshots (JSONL) here "
+                         "during training")
+    ap.add_argument("--metrics-every", type=int, default=25,
+                    help="snapshot cadence for --metrics-out (steps)")
+    ap.add_argument("--policy-store-dir", default="")
+    ap.add_argument("--no-policy-store", action="store_true")
+    ap.add_argument("--autotune", action="store_true")
+    ap.add_argument("--autotune-cache-dir", default="")
+    ap.add_argument("--adapt-mode", choices=["inline", "async", "speculative"],
+                    default="inline")
+    ap.add_argument("--multihost", action="store_true")
+    ap.add_argument("--mesh", choices=["none", "single", "multi"],
+                    default="none")
+    ap.add_argument("--stats-json", default="")
+    return ap
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    args = _parser().parse_args(argv)
+    for flag, (unused, where) in _LATER.items():
+        if getattr(args, flag) != unused:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported yet: it comes "
+                f"with ROADMAP.md {where}")
+    if not args.no_chameleon:
+        raise NotImplementedError(
+            "Chameleon is not ported yet (ROADMAP.md queue 1 items 4a and "
+            "4b): pass --no-chameleon")
+
+    import repro_torch.configs as C
+    from repro_torch import obs
+    from repro_torch.common.config import ChameleonConfig, TrainConfig
+    from repro_torch.common.device import resolve_device
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.runtime.trainer import Trainer
+
+    device = resolve_device(args.device)
+    cfg = C.get_reduced(args.arch) if args.reduced else C.get_config(args.arch)
+    if args.attn_impl:
+        cfg = cfg.replace(attn_impl=args.attn_impl)
+    seq = args.seq or (128 if args.reduced else 4096)
+    gb = args.global_batch or (8 if args.reduced else 256)
+    tcfg = TrainConfig(steps=args.steps, checkpoint_dir=args.ckpt_dir,
+                       checkpoint_every=max(args.steps // 4, 1),
+                       eval_every=max(args.steps // 3, 1))
+    data = SyntheticTokens(cfg.vocab_size, seq, gb).start()
+    try:
+        tr = Trainer(cfg, tcfg, ChameleonConfig(enabled=False), data=data,
+                     metrics_out=args.metrics_out or None,
+                     metrics_every=args.metrics_every, device=device)
+        if args.resume:
+            tr.resume()
+        rep = tr.train(args.steps)
+        print(f"done: loss {rep.losses[0]:.3f} -> {rep.losses[-1]:.3f}; "
+              f"skipped={rep.skipped_steps}; "
+              f"checkpoints={len(rep.checkpoints)}", flush=True)
+        return {"arch": cfg.name, "device": str(device),
+                "attn_impl": cfg.attn_impl, "steps": tr.step,
+                "losses": rep.losses, "eval_losses": rep.eval_losses,
+                "times": rep.times, "skipped_steps": rep.skipped_steps,
+                "checkpoints": rep.checkpoints}
+    finally:
+        data.stop()
+        if args.metrics_out:
+            obs.metrics().write_jsonl(args.metrics_out)
+
+
+if __name__ == "__main__":
+    main()

@@ -9,7 +9,10 @@ the place where the reference routes ``pallas`` to its TPU kernel, and
 every decode attention (one query row with ``kv_len``) to the flash-decode
 kernel of the same package, which reads only the valid cache rows in the
 cache's dtype.  The reference never calls its decode kernel from a model;
-its decode stays on the chunked path, which ``flash`` decode matches.
+its decode stays on the chunked path, which ``flash`` decode matches.  In a
+train step (grad enabled) ``flash`` prefill attention goes through the
+kernels' autograd function: the forward kernel also writes each row's
+log-sum-exp and the backward kernel computes dq, dk and dv from it.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.common.config import ModelConfig
@@ -88,9 +92,22 @@ def chunked_attention(cfg: ModelConfig, q, k, v, *, causal: bool,
                       q_offset: int = 0, kv_len: Optional[torch.Tensor] = None):
     """Online-softmax attention over KV chunks: O(Sq·chunk) memory.
 
-    The reference wraps the no-``kv_len`` case in ``jax.checkpoint`` so no
-    per-chunk probabilities are saved for backward; that is a training
-    concern and comes with the training slice."""
+    Where autograd records (grad enabled and an input requires grad) the
+    no-``kv_len`` case runs under ``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint`` remat boundary: no per-chunk
+    probabilities are saved for backward; they are recomputed from q, k, v.
+    """
+    if (kv_len is None and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        return torch.utils.checkpoint.checkpoint(
+            _chunked_attention_raw, cfg, q, k, v, causal, q_offset, None,
+            use_reentrant=False)
+    return _chunked_attention_raw(cfg, q, k, v, causal, q_offset, kv_len)
+
+
+def _chunked_attention_raw(cfg: ModelConfig, q, k, v, causal: bool,
+                           q_offset: int = 0,
+                           kv_len: Optional[torch.Tensor] = None):
     B, Sq, H, D = q.shape
     Sk, Kh = k.shape[1], k.shape[2]
     G = H // Kh

@@ -11,10 +11,20 @@ each leaf takes its parameter's dtype (the ssm block's ``A_log``,
 ``decode_state_from_reference`` does the same for a decode state (KV
 cache, or the ssm family's ``ssm_conv`` and ``ssm_ssd``), so both packages
 can spill the same bytes.
+
+For training, ``params_to_reference`` is the inverse of
+``params_from_reference`` (the model's weights as the reference's pytree of
+numpy arrays, blocks stacked again), and ``opt_state_from_reference`` /
+``opt_state_to_reference`` move AdamW's ``step``, ``m``, ``v`` and
+``master`` between the reference's ``AdamWState`` layout and the port's
+tensors keyed by parameter name.  Checkpoints are written in the
+reference's layout, so a checkpoint of either package restores in the
+other; numpy has no bfloat16, so bf16 leaves go out as f32 (exact), as the
+reference's checkpoint writer widens them.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -54,6 +64,13 @@ def params_from_reference(cfg: ModelConfig, np_params: Mapping[str, Any],
     """A ``Model`` on ``device`` (default ``cuda``) holding the reference
     weights, cast to ``cfg.param_dtype``."""
     model = Model(cfg, generator=None, device=resolve_device(device))
+    return load_params_from_reference(model, np_params)
+
+
+def load_params_from_reference(model: Model, np_params: Mapping[str, Any]
+                               ) -> Model:
+    """Copy a reference parameter pytree into ``model``'s parameters, in
+    place; every parameter must be covered."""
     seen: set = set()
     with torch.no_grad():
         for key, sub in np_params.items():
@@ -66,6 +83,101 @@ def params_from_reference(cfg: ModelConfig, np_params: Mapping[str, Any],
     if missing:
         raise ValueError(f"reference pytree lacks {missing}")
     return model
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def to_reference_tree(named: Mapping[str, Any], stack=np.stack
+                      ) -> Dict[str, Any]:
+    """Leaves keyed by the port's parameter names (``blocks.3.attn.wq``) as
+    the reference's nested dict, block leaves stacked along a leading layer
+    axis with ``stack`` (``np.stack``, or ``torch.stack`` for tensors)."""
+    tree: Dict[str, Any] = {}
+    layers: Dict[tuple, list] = {}
+    for name, leaf in named.items():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            layers.setdefault(tuple(parts[2:]), []).append((int(parts[1]), leaf))
+            continue
+        node = tree
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = leaf
+    for path, items in layers.items():
+        node = tree.setdefault("blocks", {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = stack([leaf for _, leaf in sorted(items,
+                                                          key=lambda x: x[0])])
+    return tree
+
+
+def from_reference_tree(tree: Mapping[str, Any], prefix: str = ""
+                        ) -> Dict[str, Any]:
+    """The inverse of ``to_reference_tree``: leaves keyed by the port's
+    parameter names, block leaves split along their layer axis."""
+    out: Dict[str, Any] = {}
+    for key, sub in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(sub, Mapping):
+            if name == "blocks":
+                for path, leaf in from_reference_tree(sub).items():
+                    for i in range(leaf.shape[0]):
+                        out[f"blocks.{i}.{path}"] = leaf[i]
+            else:
+                out.update(from_reference_tree(sub, name + "."))
+        else:
+            out[name] = sub
+    return out
+
+
+def params_to_reference(model: Model) -> Dict[str, Any]:
+    """The model's weights as the reference's parameter pytree: nested dicts
+    of numpy arrays, blocks stacked on a leading layer axis, bf16 widened to
+    f32 (exact)."""
+    return to_reference_tree({n: _numpy(p)
+                              for n, p in model.named_parameters()})
+
+
+def opt_state_to_reference(state) -> Dict[str, Any]:
+    """AdamW state as the reference's ``AdamWState`` layout: ``step`` (int32
+    scalar), ``m``, ``v`` and ``master`` (None when the params are f32) as
+    parameter pytrees of numpy arrays."""
+    def tree(d):
+        return None if d is None else to_reference_tree(
+            {n: _numpy(t) for n, t in d.items()})
+    return {"step": np.asarray(state.step, np.int32), "m": tree(state.m),
+            "v": tree(state.v), "master": tree(state.master)}
+
+
+def opt_state_from_reference(model: Model, np_opt) -> "AdamWState":
+    """The port's AdamW state for ``model`` from the reference's state (an
+    ``AdamWState`` or a dict with its fields) whose leaves are numpy arrays:
+    ``m``, ``v`` and ``master`` as f32 tensors on the model's device keyed
+    by parameter name, ``step`` an int."""
+    from repro_torch.optim.adamw import AdamWState
+
+    get = (np_opt.get if isinstance(np_opt, Mapping)
+           else lambda k: getattr(np_opt, k))
+    params = dict(model.named_parameters())
+
+    def load(tree) -> Optional[Dict[str, torch.Tensor]]:
+        if tree is None:
+            return None
+        flat = from_reference_tree(tree)
+        if set(flat) != set(params):
+            raise ValueError(f"optimizer state keys differ from the model's: "
+                             f"{sorted(set(flat) ^ set(params))[:8]}")
+        return {n: _tensor(flat[n]).to(device=p.device, dtype=torch.float32)
+                for n, p in params.items()}
+
+    return AdamWState(int(np.asarray(get("step"))), load(get("m")),
+                      load(get("v")), load(get("master")))
 
 
 def decode_state_from_reference(np_state, device: Union[str, torch.device,

@@ -144,3 +144,18 @@ def embed_tokens(cfg: ModelConfig, p: Embedding,
 def unembed(cfg: ModelConfig, p: Embedding, x: torch.Tensor) -> torch.Tensor:
     w = p.tok.T if cfg.tie_embeddings else p.unembed
     return x @ w.to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stable softmax cross-entropy in f32; logits (B,S,V), labels (B,S);
+    the mean over tokens, or over the tokens where ``mask`` is 1."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    picked = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - picked
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        nll = nll * mask
+        return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -1,8 +1,7 @@
 """Family dispatch: one uniform API over the model zoo.
 
-Port of ``repro/models/registry.py`` for the dense and ssm families.
-``loss_fn`` joins with the training slice; other families raise until their
-slice (``transformer.check_family``).
+Port of ``repro/models/registry.py`` for the dense and ssm families; other
+families raise until their slice (``transformer.check_family``).
 """
 from __future__ import annotations
 
@@ -18,10 +17,11 @@ class ModelApi(NamedTuple):
     decode_step: Callable       # (cfg, model, tokens, state) -> (logits, state)
     init_decode_state: Callable
     prefill: Callable           # (cfg, model, tokens, max_len) -> (logits, state)
+    loss_fn: Callable           # (cfg, model, batch) -> (loss, metrics)
 
 
 def get_api(cfg: ModelConfig) -> ModelApi:
     transformer.check_family(cfg)
     return ModelApi(transformer.init_model, transformer.forward,
                     transformer.decode_step, transformer.init_decode_state,
-                    transformer.prefill)
+                    transformer.prefill, transformer.loss_fn)

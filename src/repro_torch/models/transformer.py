@@ -164,6 +164,14 @@ def forward(cfg: ModelConfig, model: Model, tokens, *, positions=None,
     return _forward(cfg, model, tokens, positions, causal, None)
 
 
+def loss_fn(cfg: ModelConfig, model: Model, batch):
+    """Next-token loss of ``batch`` (``tokens``, ``labels``, optional
+    ``mask``): (xent + aux, {"xent": xent, "aux": aux})."""
+    logits, aux = forward(cfg, model, batch["tokens"])
+    loss = L.cross_entropy(logits, batch["labels"], batch.get("mask"))
+    return loss + aux, {"xent": loss, "aux": aux}
+
+
 # ============================================================ decode paths
 class DecodeState(NamedTuple):
     """Per-request generation state (stacked over layers where applicable).

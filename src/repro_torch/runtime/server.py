@@ -58,7 +58,7 @@ def _sync(device: torch.device) -> None:
 class Server:
     def __init__(self, cfg: ModelConfig, params: Model, *, max_batch: int = 8,
                  max_len: int = 512, max_active: Optional[int] = None,
-                 hostmem=None, policystore=None,
+                 hostmem=None, rotate_every: int = 1, policystore=None,
                  adapt_mode: str = "inline"):
         self.api = get_api(cfg)             # raises for unported families
         if policystore is not None or adapt_mode != "inline":
@@ -85,6 +85,10 @@ class Server:
         self._rid = 0
         self.ticks = 0
         self.n_preemptions = 0
+        # rotation quantum: swap a parked request in every k-th tick.  1 =
+        # strictest fairness; larger k trades waiter latency for k-fold
+        # fewer spill round trips per generated token.
+        self.rotate_every = max(rotate_every, 1)
         self.adapt_mode = adapt_mode
         # tick-level batching log: (resident slots at decode, wall seconds,
         # tokens emitted) per tick, and per-prefill wall seconds.  Bounded:
@@ -192,10 +196,11 @@ class Server:
 
     def _rotate(self) -> None:
         """Round-robin: one parked request trades places with the
-        longest-resident slot every tick, so nobody starves.  (The
-        reference's ``rotate_every`` quantum is left out: every caller
-        rotates every tick.)"""
+        longest-resident slot every ``rotate_every`` ticks, so nobody
+        starves."""
         if not self.spilled or self.hostmem is None or not self.active:
+            return
+        if self.ticks % self.rotate_every:
             return
         waiter = min(self.spilled.values(), key=lambda r: r.rid)
         slot = self._preempt()

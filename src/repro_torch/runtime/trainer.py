@@ -1,0 +1,240 @@
+"""Trainer — eager dispatch loop, with Chameleon off.
+
+Port of ``repro/runtime/trainer.py`` for ``ChameleonConfig(enabled=False)``.
+Each iteration dispatches separate steps, as the paper's setting does: the
+grad step; the optimizer step only when the gradients are finite (a
+loss-scale overflow skips it and the iteration's operator sequence
+shortens); an eval step every ``eval_every`` iterations.
+
+Fault tolerance as in the reference: checkpoints on a cadence, written
+asynchronously in the reference's layout (``checkpointing.manager``); an
+emergency checkpoint when an iteration raises, recorded after the step is
+counted so ``resume()`` does not replay an applied update; ``resume()``
+from the latest step, sample-exact through the data cursor; straggler
+detection on the step wall times; ``faults.tick`` at the top of every
+iteration for armed fault plans; ``obs`` spans ``train_step``,
+``apply_step`` and ``eval_step``.
+
+Chameleon itself (the op-stream monitor, the stage machine, policy
+generation and execution) comes with ROADMAP.md queue 1 items 4a and 4b:
+``ChameleonConfig(enabled=True)`` raises until then, and with Chameleon off
+the trainer needs no runtime beyond its own steps, so ``report.stages``
+stays empty and ``report.policystore`` / ``report.adapt`` stay None.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch import faults, obs
+from repro_torch.checkpointing.manager import CheckpointManager
+from repro_torch.common.config import ChameleonConfig, ModelConfig, TrainConfig
+from repro_torch.common.device import resolve_device
+from repro_torch.data.synthetic import SyntheticTokens
+from repro_torch.distributed import steps as S
+from repro_torch.models import convert
+from repro_torch.models.registry import get_api
+from repro_torch.optim.adamw import adamw_init
+from repro_torch.optim.loss_scale import (LossScaleState, init_loss_scale,
+                                          update_loss_scale)
+from repro_torch.runtime.straggler import StragglerDetector
+
+
+@dataclass
+class TrainReport:
+    losses: List[float] = field(default_factory=list)
+    times: List[float] = field(default_factory=list)
+    # critical-path latency per step; with Chameleon off there is no
+    # end-of-iteration bookkeeping, so it equals ``times``
+    wall_times: List[float] = field(default_factory=list)
+    skipped_steps: List[int] = field(default_factory=list)
+    eval_losses: Dict[int, float] = field(default_factory=dict)
+    # Chameleon's stage per step: empty until the stage machine is ported
+    stages: List[str] = field(default_factory=list)
+    checkpoints: List[str] = field(default_factory=list)
+    failures: List[str] = field(default_factory=list)
+    policystore: Optional[dict] = None
+    adapt: Optional[dict] = None
+
+    @property
+    def genpolicy_steps(self) -> int:
+        return sum(1 for s in self.stages if s == "GenPolicy")
+
+
+class Trainer:
+    def __init__(self, cfg: ModelConfig, tcfg: TrainConfig,
+                 cham: Optional[ChameleonConfig] = None,
+                 mesh=None, data: Optional[SyntheticTokens] = None,
+                 eval_data: Optional[SyntheticTokens] = None,
+                 metrics_out: Optional[str] = None,
+                 metrics_every: int = 25,
+                 adapt_mode: Optional[str] = None, *,
+                 device: Union[str, torch.device, None] = None):
+        self.cfg, self.tcfg = cfg, tcfg
+        self.cham = cham or ChameleonConfig(enabled=False)
+        if self.cham.enabled:
+            raise NotImplementedError(
+                "Chameleon is not ported yet: monitoring and planning come "
+                "with ROADMAP.md queue 1 item 4a, execution and the runtime "
+                "with item 4b; pass ChameleonConfig(enabled=False)")
+        if adapt_mode is not None:
+            raise NotImplementedError(
+                "adapt_mode places Chameleon's adaptation, which comes with "
+                "ROADMAP.md queue 1 items 4b and 8")
+        if mesh is not None:
+            raise NotImplementedError(
+                "meshes and sharded training come with ROADMAP.md queue 1 "
+                "item 11; the port trains on one device")
+        self.device = resolve_device(device)
+        self.api = get_api(cfg)
+        self.data = data or SyntheticTokens(cfg.vocab_size, 128, 8,
+                                            seed=tcfg.seed)
+        self.eval_data = eval_data or SyntheticTokens(
+            cfg.vocab_size, self.data.seq_len, self.data.global_batch,
+            seed=tcfg.seed + 1)
+        self.model = self.api.init(cfg, seed=tcfg.seed, device=self.device)
+        self.opt_state = adamw_init(self.model)
+        self.loss_scale = init_loss_scale(tcfg.loss_scale)
+        self.step = 0
+        self.straggler = StragglerDetector(on_straggler=self._on_straggler)
+        self.report = TrainReport()
+        # a lost async checkpoint write degrades (one fewer restore point,
+        # audited) instead of killing the train loop, as in the reference
+        self.ckpt = CheckpointManager(
+            tcfg.checkpoint_dir, keep=tcfg.keep_checkpoints,
+            on_error="degrade" if self.cham.resilience.enabled else "raise")
+        self._grad = S.make_grad_step(cfg, tcfg)
+        self._apply = S.make_apply_step(cfg, tcfg)
+        self._eval = S.make_eval_step(cfg)
+        self.metrics_out = metrics_out
+        self.metrics_every = max(1, int(metrics_every))
+        reg = obs.metrics()
+        reg.register_provider("runtime", self._runtime_provider)
+        reg.register_provider("memory", lambda: obs.ledger().stats())
+
+    def _on_straggler(self, ev) -> None:
+        """Mitigation hook: structured evidence for the orchestrator."""
+        obs.audit().event("straggler.flagged", step=ev.step, host=ev.host,
+                          wall=round(ev.t, 6), mean=round(ev.mean, 6),
+                          std=round(ev.std, 6))
+        obs.metrics().counter("straggler_flagged")
+
+    def _runtime_provider(self) -> dict:
+        return {"step": self.step, "chameleon": False,
+                "skipped_steps": len(self.report.skipped_steps)}
+
+    # ------------------------------------------------------------- utils
+    def _device_batch(self, batch: Dict[str, np.ndarray]):
+        return {k: torch.as_tensor(v, dtype=torch.int64).to(self.device)
+                for k, v in batch.items()}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------ resume
+    def _templates(self):
+        """Reference-layout templates of the checkpointed trees: meta
+        tensors (no memory), f32 so bf16 leaves come back exact."""
+        meta = {n: torch.empty(p.shape, dtype=torch.float32, device="meta")
+                for n, p in self.model.named_parameters()}
+        tree = convert.to_reference_tree(meta, stack=torch.stack)
+        opt = {"step": np.zeros((), np.int32), "m": tree, "v": tree,
+               "master": tree if self.opt_state.master is not None else None}
+        return {"params": tree, "opt": opt}
+
+    def resume(self) -> bool:
+        latest = self.ckpt.latest_step()
+        if latest is None:
+            return False
+        restored, extra = self.ckpt.restore(latest, self._templates())
+        convert.load_params_from_reference(self.model, restored["params"])
+        self.opt_state = convert.opt_state_from_reference(self.model,
+                                                          restored["opt"])
+        self.step = int(extra["step"])
+        self.loss_scale = LossScaleState(float(extra["loss_scale"]),
+                                         int(extra["growth"]))
+        self.data.restore(extra["data"])
+        return True
+
+    def _checkpoint(self, block: bool = False):
+        path = self.ckpt.save(
+            self.step,
+            {"params": convert.params_to_reference(self.model),
+             "opt": convert.opt_state_to_reference(self.opt_state)},
+            extra={"step": self.step,
+                   "loss_scale": float(self.loss_scale.scale),
+                   "growth": int(self.loss_scale.growth_count),
+                   "data": self.data.state()},
+            block=block)
+        self.report.checkpoints.append(path)
+
+    # -------------------------------------------------------------- train
+    def train(self, steps: Optional[int] = None,
+              fault_hook: Optional[Callable[[int], None]] = None
+              ) -> TrainReport:
+        steps = steps if steps is not None else self.tcfg.steps
+        batch = self._device_batch(self.data.get())
+        end = self.step + steps
+        while self.step < end:
+            try:
+                self._one_step(batch, fault_hook)
+                batch = self._device_batch(self.data.get())
+            except (KeyboardInterrupt, Exception) as e:  # noqa: BLE001
+                self.report.failures.append(f"step {self.step}: {e!r}")
+                self.ckpt.wait()
+                self._checkpoint(block=True)   # emergency checkpoint
+                raise
+        self.ckpt.wait()
+        return self.report
+
+    def _one_step(self, batch, fault_hook=None):
+        faults.tick(self.step)   # armed fault plans key off the iteration
+        t0 = time.perf_counter()
+        with obs.tracer().span(obs.LANE_COMPUTE, "train_step",
+                               arg=self.step):
+            loss, grads, finite = self._grad(self.model, batch,
+                                             self.loss_scale.scale)
+            finite_h = bool(finite)          # waits for the device
+        if finite_h:
+            with obs.tracer().span(obs.LANE_COMPUTE, "apply_step",
+                                   arg=self.step):
+                self.model, self.opt_state, _m = self._apply(
+                    self.model, self.opt_state, grads)
+                self._sync()
+        else:
+            self.report.skipped_steps.append(self.step)
+        del grads
+        self.loss_scale = update_loss_scale(self.loss_scale, finite_h)
+
+        if (self.tcfg.eval_every
+                and self.step > 0
+                and self.step % self.tcfg.eval_every == 0):
+            ebatch = self._device_batch(self.eval_data.next_batch())
+            with obs.tracer().span(obs.LANE_COMPUTE, "eval_step",
+                                   arg=self.step):
+                el = float(self._eval(self.model, ebatch))
+            self.report.eval_losses[self.step] = el
+
+        dt = time.perf_counter() - t0
+        self.straggler.observe(self.step, dt)
+        self.report.losses.append(float(loss))
+        self.report.times.append(dt)
+        self.report.wall_times.append(dt)
+        self.step += 1
+        # step is incremented BEFORE any failure can be raised for this
+        # iteration: the emergency checkpoint then records post-step state
+        # under step N+1 and resume does not replay an applied update.
+        if fault_hook is not None:
+            fault_hook(self.step - 1)
+
+        if (self.tcfg.checkpoint_every
+                and self.step % self.tcfg.checkpoint_every == 0):
+            self._checkpoint()
+
+        if self.metrics_out and self.step % self.metrics_every == 0:
+            obs.metrics().write_jsonl(self.metrics_out)

@@ -72,6 +72,53 @@ def test_flash_attention_kernel_matches_plain(card, B, Sq, Sk, H, Kh, D,
     assert np.abs(o - r).max() <= MAX_TOL[dtype] * np.abs(r).max()
 
 
+BWD_SWEEP = [                  # K1 backward: GQA, causal, Sq != Sk, kv_lens
+    (2, 256, 256, 4, 2, 64, True, None),
+    (1, 100, 300, 4, 2, 32, True, None),
+    (1, 300, 100, 4, 4, 16, True, None),
+    (2, 130, 330, 4, 4, 32, False, (330, 0)),
+    (2, 160, 160, 32, 8, 128, True, (160, 77)),
+]
+# dq, dk, dv against flash_attention_bwd_plain on the same inputs (o and lse
+# from the forward kernel), as chip_smoke.py holds them: relative Frobenius
+# and max error of the largest |ref|.  bf16: P and dS are rounded to bf16 for
+# their products and the outputs to bf16; f32: summation order only.
+BWD_FRO_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+BWD_MAX_TOL = {"float32": 2.0 ** -12, "bfloat16": 2.0 ** -5}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,Kh,D,causal,lens", BWD_SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_kernel_matches_plain(card, B, Sq, Sk, H, Kh, D,
+                                                  causal, lens, dtype):
+    rng = np.random.RandomState(1)
+    q, k, v, do = (torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                    * scale).to(card, getattr(torch, dtype))
+                   for shape, scale in (((B, Sq, H, D), QK_SCALE),
+                                        ((B, Sk, Kh, D), QK_SCALE),
+                                        ((B, Sk, Kh, D), 1.0),
+                                        ((B, Sq, H, D), 1.0)))
+    kv_lens = None if lens is None else torch.tensor(lens, device=card)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    fwd = ops.flash_attention.launches
+    bwd = ops.flash_attention_bwd.launches
+    out = ops.flash_attention(qg, kg, vg, causal=causal, kv_lens=kv_lens)
+    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == fwd + 1
+    assert ops.flash_attention_bwd.launches == bwd + 1
+    _, lse = ops.flash_attention_plain(q, k, v, causal=causal,
+                                       kv_lens=kv_lens, return_lse=True)
+    ref = ops.flash_attention_bwd_plain(q, k, v, out.detach(), lse, do,
+                                        causal=causal, kv_lens=kv_lens)
+    for g, r in zip(got, ref):
+        g, r = g.float().cpu().numpy(), r.float().cpu().numpy()
+        assert np.isfinite(g).all()
+        assert np.linalg.norm(g - r) <= BWD_FRO_TOL[dtype] * np.linalg.norm(r)
+        assert np.abs(g - r).max() <= BWD_MAX_TOL[dtype] * np.abs(r).max()
+
+
 @pytest.mark.cuda
 def test_flash_attention_rejects_unsupported_head_dim(card):
     q = torch.zeros(1, 8, 2, 48, device=card, dtype=torch.bfloat16)

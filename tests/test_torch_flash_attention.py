@@ -116,9 +116,16 @@ def test_cuda_path_raises_instead_of_falling_back(monkeypatch):
 
 
 def test_wrapper_is_forward_only():
+    """Under no_grad the wrapper is the served forward-only call (no graph);
+    with grad enabled an input that requires grad goes through
+    ``_FlashAttentionFn``, whose backward is tested in
+    tests/test_torch_flash_backward.py."""
     q = torch.zeros(1, 8, 2, 32, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        ops.flash_attention(q, q.detach(), q.detach(), causal=True)
+    with torch.no_grad():
+        out = ops.flash_attention(q, q.detach(), q.detach(), causal=True)
+    assert out.grad_fn is None and not out.requires_grad
+    out = ops.flash_attention(q, q.detach(), q.detach(), causal=True)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionFnBackward"
 
 
 def test_wrapper_rejects_bad_shapes():

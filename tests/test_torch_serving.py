@@ -138,6 +138,34 @@ def test_server_refuses_unported_options(pair):
     assert srv.hostmem is not None and srv.hostmem.device.type == "cpu"
 
 
+@pytest.mark.parametrize("rotate_every", [1, 3])
+def test_rotate_every_matches_reference(pair, rotate_every):
+    """Over-subscribed (4 admitted over 2 slots): with a rotation quantum of
+    k ticks the port rotates, spills, restores and emits tokens exactly as
+    the reference's server does."""
+    from repro.hostmem import HostMemTier as RHostMemTier
+    from repro_torch.hostmem import HostMemTier
+    rcfg, rparams, pcfg, model = pair
+    prompts = [p for p in _tokens(5, 4, 9, rcfg.vocab_size)]
+    srv = Server(pcfg, model, max_batch=2, max_len=48, max_active=4,
+                 hostmem=HostMemTier(device="cpu"), rotate_every=rotate_every)
+    rsrv = RefServer(rcfg, rparams, max_batch=2, max_len=48, max_active=4,
+                     hostmem=RHostMemTier(), rotate_every=rotate_every)
+    assert srv.rotate_every == rsrv.rotate_every == rotate_every
+    ids = [srv.submit(p, max_new_tokens=7) for p in prompts]
+    rids = [rsrv.submit(p, max_new_tokens=7) for p in prompts]
+    out, rout = srv.run_until_done(max_ticks=300), rsrv.run_until_done(
+        max_ticks=300)
+    assert srv.n_preemptions > 0
+    assert srv.n_preemptions == rsrv.n_preemptions
+    assert srv.ticks == rsrv.ticks
+    ks = srv.stats()["hostmem"]["kvspill"]
+    assert ks == rsrv.stats()["hostmem"]["kvspill"]
+    assert ks["n_spills"] == ks["n_restores"] == srv.n_preemptions
+    for a, b in zip(ids, rids):
+        assert out[a] == rout[b]
+
+
 def test_serve_cli_on_cpu():
     from repro_torch.launch import serve
     stats = serve.main(["--arch", "llama2-paper", "--reduced", "--device",
@@ -206,6 +234,12 @@ def test_port_imports_neither_jax_nor_reference():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules\n"
         "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "need = ['optim.adamw', 'optim.loss_scale', 'optim.schedules',\n"
+        "        'data.synthetic', 'distributed.steps',\n"
+        "        'checkpointing.manager', 'runtime.trainer',\n"
+        "        'runtime.straggler', 'launch.train', 'launch.serve']\n"
+        "bad += ['missing ' + n for n in need\n"
+        "        if 'repro_torch.' + n not in sys.modules]\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]), bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env={**os.environ, "PYTHONPATH": str(SRC)},

@@ -17,14 +17,23 @@ and the timed lengths of ``chip_smoke.py``):
   uniform  a weaker check for comparison: q, k and v at 0.3 x randn, so the
            softmax is near uniform, and the elementwise limit TOL only.
 
-A mutant is caught by a check when at least one shape fails it.  Prints one
-JSON line per (kernel, check) and exits non-zero if the peaked check misses
-a mutant or fails the control.
+A mutant is caught by a check when at least one shape fails it.
+
+The backward (``csrc/flash_attention_bwd.cu``) gets the same treatment with
+``BWD_MUTANTS``: each copy, and the unchanged kernel, runs
+``chip_smoke.py``'s ``kernel_bwd`` check (dq, dk and dv against the plain
+backward, BWD_FRO_TOL and BWD_MAX_TOL) over its sweep, in bf16 and f32
+(a mutant that changes only the bf16 kernels is caught on bf16 cases),
+and each row names the limits that caught it.
+
+Prints one JSON line per (kernel, check) and exits non-zero if the peaked
+forward check or the backward check misses a mutant or fails a control.
 """
 from __future__ import annotations
 
 import ctypes
 import json
+import math
 import os
 import sys
 
@@ -65,14 +74,42 @@ MUTANTS = {
 }
 
 
-def build_mutants():
+# name -> (text of flash_attention_bwd.cu, the text that replaces it)
+BWD_MUTANTS = {
+    # the causal mask aligned bottom-right (attention_ref's) instead of the
+    # forward's top-left: key <= qpos + Sk - Sq (kv_len is Sk without lens)
+    "bwd_bottom_right_mask": (
+        "return qpos < Sq && key < kv_len && (!causal || key <= qpos);",
+        "return qpos < Sq && key < kv_len && (!causal || key <= qpos + kv_len - Sq);"),
+    # the key at kv_lens[b] counted as valid
+    "bwd_kv_len_off_by_one": (
+        "return qpos < Sq && key < kv_len && (!causal || key <= qpos);",
+        "return qpos < Sq && key <= kv_len && (!causal || key <= qpos);"),
+    # delta = rowsum(dO * O) dropped: dS = P dP
+    "bwd_no_delta": (
+        "    delta[((int64_t)b * H + h) * Sq + i] = s;",
+        "    delta[((int64_t)b * H + h) * Sq + i] = 0.f;"),
+    # bf16 dK/dV from the group's first query head only (GQA not summed)
+    "bwd_no_gqa_sum": (
+        "  const int i_begin = causal ? j0 / IT * IT : 0;\n"
+        "  for (int hh = 0; hh < G && j0 < kv_len; ++hh) {",
+        "  const int i_begin = causal ? j0 / IT * IT : 0;\n"
+        "  for (int hh = 0; hh < 1 && j0 < kv_len; ++hh) {"),
+    # bf16 dK/dV skip the last query tile of every head
+    "bwd_skip_query_tile": (
+        "    for (int i0 = i_begin; i0 < Sq; i0 += IT) {",
+        "    for (int i0 = i_begin; i0 < Sq - IT; i0 += IT) {"),
+}
+
+
+def build_mutants(lib_name="flash_attention_fwd", mutants=None):
     from repro_torch.kernels import _build
-    src = _build.SOURCES["flash_attention_fwd"]
+    src = _build.SOURCES[lib_name]
     text = src.read_text()
     out_dir = _build.BUILD_DIR.parent / "mutants"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name, (old, new) in MUTANTS.items():
+    for name, (old, new) in (MUTANTS if mutants is None else mutants).items():
         if text.count(old) != 1:
             raise RuntimeError(f"mutant {name}: {old!r} is not in {src} "
                                "exactly once")
@@ -114,6 +151,48 @@ def run_check(device, cases, mode: str) -> dict:
             "worst_rel_fro": worst_fro}
 
 
+def run_bwd_check(device, cases) -> dict:
+    """``chip_smoke.py``'s kernel_bwd check over ``cases`` with whatever
+    backward library ``kernel`` holds: the shapes that fail and, for each,
+    which limits (fro, max) of which gradient caught it."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    failed, worst_fro = [], 0.0
+    for B, Sq, Sk, H, Kh, D, causal, kv_lens, dtypes, _ in cases:
+        for dname in dtypes:
+            dtype = getattr(torch, dname)
+            q, k, v = chip_smoke.k1_inputs(gen, B, Sq, Sk, H, Kh, D, dtype,
+                                           device)
+            do = torch.randn(B, Sq, H, D, generator=gen,
+                             device=device).to(dtype)
+            lens = (None if kv_lens is None else
+                    torch.tensor(kv_lens, dtype=torch.int32, device=device))
+            o, lse = ops._forward(q, k, v, causal=causal,
+                                  sm_scale=1.0 / math.sqrt(D), kv_lens=lens,
+                                  with_lse=True)
+            got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                          kv_lens=lens)
+            ref = ops.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                causal=causal, kv_lens=lens)
+            limits = []
+            for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+                c = chip_smoke.bwd_check(g, r, dname)
+                worst_fro = max(worst_fro, c["rel_fro"])
+                if c["rel_fro"] > chip_smoke.BWD_FRO_TOL[dname]:
+                    limits.append(f"{name}:fro")
+                if c["max_abs_err"] > (chip_smoke.BWD_MAX_TOL[dname]
+                                       * c["max_abs_ref"]):
+                    limits.append(f"{name}:max")
+            if limits:
+                failed.append({"shape": [B, Sq, Sk, H, Kh, D],
+                               "causal": causal, "kv_lens": kv_lens,
+                               "dtype": dname, "limits": limits})
+    return {"caught": bool(failed), "failed": failed,
+            "worst_rel_fro": worst_fro}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -141,8 +220,20 @@ def main() -> int:
             if mode == "peaked" and row["caught"] != (name != "control"):
                 bad.append((name, mode))
     K._lib = K._fn = None
+    bwd_libs = {"bwd_control": _build.build(["flash_attention_bwd"])
+                ["flash_attention_bwd"],
+                **build_mutants("flash_attention_bwd", BWD_MUTANTS)}
+    for name, path in bwd_libs.items():
+        lib = ctypes.CDLL(str(path))
+        K._bwd_lib, K._bwd_fn = lib, K.bind_bwd(lib)
+        row = run_bwd_check(device, chip_smoke.BWD_CASES)
+        print(json.dumps({"kernel": name, "check": "kernel_bwd", **row}),
+              flush=True)
+        if row["caught"] != (name != "bwd_control"):
+            bad.append((name, "kernel_bwd"))
+    K._bwd_lib = K._bwd_fn = None
     if bad:
-        print(f"the peaked check got these wrong: {bad}", file=sys.stderr)
+        print(f"the checks got these wrong: {bad}", file=sys.stderr)
         return 1
     return 0
 

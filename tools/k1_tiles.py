@@ -33,7 +33,7 @@ def bind_wgs(lib):
     stream."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = lib.flash_attention_fwd_wgs
-    fn.argtypes = [vp] * 5 + [ci] * 7 + [ctypes.c_float, ci, ci, vp]
+    fn.argtypes = [vp] * 6 + [ci] * 7 + [ctypes.c_float, ci, ci, vp]
     fn.restype = ci
     return fn
 
@@ -68,7 +68,7 @@ def main() -> int:
             def fn():
                 _build.check(lib, launch(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    None, 1, H, Kh, S, S, D, 1, sm, 1, wgs,
+                    None, None, 1, H, Kh, S, S, D, 1, sm, 1, wgs,
                     torch.cuda.current_stream(device).cuda_stream),
                     "flash_attention_fwd_wgs")
             return fn, out
