@@ -25,9 +25,12 @@ Phases, each printing JSON lines:
               forward's lse to BWD_LSE_TOL: the reference sweep, causal
               with Sq != Sk both ways, kv_lens with a batch row of no valid
               key, GQA, head dims 16 to 128, both dtypes, and the training
-              shape (2 x 2048 tokens, 32 heads of 128, causal, bf16), timed
-              there warm and cold beside its plain version, SDPA's backward
-              and the bound (``attention_bwd_bound``).
+              shape (2 x 2048 tokens, 32 heads of 128, causal, bf16); every
+              case launched twice, and the two results must be bit-equal
+              (the kernels use no atomics).  Timed at the training shape
+              warm and cold beside its plain version, SDPA's backward (its
+              kernels' device time, ``profiled_device_ms``) and the bound
+              (``attention_bwd_bound``), with the TFLOP/s attained.
 4. quant      the int8 quantize (K2a) and dequantize (K2b) kernels against
               their plain versions, bit for bit (``torch.equal`` on payload,
               scales and output): the reference sweep shapes, ragged row
@@ -420,20 +423,25 @@ def attention_bound(B, Sq, Sk, H, Kh, D, causal, kv_lens, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def attention_bwd_bound(B, Sq, Sk, H, Kh, D, causal, kv_lens, dtype):
-    """Least time for the backward's work: five products (S, dP, dV, dK,
-    dQ) of 2*D flops per unmasked (query, key) pair and head over the peak
-    rate of the input type, against q, k, v, o, dO and lse read once and
-    dq, dk, dv written once over HBM bandwidth."""
-    import torch
-    esize = torch.finfo(dtype).bits // 8
+def attention_bwd_flops(B, Sq, Sk, H, Kh, D, causal, kv_lens) -> float:
+    """The backward's work: five products (S, dP, dV, dK, dQ) of 2*D flops
+    per unmasked (query, key) pair and head."""
     lens = kv_lens or (Sk,) * B
     pairs = 0
     for n in lens:
         n = min(max(n, 0), Sk)
         pairs += (sum(min(q + 1, n) for q in range(Sq)) if causal
                   else Sq * n)
-    flops = 10.0 * H * D * pairs
+    return 10.0 * H * D * pairs
+
+
+def attention_bwd_bound(B, Sq, Sk, H, Kh, D, causal, kv_lens, dtype):
+    """Least time for the backward's work (``attention_bwd_flops``) over
+    the peak rate of the input type, against q, k, v, o, dO and lse read
+    once and dq, dk, dv written once over HBM bandwidth."""
+    import torch
+    esize = torch.finfo(dtype).bits // 8
+    flops = attention_bwd_flops(B, Sq, Sk, H, Kh, D, causal, kv_lens)
     nbytes = (esize * (3 * 2 * B * Sq * H * D + 2 * 2 * B * Sk * Kh * D)
               + 4 * B * H * Sq)
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
@@ -492,14 +500,40 @@ def k1_cold_ms(B, S, H, Kh, D, layers, device) -> dict:
     return out
 
 
+def profiled_device_ms(fn, calls: int = 10, windows: int = 2) -> float:
+    """Device time per call of ``fn``: the summed time of the device
+    kernels and memsets its ``calls`` calls launch in a torch.profiler
+    window, over ``calls``; the largest of ``windows`` windows (a window in
+    which the profiler missed a kernel record only reads low)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    best = 0.0
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+        best = max(best, busy / 1e3 / calls)
+    return best
+
+
 def phase_kernel_bwd(device, cases):
     """K1's backward against its plain version on every case (and the
-    forward's lse against the plain lse); at the training shape also device
-    times of the kernel warm (one input replayed, CUDA graph) and cold
+    forward's lse against the plain lse), launched twice per case: the two
+    results must be bit-equal.  At the training shape also device times of
+    the kernel warm (one input replayed, CUDA graph) and cold
     (``TRAIN_LAYERS`` layers' own tensors in one graph), of the plain
     version, of SDPA's backward (autograd of ``scaled_dot_product_attention``
-    on the same tensors, the backward alone), and the bound.  Returns the
-    timed row and the largest bf16 error at the training shape."""
+    on the same tensors, the backward alone: its kernels' device time in a
+    profiler window, and the host-clock time of back-to-back calls), the
+    bound and the TFLOP/s attained.  Returns the timed row."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -520,14 +554,19 @@ def phase_kernel_bwd(device, cases):
                                   kv_lens=lens, with_lse=True)
             got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                           kv_lens=lens)
+            again = ops.flash_attention_bwd(q, k, v, o, lse, do,
+                                            causal=causal, kv_lens=lens)
             torch.cuda.synchronize()
+            bit_repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+            del again
             _, lse_ref = ops.flash_attention_plain(
                 q, k, v, causal=causal, kv_lens=lens, return_lse=True)
             ref = ops.flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                 causal=causal, kv_lens=lens)
             row = {"shape": [B, Sq, Sk, H, Kh, D], "causal": causal,
-                   "kv_lens": kv_lens, "dtype": dname}
-            ok = True
+                   "kv_lens": kv_lens, "dtype": dname,
+                   "bit_repeat": bit_repeat}
+            ok = bit_repeat
             for name, g, r in zip(("dq", "dk", "dv"), got, ref):
                 c = bwd_check(g, r, dname)
                 row.update({f"{name}_{key}": val for key, val in c.items()})
@@ -550,11 +589,18 @@ def phase_kernel_bwd(device, cases):
                     qt, kt, vt, is_causal=causal,
                     **({"enable_gqa": True} if H != Kh else {}))
                 dot = do.transpose(1, 2).contiguous()
-                row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
-                    ot, (qt, kt, vt), dot, retain_graph=True))
+
+                def sdpa_bwd():
+                    return torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                               retain_graph=True)
+                row["library_ms"] = profiled_device_ms(sdpa_bwd)
+                row["library_host_ms"] = cuda_ms(sdpa_bwd)
                 del qt, kt, vt, ot, dot
                 row["bound_ms"], row["bound_by"] = attention_bwd_bound(
                     B, Sq, Sk, H, Kh, D, causal, kv_lens, dtype)
+                # TFLOP/s over the five products the bound counts
+                row["tflops"] = attention_bwd_flops(
+                    B, Sq, Sk, H, Kh, D, causal, kv_lens) / row["ms"] / 1e9
                 row["sdpa_ratio"] = row["ms"] / row["library_ms"]
                 if dname == "bfloat16":
                     row.update(bwd_cold_ms(q, k, v, o, lse, do, causal,
@@ -1444,8 +1490,11 @@ def train_profile(tr, n_steps: int = 2):
     busy = sum(ms for _, ms, _ in kern)
     kern.sort(key=lambda x: -x[1])
     fwd = sum(ms for k, ms, _ in kern if "flash_fwd" in k)
+    # K1 backward's three kernels: bwd_delta, bwd_dkdv_{bf16,f32} and
+    # bwd_dq_{bf16,f32} (csrc/flash_attention_bwd.cu)
     bwd = sum(ms for k, ms, _ in kern if "bwd_dkdv" in k or "bwd_dq" in k
               or "bwd_delta" in k)
+    bwd_calls = sum(n for k, _, n in kern if "bwd_dkdv" in k)
     # device time by kind: cuBLAS products (nvjet / gemm kernels), PyTorch's
     # elementwise and reduction kernels, and the rest
     kinds = {"gemm": ("nvjet", "gemm", "cutlass", "xmma"),
@@ -1456,7 +1505,8 @@ def train_profile(tr, n_steps: int = 2):
     by_kind["other"] = busy - fwd - bwd - sum(by_kind.values())
     emit("train_profile", steps=n_steps, wall_ms=wall, device_busy_ms=busy,
          idle_share=1 - busy / wall if wall else None,
-         k1_fwd_ms=fwd, k1_bwd_ms=bwd, by_kind_ms=by_kind,
+         k1_fwd_ms=fwd, k1_bwd_ms=bwd, k1_bwd_calls=bwd_calls,
+         by_kind_ms=by_kind,
          k1_fwd_share=fwd / busy if busy else None,
          k1_bwd_share=bwd / busy if busy else None,
          kernel_launches=sum(n for _, _, n in kern),
@@ -1726,8 +1776,10 @@ def main() -> int:
                            for g in ("dq", "dk", "dv")),
         "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
-        # the backward of scaled_dot_product_attention alone
+        "tflops": bwd_row["tflops"],
+        # the backward of scaled_dot_product_attention alone, device time
         "library_ms": bwd_row["library_ms"],
+        "sdpa_ratio": bwd_row["sdpa_ratio"],
         "cold_ms": bwd_row["cold_ms"],
         "at": {"shape": bwd_row["shape"], "causal": True,
                "dtype": "bfloat16"}}] + [{

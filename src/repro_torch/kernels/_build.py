@@ -7,8 +7,10 @@ own into a shared library with a plain C interface::
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<stem>-<hash>.so <src>
 
 at first use, into ``build/kernels/`` at the repository root (listed in
-``.gitignore``).  The file name carries a hash of the source and the flags,
-so an edited source is rebuilt and a stale library is never loaded.
+``.gitignore``).  The file name carries a hash of the source, of every
+header (``*.cuh``) in its ``csrc/`` directory and of the flags, so an edited
+source or shared header (``flash_attention/csrc/hopper_sm90.cuh``) is
+rebuilt and a stale library is never loaded.
 ``build()`` starts one ``nvcc`` per missing library, all at once, and
 raises with the compiler's output if any of them fails; the ``ptxas``
 report (registers, shared memory, spills) is kept beside each library as
@@ -58,11 +60,19 @@ def nvcc_path() -> str:
                        "/usr/local/cuda/bin); the CUDA kernels cannot be built")
 
 
-def library_path(name: str) -> Path:
-    src = SOURCES[name]
+def source_hash(src: Path) -> str:
+    """Hash of a CUDA source, the headers beside it (which it may include)
+    and the nvcc flags."""
     h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(src.parent.glob("*.cuh")):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{source_hash(SOURCES[name])}.so"
 
 
 def compile_all(jobs: Dict[str, Tuple[Path, Path]]) -> None:

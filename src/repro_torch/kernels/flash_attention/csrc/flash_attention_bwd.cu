@@ -23,38 +23,59 @@
 // and head (S, dP, dV, dK, dQ) against q, k, v, o, dO, lse read once and
 // dq, dk, dv written once: at the training shape (B 2, S 2048, 32 heads,
 // D 128, causal, bf16) that is 172 GFLOP against 235 MB, ~730 flops a
-// byte, so the tensor cores are the bound, not memory.
+// byte, so the tensor cores are the bound, not memory.  This design does
+// seven products (S and dP in both gradient passes), 241 GFLOP there.
 //
-// What the design does (FlashAttention-2's split, simple first).  Three
-// kernels on the caller's stream, no atomics, so every gradient is summed
-// in a fixed order and a run repeats bit for bit:
+// What the design does.  Three kernels on the caller's stream, no atomics,
+// so every gradient is summed in a fixed order and a launch repeats bit for
+// bit (what makes training losses and resumes repeat exactly):
 //   1. delta: one warp per (batch, query, head) row, delta = rowsum(dO * O).
-//   2. dK/dV: one block per (key tile, KV head, batch row).  It keeps its K
-//      and V tile in shared memory and its dK/dV accumulators in registers,
-//      and loops over the G query heads of its KV head and over the query
-//      tiles the causal mask leaves (from the tile's first key on), loading
-//      Q and dO once per query tile.  Nothing is written until the loops end.
-//   3. dQ: one block per (query tile, head, batch row), looping over the key
-//      tiles up to the causal and kv_lens limit, dQ in registers.
-//   S and dP are recomputed in both (2), (3), as FlashAttention-2 does.
-//   bf16: warp-level mma.sync m16n8k16 (bf16 in, f32 accumulate); each warp
-//   owns 16 rows of its block's tile.  P and dS are turned from the
-//   accumulator layout into A fragments in registers (P and dS rounded to
-//   bf16 for their products, as the forward rounds P); the operands whose
-//   reduction dimension is the tile's rows (dO and Q for dV and dK, K for
-//   dQ) are also stored transposed in shared memory, so every fragment is
-//   one 32-bit shared load.  Rows are padded by 8 elements, so the fragment
-//   loads of a warp hit 32 different banks.
+//   2. dK/dV (bf16: bwd_dkdv_bf16): one block per (KV head, batch row, tile
+//      of 128 keys), two consumer warpgroups of 64 keys and one producer
+//      warpgroup (FlashAttention-3's shape).  One producer thread loads the
+//      block's K and V once by TMA (the forward's 4-D tensor maps (D,
+//      heads, S, B): rows past S are zero-filled and never read the next
+//      batch row), then streams the Q and dO tiles of 64 queries through a
+//      ring of KV_STAGES stages, walking the G query heads of the KV head and
+//      the query tiles the causal mask leaves; the lanes of its warp copy
+//      each tile's lse (times log2 e) and delta into the stage beside them.
+//      Each stage has a full mbarrier (the copy's bytes and the 32 lanes)
+//      and an empty one (one arrival per consumer warp).  A consumer
+//      warpgroup computes S^T = K Q^T and dP^T = V dO^T with wgmma (m64 n64
+//      k16, both operands in shared memory, K-major), P^T = exp2(S^T scale
+//      log2e - lse log2e) in registers (masks only on tiles that cross the
+//      diagonal, kv_len or Sq), dS^T = P^T (dP^T - delta), turns P^T and
+//      dS^T into bf16 A fragments in registers (the accumulator layout is
+//      the A-fragment layout, as in the forward's P V), and adds dV += P^T
+//      dO and dK += dS^T Q with wgmma (A from registers, dO and Q the
+//      MN-major B operands: the transpose bit, as the forward reads V).
+//      dK and dV stay in registers (2 x m64 nD f32 a warpgroup) until the
+//      loops end; setmaxnreg moves the producer's registers to them.  A
+//      warpgroup skips the tiles where all its pairs are masked.  Key tiles
+//      are issued longest first (blockIdx.z, key tile 0 first).
+//   3. dQ (bwd_dq_bf16): one block per (head, batch row, tile of 128
+//      queries), two consumer warpgroups of 64 queries, Q and dO resident,
+//      K and V tiles of 128 keys streamed through the same kind of ring.
+//      S = Q K^T and dP = dO V^T are shared-memory products (m64 n128), dQ
+//      += dS K takes dS from registers and K as the MN-major operand.
+//      Query tiles are issued longest first (the forward's reversed index).
+//   S and dP are computed in both (2) and (3), as FlashAttention-2 does: two
+//   products more than one pass with an atomic dQ, and no f32 dQ scratch.
+//   Tried on the H100 and not kept (tools/k1_bwd_variants.py, PERF.md):
+//   the forward's ping-pong turns between the two consumer warpgroups,
+//   issuing dV's product before dP^T is waited for, and 64-key dQ tiles.
 //   f32: scalar FMAs from shared memory (tensor cores would round to TF32),
 //   256 threads each owning 2 x 2 pairs of the 32 x 32 score tile and 2 rows
 //   x D/16 columns of the gradient tile.
-//   wgmma, TMA and a pipelined ring are for a later redesign.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+
+#include "hopper_sm90.cuh"
 
 namespace {
 
@@ -308,313 +329,424 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------- bf16 kernels
-constexpr int NW = 4;           // bf16: warps per block, 16 rows each
-constexpr int BT = 16 * NW;     // the block's own rows (keys for dK/dV, queries for dQ)
-constexpr int IT = 32;          // rows of the tile the block loops over
-constexpr int LDT = IT + 8;     // row stride of a transposed (D x IT) tile
+constexpr int NWG = 2;          // consumer warpgroups a block, 64 rows each
+constexpr int THREADS = 128 * (NWG + 1);
+constexpr int BKV = 64 * NWG;   // dK/dV: keys a block
+constexpr int BQ = 64;          // dK/dV: queries a streamed tile
+constexpr int BQD = 64 * NWG;   // dQ: queries a block
+constexpr int BKD = 128;        // dQ: keys a streamed tile
+constexpr int KV_STAGES = 3;    // depth of the dK/dV pass's Q/dO ring
+constexpr int Q_STAGES = 2;     // depth of the dQ pass's K/V ring
+// 168 registers a thread at the launch bound (one block of 384 threads an
+// SM); the producer warpgroup lowers its own to 24 and the two consumer
+// warpgroups raise theirs by what it gave up, so setmaxnreg never waits.
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = (168 + (168 - PRODUCER_REGS) / NWG) / 8 * 8;
 
-template <int D>
-constexpr int smem_dkdv_bf16() {
-  return (2 * BT + 2 * IT) * (D + 8) * 2 + 2 * D * LDT * 2 + 2 * IT * 4;
-}
-template <int D>
-constexpr int smem_dq_bf16() {
-  return (2 * BT + 2 * IT) * (D + 8) * 2 + D * LDT * 2 + 2 * BT * 4;
-}
+// Shared memory of a dK/dV block: K and V, then the ring's Q tiles, dO
+// tiles, lse (times log2 e) and delta slices, then the mbarriers.
+template <int D> struct DkdvSmem {
+  static constexpr int KV_BYTES = BKV * D * 2;       // the block's K or V
+  static constexpr int QO_BYTES = BQ * D * 2;        // one Q or dO tile
+  static constexpr int Q_OFF = 2 * KV_BYTES;
+  static constexpr int O_OFF = Q_OFF + KV_STAGES * QO_BYTES;
+  static constexpr int L_OFF = O_OFF + KV_STAGES * QO_BYTES;
+  static constexpr int DL_OFF = L_OFF + KV_STAGES * BQ * 4;
+  static constexpr int BAR_OFF = DL_OFF + KV_STAGES * BQ * 4;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * KV_STAGES) + 1024;  // + alignment
+};
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// Shared memory of a dQ block: Q and dO, then the ring's K and V tiles,
+// then the mbarriers.
+template <int D> struct DqSmem {
+  static constexpr int QO_BYTES = BQD * D * 2;       // the block's Q or dO
+  static constexpr int KV_BYTES = BKD * D * 2;       // one K or V tile
+  static constexpr int K_OFF = 2 * QO_BYTES;
+  static constexpr int V_OFF = K_OFF + Q_STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + Q_STAGES * KV_BYTES;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * Q_STAGES) + 1024;
+};
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);    // .x (lo) in bits 0..15
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row-major fragment) b (16 x 8, bf16,
-// column fragment).  Fragments (g = lane / 4, t = lane % 4): a[0] row g cols
-// 2t, 2t+1; a[1] row g+8; a[2] row g cols 2t+8, 2t+9; a[3] row g+8 cols
-// 2t+8, 2t+9.  b0 k 2t, 2t+1 of column g; b1 k 2t+8, 2t+9.  c[0], c[1] row g
-// cols 2t, 2t+1; c[2], c[3] row g+8.
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment of rows r .. r + 15, columns c .. c + 15 of a row-major
-// tile with row stride ld.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* s,
-                                       int ld, int r, int c, int g, int t) {
-  a[0] = ld32(s + (r + g) * ld + c + 2 * t);
-  a[1] = ld32(s + (r + g + 8) * ld + c + 2 * t);
-  a[2] = ld32(s + (r + g) * ld + c + 2 * t + 8);
-  a[3] = ld32(s + (r + g + 8) * ld + c + 2 * t + 8);
-}
-
-// Accumulator tiles n, n + 1 (16 x 16 of f32) as a bf16 A fragment.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                         const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
+// wgmma descriptor of a K-major operand: 64 or more rows of a swizzled
+// tile whose atom columns lie R rows apart, head-dim columns 16 kk .. +15.
+template <int D, int R>
+__device__ __forceinline__ uint64_t desc_k(const unsigned char* rows, int kk) {
+  using G = Geo<D>;
+  return gmma_desc(rows + kk * 16 / G::SWE * R * G::SW + kk * 16 % G::SWE * 2,
+                   16, 8 * G::SW, G::LAYOUT);
 }
 
-// Rows r0 .. r0 + rows - 1 of a (B, S, heads, D) bf16 tensor at (b, head)
-// into a row-major tile of stride D + 8 and, where `dst_t` is given, also
-// transposed into a D x LDT tile; 16-byte loads, rows at or past S zero.
-template <int D>
-__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst,
-                                               __nv_bfloat16* dst_t,
-                                               const __nv_bfloat16* src, int b,
-                                               int head, int heads, int r0,
-                                               int rows, int S) {
-  constexpr int V8 = D / 8;
-  const __nv_bfloat16* base = src + ((int64_t)b * S * heads + head) * D;
-  for (int i = threadIdx.x; i < rows * V8; i += blockDim.x) {
-    const int r = i / V8, c = (i % V8) * 8, pos = r0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (pos < S)
-      val = *reinterpret_cast<const uint4*>(base + (int64_t)pos * heads * D + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = val;
-    if (dst_t) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+// wgmma descriptor of an R-row tile as the MN-major B operand (k = the
+// tile's rows 16 kk .. +15, n = the head dim): the forward's V operand.
+template <int D, int R>
+__device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int kk) {
+  using G = Geo<D>;
+  return gmma_desc(tile + kk * 16 * G::SW, G::NA > 1 ? R * G::SW : 16,
+                   8 * G::SW, G::LAYOUT);
+}
+
+// acc (m64 x N, f32) = A B^T over the head dim, both K-major in shared
+// memory (B's N rows): issued and committed as one group, not waited for.
+template <int D, int RA, int RB, int N>
+__device__ __forceinline__ void issue_ss(float (&acc)[N / 2], const unsigned char* a,
+                                         const unsigned char* b) {
+  wg_fence();
 #pragma unroll
-      for (int u = 0; u < 8; ++u) dst_t[(c + u) * LDT + r] = e[u];
-    }
+  for (int kk = 0; kk < D / 16; ++kk) {
+    if constexpr (N == 64)
+      wgmma_ss_n64(acc, desc_k<D, RA>(a, kk), desc_k<D, RB>(b, kk), kk > 0);
+    else
+      wgmma_ss_n128(acc, desc_k<D, RA>(a, kk), desc_k<D, RB>(b, kk), kk > 0);
+  }
+  wg_commit();
+}
+
+// acc (m64 x D, f32) += A (m64 x kN, bf16 fragments) B (kN x D, the
+// MN-major N-row tile), 16 rows of B a step; not committed.
+template <int D, int N>
+__device__ __forceinline__ void issue_rs(float (&acc)[D / 2], const uint32_t (&a)[N / 16][4],
+                                         const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) wgmma_pv<D>(acc, a[kk], desc_mn<D, N>(b, kk));
+}
+
+// A 64 x N f32 accumulator as bf16 A fragments of its N columns, 16 a
+// step: columns 16k .. 16k + 15 are accumulator tiles 2k and 2k + 1.
+template <int N>
+__device__ __forceinline__ void acc_frags(const float (&p)[N / 2],
+                                          uint32_t (&pa)[N / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    pa[j / 2][(j & 1) * 2] = pack_bf16(p[4 * j], p[4 * j + 1]);
+    pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(p[4 * j + 2], p[4 * j + 3]);
   }
 }
 
-// Write a warp's 16 x D f32 accumulator (rows r .. r + 15 of a (B, S, heads,
-// D) bf16 tensor at (b, head)) times `scale`; rows at or past S are skipped.
+// A consumer warp is done with a ring stage: its lanes' reads of it have
+// completed (their wgmma products waited for, their loads used), so one
+// lane arrives for the warp.
+__device__ __forceinline__ void warp_release(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
+// Write a warpgroup's m64 x D f32 accumulator times `scale` to rows r0 (e <
+// 2) and r0 + 8 of a (B, S, heads, D) bf16 tensor at (b, head); rows at or
+// past S are skipped.  Accumulator layout of wgmma m64nN (warp w, g = lane
+// / 4, t = lane % 4): d[4n + e] holds row 16w + g (e < 2) or 16w + g + 8,
+// column 8n + 2t + (e & 1).
 template <int D>
-__device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* dst,
-                                                const float (&acc)[D / 8][4],
-                                                int b, int head, int heads,
-                                                int r, int S, float scale,
-                                                int g, int t) {
+__device__ __forceinline__ void store_acc(__nv_bfloat16* dst, const float (&acc)[D / 2],
+                                          int b, int head, int heads, int r0,
+                                          int S, float scale, int t4) {
   __nv_bfloat16* base = dst + ((int64_t)b * S * heads + head) * D;
-  const int ra = r + g, rb = r + g + 8;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (ra < S)
-      *reinterpret_cast<uint32_t*>(base + (int64_t)ra * heads * D + col) =
-          pack_bf16(acc[n][0] * scale, acc[n][1] * scale);
-    if (rb < S)
-      *reinterpret_cast<uint32_t*>(base + (int64_t)rb * heads * D + col) =
-          pack_bf16(acc[n][2] * scale, acc[n][3] * scale);
+    const int col = n * 8 + 2 * t4;
+    if (r0 < S)
+      *reinterpret_cast<uint32_t*>(base + (int64_t)r0 * heads * D + col) =
+          pack_bf16(acc[4 * n] * scale, acc[4 * n + 1] * scale);
+    if (r0 + 8 < S)
+      *reinterpret_cast<uint32_t*>(base + (int64_t)(r0 + 8) * heads * D + col) =
+          pack_bf16(acc[4 * n + 2] * scale, acc[4 * n + 3] * scale);
   }
 }
 
-// grid = (ceil(Sk / BT), Kh, B); block = 32 NW threads.  Warp w owns keys
-// j0 + 16 w .. + 15 and their dK / dV rows.
+// q, dout: (B, Sq, H, D) and k, v: (B, Sk, Kh, D), read through the tensor
+// maps tq / tdo (64-row boxes) and tk / tv (128-row boxes); dk, dv: (B, Sk,
+// Kh, D); lse, delta: (B, H, Sq).  grid = (Kh, B, ceil(Sk / BKV)); block =
+// THREADS.  Consumer warpgroup wg owns keys j0 + 64 wg .. + 63.
 template <int D>
-__global__ void __launch_bounds__(32 * NW)
-bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv,
+              const __grid_constant__ CUtensorMap tdo,
               const float* __restrict__ lse, const float* __restrict__ delta,
               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
               const int* __restrict__ kv_lens, int H, int Kh, int Sq, int Sk,
               float sm_scale, int causal) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // BT x LD
-  __nv_bfloat16* sV = sK + BT * LD;
-  __nv_bfloat16* sQ = sV + BT * LD;      // IT x LD
-  __nv_bfloat16* sO = sQ + IT * LD;      // dO
-  __nv_bfloat16* sQT = sO + IT * LD;     // D x LDT
-  __nv_bfloat16* sOT = sQT + D * LDT;
-  float* sL = reinterpret_cast<float*>(sOT + D * LDT);   // IT
-  float* sD = sL + IT;
+  using G = Geo<D>;
+  using L = DkdvSmem<D>;
+  constexpr int STAGES = KV_STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzled tiles start on a 1024-byte boundary (the 128-byte swizzle's period)
+  unsigned char* sK = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sV = sK + L::KV_BYTES;
+  unsigned char* sQ = sK + L::Q_OFF;
+  unsigned char* sO = sK + L::O_OFF;
+  float* sL = reinterpret_cast<float*>(sK + L::L_OFF);
+  float* sDl = reinterpret_cast<float*>(sK + L::DL_OFF);
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(sK + L::BAR_OFF);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + STAGES;
 
-  const int j0 = blockIdx.x * BT, kh = blockIdx.y, b = blockIdx.z;
-  const int G = H / Kh;
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int kh = blockIdx.x, b = blockIdx.y, j0 = blockIdx.z * BKV;
+  const int group = H / Kh;
   const int kv_len = kv_lens ? min(max(kv_lens[b], 0), Sk) : Sk;
-  const float scale_log2 = sm_scale * LOG2E;
+  // causal rows before j0 see none of the block's keys; a block past
+  // kv_len has no valid key
+  const int i_begin = causal ? j0 : 0;
+  const int n_q = j0 < kv_len && i_begin < Sq ? (Sq - i_begin + BQ - 1) / BQ : 0;
+  const int n_tiles = group * n_q;        // (head, query tile), heads outermost
 
-  load_rows_bf16<D>(sK, nullptr, k, b, kh, Kh, j0, BT, Sk);
-  load_rows_bf16<D>(sV, nullptr, v, b, kh, Kh, j0, BT, Sk);
-  float dkacc[D / 8][4], dvacc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dkacc[n][e] = dvacc[n][e] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 33);            // the copy's expect_tx and 32 lanes
+      mbar_init(empty + s, 4 * NWG);      // every consumer warp releases
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  const int i_begin = causal ? j0 / IT * IT : 0;
-  for (int hh = 0; hh < G && j0 < kv_len; ++hh) {
-    const int h = kh * G + hh;
-    const float* lrow = lse + ((int64_t)b * H + h) * Sq;
-    const float* drow = delta + ((int64_t)b * H + h) * Sq;
-    for (int i0 = i_begin; i0 < Sq; i0 += IT) {
-      __syncthreads();          // the previous query tile is consumed
-      load_rows_bf16<D>(sQ, sQT, q, b, h, H, i0, IT, Sq);
-      load_rows_bf16<D>(sO, sOT, dout, b, h, H, i0, IT, Sq);
-      if (threadIdx.x < IT) {
-        const int i = i0 + threadIdx.x;
-        sL[threadIdx.x] = i < Sq ? lrow[i] * LOG2E : 0.f;
-        sD[threadIdx.x] = i < Sq ? drow[i] : 0.f;
-      }
-      __syncthreads();
-      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x IT queries
-      float st[IT / 8][4] = {}, dpt[IT / 8][4] = {};
+  const int wg = threadIdx.x / 128;
+  if (wg == NWG) {
+    // ---- producer: its first warp streams the query tiles
+    regs_lower<PRODUCER_REGS>();
+    if (threadIdx.x < 128 * NWG + 32 && n_tiles > 0) {
+      const int lane = threadIdx.x & 31;
+      if (lane == 0) {
+        mbar_expect_tx(bar_kv, 2 * L::KV_BYTES);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        load_a(ak, sK, LD, 16 * w, 16 * kk, g, t);
-        load_a(av, sV, LD, 16 * w, 16 * kk, g, t);
-#pragma unroll
-        for (int n = 0; n < IT / 8; ++n) {
-          const __nv_bfloat16* qr = sQ + (8 * n + g) * LD + 16 * kk + 2 * t;
-          const __nv_bfloat16* orow = sO + (8 * n + g) * LD + 16 * kk + 2 * t;
-          mma16816(st[n], ak, ld32(qr), ld32(qr + 8));
-          mma16816(dpt[n], av, ld32(orow), ld32(orow + 8));
+        for (int a = 0; a < G::NA; ++a) {
+          tma_load_4d(sK + a * BKV * G::SW, &tk, bar_kv, a * G::SWE, kh, j0, b);
+          tma_load_4d(sV + a * BKV * G::SW, &tv, bar_kv, a * G::SWE, kh, j0, b);
         }
       }
-      // P^T and dS^T in place
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        const int h = kh * group + t / n_q, i0 = i_begin + t % n_q * BQ;
+        mbar_wait(empty + s, ((t / STAGES) & 1) ^ 1);   // round 0 passes at once
+        if (lane == 0) {
+          mbar_expect_tx(full + s, 2 * L::QO_BYTES);
 #pragma unroll
-      for (int n = 0; n < IT / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = j0 + 16 * w + g + (e >= 2 ? 8 : 0);
-          const int qi = 8 * n + 2 * t + (e & 1);
-          const bool ok = pair_valid(i0 + qi, key, Sq, kv_len, causal);
-          const float p = ok ? exp2f(fmaf(st[n][e], scale_log2, -sL[qi])) : 0.f;
-          st[n][e] = p;
-          dpt[n][e] = p * (dpt[n][e] - sD[qi]);
+          for (int a = 0; a < G::NA; ++a) {
+            tma_load_4d(sQ + s * L::QO_BYTES + a * BQ * G::SW, &tq, full + s,
+                        a * G::SWE, h, i0, b);
+            tma_load_4d(sO + s * L::QO_BYTES + a * BQ * G::SW, &tdo, full + s,
+                        a * G::SWE, h, i0, b);
+          }
         }
-      // dV += P^T dO and dK += dS^T Q over the IT queries, 16 at a step
-#pragma unroll
-      for (int kk = 0; kk < IT / 16; ++kk) {
-        uint32_t pa[4], da[4];
-        acc_to_a(pa, st[2 * kk], st[2 * kk + 1]);
-        acc_to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          const __nv_bfloat16* ot = sOT + (8 * n + g) * LDT + 16 * kk + 2 * t;
-          const __nv_bfloat16* qt = sQT + (8 * n + g) * LDT + 16 * kk + 2 * t;
-          mma16816(dvacc[n], pa, ld32(ot), ld32(ot + 8));
-          mma16816(dkacc[n], da, ld32(qt), ld32(qt + 8));
+        const float* lrow = lse + ((int64_t)b * H + h) * Sq;
+        const float* drow = delta + ((int64_t)b * H + h) * Sq;
+        for (int r = lane; r < BQ; r += 32) {
+          const bool in = i0 + r < Sq;
+          sL[s * BQ + r] = in ? lrow[i0 + r] * LOG2E : 0.f;
+          sDl[s * BQ + r] = in ? drow[i0 + r] : 0.f;
         }
+        mbar_arrive(full + s);
       }
     }
+  } else {
+    // ---- consumer warpgroup wg: keys j0 + 64 wg .. + 63
+    regs_raise<CONSUMER_REGS>();
+    const int tid = threadIdx.x % 128;
+    const int t4 = tid & 3;
+    const int wkey = j0 + wg * 64;                  // this warpgroup's first key
+    const int key0 = wkey + (tid >> 5) * 16 + ((tid & 31) >> 2), key1 = key0 + 8;
+    const unsigned char* k_wg = sK + wg * 64 * G::SW;
+    const unsigned char* v_wg = sV + wg * 64 * G::SW;
+    const float scale_log2 = sm_scale * LOG2E;
+
+    float dvacc[D / 2], dkacc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dvacc[i] = dkacc[i] = 0.f;
+    if (n_tiles > 0) mbar_wait(bar_kv, 0);
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % STAGES;
+      const int i0 = i_begin + t % n_q * BQ;
+      mbar_wait(full + s, (t / STAGES) & 1);
+      // skipped where every pair of this warpgroup's keys is masked
+      if (wkey < kv_len && !(causal && wkey > i0 + BQ - 1)) {
+        const unsigned char* q_s = sQ + s * L::QO_BYTES;
+        const unsigned char* o_s = sO + s * L::QO_BYTES;
+        const float* ls = sL + s * BQ;
+        const float* ds = sDl + s * BQ;
+        float st[BQ / 2], dpt[BQ / 2];              // S^T, dP^T: keys x queries
+        issue_ss<D, BKV, BQ, BQ>(st, k_wg, q_s);
+        issue_ss<D, BKV, BQ, BQ>(dpt, v_wg, o_s);
+        wg_wait<1>();                               // S^T is done
+        fence_regs(st);
+        const bool edge = wkey + 64 > kv_len || i0 + BQ > Sq ||
+                          (causal && wkey + 63 > i0);
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = fast_exp2(fmaf(st[4 * j + e], scale_log2, (e & 1) ? -l2.y : -l2.x));
+            if (edge && !pair_valid(i0 + 8 * j + 2 * t4 + (e & 1), e < 2 ? key0 : key1,
+                                    Sq, kv_len, causal))
+              p = 0.f;
+            st[4 * j + e] = p;
+          }
+        }
+        wg_wait<0>();                               // dP^T is done
+        fence_regs(dpt);
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const float2 d2 = *reinterpret_cast<const float2*>(ds + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? d2.y : d2.x));
+        }
+        uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+        acc_frags<BQ>(st, pa);
+        acc_frags<BQ>(dpt, da);
+        wg_fence();
+        issue_rs<D, BQ>(dvacc, pa, o_s);            // dV += P^T dO
+        issue_rs<D, BQ>(dkacc, da, q_s);            // dK += dS^T Q
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(dvacc);
+        fence_regs(dkacc);
+        fence_frags(pa);
+        fence_frags(da);
+      }
+      warp_release(empty + s);                      // Q, dO, lse and delta read
+    }
+    store_acc<D>(dk, dkacc, b, kh, Kh, key0, Sk, sm_scale, t4);
+    store_acc<D>(dv, dvacc, b, kh, Kh, key0, Sk, 1.f, t4);
   }
-  store_rows_bf16<D>(dk, dkacc, b, kh, Kh, j0 + 16 * w, Sk, sm_scale, g, t);
-  store_rows_bf16<D>(dv, dvacc, b, kh, Kh, j0 + 16 * w, Sk, 1.f, g, t);
 }
 
-// grid = (ceil(Sq / BT), H, B); block = 32 NW threads.  Warp w owns queries
-// i0 + 16 w .. + 15 and their dQ rows.
+// q, dout, dq: (B, Sq, H, D) and k, v: (B, Sk, Kh, D); q / dout read through
+// the tensor maps tq / tdo (128-row boxes), k / v through tk / tv (64-row
+// boxes); lse, delta: (B, H, Sq).  grid = (H, B, ceil(Sq / BQD)); block =
+// THREADS.  Consumer warpgroup wg owns queries i0 + 64 wg .. + 63.
 template <int D>
-__global__ void __launch_bounds__(32 * NW)
-bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
-            const __nv_bfloat16* __restrict__ k,
-            const __nv_bfloat16* __restrict__ v,
-            const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
+            const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv,
+            const __grid_constant__ CUtensorMap tdo,
             const float* __restrict__ lse, const float* __restrict__ delta,
             __nv_bfloat16* __restrict__ dq, const int* __restrict__ kv_lens,
             int H, int Kh, int Sq, int Sk, float sm_scale, int causal) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // BT x LD
-  __nv_bfloat16* sO = sQ + BT * LD;
-  __nv_bfloat16* sK = sO + BT * LD;      // IT x LD
-  __nv_bfloat16* sV = sK + IT * LD;
-  __nv_bfloat16* sKT = sV + IT * LD;     // D x LDT
-  float* sL = reinterpret_cast<float*>(sKT + D * LDT);   // BT
-  float* sD = sL + BT;
+  using G = Geo<D>;
+  using L = DqSmem<D>;
+  constexpr int STAGES = Q_STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sO = sQ + L::QO_BYTES;
+  unsigned char* sK = sQ + L::K_OFF;
+  unsigned char* sV = sQ + L::V_OFF;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sQ + L::BAR_OFF);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + STAGES;
 
-  const int i0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int i0 = (gridDim.z - 1 - blockIdx.z) * BQD;    // longest tiles first
   const int kh = h / (H / Kh);
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
   const int kv_len = kv_lens ? min(max(kv_lens[b], 0), Sk) : Sk;
   int k_end = kv_len;           // keys at or past k_end are masked for every row
-  if (causal) k_end = min(k_end, min(i0 + BT, Sq));
-  const float scale_log2 = sm_scale * LOG2E;
+  if (causal) k_end = min(k_end, min(i0 + BQD, Sq));
+  const int n_tiles = (k_end + BKD - 1) / BKD;
 
-  load_rows_bf16<D>(sQ, nullptr, q, b, h, H, i0, BT, Sq);
-  load_rows_bf16<D>(sO, nullptr, dout, b, h, H, i0, BT, Sq);
-  for (int r = threadIdx.x; r < BT; r += blockDim.x) {
-    const int64_t idx = ((int64_t)b * H + h) * Sq + i0 + r;
-    sL[r] = i0 + r < Sq ? lse[idx] * LOG2E : 0.f;
-    sD[r] = i0 + r < Sq ? delta[idx] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float dqacc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqacc[n][e] = 0.f;
+  __syncthreads();
 
-  for (int j0 = 0; j0 < k_end; j0 += IT) {
-    __syncthreads();            // the previous key tile is consumed
-    load_rows_bf16<D>(sK, sKT, k, b, kh, Kh, j0, IT, Sk);
-    load_rows_bf16<D>(sV, nullptr, v, b, kh, Kh, j0, IT, Sk);
-    __syncthreads();
-    // S = Q K^T and dP = dO V^T: this warp's 16 queries x IT keys
-    float s[IT / 8][4] = {}, dp[IT / 8][4] = {};
+  const int wg = threadIdx.x / 128;
+  if (wg == NWG) {
+    // ---- producer: one thread issues every copy
+    regs_lower<PRODUCER_REGS>();
+    if (threadIdx.x == 128 * NWG && n_tiles > 0) {
+      mbar_expect_tx(bar_q, 2 * L::QO_BYTES);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      load_a(aq, sQ, LD, 16 * w, 16 * kk, g, t);
-      load_a(ao, sO, LD, 16 * w, 16 * kk, g, t);
+      for (int a = 0; a < G::NA; ++a) {
+        tma_load_4d(sQ + a * BQD * G::SW, &tq, bar_q, a * G::SWE, h, i0, b);
+        tma_load_4d(sO + a * BQD * G::SW, &tdo, bar_q, a * G::SWE, h, i0, b);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(empty + s, ((t / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + s, 2 * L::KV_BYTES);
 #pragma unroll
-      for (int n = 0; n < IT / 8; ++n) {
-        const __nv_bfloat16* kr = sK + (8 * n + g) * LD + 16 * kk + 2 * t;
-        const __nv_bfloat16* vr = sV + (8 * n + g) * LD + 16 * kk + 2 * t;
-        mma16816(s[n], aq, ld32(kr), ld32(kr + 8));
-        mma16816(dp[n], ao, ld32(vr), ld32(vr + 8));
+        for (int a = 0; a < G::NA; ++a) {
+          tma_load_4d(sK + s * L::KV_BYTES + a * BKD * G::SW, &tk, full + s,
+                      a * G::SWE, kh, t * BKD, b);
+          tma_load_4d(sV + s * L::KV_BYTES + a * BKD * G::SW, &tv, full + s,
+                      a * G::SWE, kh, t * BKD, b);
+        }
       }
     }
+  } else {
+    // ---- consumer warpgroup wg: queries i0 + 64 wg .. + 63
+    regs_raise<CONSUMER_REGS>();
+    const int tid = threadIdx.x % 128;
+    const int t4 = tid & 3;
+    const int wrow = i0 + wg * 64;                  // this warpgroup's first query
+    const int row0 = wrow + (tid >> 5) * 16 + ((tid & 31) >> 2), row1 = row0 + 8;
+    const unsigned char* q_wg = sQ + wg * 64 * G::SW;
+    const unsigned char* o_wg = sO + wg * 64 * G::SW;
+    const float scale_log2 = sm_scale * LOG2E;
+    const float* lrow = lse + ((int64_t)b * H + h) * Sq;
+    const float* drow = delta + ((int64_t)b * H + h) * Sq;
+    const float l0 = row0 < Sq ? lrow[row0] * LOG2E : 0.f;
+    const float l1 = row1 < Sq ? lrow[row1] * LOG2E : 0.f;
+    const float d0 = row0 < Sq ? drow[row0] : 0.f;
+    const float d1 = row1 < Sq ? drow[row1] : 0.f;
+
+    float dqacc[D / 2];
 #pragma unroll
-    for (int n = 0; n < IT / 8; ++n)
+    for (int i = 0; i < D / 2; ++i) dqacc[i] = 0.f;
+    if (n_tiles > 0) mbar_wait(bar_q, 0);
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % STAGES, k0 = t * BKD;
+      mbar_wait(full + s, (t / STAGES) & 1);
+      // skipped where every key of the tile is past this warpgroup's rows
+      if (!(causal && k0 > wrow + 63)) {
+        const unsigned char* k_s = sK + s * L::KV_BYTES;
+        const unsigned char* v_s = sV + s * L::KV_BYTES;
+        float sa[BKD / 2], dpa[BKD / 2];            // S, dP: queries x keys
+        issue_ss<D, BQD, BKD, BKD>(sa, q_wg, k_s);
+        issue_ss<D, BQD, BKD, BKD>(dpa, o_wg, v_s);
+        wg_wait<1>();
+        fence_regs(sa);
+        const bool edge = k0 + BKD > kv_len || (causal && k0 + BKD - 1 > wrow);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = 16 * w + g + (e >= 2 ? 8 : 0);
-        const int key = j0 + 8 * n + 2 * t + (e & 1);
-        const bool ok = pair_valid(i0 + qi, key, Sq, kv_len, causal);
-        const float p = ok ? exp2f(fmaf(s[n][e], scale_log2, -sL[qi])) : 0.f;
-        dp[n][e] = p * (dp[n][e] - sD[qi]);
+        for (int j = 0; j < BKD / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = fast_exp2(fmaf(sa[4 * j + e], scale_log2, e < 2 ? -l0 : -l1));
+            if (edge && !pair_valid(e < 2 ? row0 : row1, k0 + 8 * j + 2 * t4 + (e & 1),
+                                    Sq, kv_len, causal))
+              p = 0.f;
+            sa[4 * j + e] = p;
+          }
+        wg_wait<0>();
+        fence_regs(dpa);
+#pragma unroll
+        for (int j = 0; j < BKD / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dpa[4 * j + e] = sa[4 * j + e] * (dpa[4 * j + e] - (e < 2 ? d0 : d1));
+        uint32_t da[BKD / 16][4];
+        acc_frags<BKD>(dpa, da);
+        wg_fence();
+        issue_rs<D, BKD>(dqacc, da, k_s);           // dQ += dS K
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(dqacc);
+        fence_frags(da);
       }
-    // dQ += dS K over the IT keys, 16 at a step
-#pragma unroll
-    for (int kk = 0; kk < IT / 16; ++kk) {
-      uint32_t da[4];
-      acc_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const __nv_bfloat16* kt = sKT + (8 * n + g) * LDT + 16 * kk + 2 * t;
-        mma16816(dqacc[n], da, ld32(kt), ld32(kt + 8));
-      }
+      warp_release(empty + s);                      // K and V read
     }
+    store_acc<D>(dq, dqacc, b, h, H, row0, Sq, sm_scale, t4);
   }
-  store_rows_bf16<D>(dq, dqacc, b, h, H, i0 + 16 * w, Sq, sm_scale, g, t);
 }
 
 // ---------------------------------------------------------------- launch
-// Raise a kernel's dynamic shared-memory limit once per device, not on every
-// launch: bit d of `ready` says it is done on device d.
-inline int allow_smem(const void* fn, int smem, std::atomic<uint64_t>& ready) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
-  if (!(ready.load(std::memory_order_acquire) & bit)) {
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    ready.fetch_or(bit, std::memory_order_release);
-  }
-  return 0;
-}
-
 struct Args {
   const void *q, *k, *v, *o, *dout;
   const float* lse;
@@ -666,24 +798,33 @@ template <int D>
 int launch_bf16(const Args& a) {
   int err = launch_delta<__nv_bfloat16>(a, D);
   if (err) return err;
-  constexpr int smem_kv = smem_dkdv_bf16<D>(), smem_q = smem_dq_bf16<D>();
+  constexpr int smem_kv = DkdvSmem<D>::BYTES, smem_q = DqSmem<D>::BYTES;
   static std::atomic<uint64_t> ready_kv{0}, ready_q{0};
   if ((err = allow_smem(reinterpret_cast<const void*>(bwd_dkdv_bf16<D>), smem_kv, ready_kv)) ||
       (err = allow_smem(reinterpret_cast<const void*>(bwd_dq_bf16<D>), smem_q, ready_q)))
     return err;
+  EncodeTiled encode = nullptr;
+  if ((err = tensor_map_encoder(&encode))) return err;
+  // the pointers change per call: encoded per launch, one map per box height
+  CUtensorMap q_t, do_t, k_b, v_b, q_b, do_b, k_t, v_t;
+  if ((err = make_map<D>(&q_t, encode, a.q, a.H, a.Sq, a.B, BQ)) ||
+      (err = make_map<D>(&do_t, encode, a.dout, a.H, a.Sq, a.B, BQ)) ||
+      (err = make_map<D>(&k_b, encode, a.k, a.Kh, a.Sk, a.B, BKV)) ||
+      (err = make_map<D>(&v_b, encode, a.v, a.Kh, a.Sk, a.B, BKV)) ||
+      (err = make_map<D>(&q_b, encode, a.q, a.H, a.Sq, a.B, BQD)) ||
+      (err = make_map<D>(&do_b, encode, a.dout, a.H, a.Sq, a.B, BQD)) ||
+      (err = make_map<D>(&k_t, encode, a.k, a.Kh, a.Sk, a.B, BKD)) ||
+      (err = make_map<D>(&v_t, encode, a.v, a.Kh, a.Sk, a.B, BKD)))
+    return err;
   using bf = __nv_bfloat16;
-  const bf* q = static_cast<const bf*>(a.q);
-  const bf* k = static_cast<const bf*>(a.k);
-  const bf* v = static_cast<const bf*>(a.v);
-  const bf* dout = static_cast<const bf*>(a.dout);
-  bwd_dkdv_bf16<D><<<dim3((a.Sk + BT - 1) / BT, a.Kh, a.B), 32 * NW, smem_kv, a.st>>>(
-      q, k, v, dout, a.lse, a.delta, static_cast<bf*>(a.dk),
+  bwd_dkdv_bf16<D><<<dim3(a.Kh, a.B, (a.Sk + BKV - 1) / BKV), THREADS, smem_kv, a.st>>>(
+      q_t, k_b, v_b, do_t, a.lse, a.delta, static_cast<bf*>(a.dk),
       static_cast<bf*>(a.dv), a.kv_lens, a.H, a.Kh, a.Sq, a.Sk, a.sm_scale,
       a.causal);
   if ((err = (int)cudaGetLastError())) return err;
-  bwd_dq_bf16<D><<<dim3((a.Sq + BT - 1) / BT, a.H, a.B), 32 * NW, smem_q, a.st>>>(
-      q, k, v, dout, a.lse, a.delta, static_cast<bf*>(a.dq), a.kv_lens, a.H,
-      a.Kh, a.Sq, a.Sk, a.sm_scale, a.causal);
+  bwd_dq_bf16<D><<<dim3(a.H, a.B, (a.Sq + BQD - 1) / BQD), THREADS, smem_q, a.st>>>(
+      q_b, k_t, v_t, do_b, a.lse, a.delta, static_cast<bf*>(a.dq), a.kv_lens,
+      a.H, a.Kh, a.Sq, a.Sk, a.sm_scale, a.causal);
   return (int)cudaGetLastError();
 }
 

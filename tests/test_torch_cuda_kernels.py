@@ -78,6 +78,15 @@ BWD_SWEEP = [                  # K1 backward: GQA, causal, Sq != Sk, kv_lens
     (1, 300, 100, 4, 4, 16, True, None),
     (2, 130, 330, 4, 4, 32, False, (330, 0)),
     (2, 160, 160, 32, 8, 128, True, (160, 77)),
+    # the bf16 kernels' edges: Sq and Sk not multiples of their 64- and
+    # 128-row tiles (the tensor maps zero-fill past S), head dims 16 and 32
+    # (32- and 64-byte swizzles), a GQA group of 8 with a zero kv_len
+    (2, 77, 201, 4, 2, 64, False, None),
+    (1, 333, 333, 8, 4, 128, True, None),
+    (2, 190, 95, 4, 4, 32, True, (95, 50)),
+    (2, 131, 131, 4, 1, 16, True, None),
+    (1, 250, 70, 8, 2, 32, False, (70,)),
+    (2, 150, 150, 16, 2, 64, True, (150, 0)),
 ]
 # dq, dk, dv against flash_attention_bwd_plain on the same inputs (o and lse
 # from the forward kernel), as chip_smoke.py holds them: relative Frobenius
@@ -117,6 +126,36 @@ def test_flash_attention_bwd_kernel_matches_plain(card, B, Sq, Sk, H, Kh, D,
         assert np.isfinite(g).all()
         assert np.linalg.norm(g - r) <= BWD_FRO_TOL[dtype] * np.linalg.norm(r)
         assert np.abs(g - r).max() <= BWD_MAX_TOL[dtype] * np.abs(r).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,Kh,D,causal,lens", [
+    (2, 256, 256, 8, 8, 128, True, (256, 100)),
+    (1, 333, 333, 8, 4, 128, True, None),
+    (2, 150, 150, 16, 2, 64, True, (150, 0)),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_kernel_repeats_bit_for_bit(card, B, Sq, Sk, H, Kh,
+                                                        D, causal, lens, dtype):
+    """No atomics: two launches on the same inputs give the same bits, which
+    is what makes training losses and resumes repeat exactly."""
+    rng = np.random.RandomState(2)
+    q, k, v, do = (torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                    * scale).to(card, getattr(torch, dtype))
+                   for shape, scale in (((B, Sq, H, D), QK_SCALE),
+                                        ((B, Sk, Kh, D), QK_SCALE),
+                                        ((B, Sk, Kh, D), 1.0),
+                                        ((B, Sq, H, D), 1.0)))
+    kv_lens = None if lens is None else torch.tensor(lens, device=card)
+    o, lse = ops._forward(q, k, v, causal=causal, sm_scale=D ** -0.5,
+                          kv_lens=kv_lens, with_lse=True)
+    first = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                    kv_lens=kv_lens)
+    second = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                     kv_lens=kv_lens)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,100 @@
+"""The port's CUDA sources as files, checked on the CPU (no nvcc, no card):
+the build hash covers the shared header, and every planted fault of
+``tools/flash_attention_mutants.py`` and every edit of
+``tools/k1_bwd_variants.py`` still finds its text in the sources, so
+neither the stale-library guard nor those tools can rot silently.
+"""
+import importlib.util
+import shutil
+from pathlib import Path
+
+import pytest
+
+from repro_torch.kernels import _build
+
+ROOT = Path(__file__).resolve().parents[1]
+CSRC = ROOT / "src" / "repro_torch" / "kernels" / "flash_attention" / "csrc"
+HEADER = "hopper_sm90.cuh"
+
+
+def _load_tool(name):
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+TOOL = _load_tool("flash_attention_mutants")
+VARIANTS = _load_tool("k1_bwd_variants")
+MUTANT_CASES = [(table, name) for table in ("MUTANTS", "BWD_MUTANTS")
+                for name in getattr(TOOL, table)]
+
+
+@pytest.fixture
+def csrc_copy(tmp_path):
+    return Path(shutil.copytree(CSRC, tmp_path / "csrc"))
+
+
+@pytest.mark.parametrize("source", ["flash_attention_fwd.cu",
+                                    "flash_attention_bwd.cu"])
+def test_editing_the_shared_header_changes_the_library(csrc_copy, source):
+    src = csrc_copy / source
+    assert f'#include "{HEADER}"' in src.read_text()
+    before = _build.source_hash(src)
+    hdr = csrc_copy / HEADER
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    assert _build.source_hash(src) != before
+
+
+def test_editing_another_source_leaves_the_library(csrc_copy):
+    src = csrc_copy / "flash_attention_bwd.cu"
+    before = _build.source_hash(src)
+    fwd = csrc_copy / "flash_attention_fwd.cu"
+    fwd.write_text(fwd.read_text() + "\n// edited\n")
+    assert _build.source_hash(src) == before
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert _build.source_hash(src) != before
+
+
+@pytest.mark.parametrize("name", sorted(_build.SOURCES))
+def test_library_path_names_the_source_hash(name):
+    path = _build.library_path(name)
+    assert path.parent == _build.BUILD_DIR
+    assert path.name == f"{name}-{_build.source_hash(_build.SOURCES[name])}.so"
+
+
+@pytest.mark.parametrize("table,name", MUTANT_CASES)
+def test_mutant_text_occurs_once(table, name):
+    file, edits = getattr(TOOL, table)[name]
+    text = (CSRC / file).read_text()
+    assert edits
+    for old, new in edits:
+        assert old != new
+        assert text.count(old) == 1, f"{name}: {old!r}"
+    assert TOOL.mutated(file, edits) != text
+
+
+def test_mutant_copies_differ_from_the_sources_in_one_file(tmp_path):
+    jobs = TOOL.write_mutants(tmp_path)
+    assert set(jobs) == set(TOOL.MUTANTS) | set(TOOL.BWD_MUTANTS)
+    for name, (kind, src, lib) in jobs.items():
+        table = TOOL.MUTANTS if kind == "fwd" else TOOL.BWD_MUTANTS
+        assert src.name == f"{TOOL.LIBS[kind][0]}.cu"
+        assert lib.parent == src.parent and lib.suffix == ".so"
+        changed = [f.name for f in src.parent.iterdir()
+                   if f.read_text() != (CSRC / f.name).read_text()]
+        assert changed == [table[name][0]]
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS.VARIANTS))
+def test_k1_bwd_variant_edits_apply_once(name, tmp_path):
+    kind, edits = VARIANTS.VARIANTS[name]
+    assert kind in ("design", "ablation") and edits
+    text = (CSRC / VARIANTS.SOURCE).read_text()
+    for old, new in edits:
+        assert old != new
+        assert text.count(old) == 1, f"{name}: {old[:60]!r}"
+    (src, lib), = VARIANTS.write_variants(tmp_path, [name]).values()
+    assert src.read_text() != text and (src.parent / HEADER).exists()
+    assert lib.parent == src.parent

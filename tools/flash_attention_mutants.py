@@ -1,128 +1,168 @@
 #!/usr/bin/env python3
-"""Mutation check of ``chip_smoke.py``'s flash-attention (K1) check, on one
+"""Mutation check of ``chip_smoke.py``'s flash-attention (K1) checks, on one
 NVIDIA GPU:
 
     python3 tools/flash_attention_mutants.py
 
-Plants each fault of ``MUTANTS`` in its own copy of
-``src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu``
-under ``build/mutants/``, builds the copies (one ``nvcc`` each, all at
-once), and runs every copy, and the unchanged kernel as a control, through
-two checks in bf16 over ``chip_smoke.py``'s sweep (GQA, kv_lens, every head
-dim) and llama2-paper's prefill shapes (the serve phase's prompt lengths
-and the timed lengths of ``chip_smoke.py``):
+Plants each fault of ``MUTANTS`` (the forward) and ``BWD_MUTANTS`` (the
+backward) in its own copy of the kernel's sources under
+``build/mutants/<name>/``: the library's ``.cu`` and the shared header
+``hopper_sm90.cuh`` beside it, one of them edited.  It builds every copy
+and the unchanged libraries (one ``nvcc`` each, all at once), then runs each
+library in a process of its own under a time limit (``RUN_TIMEOUT_S``),
+because a mutant that breaks a ring's mbarrier protocol can hang the card's
+kernel instead of failing a check.
+
+Forward libraries go through two checks in bf16 over ``chip_smoke.py``'s
+sweep (GQA, kv_lens, every head dim) and llama2-paper's prefill shapes (the
+serve phase's prompt lengths and the timed lengths of ``chip_smoke.py``):
 
   peaked   ``chip_smoke.py``'s own check: q and k at QK_SCALE x randn, v a
            unit normal, limits TOL, FRO_TOL and MAX_TOL;
   uniform  a weaker check for comparison: q, k and v at 0.3 x randn, so the
            softmax is near uniform, and the elementwise limit TOL only.
 
-A mutant is caught by a check when at least one shape fails it.
+Backward libraries go through ``chip_smoke.py``'s ``kernel_bwd`` check (dq,
+dk and dv against the plain backward, BWD_FRO_TOL and BWD_MAX_TOL) over its
+sweep in bf16 and f32 (a mutant of the bf16 kernels is caught on bf16
+cases), and each row names the limits that caught it.
 
-The backward (``csrc/flash_attention_bwd.cu``) gets the same treatment with
-``BWD_MUTANTS``: each copy, and the unchanged kernel, runs
-``chip_smoke.py``'s ``kernel_bwd`` check (dq, dk and dv against the plain
-backward, BWD_FRO_TOL and BWD_MAX_TOL) over its sweep, in bf16 and f32
-(a mutant that changes only the bf16 kernels is caught on bf16 cases),
-and each row names the limits that caught it.
-
-Prints one JSON line per (kernel, check) and exits non-zero if the peaked
-forward check or the backward check misses a mutant or fails a control.
+A mutant is caught by a check when at least one case fails it; one that
+runs past its time limit is reported as ``hung`` (and counts as caught: the
+smoke run would never end).  Prints one JSON line per (library, check) and
+exits non-zero if the peaked forward check or the backward check misses a
+mutant or a control fails or hangs.
 """
 from __future__ import annotations
 
 import ctypes
 import json
 import math
-import os
+import shutil
+import subprocess
 import sys
+from pathlib import Path
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-sys.path.insert(0, os.path.join(ROOT, "src"))
+ROOT = Path(__file__).resolve().parents[1]
+CSRC = ROOT / "src" / "repro_torch" / "kernels" / "flash_attention" / "csrc"
+HEADER = "hopper_sm90.cuh"
+RUN_TIMEOUT_S = 180
 
-import chip_smoke  # noqa: E402  (puts src/ on the path as well)
-
-# name -> (text of the bf16 kernel, the text that replaces it)
+# name -> (file in csrc/, [(text, the text that replaces it), ...]); the
+# forward library is built with each
 MUTANTS = {
     # late rows only: a query tile that reads more than 6 KV tiles (causal
     # rows from 768 on) skips its last loop pass, so the diagonal tile's
     # scores never reach the softmax and its P V uses the tile before's P
-    "skip_late_kv_tile": (
+    "skip_late_kv_tile": ("flash_attention_fwd.cu", [(
         "    for (int tile = 1; tile < n_tiles; ++tile) {",
-        "    for (int tile = 1; tile < n_tiles - (n_tiles > 6); ++tile) {"),
+        "    for (int tile = 1; tile < n_tiles - (n_tiles > 6); ++tile) {")]),
     # the running sum and accumulator are not rescaled when the running max
     # rises (alpha = 1)
-    "no_rescale": (
+    "no_rescale": ("flash_attention_fwd.cu", [(
         "  a0 = fast_exp2(m0 - mn0);\n  a1 = fast_exp2(m1 - mn1);",
-        "  a0 = 1.f;\n  a1 = 1.f;"),
+        "  a0 = 1.f;\n  a1 = 1.f;")]),
     # each row also sees the key just after it
-    "causal_one_late": (
+    "causal_one_late": ("flash_attention_fwd.cu", [(
         "const bool valid = key < kv_len && (!causal || key <= row);",
-        "const bool valid = key < kv_len && (!causal || key <= row + 1);"),
+        "const bool valid = key < kv_len && (!causal || key <= row + 1);")]),
     # heads are mapped to KV heads interleaved instead of grouped (GQA)
-    "wrong_gqa_head": (
+    "wrong_gqa_head": ("flash_attention_fwd.cu", [(
         "const int kh = h / (H / Kh);             // GQA: the KV head of head h",
-        "const int kh = h % Kh;"),
+        "const int kh = h % Kh;")]),
     # the consumers compute S from the ring stage of the previous K tile,
     # one phase behind the barrier they waited on: a stale tile, or one the
     # producer is refilling (waiting on the wrong barrier phase instead would
     # release the stage before its copy lands and hang the producer)
-    "stale_stage": (
+    "stale_stage": ("flash_attention_fwd.cu", [(
         "      issue_qk<D, BQ16>(sacc, q_wg, sK + s * L::KV_BYTES);",
-        "      issue_qk<D, BQ16>(sacc, q_wg, sK + ps * L::KV_BYTES);"),
+        "      issue_qk<D, BQ16>(sacc, q_wg, sK + ps * L::KV_BYTES);")]),
+    # the shared header: bf16 pairs packed high half first, so P's
+    # fragments and every output pair have their two columns swapped
+    "hdr_pack_swapped": (HEADER, [(
+        "__nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);",
+        "__nv_bfloat162 v = __floats2bfloat162_rn(hi, lo);")]),
+    # the shared header: tensor maps fill rows past S with NaN instead of
+    # zeros, so a V tile that runs past Sk puts NaN under P's zeros
+    "hdr_oob_fill_nan": (HEADER, [(
+        "CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);",
+        "CU_TENSOR_MAP_FLOAT_OOB_FILL_NAN_REQUEST_ZERO_FMA);")]),
 }
 
-
-# name -> (text of flash_attention_bwd.cu, the text that replaces it)
+# the same for the backward library
 BWD_MUTANTS = {
     # the causal mask aligned bottom-right (attention_ref's) instead of the
     # forward's top-left: key <= qpos + Sk - Sq (kv_len is Sk without lens)
-    "bwd_bottom_right_mask": (
+    "bwd_bottom_right_mask": ("flash_attention_bwd.cu", [(
         "return qpos < Sq && key < kv_len && (!causal || key <= qpos);",
-        "return qpos < Sq && key < kv_len && (!causal || key <= qpos + kv_len - Sq);"),
+        "return qpos < Sq && key < kv_len && (!causal || key <= qpos + kv_len - Sq);")]),
     # the key at kv_lens[b] counted as valid
-    "bwd_kv_len_off_by_one": (
+    "bwd_kv_len_off_by_one": ("flash_attention_bwd.cu", [(
         "return qpos < Sq && key < kv_len && (!causal || key <= qpos);",
-        "return qpos < Sq && key <= kv_len && (!causal || key <= qpos);"),
+        "return qpos < Sq && key <= kv_len && (!causal || key <= qpos);")]),
     # delta = rowsum(dO * O) dropped: dS = P dP
-    "bwd_no_delta": (
+    "bwd_no_delta": ("flash_attention_bwd.cu", [(
         "    delta[((int64_t)b * H + h) * Sq + i] = s;",
-        "    delta[((int64_t)b * H + h) * Sq + i] = 0.f;"),
+        "    delta[((int64_t)b * H + h) * Sq + i] = 0.f;")]),
     # bf16 dK/dV from the group's first query head only (GQA not summed)
-    "bwd_no_gqa_sum": (
-        "  const int i_begin = causal ? j0 / IT * IT : 0;\n"
-        "  for (int hh = 0; hh < G && j0 < kv_len; ++hh) {",
-        "  const int i_begin = causal ? j0 / IT * IT : 0;\n"
-        "  for (int hh = 0; hh < 1 && j0 < kv_len; ++hh) {"),
+    "bwd_no_gqa_sum": ("flash_attention_bwd.cu", [(
+        "  const int n_tiles = group * n_q;",
+        "  const int n_tiles = n_q;")]),
     # bf16 dK/dV skip the last query tile of every head
-    "bwd_skip_query_tile": (
-        "    for (int i0 = i_begin; i0 < Sq; i0 += IT) {",
-        "    for (int i0 = i_begin; i0 < Sq - IT; i0 += IT) {"),
+    "bwd_skip_query_tile": ("flash_attention_bwd.cu", [(
+        "(Sq - i_begin + BQ - 1) / BQ",
+        "(Sq - i_begin - 1) / BQ")]),
+    # the ring: bf16 dK/dV consumers release a Q/dO stage as soon as it has
+    # landed, before their wgmma products read it, so the producer refills
+    # it (the next tile but one, its lse and delta) under them.  The phases
+    # stay consistent, so nothing hangs: the products read the wrong tile.
+    "bwd_release_before_wgmma": ("flash_attention_bwd.cu", [
+        ("      mbar_wait(full + s, (t / STAGES) & 1);\n"
+         "      // skipped where every pair of this warpgroup's keys is masked\n",
+         "      mbar_wait(full + s, (t / STAGES) & 1);\n"
+         "      warp_release(empty + s);\n"
+         "      // skipped where every pair of this warpgroup's keys is masked\n"),
+        ("      warp_release(empty + s);                      // Q, dO, lse and delta read\n",
+         "")]),
 }
 
+LIBS = {"fwd": ("flash_attention_fwd", MUTANTS),
+        "bwd": ("flash_attention_bwd", BWD_MUTANTS)}
 
-def build_mutants(lib_name="flash_attention_fwd", mutants=None):
-    from repro_torch.kernels import _build
-    src = _build.SOURCES[lib_name]
-    text = src.read_text()
-    out_dir = _build.BUILD_DIR.parent / "mutants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name, (old, new) in (MUTANTS if mutants is None else mutants).items():
+
+def mutated(file: str, edits) -> str:
+    """The text of csrc/``file`` with ``edits`` applied; each edited text
+    must occur exactly once."""
+    text = (CSRC / file).read_text()
+    for old, new in edits:
         if text.count(old) != 1:
-            raise RuntimeError(f"mutant {name}: {old!r} is not in {src} "
-                               "exactly once")
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(text.replace(old, new))
-        jobs[name] = (cu, out_dir / f"{name}.so")
-    _build.compile_all(jobs)
-    return {name: lib for name, (_, lib) in jobs.items()}
+            raise RuntimeError(f"{old!r} is not in {CSRC / file} exactly once")
+        text = text.replace(old, new)
+    return text
+
+
+def write_mutants(out_dir: Path):
+    """Write every mutant's copy of its library's sources under
+    ``out_dir/<name>/``; return name -> (kind, source, library)."""
+    jobs = {}
+    for kind, (lib, table) in LIBS.items():
+        src = CSRC / f"{lib}.cu"
+        for name, (file, edits) in table.items():
+            d = out_dir / name
+            shutil.rmtree(d, ignore_errors=True)
+            d.mkdir(parents=True)
+            for f in (src, *sorted(CSRC.glob("*.cuh"))):
+                (d / f.name).write_text(mutated(file, edits) if f.name == file
+                                        else f.read_text())
+            jobs[name] = (kind, d / src.name, d / f"{name}.so")
+    return jobs
 
 
 def run_check(device, cases, mode: str) -> dict:
-    """Run one check over ``cases`` with whatever library ``kernel`` holds."""
+    """Run one forward check over ``cases`` with whatever library
+    ``kernel`` holds."""
     import torch
+    import chip_smoke
     from repro_torch.kernels.flash_attention import ops
 
     gen = torch.Generator(device=device).manual_seed(0)
@@ -156,6 +196,7 @@ def run_bwd_check(device, cases) -> dict:
     backward library ``kernel`` holds: the shapes that fail and, for each,
     which limits (fro, max) of which gradient caught it."""
     import torch
+    import chip_smoke
     from repro_torch.kernels.flash_attention import ops
 
     gen = torch.Generator(device=device).manual_seed(3)
@@ -193,45 +234,78 @@ def run_bwd_check(device, cases) -> dict:
             "worst_rel_fro": worst_fro}
 
 
-def main() -> int:
+def run_one(kind: str, name: str, path: str) -> int:
+    """In a process of its own: load the library at ``path`` into the
+    wrapper and print one JSON line per check."""
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "src"))
     import torch
-    if not torch.cuda.is_available():
-        print("flash_attention_mutants: needs an NVIDIA GPU", file=sys.stderr)
-        return 1
+    import chip_smoke
     import repro_torch.configs as C
-    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as K
 
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
-    print(chip_smoke.nvidia_smi_line(), flush=True)
-    cases = (chip_smoke.SWEEP_CASES
-             + chip_smoke.llama2_cases(C.get_config("llama2-paper")))
-    libs = {"control": _build.build(["flash_attention_fwd"])
-            ["flash_attention_fwd"], **build_mutants()}
-    bad = []
-    for name, path in libs.items():
-        lib = ctypes.CDLL(str(path))
+    lib = ctypes.CDLL(path)
+    if kind == "fwd":
         K._lib, K._fn = lib, K.bind(lib)
+        cases = (chip_smoke.SWEEP_CASES
+                 + chip_smoke.llama2_cases(C.get_config("llama2-paper")))
         for mode in ("peaked", "uniform"):
-            row = run_check(device, cases, mode)
-            print(json.dumps({"kernel": name, "check": mode, **row}),
-                  flush=True)
-            if mode == "peaked" and row["caught"] != (name != "control"):
-                bad.append((name, mode))
-    K._lib = K._fn = None
-    bwd_libs = {"bwd_control": _build.build(["flash_attention_bwd"])
-                ["flash_attention_bwd"],
-                **build_mutants("flash_attention_bwd", BWD_MUTANTS)}
-    for name, path in bwd_libs.items():
-        lib = ctypes.CDLL(str(path))
+            print(json.dumps({"kernel": name, "check": mode,
+                              **run_check(device, cases, mode)}), flush=True)
+    else:
         K._bwd_lib, K._bwd_fn = lib, K.bind_bwd(lib)
-        row = run_bwd_check(device, chip_smoke.BWD_CASES)
-        print(json.dumps({"kernel": name, "check": "kernel_bwd", **row}),
+        print(json.dumps({"kernel": name, "check": "kernel_bwd",
+                          **run_bwd_check(device, chip_smoke.BWD_CASES)}),
               flush=True)
-        if row["caught"] != (name != "bwd_control"):
-            bad.append((name, "kernel_bwd"))
-    K._bwd_lib = K._bwd_fn = None
+    return 0
+
+
+def main() -> int:
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        print("flash_attention_mutants: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from repro_torch.kernels import _build
+
+    print(chip_smoke.nvidia_smi_line(), flush=True)
+    jobs = write_mutants(_build.BUILD_DIR.parent / "mutants")
+    controls = {"control": "flash_attention_fwd",
+                "bwd_control": "flash_attention_bwd"}
+    todo = {n: (src, lib) for n, (_, src, lib) in jobs.items()}
+    for name, lib in controls.items():
+        path = _build.library_path(lib)
+        if not path.exists():
+            todo[name] = (_build.SOURCES[lib], path)
+    _build.compile_all(todo)
+    runs = {name: ("fwd" if lib == "flash_attention_fwd" else "bwd",
+                   _build.library_path(lib)) for name, lib in controls.items()}
+    runs.update({n: (kind, lib) for n, (kind, _, lib) in jobs.items()})
+    bad = []
+    for name, (kind, path) in runs.items():
+        control = name in controls
+        check = "peaked" if kind == "fwd" else "kernel_bwd"
+        try:
+            proc = subprocess.run(
+                [sys.executable, __file__, "--one", kind, name, str(path)],
+                capture_output=True, text=True, timeout=RUN_TIMEOUT_S)
+            rows = [json.loads(ln) for ln in proc.stdout.splitlines()
+                    if ln.startswith("{")]
+            if not any(r["check"] == check for r in rows):
+                # a launch or device fault ended the process: not a pass
+                rows.append({"kernel": name, "check": check, "caught": True,
+                             "crashed": proc.stderr[-2000:]})
+        except subprocess.TimeoutExpired:
+            rows = [{"kernel": name, "check": check, "caught": True,
+                     "hung": RUN_TIMEOUT_S}]
+        for row in rows:
+            print(json.dumps(row), flush=True)
+            if row["check"] == check and row["caught"] == control:
+                bad.append((name, check))
     if bad:
         print(f"the checks got these wrong: {bad}", file=sys.stderr)
         return 1
@@ -239,4 +313,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--one"]:
+        sys.exit(run_one(*sys.argv[2:5]))
     sys.exit(main())
