@@ -96,6 +96,24 @@ Phases, each printing JSON lines:
               (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL).
 16. train_cli ``repro_torch.launch.train.main`` on the card, reduced
               llama2-paper (f32: the f32 paths of both K1 kernels), 3 steps.
+17. chameleon Chameleon's monitoring and planning (``repro_torch.core``) on
+              the train phase's model with an eval every 6 steps: 10
+              ``Trainer.train(1)`` steps inside the op-stream recorder,
+              their signatures fed to Algo 1 (the stage list must be
+              CHAM_STAGES); the step time with the recorder on and off in
+              turns; one grad step with and without it (bit-equal); a
+              detailed profile of one step (``profile_step``: K1's 8 + 8
+              tokens and launches, every layer's sites at their bytes, the
+              ffn_pre sawtooth, products on both sides of K1's first
+              backward, the timeline's peak within CHAM_PEAK_TOL of
+              ``max_memory_allocated``); policies (``generate_policy`` with
+              the calibrate phase's link and engine) at the lowest budget a
+              policy meets over that step and over its forward and
+              backward alone, and below the floor (must raise
+              ``ChameleonOOMError``); P2: the engine's ``queued_delay``
+              against the measured time of four 256 MiB checkpoint copies,
+              and 0 once they are done; K1's host cost per call through
+              its custom op.
 
 Any failure raises, so the exit code is non-zero and no result line is
 printed.  The last lines are the kernels summary, the nvidia-smi line and
@@ -203,6 +221,33 @@ TRAIN_LOSS_TOL = 2e-2
 TRAIN_GRAD_TOL = 5e-2
 TRAIN_CLI_ARGS = ["--arch", "llama2-paper", "--reduced", "--steps", "3",
                   "--no-chameleon", "--attn-impl", "flash"]
+
+# The chameleon phase: the train phase's configuration (TRAIN_LAYERS,
+# TRAIN_BATCH x TRAIN_SEQ, TRAIN_LR), with an eval every CHAM_EVAL_EVERY
+# steps.  CHAM_STEPS monitored steps under the default Algo 1 (m = 2, n = 5)
+# must give CHAM_STAGES, the list tests/test_torch_monitor.py::STAGES_10
+# pins for the same schedule on the reduced config, where the port's
+# recorder and the reference's jaxpr tokenizer agree: the eval of step 6
+# lengthens the op sequence past Algo 1's 5% and sends GenPolicy back to
+# WarmUp.
+CHAM_STEPS, CHAM_EVAL_EVERY = 10, 6
+CHAM_STAGES = ["WarmUp"] * 3 + ["GenPolicy"] * 3 + ["WarmUp"] * 4
+CHAM_ONOFF_PAIRS = 5           # steps with the recorder on / off, in turns
+# The detailed profile's timeline (storages of >= 1 KiB that the step
+# allocates, on top of what was allocated when it began) against the
+# allocator's own peak for the same step: the allocator also counts its
+# 512-byte rounding, allocations below 1 KiB and what ops allocate inside
+# themselves (the custom ops' workspaces), so the two agree within 10%.
+CHAM_PEAK_TOL = 0.10
+# The sites every layer's profile must hold (with bytes = elements x 2).
+CHAM_SITES = ("qkv_proj", "attn_ctx", "attn_out", "ffn_pre", "resid_post")
+# P2: four checkpoint-class copies of 256 MiB, queued at once.  The
+# engine's estimate of their link time right after the submission is held
+# within a factor of P2_RATIO of the time their CUDA events measure.
+P2_COPIES, P2_BYTES, P2_RATIO = 4, 256 << 20, 2.0
+# K1 forward's host cost per call through the custom op: back-to-back calls
+# at a shape whose kernel is shorter than the host's work.
+OP_COST_SHAPE, OP_COST_CALLS = (1, 64, 32, 128), 2000
 
 SERVE_ARGS = ["--arch", "llama2-paper", "--attn-impl", "flash",
               "--requests", "8", "--max-batch", "4", "--max-len", "1024",
@@ -1663,7 +1708,8 @@ def phase_ssm_crosscheck(device, cfg, model):
 
 def phase_calibrate(device):
     """The host link, swap-out and swap-in round trips through the engine
-    at each size: the per-direction minima as GB/s."""
+    at each size: the per-direction minima as GB/s.  Returns the tier,
+    whose calibrated link the chameleon phase plans with."""
     from repro_torch.common.config import HOSTMEM_CALIBRATION_SIZES
     from repro_torch.hostmem import HostMemTier
 
@@ -1674,6 +1720,367 @@ def phase_calibrate(device):
              for n, (d2h, h2d) in sorted(tier.link_curve.items())]
     emit("calibrate", curve=curve,
          pool_peak_reserved=tier.pool.peak_reserved)
+    return tier
+
+
+def p50(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else None
+
+
+def timeline_floor(prof) -> int:
+    """The profile's peak with every candidate absent for its whole life:
+    no swap policy of these candidates can go below it."""
+    import numpy as np
+    n = prof.n_ops
+    delta = np.zeros(n + 2, np.int64)
+    for t in prof.tensors:
+        if t.site is None:
+            b = min(max(t.birth, 0), n)
+            delta[b] += t.nbytes
+            delta[min(max(t.death, b), n + 1)] -= t.nbytes
+    return int(np.cumsum(delta)[: n + 1].max(initial=0)) + prof.static_bytes
+
+
+def plan(prof, tier, budget):
+    """generate_policy at ``budget`` with the calibrated link and the live
+    engine: the policy, or the ChameleonOOMError's message."""
+    from repro_torch.common.config import ChameleonConfig
+    from repro_torch.core.policy import ChameleonOOMError, generate_policy
+    t0 = time.perf_counter()
+    try:
+        pol = generate_policy(prof, ChameleonConfig(), budget,
+                              bwmodel=tier.bwmodel, engine=tier.engine)
+    except ChameleonOOMError as e:
+        return None, {"budget": budget, "oom": str(e),
+                      "ms": (time.perf_counter() - t0) * 1e3}
+    return pol, {
+        "budget": budget, "ms": (time.perf_counter() - t0) * 1e3,
+        "entries": len(pol.entries), "swapped_bytes": pol.swapped_bytes,
+        "stalled": sum(e.stalled for e in pol.entries),
+        "stall_s": pol.stall_time, "projected_peak": pol.projected_peak,
+        "baseline_peak": pol.baseline_peak,
+        "contention_s": pol.contention_s, "occupancy": pol.occupancy,
+        "sites": sorted({f"{e.site}:{e.layer}" for e in pol.entries})}
+
+
+def tightest_plan(prof, tier, floor, peak, rounds: int = 10):
+    """Bisect the budget between the floor (no policy reaches it) and the
+    peak (the empty policy meets it) for the lowest one that a policy
+    meets: ``generate_policy`` returns, and the policy's projected peak
+    (the timeline replayed with its swaps) is at or below the budget.
+    Algo 2 stops when its MRL is cleared, and the MRL counts a swapped
+    tensor absent from its birth, while the replay counts it absent only
+    once its swap-out is done, so the first can hold where the second does
+    not.  Returns (policy, its row, the rows of every budget tried)."""
+    lo, hi = floor, peak
+    best, best_row = plan(prof, tier, hi)
+    tried = []
+    for _ in range(rounds if peak - floor > (1 << 20) else 0):
+        mid = (lo + hi) // 2
+        pol, row = plan(prof, tier, mid)
+        tried.append({k: row.get(k) for k in ("budget", "entries", "oom",
+                                              "projected_peak", "ms")})
+        if pol is None or pol.projected_peak > mid:
+            lo = mid
+        else:
+            hi, best, best_row = mid, pol, row
+    return best, best_row, tried
+
+
+def op_names():
+    from repro_torch.core.tokenizer import GLOBAL_VOCAB
+    return {tok: name for name, tok in GLOBAL_VOCAB._ids.items()}
+
+
+def phase_chameleon(device, tier):
+    """Chameleon's monitoring and planning on the train phase's model:
+    the op-stream recorder and Algo 1 over CHAM_STEPS trainer steps, the
+    recorder's cost, one detailed profile, policies from it, and the P2
+    check of the engine's link signals.  Every check raises."""
+    import shutil
+    import tempfile
+    import torch
+    import repro_torch.configs as C
+    from repro_torch.common.config import ChameleonConfig, TrainConfig
+    from repro_torch.core.memtrace import build_timeline
+    from repro_torch.core.policy import ChameleonOOMError
+    from repro_torch.core.profiler import profile_step
+    from repro_torch.core.stages import StageMachine
+    from repro_torch.core.tokenizer import (OpStreamRecorder,
+                                            SignatureAccumulator,
+                                            sig_similarity)
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.distributed import steps as S
+    from repro_torch.hostmem import TC_CHECKPOINT
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.trainer import Trainer
+
+    allocated_before = release_device_memory(device)
+    cfg = C.get_config("llama2-paper").replace(num_layers=TRAIN_LAYERS,
+                                               attn_impl="flash")
+    tcfg = TrainConfig(steps=100, learning_rate=TRAIN_LR,
+                       warmup_steps=TRAIN_WARMUP, eval_every=CHAM_EVAL_EVERY,
+                       checkpoint_every=0,
+                       checkpoint_dir=tempfile.mkdtemp(prefix="chip_smoke_"))
+    tr = Trainer(cfg, tcfg, ChameleonConfig(enabled=False),
+                 data=SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                      seed=0), device=device)
+
+    # ---- 1. Lightweight monitoring and Algo 1 over the trainer's steps
+    rec, acc = OpStreamRecorder(), SignatureAccumulator()
+    sm = StageMachine(ChameleonConfig())
+    steps = []
+    for i in range(CHAM_STEPS):
+        ov = rec.overhead_s
+        with rec.iteration() as it:
+            tr.train(1)
+        sig = acc.update([it.stream])
+        ld, cos = ((0.0, 1.0) if sm.prev_seq is None
+                   else sig_similarity(sig, sm.prev_seq))
+        steps.append({"step": i, "ops": len(sig), "len_diff": ld, "cos": cos,
+                      "stage": sm.observe(sig, i).value,
+                      "overhead_ms": (rec.overhead_s - ov) * 1e3,
+                      "step_ms": tr.report.times[-1] * 1e3})
+    stages = [r["stage"] for r in steps]
+    emit("chameleon_monitor", steps=steps, stages=stages,
+         transitions=sm.transitions, want=CHAM_STAGES,
+         overhead_ms_per_step=rec.overhead_s * 1e3 / CHAM_STEPS)
+    if stages != CHAM_STAGES:
+        raise AssertionError(f"chameleon: stages {stages}, want "
+                             f"{CHAM_STAGES}")
+
+    # the step time with the recorder on and off, in turns; steps that ran
+    # an eval are left out of both
+    times = {"on": [], "off": []}
+    for j in range(CHAM_ONOFF_PAIRS):
+        for mode in (("on", "off") if j % 2 == 0 else ("off", "on")):
+            evaluates = tr.step > 0 and tr.step % CHAM_EVAL_EVERY == 0
+            if mode == "on":
+                with rec.iteration():
+                    tr.train(1)
+            else:
+                tr.train(1)
+            if not evaluates:
+                times[mode].append(tr.report.times[-1] * 1e3)
+
+    # one grad step on a fixed batch without the recorder, twice, and with
+    # it: the monitor observes and changes nothing.  Every value the two
+    # runs without it agree on bit for bit must come out bit for bit under
+    # it (a value two plain runs disagree on is named, not compared)
+    batch = tr._device_batch(tr.data.batch_at(0))
+    grad = S.make_grad_step(cfg, tcfg)
+    loss0, g0, _ = grad(tr.model, batch, 1.0)
+    loss2, g2, _ = grad(tr.model, batch, 1.0)
+    with rec.iteration() as it:
+        loss1, g1, _ = grad(tr.model, batch, 1.0)
+    n_grad_ops = len(it.stream)
+    g0["loss"], g1["loss"], g2["loss"] = loss0, loss1, loss2
+    unrepeatable = [n for n in g0 if not torch.equal(g0[n], g2[n])]
+    changed = [n for n in g0 if n not in unrepeatable
+               and not torch.equal(g0[n], g1[n])]
+    bit_equal = not changed
+    del g0, g1, g2
+    emit("chameleon_overhead", step_ms_on=times["on"],
+         step_ms_off=times["off"], step_ms_on_p50=p50(times["on"]),
+         step_ms_off_p50=p50(times["off"]),
+         on_over_off=p50(times["on"]) / p50(times["off"]),
+         recorder_overhead_ms_per_step=rec.overhead_s * 1e3 / rec.iterations,
+         grad_step_ops=n_grad_ops, grads_bit_equal=bit_equal,
+         changed_under_recorder=changed,
+         unrepeatable_without_recorder=unrepeatable)
+    if not bit_equal:
+        raise AssertionError(f"chameleon: {changed} changed under the "
+                             "recorder")
+
+    # ---- 2. Detailed profile of one step (not an eval step)
+    if (tr.step + 1) % CHAM_EVAL_EVERY == 0 or tr.step % CHAM_EVAL_EVERY == 0:
+        tr.train(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    fwd0, bwd0 = ops.flash_attention.launches, ops.flash_attention_bwd.launches
+    t0 = time.perf_counter()
+    prof = profile_step(lambda: tr.train(1), device=device)
+    profile_wall_ms = (time.perf_counter() - t0) * 1e3
+    measured_peak = torch.cuda.max_memory_allocated(device)
+    fwd, bwd = (ops.flash_attention.launches - fwd0,
+                ops.flash_attention_bwd.launches - bwd0)
+    tl = build_timeline(prof)
+    names = op_names()
+    op_list = [names[t] for t in prof.op_tokens]
+    pairs = {}
+    for t in prof.candidates:
+        p = pairs.setdefault(f"{t.site}:{t.layer}", [0, 0])
+        p[0] += 1
+        p[1] += t.nbytes
+    missing = [f"{s}:{i}" for i in range(TRAIN_LAYERS) for s in CHAM_SITES
+               if f"{s}:{i}" not in pairs]
+    esize = torch.finfo(getattr(torch, cfg.dtype)).bits // 8   # bf16: 2
+    wrong_bytes = [(t.site, t.layer, t.nbytes, t.shape)
+                   for t in prof.candidates if t.site in CHAM_SITES
+                   and t.nbytes != math.prod(t.shape) * esize]
+    ffn = {}
+    for t in sorted(prof.candidates, key=lambda t: t.birth):
+        if t.site == "ffn_pre":
+            ffn.setdefault(t.layer, t)
+    births = [ffn[i].birth for i in sorted(ffn)]
+    deaths = [ffn[i].death for i in sorted(ffn)]
+    k1 = (op_list.count("repro_torch::flash_attention_fwd"),
+          op_list.count("repro_torch::flash_attention_bwd"))
+    # the backward, which the autograd engine runs on its device thread,
+    # is in the stream: products before K1's first backward and after it
+    first_bwd = (op_list.index("repro_torch::flash_attention_bwd")
+                 if k1[1] else prof.n_ops)
+    mm = [i for i, n in enumerate(op_list) if n == "aten::mm"]
+    peak_err = abs(tl.peak - measured_peak) / measured_peak
+    row = {"n_ops": prof.n_ops, "storages": len(prof.tensors),
+           "candidates": len(prof.candidates), "site_bytes": pairs,
+           "static_bytes": prof.static_bytes, "t_iter_s": prof.t_iter,
+           "profile_wall_ms": profile_wall_ms,
+           "plain_step_ms_p50": p50(times["off"]),
+           "k1_tokens": k1, "k1_launches": (fwd, bwd),
+           "timeline_peak": tl.peak, "peak_op": tl.peak_op,
+           "max_memory_allocated": measured_peak, "peak_rel_err": peak_err,
+           "mm_before_k1_bwd": sum(i < first_bwd for i in mm),
+           "mm_after_k1_bwd": sum(i > first_bwd for i in mm),
+           # the peak of the grad step (forward, backward, unscale) alone
+           "grad_step_peak_op": int(tl.usage[:n_grad_ops].argmax()),
+           "grad_step_peak": int(tl.usage[:n_grad_ops].max())
+           + prof.static_bytes,
+           # Eq. 1 gives every op the same share of t_iter: where the ops
+           # fall, the grad step's (forward, backward, unscale) and the
+           # rest of the step's (the optimizer, which follows)
+           "grad_step_ops": n_grad_ops,
+           "tail_ops": prof.n_ops - n_grad_ops,
+           "ffn_pre_births": births, "ffn_pre_deaths": deaths,
+           "missing_sites": missing, "wrong_bytes": wrong_bytes[:8]}
+    emit("chameleon_profile", **row)
+    problems = []
+    if k1 != (TRAIN_LAYERS, TRAIN_LAYERS) or (
+            device.type == "cuda" and (fwd, bwd) != k1):
+        problems.append("K1 tokens / launches")
+    if missing or wrong_bytes:
+        problems.append("site bytes")
+    if births != sorted(births) or deaths != sorted(deaths, reverse=True) \
+            or len(births) != TRAIN_LAYERS:
+        problems.append("sawtooth")
+    if peak_err > CHAM_PEAK_TOL:
+        problems.append("timeline peak")
+    if not row["mm_before_k1_bwd"] or not row["mm_after_k1_bwd"]:
+        problems.append("backward ops")
+    if problems:
+        raise AssertionError(f"chameleon profile: {problems}")
+
+    # ---- 3. Planning on that profile: the lowest budget between the floor
+    # (every candidate absent for its whole life) and the peak that a
+    # policy meets, and a budget below the floor, which must raise
+    floor = timeline_floor(prof)
+    pol, got, tried = tightest_plan(prof, tier, floor, tl.peak)
+    _, below = plan(prof, tier, floor - (1 << 20))
+    _, at_half = plan(prof, tier, prof.static_bytes
+                      + (tl.peak - prof.static_bytes) // 2)
+
+    # the same planning over the forward and backward alone, where the
+    # activations the candidates are live
+    def fwd_bwd():
+        loss, _ = T.loss_fn(cfg, tr.model, batch)
+        loss.backward()
+    fb = profile_step(fwd_bwd, device=device)
+    for p in tr.model.parameters():
+        p.grad = None
+    fb_tl = build_timeline(fb)
+    fb_floor = timeline_floor(fb)
+    fb_pol, fb_got, fb_tried = tightest_plan(fb, tier, fb_floor, fb_tl.peak)
+    _, fb_half = plan(fb, tier,
+                      fb.static_bytes + (fb_tl.peak - fb.static_bytes) // 2)
+
+    def gap(peak, floor, row):
+        return (peak - row["projected_peak"]) / max(peak - floor, 1)
+
+    emit("chameleon_plan",
+         step={"floor": floor, "peak": tl.peak, "tightest": got,
+               "gap_closed": gap(tl.peak, floor, got), "tried": tried,
+               "below_floor": below, "half_dynamic": at_half},
+         fwd_bwd={"n_ops": fb.n_ops, "static_bytes": fb.static_bytes,
+                  "peak": fb_tl.peak, "peak_op": fb_tl.peak_op,
+                  "floor": fb_floor, "tightest": fb_got,
+                  "gap_closed": gap(fb_tl.peak, fb_floor, fb_got),
+                  "tried": fb_tried, "half_dynamic": fb_half})
+    for p_, row in ((pol, got), (fb_pol, fb_got)):
+        if p_ is None or p_.projected_peak > row["budget"]:
+            raise AssertionError(f"chameleon: no policy under its budget: "
+                                 f"{row}")
+    if not fb_pol.entries:
+        raise AssertionError("chameleon: no swap planned over the forward "
+                             f"and backward: {fb_got}")
+    if "oom" not in below:
+        raise AssertionError(f"chameleon: a budget below the floor planned: "
+                             f"{below}")
+    del prof, fb, pol, fb_pol
+
+    # ---- P2: the engine's backlog of checkpoint copies on the card
+    eng = tier.engine
+    eng.set_class_depth(TC_CHECKPOINT, P2_COPIES)
+    srcs = [torch.full((P2_BYTES,), i, dtype=torch.uint8, device=device)
+            for i in range(P2_COPIES)]
+    for warm in (True, False):
+        torch.cuda.synchronize()
+        evs = [eng.submit_swap_out(x, f"p2-{i}", cls=TC_CHECKPOINT)
+               for i, x in enumerate(srcs)]
+        delay = eng.queued_delay(TC_CHECKPOINT)
+        torch.cuda.synchronize()
+        delay_done = eng.queued_delay(TC_CHECKPOINT)
+        eng.synchronize()
+        link_s = sum(e.seconds for e in evs)
+        for e in evs:
+            tier.pool.free(e.block)
+    ratio = delay / link_s if link_s else None
+    p2 = {"copies": P2_COPIES, "bytes": P2_BYTES, "queued_delay_s": delay,
+          "measured_link_s": link_s, "ratio": ratio,
+          "queued_delay_after_s": delay_done,
+          "link_gbps": P2_COPIES * P2_BYTES / link_s / 1e9}
+    emit("chameleon_p2", **p2)
+    if not (delay > 0 and 1 / P2_RATIO <= ratio <= P2_RATIO
+            and delay_done == 0.0):
+        raise AssertionError(f"chameleon: P2 {p2}")
+    del srcs
+
+    # ---- K1's host cost per call through the custom op
+    B, Sq, H, D = OP_COST_SHAPE
+    q = torch.randn(B, Sq, H, D, device=device, dtype=torch.bfloat16)
+    scale = D ** -0.5
+
+    def host_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OP_COST_CALLS):
+            fn()
+        us = (time.perf_counter() - t0) / OP_COST_CALLS * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    def direct():
+        ops._forward(q, q, q, causal=True, sm_scale=scale, kv_lens=None,
+                     with_lse=False)
+
+    def custom_op():
+        torch.ops.repro_torch.flash_attention_fwd(q, q, q, None, True, scale,
+                                                  False)
+
+    cost = {"direct": [], "custom_op": []}
+    for name in ("direct", "custom_op", "custom_op", "direct"):
+        cost[name].append(host_us(direct if name == "direct" else custom_op))
+    emit("chameleon_op_cost", shape=list(OP_COST_SHAPE),
+         calls=OP_COST_CALLS, host_us=cost,
+         custom_op_extra_us=min(cost["custom_op"]) - min(cost["direct"]))
+    shutil.rmtree(tcfg.checkpoint_dir, ignore_errors=True)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("chameleon", ok=True, allocated_before=allocated_before,
+         total_memory=torch.cuda.get_device_properties(device).total_memory)
 
 
 def main() -> int:
@@ -1729,7 +2136,7 @@ def main() -> int:
     phase_crosscheck(device, cfg, model)
     phase_profile(device, cfg, model)
     phase_spill(device, cfg, model)
-    phase_calibrate(device)
+    tier = phase_calibrate(device)
     del model
     ssd_launches = phase_serve_ssm(device)
     gc.collect()
@@ -1742,6 +2149,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches, bwd_launches = phase_train(device)
     phase_train_cli(device)
+    phase_chameleon(device, tier)
 
     summary = next(rows[(c, "bfloat16")] for c in main_path
                    if c[1] == SUMMARY_LEN)

@@ -266,7 +266,9 @@ class AutotuneConfig:
     enabled: bool = False
     cache_dir: str = ""                          # "" -> in-memory only
     iters: int = 3                               # timing reps per variant
-    device_kind: str = "tpu_v5e"                 # autotune.device registry key
+    # autotune.device registry key; an H100 DeviceSpec, selected by the
+    # CUDA device name, waits for ROADMAP.md queue 1 item 10
+    device_kind: str = "tpu_v5e"
     # kernels to tune at startup; flash_attention / ssd_scan can be added
     # where their tuning cost is worth it
     kernels: Tuple[str, ...] = ("quantize", "dequantize")
@@ -397,8 +399,14 @@ class ResilienceConfig:
 class ChameleonConfig:
     """Paper hyperparameters (§4, §5, §7.1)."""
     enabled: bool = True
-    hbm_budget_bytes: int = 16 * 1024 ** 3      # v5e HBM per chip
-    host_link_gbps: float = 32.0                 # Eq 3 bandwidth B (GB/s)
+    # The card's figures: NVIDIA H100 80GB HBM3, 700 W.
+    # torch.cuda.get_device_properties(0).total_memory on that card
+    # (chip_smoke.py phase chameleon prints it)
+    hbm_budget_bytes: int = 85_017_493_504
+    # Eq 3 bandwidth B (GB/s): chip_smoke.py's calibrate phase on that
+    # card moved 512 MiB device to host in 14.2 ms and host to device in
+    # 12.5 ms (PERF.md §5); 512 MiB over their mean time is 40.2 GB/s
+    host_link_gbps: float = 40.2
     m_warmup_stable: int = 2                     # Algo 1 `m`
     n_genpolicy_steps: int = 5                   # Algo 1 `n`
     len_change_threshold: float = 0.05           # 5% length diff
@@ -407,8 +415,8 @@ class ChameleonConfig:
     groups_per_phase: int = 0                    # 0 -> num_layers (Fig 4 insight)
     offload_mode: str = "exact"                  # exact | compressed (int8, beyond-paper)
     allow_remat_fallback: bool = True            # beyond-paper: 3-way save/offload/remat
-    peak_flops: float = 197e12                   # v5e bf16
-    hbm_gbps: float = 819.0
+    peak_flops: float = 989e12                   # dense bf16, H100 data sheet
+    hbm_gbps: float = 3350.0                     # HBM3, H100 SXM data sheet
     hostmem: HostMemConfig = HostMemConfig()     # host-memory tier (repro.hostmem)
     autotune: AutotuneConfig = AutotuneConfig()  # kernel autotuner (repro.kernels.autotune)
     policystore: PolicyStoreConfig = PolicyStoreConfig()  # repro.policystore

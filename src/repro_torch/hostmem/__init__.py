@@ -25,9 +25,10 @@ from repro_torch.common.config import ChameleonConfig, HostMemConfig
 from repro_torch.common.device import resolve_device
 from repro_torch.hostmem import metrics as _metrics
 from repro_torch.hostmem.bwmodel import BandwidthModel
-from repro_torch.hostmem.engine import (TC_CHECKPOINT, TC_KV_SPILL,
-                                        TC_POLICY_SWAP, TRAFFIC_CLASSES,
-                                        TransferEngine, TransferEvent)
+from repro_torch.hostmem.engine import (SWAP_IN, SWAP_OUT, TC_CHECKPOINT,
+                                        TC_KV_SPILL, TC_POLICY_SWAP,
+                                        TRAFFIC_CLASSES, TransferEngine,
+                                        TransferEvent)
 from repro_torch.hostmem.kvspill import KVSpillManager, SpilledSlot
 from repro_torch.hostmem.pool import HostBlock, HostMemError, PinnedSlabPool
 
@@ -120,6 +121,12 @@ class HostMemTier:
                 self.bwmodel.observe(size, (min(outs) + min(ins)) / 2)
         finally:
             eng.bwmodel = saved
+        # each direction's own curve prices the engine's contention signals
+        eng.link_models = {d: BandwidthModel(self.bwmodel.constant_gbps)
+                           for d in (SWAP_OUT, SWAP_IN)}
+        for size, (d2h, h2d) in self.link_curve.items():
+            eng.link_models[SWAP_OUT].observe(size, d2h)
+            eng.link_models[SWAP_IN].observe(size, h2d)
         return self.bwmodel
 
     def stats(self) -> dict:

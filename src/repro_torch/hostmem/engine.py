@@ -31,8 +31,20 @@ them: strict priority orders only the host's retirements (its
 ``done.synchronize()`` calls).  There ``stall_transfers``,
 ``preemptions`` and ``forced_retires`` count that host-side order, not an
 order on the link, and ``stall_s`` (link seconds spent on other classes)
-is not accrued: nothing measures it.  On the CPU, where each copy runs at
-issue, all of them are the reference's.
+is not accrued: the engine does not measure how long another class's copy
+overlapped a waiting class's copy on the link (each copy's own time is
+measured; their overlap on the shared link is not).  On the CPU, where
+each copy runs at issue, all of them are the reference's.
+
+The contention signals the simulator prices are measured on a CUDA
+device.  ``queued_delay`` counts only copies whose done-event has not
+completed (``Event.query``): a copy that finished on its stream is no
+backlog, even before the host retires it.  Both ``queued_delay`` and
+``sustained_contention`` price bytes with the calibrated curve of the
+copy's direction (``link_models``, set by ``HostMemTier.calibrate``),
+else with the engine's own measured rate in that direction (bytes over
+the CUDA-event time of the copies it has retired), else with
+``LINK_GBPS``.  On the CPU they price as the reference does, bit for bit.
 
 Retiring a copy synchronises its done-event and only then lets go of what
 the copy used: a swap-in returns its pinned slab to the pool there, and on
@@ -90,7 +102,12 @@ TRAFFIC_CLASSES: Tuple[str, ...] = (TC_POLICY_SWAP, TC_KV_SPILL,
                                     TC_CHECKPOINT)
 PRIORITY: Dict[str, int] = {c: i for i, c in enumerate(TRAFFIC_CLASSES)}
 
-_EST_FALLBACK_GBPS = 32.0        # queued_delay estimate without a bwmodel
+# The host link of an NVIDIA H100 80GB HBM3 (700 W), measured through this
+# engine by chip_smoke.py's calibrate phase: 512 MiB device to host in
+# 14.2 ms, host to device in 12.5 ms (PERF.md §5).  The contention
+# estimate falls back to it where nothing better is known.
+LINK_GBPS: Dict[str, float] = {SWAP_OUT: 37.8, SWAP_IN: 42.9}
+_EST_FALLBACK_GBPS = LINK_GBPS[SWAP_OUT]   # the CPU's, without a bwmodel
 
 # arrival-rate EWMA time constant: how much enqueue history "sustained
 # contention" remembers.  ~2 s spans several iterations of the reduced
@@ -210,6 +227,12 @@ class TransferEngine:
         self._arr_last_t: Dict[str, float] = {c: 0.0
                                               for c in TRAFFIC_CLASSES}
         self._planned_release: Dict[str, int] = {}
+        # per-direction calibrated link curves (HostMemTier.calibrate) and
+        # [bytes, seconds] of the CUDA copies retired in each direction:
+        # what the contention estimates price bytes with on the card
+        self.link_models: Dict[str, Any] = {}
+        self._retired_link: Dict[str, List[float]] = {
+            SWAP_OUT: [0, 0.0], SWAP_IN: [0, 0.0]}
         self._lock = threading.RLock()
         self.current_op = -1             # execution-path op cursor
         self.by_class: Dict[str, ClassCounters] = {
@@ -582,7 +605,11 @@ class TransferEngine:
         if ev._cuda is not None:
             start, done = ev._cuda
             done.synchronize()
-            ev.seconds = start.elapsed_time(done) / 1e3 + ev._stall_s
+            link_s = start.elapsed_time(done) / 1e3
+            ev.seconds = link_s + ev._stall_s
+            r = self._retired_link[ev.kind]
+            r[0] += ev.nbytes
+            r[1] += link_s
         if ev.kind == SWAP_OUT:
             ev._source = None            # the CPU's release point
         elif ev._free_block:
@@ -721,10 +748,29 @@ class TransferEngine:
         return n
 
     # ------------------------------------------- contention introspection
-    def _est_seconds(self, nbytes: int) -> float:
-        if self.bwmodel is not None:
-            return self.bwmodel.transfer_time(nbytes)
-        return nbytes / (_EST_FALLBACK_GBPS * 1e9)
+    def _est_seconds(self, nbytes: int, kind: str = SWAP_OUT) -> float:
+        """Link seconds for ``nbytes`` in direction ``kind`` (module doc)."""
+        if self.device.type != "cuda":
+            if self.bwmodel is not None:
+                return self.bwmodel.transfer_time(nbytes)
+            return nbytes / (_EST_FALLBACK_GBPS * 1e9)
+        model = self.link_models.get(kind)
+        if model is not None and model.is_calibrated:
+            return model.transfer_time(nbytes)
+        done_bytes, done_s = self._retired_link[kind]
+        if done_bytes > 0 and done_s > 0:
+            return nbytes * done_s / done_bytes
+        return nbytes / (LINK_GBPS[kind] * 1e9)
+
+    def _backlog(self, cls: str, kind: str) -> List[TransferEvent]:
+        """The queued ``cls``/``kind`` copies still occupying the link: on
+        a CUDA device those whose done-event has not completed (a copy
+        whose issue failed never reached the link); on the CPU every
+        queued copy, as the reference counts them."""
+        q = self._pending[(cls, kind)]
+        if self.device.type != "cuda":
+            return list(q)
+        return [e for e in q if e._cuda is not None and not e._cuda[1].query()]
 
     def queued_delay(self, cls: str = TC_POLICY_SWAP,
                      kind: str = SWAP_OUT) -> float:
@@ -738,13 +784,13 @@ class TransferEngine:
             ahead = 0.0
             hol = 0.0
             for c in TRAFFIC_CLASSES:
-                q = self._pending[(c, kind)]
+                q = self._backlog(c, kind)
                 if not q:
                     continue
                 if PRIORITY[c] <= pri:
-                    ahead += sum(self._est_seconds(e.nbytes) for e in q)
+                    ahead += sum(self._est_seconds(e.nbytes, kind) for e in q)
                 else:
-                    hol = max(hol, self._est_seconds(q[0].nbytes))
+                    hol = max(hol, self._est_seconds(q[0].nbytes, kind))
         return ahead + hol
 
     def arrival_rate_bps(self, cls: str, now: Optional[float] = None
@@ -767,7 +813,8 @@ class TransferEngine:
         costs ``cls`` one head-of-line block per dispatch — in steady
         state that erosion approaches the other classes' link occupancy,
         which is what this prices (a rate, not the backlog snapshot
-        ``queued_delay`` sees)."""
+        ``queued_delay`` sees).  A class's bytes are priced as
+        device-to-host copies, the slower direction on the card."""
         self._check_class(cls)
         now = time.perf_counter()
         occ = 0.0
@@ -803,11 +850,11 @@ class TransferEngine:
         out: Dict[str, dict] = {}
         now = time.perf_counter()
         with self._lock:
-            est = {c: sum(self._est_seconds(e.nbytes)
-                          for e in self._pending[(c, SWAP_OUT)])
+            backlog = {c: self._backlog(c, SWAP_OUT) for c in TRAFFIC_CLASSES}
+            est = {c: sum(self._est_seconds(e.nbytes) for e in backlog[c])
                    for c in TRAFFIC_CLASSES}
-            heads = {c: (self._est_seconds(self._pending[(c, SWAP_OUT)][0].nbytes)
-                         if self._pending[(c, SWAP_OUT)] else 0.0)
+            heads = {c: (self._est_seconds(backlog[c][0].nbytes)
+                         if backlog[c] else 0.0)
                      for c in TRAFFIC_CLASSES}
             # per-class link occupancy (arrival-rate EWMA × seconds/byte),
             # decayed to now — frozen alongside the backlog so adaptation

@@ -16,13 +16,21 @@ valid lengths ``lens`` (B,) on the device.  Rows at or past ``lens[b]`` are
 masked (the kernel never reads them); a row with ``lens[b] <= 0`` gives
 zeros, in the kernel and in ``flash_decode_plain`` alike.
 
-Training: when grad is enabled and an input requires grad,
+K1's forward and backward are ``torch.library`` custom ops,
+``repro_torch::flash_attention_fwd`` and ``repro_torch::flash_attention_bwd``,
+so the dispatch stream (``core.tokenizer``, ``core.profiler``) holds one
+op per launch with its real inputs and outputs, on the card and on the
+CPU alike.  Training: when grad is enabled and an input requires grad,
 ``flash_attention`` goes through ``_FlashAttentionFn``, whose forward
-launches the forward kernel with its ``lse`` output and saves q, k, v, o
-and lse, and whose backward launches ``flash_attention_bwd`` (the port of
-the reference's ``_flash_bwd`` rule, with the forward's own masks: see
-``flash_attention_bwd_plain``).  Under ``torch.no_grad`` it stays the
-served forward-only call.  ``flash_decode`` is forward only.
+calls the forward op with its ``lse`` output and saves q, k, v, o and lse,
+and whose backward calls the backward op (the port of the reference's
+``_flash_bwd`` rule, with the forward's own masks: see
+``flash_attention_bwd_plain``).  The ops themselves register no autograd
+and no fake kernel: ``flash_attention`` is the differentiable entry, and
+a tensor on neither the CPU nor a CUDA device (``meta``) reaches the
+kernel path and raises.  Under
+``torch.no_grad`` it stays the served forward-only call.
+``flash_decode`` is forward only.
 
 Tensors on the CPU go to the plain versions; CUDA tensors launch the
 kernels or raise, with no fallback.  ``flash_attention.launches``,
@@ -35,7 +43,7 @@ launch of three kernels (delta, dK/dV, dQ).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -187,23 +195,26 @@ def _forward(q, k, v, *, causal, sm_scale, kv_lens, with_lse: bool):
     return out, lse
 
 
-def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                        *, causal: bool, sm_scale: Optional[float] = None,
-                        kv_lens: Optional[torch.Tensor] = None):
-    """q/o/do (B,Sq,H,D); k/v (B,Sk,Kh,D); lse (B,H,Sq) f32 from the forward
-    -> (dq, dk, dv) in the inputs' dtype.  CPU tensors take
-    ``flash_attention_bwd_plain``; CUDA tensors launch the kernel."""
-    _check_shapes(q, k, v, kv_lens)
-    B, Sq, H, D = q.shape
-    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
-        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
-                         f"have q's shape {tuple(q.shape)}")
-    if tuple(lse.shape) != (B, H, Sq):
-        raise ValueError(f"lse must have shape {(B, H, Sq)}, got "
-                         f"{tuple(lse.shape)}")
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(D)
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            kv_lens: Optional[torch.Tensor], causal: bool, sm_scale: float,
+            with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's forward as one op of the dispatch stream: (out, lse), lse
+    empty unless ``with_lse``."""
+    out, lse = _forward(q, k, v, causal=causal, sm_scale=sm_scale,
+                        kv_lens=kv_lens, with_lse=with_lse)
+    if lse is None:
+        lse = torch.empty((0,), dtype=torch.float32, device=q.device)
+    return out, lse
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+            kv_lens: Optional[torch.Tensor], causal: bool, sm_scale: float
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1's backward as one op of the dispatch stream: (dq, dk, dv), from
+    the plain version on the CPU or the kernel on the card."""
     if _on_cpu(q, k, v, o, lse, do):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          sm_scale=sm_scale, kv_lens=kv_lens)
@@ -221,17 +232,37 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool, sm_scale: Optional[float] = None,
+                        kv_lens: Optional[torch.Tensor] = None):
+    """q/o/do (B,Sq,H,D); k/v (B,Sk,Kh,D); lse (B,H,Sq) f32 from the forward
+    -> (dq, dk, dv) in the inputs' dtype.  CPU tensors take
+    ``flash_attention_bwd_plain``; CUDA tensors launch the kernel."""
+    _check_shapes(q, k, v, kv_lens)
+    B, Sq, H, D = q.shape
+    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    if tuple(lse.shape) != (B, H, Sq):
+        raise ValueError(f"lse must have shape {(B, H, Sq)}, got "
+                         f"{tuple(lse.shape)}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    return _bwd_op(q, k, v, o, lse, do, kv_lens, causal, float(sm_scale))
+
+
 flash_attention_bwd.launches = 0
 
 
 class _FlashAttentionFn(torch.autograd.Function):
-    """Flash attention with its backward kernel: the forward saves q, k, v,
-    the output and its lse (nothing quadratic), the backward recomputes P."""
+    """Flash attention with its backward kernel, both through the custom
+    ops: the forward saves q, k, v, the output and its lse (nothing
+    quadratic), the backward recomputes P."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_lens, causal, sm_scale):
-        out, lse = _forward(q, k, v, causal=causal, sm_scale=sm_scale,
-                            kv_lens=kv_lens, with_lse=True)
+        out, lse = _fwd_op(q, k, v, kv_lens, causal, sm_scale, True)
         ctx.save_for_backward(q, k, v, out, lse, kv_lens)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return out
@@ -239,10 +270,8 @@ class _FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse, kv_lens = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
-                                         causal=ctx.causal,
-                                         sm_scale=ctx.sm_scale,
-                                         kv_lens=kv_lens)
+        dq, dk, dv = _bwd_op(q, k, v, out, lse, do, kv_lens, ctx.causal,
+                             ctx.sm_scale)
         return dq, dk, dv, None, None, None
 
 
@@ -252,12 +281,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B,Sq,H,D); k/v (B,Sk,Kh,D); kv_lens (B,) or None -> (B,Sq,H,D).
     Differentiable in q, k and v through ``_FlashAttentionFn``."""
     _check_shapes(q, k, v, kv_lens)
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[3])
+    sm_scale = float(1.0 / math.sqrt(q.shape[3]) if sm_scale is None
+                     else sm_scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttentionFn.apply(q, k, v, kv_lens, causal, sm_scale)
-    out, _ = _forward(q, k, v, causal=causal, sm_scale=sm_scale,
-                      kv_lens=kv_lens, with_lse=False)
+    out, _ = _fwd_op(q, k, v, kv_lens, causal, sm_scale, False)
     return out
 
 

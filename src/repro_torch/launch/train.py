@@ -4,9 +4,10 @@
         --reduced --device cpu --no-chameleon --steps 5
 
 Port of the single-device subset of ``repro/launch/train.py``.  Chameleon
-is not ported yet (ROADMAP.md queue 1 items 4a and 4b), so the run needs
-``--no-chameleon`` and raises without it; flags of later slices raise,
-naming the slice: ``--budget-gib`` and ``--stats-json`` (Chameleon's
+does not run in the trainer yet (ROADMAP.md queue 1 items 4a and 4b: 4a's
+monitoring and planning are in ``repro_torch.core``, 4b's execution is
+not), so the run needs ``--no-chameleon`` and raises without it; flags of
+later slices raise, naming the slice: ``--budget-gib`` and ``--stats-json`` (Chameleon's
 budget and runtime stats, item 4b), ``--policy-store-dir`` /
 ``--no-policy-store`` / ``--adapt-mode`` (item 8), ``--autotune`` (item
 10), ``--mesh`` / ``--multihost`` (item 11).  Besides the reference's
@@ -82,8 +83,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
                 f"with ROADMAP.md {where}")
     if not args.no_chameleon:
         raise NotImplementedError(
-            "Chameleon is not ported yet (ROADMAP.md queue 1 items 4a and "
-            "4b): pass --no-chameleon")
+            "Chameleon does not run in the trainer yet (ROADMAP.md queue 1 "
+            "items 4a and 4b: execution and the runtime come with 4b): pass "
+            "--no-chameleon")
 
     import repro_torch.configs as C
     from repro_torch import obs

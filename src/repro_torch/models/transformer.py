@@ -15,6 +15,7 @@ from torch import nn
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
+from repro_torch.core import sites
 from repro_torch.core.sites import tag
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
@@ -135,20 +136,21 @@ def _forward(cfg: ModelConfig, model: Model, tokens, positions, causal: bool,
     check_family(cfg)
     x = L.embed_tokens(cfg, model.embed, tokens)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for blk in model.blocks:
-        if cfg.family == "ssm":
+    for i, blk in enumerate(model.blocks):
+        with sites.layer(i):        # the layer a detailed profile records
+            if cfg.family == "ssm":
+                if kv_sink is None:
+                    x = ssm_block(cfg, blk, x)
+                else:
+                    x, st = ssm_block(cfg, blk, x, return_state=True)
+                    kv_sink.append(st)
+                continue
             if kv_sink is None:
-                x = ssm_block(cfg, blk, x)
+                x, a = dense_block(cfg, blk, x, positions, causal=causal)
             else:
-                x, st = ssm_block(cfg, blk, x, return_state=True)
-                kv_sink.append(st)
-            continue
-        if kv_sink is None:
-            x, a = dense_block(cfg, blk, x, positions, causal=causal)
-        else:
-            x, a, kv = dense_block(cfg, blk, x, positions, causal=causal,
-                                   return_kv=True)
-            kv_sink.append(kv)
+                x, a, kv = dense_block(cfg, blk, x, positions, causal=causal,
+                                       return_kv=True)
+                kv_sink.append(kv)
         aux_total = aux_total + a
     x = L.apply_norm(cfg, model.ln_f, x)
     x = tag(x, "final_norm")

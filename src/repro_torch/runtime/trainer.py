@@ -15,8 +15,11 @@ detection on the step wall times; ``faults.tick`` at the top of every
 iteration for armed fault plans; ``obs`` spans ``train_step``,
 ``apply_step`` and ``eval_step``.
 
-Chameleon itself (the op-stream monitor, the stage machine, policy
-generation and execution) comes with ROADMAP.md queue 1 items 4a and 4b:
+Chameleon's monitoring and planning (ROADMAP.md queue 1 item 4a: the
+op-stream recorder, the stage machine, the detailed profiler and policy
+generation) are in ``repro_torch.core`` and observe a step from outside
+(``chip_smoke.py`` phase ``chameleon``); running them inside the trainer,
+with policy execution, comes with item 4b.
 ``ChameleonConfig(enabled=True)`` raises until then, and with Chameleon off
 the trainer needs no runtime beyond its own steps, so ``report.stages``
 stays empty and ``report.policystore`` / ``report.adapt`` stay None.
@@ -78,9 +81,10 @@ class Trainer:
         self.cham = cham or ChameleonConfig(enabled=False)
         if self.cham.enabled:
             raise NotImplementedError(
-                "Chameleon is not ported yet: monitoring and planning come "
-                "with ROADMAP.md queue 1 item 4a, execution and the runtime "
-                "with item 4b; pass ChameleonConfig(enabled=False)")
+                "Chameleon does not run in the trainer yet: its execution "
+                "and runtime come with ROADMAP.md queue 1 item 4b (item 4a, "
+                "monitoring and planning, is in repro_torch.core); pass "
+                "ChameleonConfig(enabled=False)")
         if adapt_mode is not None:
             raise NotImplementedError(
                 "adapt_mode places Chameleon's adaptation, which comes with "

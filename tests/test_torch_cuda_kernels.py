@@ -458,3 +458,72 @@ def test_ssd_scan_rejects_what_it_does_not_take(card):
     big = torch.zeros(1, 64, 256, device=card)
     with pytest.raises(ValueError, match="multiple of 4 up to"):
         SSD.ssd_scan(x, dt, A, big, big, chunk=32)
+
+
+# ------------------------------------- K1 as custom ops, in the op stream
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k1_custom_ops_launch_count_and_match_plain(card, dtype):
+    """``repro_torch::flash_attention_fwd`` / ``_bwd`` launch the kernels
+    (one count each) and match the plain versions at the limits above."""
+    B, S, H, Kh, D = 2, 256, 8, 2, 64
+    rng = np.random.RandomState(1)
+    q, k, v, do = (torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                    * scale).to(card, getattr(torch, dtype))
+                   for shape, scale in (((B, S, H, D), QK_SCALE),
+                                        ((B, S, Kh, D), QK_SCALE),
+                                        ((B, S, Kh, D), 1.0),
+                                        ((B, S, H, D), 1.0)))
+    before = (ops.flash_attention.launches, ops.flash_attention_bwd.launches)
+    out, lse = torch.ops.repro_torch.flash_attention_fwd(
+        q, k, v, None, True, D ** -0.5, True)
+    dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(
+        q, k, v, out, lse, do, None, True, D ** -0.5)
+    torch.cuda.synchronize()
+    assert (ops.flash_attention.launches,
+            ops.flash_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    ref, ref_lse = ops.flash_attention_plain(q, k, v, causal=True,
+                                             return_lse=True)
+    o, r = out.float().cpu().numpy(), ref.float().cpu().numpy()
+    assert np.linalg.norm(o - r) <= FRO_TOL[dtype] * np.linalg.norm(r)
+    assert np.abs(o - r).max() <= MAX_TOL[dtype] * np.abs(r).max()
+    refs = ops.flash_attention_bwd_plain(q, k, v, out, ref_lse, do,
+                                         causal=True)
+    for g, r in zip((dq, dk, dv), refs):
+        g, r = g.float().cpu().numpy(), r.float().cpu().numpy()
+        assert np.linalg.norm(g - r) <= BWD_FRO_TOL[dtype] * np.linalg.norm(r)
+        assert np.abs(g - r).max() <= BWD_MAX_TOL[dtype] * np.abs(r).max()
+
+
+@pytest.mark.cuda
+def test_recorder_sees_k1_and_backward_ops_on_the_card(card):
+    """A recorder over one CUDA grad step: the autograd engine runs the
+    backward on its device thread, and the dispatch mode still records it
+    (K1's backward token, and products on both sides of the peak)."""
+    import repro_torch.configs as PC
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.core.memtrace import build_timeline
+    from repro_torch.core.profiler import profile_step
+    from repro_torch.core.tokenizer import GLOBAL_VOCAB, OpStreamRecorder
+    from repro_torch.distributed import steps as S
+    from repro_torch.models import transformer as PT
+
+    cfg = PC.get_reduced("llama2_paper").replace(attn_impl="flash")
+    model = PT.init_model(cfg, seed=0, device=card)
+    batch = {k: torch.ones((2, 64), dtype=torch.int64, device=card)
+             for k in ("tokens", "labels")}
+    grad = S.make_grad_step(cfg, TrainConfig())
+    rec = OpStreamRecorder()
+    with rec.iteration() as it:
+        grad(model, batch, 1.0)
+    names = {tok: n for n, tok in GLOBAL_VOCAB._ids.items()}
+    ops_ = [names[t] for t in it.stream.tokens]
+    L = cfg.num_layers
+    assert ops_.count("repro_torch::flash_attention_fwd") == L
+    assert ops_.count("repro_torch::flash_attention_bwd") == L
+    prof = profile_step(lambda: grad(model, batch, 1.0), device=card)
+    peak = build_timeline(prof).peak_op
+    mm = [i for i, t in enumerate(prof.op_tokens) if names[t] == "aten::mm"]
+    assert min(mm) < peak < max(mm)
+    assert {(t.site, t.layer) for t in prof.candidates
+            if t.site == "ffn_pre"} == {("ffn_pre", i) for i in range(L)}
