@@ -114,6 +114,24 @@ Phases, each printing JSON lines:
               against the measured time of four 256 MiB checkpoint copies,
               and 0 once they are done; K1's host cost per call through
               its custom op.
+18. chameleon_exec  Chameleon executing its policies in the trainer
+              (``core.runtime``, ``core.executor``): the train phase's
+              model with an eval every CHAM_EXEC_EVAL_EVERY steps.  The
+              budget B is the lowest one a policy meets for the grad
+              dispatch's profile (bisection between its floor and peak)
+              plus CHAM_EXEC_MARGIN; CHAM_EXEC_STEPS steps of
+              ``Trainer(..., ChameleonConfig(enabled=True,
+              hbm_budget_bytes=B))``, then, after freeing it, of the same
+              trainer with Chameleon off.  Checks: the stages hold WarmUp,
+              GenPolicy and Stable; a seq-change at an eval step; the
+              Stable steps' policy swaps (its offloaded sites or its
+              entries, ``core.executor``); losses bit-equal to
+              Chameleon off's; the ``policy_swap`` D2H bytes equal the H2D
+              bytes and are > 0 in every Stable step; K1's launches; the
+              grad dispatch's ``max_memory_allocated`` under the applied
+              policy falls by at least half the projected reduction
+              against the baseline policy (both through the runtime, in
+              turns, timed too).
 
 Any failure raises, so the exit code is non-zero and no result line is
 printed.  The last lines are the kernels summary, the nvidia-smi line and
@@ -245,6 +263,17 @@ CHAM_SITES = ("qkv_proj", "attn_ctx", "attn_out", "ffn_pre", "resid_post")
 # engine's estimate of their link time right after the submission is held
 # within a factor of P2_RATIO of the time their CUDA events measure.
 P2_COPIES, P2_BYTES, P2_RATIO = 4, 256 << 20, 2.0
+# The chameleon_exec phase: the train phase's configuration with an eval
+# every CHAM_EXEC_EVAL_EVERY steps.  An eval every 6 steps (the chameleon
+# phase's) interrupts every GenPolicy (m = 2 stable steps, then n = 5
+# variants and a selection: CHAM_STAGES shows it), so no policy would ever
+# be selected; 13 (tests/test_torch_runtime.py's cadence) leaves one full
+# adaptation before the first eval.  CHAM_EXEC_MARGIN over the lowest
+# budget a policy meets; CHAM_EXEC_TURNS grad dispatches under the applied
+# policy and under the baseline, in turns.
+CHAM_EXEC_STEPS, CHAM_EXEC_EVAL_EVERY = 18, 13
+CHAM_EXEC_MARGIN = 1.01
+CHAM_EXEC_TURNS = 3
 # K1 forward's host cost per call through the custom op: back-to-back calls
 # at a shape whose kernel is shorter than the host's work.
 OP_COST_SHAPE, OP_COST_CALLS = (1, 64, 32, 128), 2000
@@ -1744,13 +1773,16 @@ def timeline_floor(prof) -> int:
 
 def plan(prof, tier, budget):
     """generate_policy at ``budget`` with the calibrated link and the live
-    engine: the policy, or the ChameleonOOMError's message."""
+    engine (``tier`` None: the constant link of ``ChameleonConfig`` and an
+    idle engine, as a runtime's uncalibrated tier prices): the policy, or
+    the ChameleonOOMError's message."""
     from repro_torch.common.config import ChameleonConfig
     from repro_torch.core.policy import ChameleonOOMError, generate_policy
     t0 = time.perf_counter()
     try:
         pol = generate_policy(prof, ChameleonConfig(), budget,
-                              bwmodel=tier.bwmodel, engine=tier.engine)
+                              bwmodel=tier.bwmodel if tier else None,
+                              engine=tier.engine if tier else None)
     except ChameleonOOMError as e:
         return None, {"budget": budget, "oom": str(e),
                       "ms": (time.perf_counter() - t0) * 1e3}
@@ -2083,6 +2115,250 @@ def phase_chameleon(device, tier):
          total_memory=torch.cuda.get_device_properties(device).total_memory)
 
 
+def exec_train(device, cfg, cham):
+    """A trainer of the chameleon_exec phase (a fresh checkpoint dir)."""
+    import tempfile
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.runtime.trainer import Trainer
+    tcfg = TrainConfig(steps=100, learning_rate=TRAIN_LR,
+                       warmup_steps=TRAIN_WARMUP,
+                       eval_every=CHAM_EXEC_EVAL_EVERY, checkpoint_every=0,
+                       checkpoint_dir=tempfile.mkdtemp(prefix="chip_smoke_"))
+    return Trainer(cfg, tcfg, cham,
+                   data=SyntheticTokens(cfg.vocab_size, TRAIN_SEQ,
+                                        TRAIN_BATCH, seed=0), device=device)
+
+
+def drop_trainer(tr) -> None:
+    """Let a trainer go: the metrics registry's providers hold it (and its
+    parameters and optimizer state on the card) until they are
+    unregistered; then its runtime's service and checkpoint directory."""
+    import shutil
+    from repro_torch import obs
+    for name in ("runtime", "hostmem"):
+        obs.metrics().unregister_provider(name)
+    if getattr(tr, "rt", None) is not None:
+        tr.rt.close()
+    shutil.rmtree(tr.tcfg.checkpoint_dir, ignore_errors=True)
+
+
+def exec_budget(device, cfg):
+    """B for the chameleon_exec phase: after two steps of a Chameleon-on
+    trainer with no budget to meet (the baseline policy runs), its
+    runtime's detailed profile of the grad dispatch (``profile_step`` over
+    a replay, the profile its GenPolicy steps take), priced at the second
+    step's time and bisected between its floor and its peak.  Returns
+    (B, row)."""
+    import torch
+    from repro_torch.common.config import ChameleonConfig
+    from repro_torch.core.memtrace import build_timeline
+
+    tr = exec_train(device, cfg, ChameleonConfig(enabled=True,
+                                                 hbm_budget_bytes=1 << 62))
+    for _ in range(2):
+        tr.train(1)
+    prof = tr.rt._baseline_profile(tr.rt._last_train_args,
+                                   tr.report.times[-1])
+    tl = build_timeline(prof)
+    floor = timeline_floor(prof)
+    pol, got, tried = tightest_plan(prof, None, floor, tl.peak)
+    if pol is None or pol.projected_peak > got["budget"]:
+        raise AssertionError(f"chameleon_exec: no policy under a budget: "
+                             f"{got}")
+    budget = int(got["budget"] * CHAM_EXEC_MARGIN)
+    row = {"budget": budget, "floor": floor, "peak": tl.peak,
+           "peak_op": tl.peak_op, "n_ops": prof.n_ops,
+           "static_bytes": prof.static_bytes, "t_iter_s": prof.t_iter,
+           "tightest": got, "tried": tried}
+    drop_trainer(tr)
+    del tr, prof, pol
+    gc.collect()
+    torch.cuda.empty_cache()
+    return budget, row
+
+
+def grad_turns(device, tr):
+    """The grad dispatch through the runtime under the applied policy and
+    under the baseline policy, CHAM_EXEC_TURNS times each in turns on one
+    batch: ``max_memory_allocated`` (reset before each) and ms."""
+    import torch
+    rt = tr.rt
+    batch = tr._device_batch(tr.data.batch_at(0))
+    args = (tr.model, batch, tr.loss_scale.scale)
+    fns = {"policy": rt.step_fn(),
+           "baseline": rt._get_step(rt.executor.baseline())}
+    out = {k: {"peak": [], "ms": []} for k in fns}
+    for j in range(CHAM_EXEC_TURNS):
+        for name in (("policy", "baseline") if j % 2 == 0
+                     else ("baseline", "policy")):
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            res = fns[name](*args)
+            torch.cuda.synchronize()
+            out[name]["ms"].append((time.perf_counter() - t0) * 1e3)
+            out[name]["peak"].append(torch.cuda.max_memory_allocated(device))
+            del res
+    ex = fns["policy"].execution
+    out["policy_exec"] = dict(ex.last) if ex is not None else None
+    return out
+
+
+def phase_chameleon_exec(device):
+    """Chameleon in the trainer on the train phase's model (phase 18 of the
+    module doc).  Every check raises.  Returns K1's launches in the
+    Chameleon-on run (forward, backward)."""
+    import torch
+    import repro_torch.configs as C
+    from repro_torch import obs
+    from repro_torch.common.config import ChameleonConfig
+    from repro_torch.core.memtrace import build_timeline
+    from repro_torch.kernels.flash_attention import ops
+
+    for name in ("runtime", "hostmem"):      # earlier phases' trainers
+        obs.metrics().unregister_provider(name)
+    allocated_before = release_device_memory(device)
+    cfg = C.get_config("llama2-paper").replace(num_layers=TRAIN_LAYERS,
+                                               attn_impl="flash")
+    budget, brow = exec_budget(device, cfg)
+    emit("chameleon_exec_budget", **brow)
+
+    # ---- Chameleon on, step by step
+    obs.ledger().clear()
+    tr = exec_train(device, cfg, ChameleonConfig(enabled=True,
+                                                 hbm_budget_bytes=budget))
+    rt = tr.rt
+    eng = rt.hostmem.engine
+    torch.cuda.synchronize()
+    ops.flash_attention.launches = 0                # count the main path only
+    ops.flash_attention_bwd.launches = 0
+    rows = []
+    for i in range(CHAM_EXEC_STEPS):
+        c0 = eng.by_class["policy_swap"].as_dict()
+        tr.train(1)
+        c1 = eng.by_class["policy_swap"].as_dict()
+        ex = rt._last_dispatch.execution         # None: a plain policy ran
+        ran = ex.applied if ex is not None else rt.executor.baseline()
+        swap = ran.swap
+        rows.append({
+            "step": i, "stage": tr.report.stages[-1],
+            "step_ms": tr.report.times[-1] * 1e3,
+            "loss": tr.report.losses[-1],
+            "eval": i in tr.report.eval_losses,
+            "policy": ran.fingerprint, "offload": sorted(ran.offload),
+            "remat": sorted(ran.remat),
+            "entries": len(swap.entries) if swap else 0,
+            "projected_swapped_bytes": swap.swapped_bytes if swap else 0,
+            "projected_stall_s": swap.stall_time if swap else None,
+            "projected_peak": swap.projected_peak if swap else None,
+            "d2h_bytes": c1["bytes_out"] - c0["bytes_out"],
+            "h2d_bytes": c1["bytes_in"] - c0["bytes_in"],
+            "d2h_ms": (c1["time_out_s"] - c0["time_out_s"]) * 1e3,
+            "h2d_ms": (c1["time_in_s"] - c0["time_in_s"]) * 1e3,
+            "forced_retires": c1["forced_retires"] - c0["forced_retires"],
+            "released_at_op": c1["released_at_op"] - c0["released_at_op"],
+            "exec": dict(ex.last) if ex is not None else None})
+    fwd, bwd = ops.flash_attention.launches, ops.flash_attention_bwd.launches
+    rep = tr.report
+    stages = rep.stages
+    transitions = [tuple(t) for t in rt.machine.transitions]
+    evals = len(rep.eval_losses)
+    want_fwd = (CHAM_EXEC_STEPS + evals + rt.replays) * TRAIN_LAYERS
+    want_bwd = (CHAM_EXEC_STEPS + rt.replays) * TRAIN_LAYERS
+    stable = [r for r in rows if r["stage"] == "Stable"]
+    applied = rt.applied
+    emit("chameleon_exec_steps", budget=budget, stages=stages,
+         transitions=transitions, steps=rows,
+         lowered={"offload": sorted(applied.offload),
+                  "save": sorted(applied.save),
+                  "remat": sorted(applied.remat),
+                  "fingerprint": applied.fingerprint,
+                  "release_plan": len(applied.release_plan)},
+         variants=[{"knob": v.knob, "measured_ms": (v.measured_t or 0) * 1e3,
+                    "policy": v.applied.fingerprint} for v in rt.variants],
+         adaptations=rt.adaptations, replays=rt.replays,
+         k1_launches=(fwd, bwd), k1_want=(want_fwd, want_bwd),
+         profiling_overhead_s=rt.profiling_overhead_s,
+         adaptation_overhead_s=rt.adaptation_overhead_s,
+         ledger=obs.ledger().scoreboard(),
+         overlap=rt.obs_stats()["overlap"],
+         engine=eng.stats()["classes"]["policy_swap"])
+
+    # ---- the grad dispatch's peak and time, applied policy vs baseline
+    turns = grad_turns(device, tr)
+    tl_peak = build_timeline(rt.profile).peak if rt.profile else None
+    projected = applied.swap.projected_peak if applied.swap else None
+    peak_pol, peak_base = min(turns["policy"]["peak"]), min(
+        turns["baseline"]["peak"])
+    ms_pol, ms_base = p50(turns["policy"]["ms"]), p50(turns["baseline"]["ms"])
+    mem = {"baseline_timeline_peak": tl_peak, "projected_peak": projected,
+           "projected_reduction": (tl_peak - projected
+                                   if projected and tl_peak else None),
+           "realized_peak_policy": peak_pol,
+           "realized_peak_baseline": peak_base,
+           "realized_reduction": peak_base - peak_pol,
+           "grad_ms_policy": turns["policy"]["ms"],
+           "grad_ms_baseline": turns["baseline"]["ms"],
+           "measured_stall_ms": ms_pol - ms_base,
+           "projected_stall_ms": (applied.swap.stall_time * 1e3
+                                  if applied.swap else None),
+           "policy_exec": turns["policy_exec"]}
+    emit("chameleon_exec_memory", **mem)
+    losses_on = list(rep.losses)
+    on_ms = {r["step"]: r["step_ms"] for r in stable if not r["eval"]}
+    drop_trainer(tr)
+    del tr, rt, eng, applied, turns
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the same trainer with Chameleon off, driven the same way (each
+    # train() call draws its first batch afresh)
+    off = exec_train(device, cfg, ChameleonConfig(enabled=False))
+    for _ in range(CHAM_EXEC_STEPS):
+        off.train(1)
+    losses_off = list(off.report.losses)
+    off_ms = {i: off.report.times[i] * 1e3 for i in on_ms}
+    drop_trainer(off)
+    del off
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    problems = []
+    if not {"WarmUp", "GenPolicy", "Stable"} <= set(stages):
+        problems.append("stages")
+    if not any(why == "seq-change" and s % CHAM_EXEC_EVAL_EVERY == 0
+               for s, why, _ in transitions):
+        problems.append("no seq-change at an eval step")
+    if not stable or not all(r["offload"] or r["entries"] for r in stable):
+        problems.append("a Stable step's policy swaps nothing")
+    if losses_on != losses_off:
+        problems.append("losses differ from Chameleon off's")
+    if not all(r["d2h_bytes"] == r["h2d_bytes"] > 0 for r in stable):
+        problems.append("policy_swap D2H != H2D or 0 in a Stable step")
+    if (fwd, bwd) != (want_fwd, want_bwd):
+        problems.append("K1 launches")
+    if mem["projected_reduction"] is None or (
+            mem["realized_reduction"] < 0.5 * mem["projected_reduction"]):
+        problems.append("realized peak reduction under half the projected")
+    summary = {
+        "ok": not problems, "problems": problems, "budget": budget,
+        "losses_on": losses_on, "losses_off": losses_off,
+        "bit_equal": losses_on == losses_off,
+        "stable_step_ms_on": on_ms, "stable_step_ms_off": off_ms,
+        "stable_p50_on": p50(list(on_ms.values())),
+        "stable_p50_off": p50(list(off_ms.values())),
+        "on_over_off": (p50(list(on_ms.values()))
+                        / p50(list(off_ms.values())) if on_ms else None),
+        "allocated_before": allocated_before,
+        "k1_launches": (fwd, bwd)}
+    emit("chameleon_exec", **summary)
+    if problems:
+        raise AssertionError(f"chameleon_exec: {problems}")
+    return fwd, bwd
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2150,6 +2426,7 @@ def main() -> int:
     train_launches, bwd_launches = phase_train(device)
     phase_train_cli(device)
     phase_chameleon(device, tier)
+    exec_launches = phase_chameleon_exec(device)
 
     summary = next(rows[(c, "bfloat16")] for c in main_path
                    if c[1] == SUMMARY_LEN)
@@ -2172,6 +2449,8 @@ def main() -> int:
         # the train phase: steps x layers launches, and the cold time at
         # its shape
         "train_launches": train_launches,
+        # chameleon_exec: the trainer under Chameleon's applied policies
+        "chameleon_exec_launches": exec_launches[0],
         "train_cold_ms": k1_cold["train"]["cold_ms"],
         "train_library_cold_ms": k1_cold["train"]["library_cold_ms"]}, {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -2179,6 +2458,7 @@ def main() -> int:
                   "flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention/ops.py:54",
         "launches": bwd_launches,
+        "chameleon_exec_launches": exec_launches[1],
         # the largest bf16 error of dq, dk, dv at the training shape
         "max_abs_err": max(bwd_row[f"{g}_max_abs_err"]
                            for g in ("dq", "dk", "dv")),

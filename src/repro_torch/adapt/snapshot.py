@@ -1,0 +1,83 @@
+"""Immutable adaptation inputs (repro_torch.adapt).
+
+Port of ``repro/adapt/snapshot.py``.  An :class:`AdaptSnapshot` freezes
+everything the §5 adaptation cycle reads, at the moment drift settles:
+
+  * the Detailed-mode :class:`~repro_torch.core.profiler.ProfileData` of
+    the grad dispatch, or a callable that produces one (the reference
+    carries a traced jaxpr here; an eager step has none, and its profile
+    is a replay of the dispatch, ``ChameleonRuntime._baseline_profile``),
+    plus the measured ``t_iter`` it should be priced at;
+  * a *copy* of the bandwidth-model curve
+    (:meth:`~repro_torch.hostmem.bwmodel.BandwidthModel.snapshot`);
+  * the transfer engine's per-class backlog at snapshot time
+    (``queued_delay`` seconds + per-class queued bytes and occupancy);
+  * the HBM budget and the grouping knobs the search will try;
+  * the iteration fingerprint the snapshot was taken from.
+
+:meth:`ensure_profile` materializes a callable profile once and prices it
+at the snapshot's ``t_iter``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Optional, Tuple, Union
+
+from repro_torch.core.profiler import ProfileData
+
+
+class FrozenBacklog:
+    """Engine stand-in for snapshot-time contention: answers
+    ``queued_delay`` with the frozen per-class estimate so
+    ``generate_policy`` prices the backlog the snapshot saw, not whatever
+    the live engine is doing when the worker happens to run."""
+
+    def __init__(self, delays: Optional[Dict[str, float]] = None,
+                 default: float = 0.0,
+                 occupancy: Optional[Dict[str, float]] = None):
+        self._delays = dict(delays or {})
+        self._default = float(default)
+        self._occupancy = dict(occupancy or {})
+
+    def queued_delay(self, cls: str = "policy_swap",
+                     kind: str = "swap_out") -> float:
+        return self._delays.get(cls, self._default)
+
+    def sustained_contention(self, cls: str = "policy_swap") -> float:
+        """Frozen per-class link occupancy at snapshot time."""
+        return self._occupancy.get(cls, 0.0)
+
+
+@dataclass
+class AdaptSnapshot:
+    """One adaptation's frozen inputs.  ``profile`` is the only field
+    written later (the :meth:`ensure_profile` memo)."""
+    profile: Union[ProfileData, Callable[[], ProfileData], None] = None
+    t_iter: float = 1.0                  # measured iteration time to price at
+    budget: int = 0                      # HBM budget (bytes)
+    bwmodel: Any = None                  # frozen BandwidthModel copy (or None)
+    contention_s: float = 0.0            # queued_delay at snapshot time
+    backlog: Dict[str, dict] = field(default_factory=dict)  # per-class gauges
+    gen_knobs: Tuple[float, ...] = ()    # grouping knobs the search tries
+    iter_exact: Optional[str] = None     # live-stream fingerprint (exact hash)
+    iter_fp: Any = None                  # full iteration Fingerprint (or None)
+    step: int = 0                        # step the snapshot was taken at
+
+    def ensure_profile(self) -> ProfileData:
+        """The Detailed-mode profile, priced at ``t_iter``."""
+        if self.profile is None:
+            raise ValueError("snapshot carries no profile")
+        if callable(self.profile):
+            prof = self.profile()
+            self.profile = dataclasses.replace(prof, t_iter=self.t_iter)
+        return self.profile
+
+    def engine_view(self) -> FrozenBacklog:
+        """The frozen-contention engine stand-in for policy generation."""
+        delays = {c: float(d.get("queued_delay", 0.0))
+                  for c, d in self.backlog.items()}
+        occ = {c: float(d.get("occupancy", 0.0))
+               for c, d in self.backlog.items()}
+        return FrozenBacklog(delays, default=self.contention_s,
+                             occupancy=occ)

@@ -38,13 +38,12 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.common.device import resolve_device
 from repro_torch.core import sites
 from repro_torch.core.sites import base_site
-from repro_torch.core.tokenizer import (GLOBAL_VOCAB, OpTokens, OpVocab,
-                                        TokenBuffer)
+from repro_torch.core.tokenizer import (DETACH, GLOBAL_VOCAB, CountingMode,
+                                        OpTokens, OpVocab, TokenBuffer)
 
 MIN_TRACK_BYTES = 1 << 10
 
@@ -71,6 +70,11 @@ class TensorInstance:
     dtype_code: int = 0
     shape: Tuple[int, ...] = ()
     producer_token: int = 0
+    # not a field (the instance's fields are the reference's): the order of
+    # the storage's label among its (site, layer)'s labels, -1 when not
+    # recorded; the executor numbers the storages it labels the same way
+    # to find each one's instance in the profile
+    tag_seq = -1
 
     @property
     def is_candidate(self) -> bool:
@@ -161,6 +165,7 @@ class _Recording:
         self.buf = TokenBuffer()
         self.min_track_bytes = int(min_track_bytes)
         self.tensors: List[TensorInstance] = []
+        self.tag_seqs: Dict[Tuple[str, int], int] = {}
         # storage address -> (instance, weakref to the storage)
         self.live: Dict[int, Tuple[TensorInstance, weakref.ref]] = {}
 
@@ -209,6 +214,9 @@ class _Recording:
             inst.site = base_site(name)
             inst.layer = layer
             inst.shape = tuple(x.shape)       # the tagged view's shape
+            key = (inst.site, layer)
+            inst.tag_seq = self.tag_seqs.get(key, 0)
+            self.tag_seqs[key] = inst.tag_seq + 1
 
     def finish(self) -> Tuple[np.ndarray, List[TensorInstance]]:
         n = self.buf.n
@@ -226,16 +234,23 @@ def _tensors(args, kwargs):
             yield from (x for x in a if isinstance(x, torch.Tensor))
 
 
-class _DetailedMode(TorchDispatchMode):
+class _DetailedMode(CountingMode):
     def __init__(self, rec: _Recording):
         super().__init__()
         self.rec = rec
 
+    def count(self) -> int:
+        return self.rec.buf.n
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func is DETACH:
+            return func(*args, **kwargs)
         rec = self.rec
         tok = rec.tokens(func)
         n = rec.buf.append(tok)
+        if n > self.hook_at:
+            self.hook(n - 1)
         out = func(*args, **kwargs)
         rec.note_outputs(func, tok, n, out, args, kwargs)
         return out
@@ -259,11 +274,13 @@ def _live_tensor_bytes() -> int:
 def profile_step(fn: Callable[[], object], *,
                  device: Union[str, torch.device, None] = None,
                  vocab: OpVocab = GLOBAL_VOCAB,
-                 min_track_bytes: int = MIN_TRACK_BYTES) -> ProfileData:
+                 min_track_bytes: int = MIN_TRACK_BYTES,
+                 static_bytes: Optional[int] = None) -> ProfileData:
     """Detailed mode: run ``fn()`` once (one training step) and return its
     profile.  ``device`` is where the step runs (default ``cuda``);
     ``t_iter`` is the wall time of this run, from a device synchronisation
-    before it to one after it."""
+    before it to one after it.  ``static_bytes`` overrides the measured
+    static base (module doc)."""
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
     if cuda:
@@ -271,6 +288,8 @@ def profile_step(fn: Callable[[], object], *,
         static = torch.cuda.memory_allocated(dev)
     else:
         static = _live_tensor_bytes()
+    if static_bytes is not None:
+        static = int(static_bytes)
     rec = _Recording(vocab, min_track_bytes)
     t0 = time.perf_counter()
     with sites.recording(rec), _DetailedMode(rec):

@@ -7,18 +7,25 @@ offloads them, and the fuzzy matcher (§6.1) re-associates policy entries
 with sites after the program changes.
 
 The reference names a traced variable (``checkpoint_name``).  Eager
-PyTorch has no trace to name, so ``tag`` labels the tensor's *storage*
-while a detailed profile records (``core.profiler.profile_step``): the
-profiler keeps the (site, layer) of the first tag a storage receives.  The
-layer is the index of the block ``models/transformer.py::_forward`` is
-running (``layer``), -1 outside the stack.  When nothing records, ``tag``
-checks the name and returns ``x`` after one flag check.
+PyTorch has no trace to name, so ``tag`` labels the tensor's *storage*:
+while a detailed profile records (``core.profiler.profile_step``), which
+keeps the (site, layer) of the first tag a storage receives, and while an
+executor runs a step under an applied policy (``core.executor``), which
+labels storages the same way and decides, when autograd saves a tensor,
+whether its storage is offloaded, recomputed or kept.  The layer is the
+index of the block ``models/transformer.py::_forward`` is running
+(``layer``), -1 outside the stack.  When neither is active, ``tag``
+checks the name and returns ``x`` after two flag checks.
 
-The state ``tag`` reads (the recording profiler, the layer, the prefix) is
-process-wide on purpose, not a ``threading.local`` as the reference's:
-on a CUDA device the autograd engine runs the backward on its own thread,
-and whatever runs there (the profiler's frees, item 4b's unpack hooks)
-must see the state the forward set.
+``tag(x, site, recompute=(fn, args))`` also tells the executor how to
+rebuild ``x`` from ``args`` (``fn(*args)`` gives ``x`` bit for bit): what
+a site in the applied policy's remat set needs.
+
+The state ``tag`` reads (the recording profiler, the executor, the layer,
+the prefix) is process-wide on purpose, not a ``threading.local`` as the
+reference's: on a CUDA device the autograd engine runs the backward on
+its own thread, and whatever runs there (the profiler's frees, the
+executor's unpack hooks) must see the state the forward set.
 """
 from __future__ import annotations
 
@@ -55,12 +62,13 @@ SITE_INDEX = {s: i for i, s in enumerate(OFFLOAD_SITES)}
 
 
 class _State:
-    __slots__ = ("prefix", "layer", "recorder")
+    __slots__ = ("prefix", "layer", "recorder", "executor")
 
     def __init__(self):
         self.prefix = ""
         self.layer = -1
         self.recorder = None      # the recording profile, or None
+        self.executor = None      # the running executor, or None
 
 
 _STATE = _State()
@@ -100,14 +108,32 @@ def recording(recorder):
         _STATE.recorder = None
 
 
-def tag(x, site: str):
+@contextlib.contextmanager
+def executing(executor):
+    """Route ``tag`` to ``executor.note_site(x, name, layer, recompute)``
+    while open."""
+    if _STATE.executor is not None:
+        raise RuntimeError("an executor is already running a step")
+    _STATE.executor = executor
+    try:
+        yield
+    finally:
+        _STATE.executor = None
+
+
+def tag(x, site: str, recompute=None):
     """Check ``site`` against the vocabulary and return ``x``; while a
-    detailed profile records, label ``x``'s storage with (site, layer)."""
+    detailed profile records or an executor runs, label ``x``'s storage
+    with (site, layer).  ``recompute`` is ``(fn, args)`` with
+    ``fn(*args)`` equal to ``x``, or None."""
     if site not in SITE_INDEX:
         raise ValueError(f"unknown site {site!r}")
     rec = _STATE.recorder
     if rec is not None:
         rec.note_site(x, _STATE.prefix + site, _STATE.layer)
+    ex = _STATE.executor
+    if ex is not None:
+        ex.note_site(x, _STATE.prefix + site, _STATE.layer, recompute)
     return x
 
 

@@ -41,6 +41,7 @@ import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
+import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 # max materialized copies of a scan-replicated token per equation; virtual
@@ -170,16 +171,50 @@ class TokenBuffer:
         return out
 
 
-class _RecordingMode(TorchDispatchMode):
+HOOK_NEVER = 1 << 62
+# ``detach`` is not an operator of the program: autograd dispatches it
+# around saved tensors, and how many depends on whether saved-tensor hooks
+# are registered (an executor's are) and on the PyTorch version.  No
+# counting mode records it.
+DETACH = torch.ops.aten.detach.default
+
+
+class CountingMode(TorchDispatchMode):
+    """A dispatch mode that numbers the ops it records: the recorder's
+    Lightweight mode and the profiler's Detailed mode.  The executor
+    (``core.executor``) releases and prefetches by op index, in the
+    numbering of the profile its plan came from; it hooks into the
+    counting mode that is already recording the step instead of stacking
+    a second mode: ``hook(i)`` runs before the op of index ``i`` (the
+    count of ops recorded before it) once ``i >= hook_at``."""
+
+    def __init__(self):
+        super().__init__()
+        self.hook = None
+        self.hook_at = HOOK_NEVER
+
+    def count(self) -> int:
+        """Ops recorded so far."""
+        raise NotImplementedError
+
+
+class _RecordingMode(CountingMode):
     def __init__(self, rec: "OpStreamRecorder"):
         super().__init__()
         self.rec = rec
 
+    def count(self) -> int:
+        return self.rec._buf.n
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is DETACH:
+            return func(*args, **(kwargs or {}))
         t0 = time.perf_counter()
         rec = self.rec
-        rec._buf.append(rec._tokens(func))
+        n = rec._buf.append(rec._tokens(func))
         rec.overhead_s += time.perf_counter() - t0
+        if n > self.hook_at:
+            self.hook(n - 1)
         return func(*args, **(kwargs or {}))
 
 

@@ -19,9 +19,16 @@ becomes f32 (JAX promotes bf16 / f32 to f32); the fused step divides in
 the gradient's own dtype, as the reference's ``make_train_step`` does.
 Sharding (``shd.constrain``, specs, ZeRO, ``grad_shardings``) and the
 serving steps come with ROADMAP.md queue 1 item 11.
+
+``policy`` is what the reference's step builders take as a remat policy:
+here an ``Execution`` (``core.executor.Executor.execution``), the context
+the forward and backward run under to apply a swap policy, or None for
+plain autograd.  The unscale, the finiteness check and the optimizer run
+after it, unchanged.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -46,21 +53,28 @@ def make_loss_fn(cfg: ModelConfig):
     return loss_fn
 
 
-def _backward(loss_fn, model, batch, loss_scale):
-    """Scaled loss and its backward; returns (loss, {name: param}) with each
-    parameter's ``.grad`` filled (zeros where the loss does not reach it)."""
+def _run(policy):
+    return policy.run() if policy is not None else contextlib.nullcontext()
+
+
+def _backward(loss_fn, model, batch, loss_scale, policy=None):
+    """Scaled loss and its backward, under ``policy``; returns (loss,
+    {name: param}) with each parameter's ``.grad`` filled (zeros where the
+    loss does not reach it)."""
     params = dict(model.named_parameters())
     for p in params.values():
         p.grad = None
-    scaled, (loss, _m) = loss_fn(model, batch, loss_scale)
-    scaled.backward()
+    with _run(policy):
+        scaled, (loss, _m) = loss_fn(model, batch, loss_scale)
+        scaled.backward()
     for p in params.values():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     return loss.detach(), params
 
 
-def make_grad_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
+def make_grad_step(cfg: ModelConfig, tcfg: TrainConfig,
+                   policy=None) -> Callable:
     """(model, batch, loss_scale) -> (loss, grads, finite): grads unscaled
     (f32) keyed by parameter name, ``finite`` a 0-d bool tensor.  The
     parameters' ``.grad`` are released."""
@@ -69,7 +83,7 @@ def make_grad_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     def grad_step(model: nn.Module, batch, loss_scale
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                              torch.Tensor]:
-        loss, params = _backward(loss_fn, model, batch, loss_scale)
+        loss, params = _backward(loss_fn, model, batch, loss_scale, policy)
         scale = torch.tensor(loss_scale, dtype=torch.float32)
         grads = {}
         for n, p in params.items():
@@ -93,14 +107,15 @@ def make_apply_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     return apply_step
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                    policy=None) -> Callable:
     """The fused iteration: (model, opt_state, batch, loss_scale) ->
     (model, opt_state, {"loss", "grad_norm", "lr"})."""
     loss_fn = make_loss_fn(cfg)
 
     def train_step(model: nn.Module, opt_state: AdamWState, batch,
                    loss_scale):
-        loss, params = _backward(loss_fn, model, batch, loss_scale)
+        loss, params = _backward(loss_fn, model, batch, loss_scale, policy)
         grads = {}
         for n, p in params.items():
             g = p.grad
@@ -116,13 +131,15 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     return train_step
 
 
-def make_eval_step(cfg: ModelConfig) -> Callable:
-    """(model, batch) -> loss, with no autograd graph."""
+def make_eval_step(cfg: ModelConfig, policy=None) -> Callable:
+    """(model, batch) -> loss, with no autograd graph (so nothing is saved
+    for ``policy`` to move)."""
     api = get_api(cfg)
 
     @torch.no_grad()
     def eval_step(model: nn.Module, batch):
-        loss, _ = api.loss_fn(cfg, model, batch)
+        with _run(policy):
+            loss, _ = api.loss_fn(cfg, model, batch)
         return loss
 
     return eval_step

@@ -1,21 +1,20 @@
 """Training entry point, one device.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch llama2-paper \\
-        --reduced --device cpu --no-chameleon --steps 5
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama2-paper \
+        --reduced --device cpu --steps 18 --budget-gib 0.01
 
 Port of the single-device subset of ``repro/launch/train.py``.  Chameleon
-does not run in the trainer yet (ROADMAP.md queue 1 items 4a and 4b: 4a's
-monitoring and planning are in ``repro_torch.core``, 4b's execution is
-not), so the run needs ``--no-chameleon`` and raises without it; flags of
-later slices raise, naming the slice: ``--budget-gib`` and ``--stats-json`` (Chameleon's
-budget and runtime stats, item 4b), ``--policy-store-dir`` /
-``--no-policy-store`` / ``--adapt-mode`` (item 8), ``--autotune`` (item
-10), ``--mesh`` / ``--multihost`` (item 11).  Besides the reference's
-flags it takes ``--device`` (``cuda`` unless asked) and ``--attn-impl``
-(``flash`` trains every attention through the flash-attention forward and
-backward kernels), as ``launch/serve.py`` does.  Weights are random, drawn on the device from
-``TrainConfig.seed``; batches are the reference's synthetic tokens.
-``main(argv)`` returns the run's stats dict.
+runs unless ``--no-chameleon``: ``--budget-gib`` is its HBM budget, and
+``--stats-json`` dumps the runtime's ``stats()``, a metrics snapshot and
+the audit tail on exit.  Flags of later slices raise, naming the slice:
+``--policy-store-dir`` / ``--no-policy-store`` / ``--adapt-mode
+async|speculative`` (item 8), ``--autotune`` (item 10), ``--mesh`` /
+``--multihost`` (item 11).  Besides the reference's flags it takes
+``--device`` (``cuda`` unless asked) and ``--attn-impl`` (``flash`` trains
+every attention through the flash-attention forward and backward
+kernels), as ``launch/serve.py`` does.  Weights are random, drawn on the
+device from ``TrainConfig.seed``; batches are the reference's synthetic
+tokens.  ``main(argv)`` returns the run's stats dict.
 """
 from __future__ import annotations
 
@@ -26,15 +25,14 @@ from typing import List, Optional
 
 # flag -> (the value that means "not used", the ROADMAP.md slice it needs)
 _LATER = {
-    "budget_gib": (16.0, "queue 1 item 4b (Chameleon's HBM budget)"),
-    "policy_store_dir": ("", "queue 1 item 8 (policy store)"),
-    "no_policy_store": (False, "queue 1 item 8 (policy store)"),
-    "adapt_mode": ("inline", "queue 1 items 4b and 8 (adaptation)"),
+    "policy_store_dir": ("", "queue 1 item 8 (the policy store's CLI)"),
+    "no_policy_store": (False, "queue 1 item 8 (the policy store's CLI)"),
+    "adapt_mode": ("inline", "queue 1 item 8 (async and speculative "
+                             "adaptation)"),
     "autotune": (False, "queue 1 item 10 (autotune)"),
     "autotune_cache_dir": ("", "queue 1 item 10 (autotune)"),
     "mesh": ("none", "queue 1 item 11 (distributed)"),
     "multihost": (False, "queue 1 item 11 (distributed)"),
-    "stats_json": ("", "queue 1 item 4b (the Chameleon runtime's stats)"),
 }
 
 
@@ -70,7 +68,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--multihost", action="store_true")
     ap.add_argument("--mesh", choices=["none", "single", "multi"],
                     default="none")
-    ap.add_argument("--stats-json", default="")
+    ap.add_argument("--stats-json", default="",
+                    help="dump the runtime's stats() dict, a metrics "
+                         "snapshot and the audit tail as JSON here on exit")
     return ap
 
 
@@ -81,11 +81,6 @@ def main(argv: Optional[List[str]] = None) -> dict:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet: it comes "
                 f"with ROADMAP.md {where}")
-    if not args.no_chameleon:
-        raise NotImplementedError(
-            "Chameleon does not run in the trainer yet (ROADMAP.md queue 1 "
-            "items 4a and 4b: execution and the runtime come with 4b): pass "
-            "--no-chameleon")
 
     import repro_torch.configs as C
     from repro_torch import obs
@@ -103,9 +98,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
     tcfg = TrainConfig(steps=args.steps, checkpoint_dir=args.ckpt_dir,
                        checkpoint_every=max(args.steps // 4, 1),
                        eval_every=max(args.steps // 3, 1))
+    cham = ChameleonConfig(enabled=not args.no_chameleon,
+                           hbm_budget_bytes=int(args.budget_gib * 2 ** 30))
     data = SyntheticTokens(cfg.vocab_size, seq, gb).start()
+    tr = None
     try:
-        tr = Trainer(cfg, tcfg, ChameleonConfig(enabled=False), data=data,
+        tr = Trainer(cfg, tcfg, cham, data=data,
                      metrics_out=args.metrics_out or None,
                      metrics_every=args.metrics_every, device=device)
         if args.resume:
@@ -114,15 +112,66 @@ def main(argv: Optional[List[str]] = None) -> dict:
         print(f"done: loss {rep.losses[0]:.3f} -> {rep.losses[-1]:.3f}; "
               f"skipped={rep.skipped_steps}; "
               f"checkpoints={len(rep.checkpoints)}", flush=True)
-        return {"arch": cfg.name, "device": str(device),
-                "attn_impl": cfg.attn_impl, "steps": tr.step,
-                "losses": rep.losses, "eval_losses": rep.eval_losses,
-                "times": rep.times, "skipped_steps": rep.skipped_steps,
-                "checkpoints": rep.checkpoints}
+        out = {"arch": cfg.name, "device": str(device),
+               "attn_impl": cfg.attn_impl, "steps": tr.step,
+               "losses": rep.losses, "eval_losses": rep.eval_losses,
+               "times": rep.times, "skipped_steps": rep.skipped_steps,
+               "checkpoints": rep.checkpoints, "stages": rep.stages}
+        if tr.rt is not None:
+            _print_chameleon(tr, rep)
+            out["applied"] = tr.rt.applied.fingerprint
+            out["policystore"] = rep.policystore
+        return out
     finally:
         data.stop()
         if args.metrics_out:
             obs.metrics().write_jsonl(args.metrics_out)
+        if tr is not None and tr.rt is not None:
+            tr.rt.close()
+            if args.stats_json:
+                _write_stats(args.stats_json, tr.rt)
+
+
+def _print_chameleon(tr, rep) -> None:
+    """The reference's end-of-run summary: stages, applied policy, overlap
+    efficiency, the memory ledger's scoreboard, the policy store."""
+    from repro_torch import obs
+    print(f"stages={sorted(set(rep.stages))}; "
+          f"chameleon={tr.rt.stats()['applied'][:60]}", flush=True)
+    ov = tr.rt.obs_stats()["overlap"]
+    if ov["measured"]:
+        print(f"overlap efficiency: last {ov['last']:.1%} / "
+              f"mean {ov['mean']:.1%} over {ov['measured']} "
+              f"transfer-active iterations "
+              f"({ov['hidden_s'] * 1e3:.1f} of "
+              f"{ov['transfer_s'] * 1e3:.1f} ms hidden)")
+    sb = obs.ledger().scoreboard()
+    if sb["n"]:
+        print(f"memory ledger: {sb['n']} scored iterations, peak error "
+              f"mean |e| {sb['mean_abs_error']:.2%} / "
+              f"max |e| {sb['max_abs_error']:.2%}")
+    ps = rep.policystore
+    if ps is not None:
+        t, s = ps["tiers"], ps["store"]
+        print(f"policystore: {s['records']} records "
+              f"({s['dir'] or 'memory-only'}); tiers "
+              f"reuse={t['reuse']} warm={t['warm_start']} "
+              f"regen={t['regen']} demoted={t['demoted']}; "
+              f"genpolicy_steps={ps['genpolicy_steps_total']}; "
+              f"adaptations={len(ps['adaptations'])}", flush=True)
+
+
+def _write_stats(path: str, rt) -> None:
+    """``--stats-json``: the runtime's stats(), a metrics-registry
+    snapshot and the audit tail, as the reference writes them."""
+    import json
+
+    from repro_torch import obs
+    snap = {"runtime": rt.stats(), "obs_snapshot": obs.metrics().snapshot(),
+            "audit_tail": obs.audit().tail(200)}
+    with open(path, "w") as f:
+        json.dump(snap, f, indent=1, default=repr)
+    print(f"stats: {path}", flush=True)
 
 
 if __name__ == "__main__":

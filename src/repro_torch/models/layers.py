@@ -116,11 +116,17 @@ class Mlp(nn.Module):
         self.wo = dense_init(cfg.d_ff, cfg.d_model, cfg, **kw)
 
 
+def _glu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return F.silu(gate) * up
+
+
 def apply_mlp(cfg: ModelConfig, p: Mlp, x: torch.Tensor) -> torch.Tensor:
-    """SiLU-GLU: x (B, S, d) -> (B, S, d)."""
+    """SiLU-GLU: x (B, S, d) -> (B, S, d).  ``ffn_act`` carries its
+    recompute recipe: an applied policy that remats it rebuilds it from
+    ``gate`` and ``up`` in the backward (``core.executor``)."""
     up = tag(x @ p.wi_up, "ffn_pre")
     gate = tag(x @ p.wi_gate, "ffn_pre")
-    h = tag(F.silu(gate) * up, "ffn_act")
+    h = tag(_glu(gate, up), "ffn_act", recompute=(_glu, (gate, up)))
     return tag(h @ p.wo, "ffn_out")
 
 

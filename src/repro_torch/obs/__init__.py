@@ -6,7 +6,9 @@ The port's copy of the reference ``repro.obs`` core: the ring-buffered
 :class:`MetricsRegistry` that ``stats()`` providers register into, the
 :class:`AuditLog` of structured events (fault injection, link-health
 transitions, engine retries and fallbacks) and the :class:`MemoryLedger`
-that the transfer engine and the KV spill report staged bytes to.
+that the transfer engine and the KV spill report staged bytes to, and
+the per-iteration swap/compute overlap efficiency
+(:mod:`repro_torch.obs.overlap`).
 Process-wide defaults are reached through :func:`tracer`, :func:`metrics`,
 :func:`audit` and :func:`ledger`; tests swap them with :func:`set_tracer`
 / :func:`set_metrics` / :func:`set_audit` / :func:`set_ledger` (each
@@ -17,6 +19,8 @@ from __future__ import annotations
 from repro_torch.obs.audit import AuditLog
 from repro_torch.obs.memledger import LEDGER_TRACKS, MemoryLedger
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.overlap import (interval_union, overlap_efficiency,
+                                     window_efficiency)
 from repro_torch.obs.tracer import (LANE_ADAPT, LANE_CHECKPOINT, LANE_COMPUTE,
                                     LANE_ID, LANE_KV_SPILL, LANE_POLICY_SWAP,
                                     LANES, SpanTracer, export_chrome_trace)
@@ -26,6 +30,7 @@ __all__ = [
     "LEDGER_TRACKS",
     "LANES", "LANE_ID", "LANE_COMPUTE", "LANE_POLICY_SWAP", "LANE_KV_SPILL",
     "LANE_CHECKPOINT", "LANE_ADAPT", "export_chrome_trace",
+    "interval_union", "overlap_efficiency", "window_efficiency",
     "tracer", "metrics", "audit", "ledger",
     "set_tracer", "set_metrics", "set_audit", "set_ledger",
 ]

@@ -1,31 +1,32 @@
-"""Trainer — eager dispatch loop, with Chameleon off.
+"""Trainer — eager dispatch loop with the Chameleon runtime in-line.
 
-Port of ``repro/runtime/trainer.py`` for ``ChameleonConfig(enabled=False)``.
-Each iteration dispatches separate steps, as the paper's setting does: the
-grad step; the optimizer step only when the gradients are finite (a
-loss-scale overflow skips it and the iteration's operator sequence
-shortens); an eval step every ``eval_every`` iterations.
+Port of ``repro/runtime/trainer.py``.  Each iteration dispatches separate
+steps, as the paper's setting does: the grad step; the optimizer step only
+when the gradients are finite (a loss-scale overflow skips it and the
+iteration's operator sequence shortens); an eval step every
+``eval_every`` iterations.  With Chameleon on, ``ChameleonRuntime``
+(``core.runtime``) records every dispatch's op stream, runs Algo 1 at the
+end of each iteration, generates and selects policies, and the grad step
+runs under the applied policy through the executor (``core.executor``):
+``report.stages``, ``report.policystore`` and ``report.adapt`` are the
+reference's, and the ``runtime``, ``hostmem`` and ``memory`` metrics
+providers are registered.  With Chameleon off the trainer needs no
+runtime beyond its own steps: ``report.stages`` stays empty and
+``report.policystore`` / ``report.adapt`` stay None.
 
 Fault tolerance as in the reference: checkpoints on a cadence, written
-asynchronously in the reference's layout (``checkpointing.manager``); an
-emergency checkpoint when an iteration raises, recorded after the step is
-counted so ``resume()`` does not replay an applied update; ``resume()``
+asynchronously in the reference's layout (``checkpointing.manager``,
+through the host tier's checkpoint traffic class when Chameleon runs one);
+an emergency checkpoint when an iteration raises, recorded after the step
+is counted so ``resume()`` does not replay an applied update; ``resume()``
 from the latest step, sample-exact through the data cursor; straggler
 detection on the step wall times; ``faults.tick`` at the top of every
 iteration for armed fault plans; ``obs`` spans ``train_step``,
 ``apply_step`` and ``eval_step``.
-
-Chameleon's monitoring and planning (ROADMAP.md queue 1 item 4a: the
-op-stream recorder, the stage machine, the detailed profiler and policy
-generation) are in ``repro_torch.core`` and observe a step from outside
-(``chip_smoke.py`` phase ``chameleon``); running them inside the trainer,
-with policy execution, comes with item 4b.
-``ChameleonConfig(enabled=True)`` raises until then, and with Chameleon off
-the trainer needs no runtime beyond its own steps, so ``report.stages``
-stays empty and ``report.policystore`` / ``report.adapt`` stay None.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Union
@@ -37,6 +38,7 @@ from repro_torch import faults, obs
 from repro_torch.checkpointing.manager import CheckpointManager
 from repro_torch.common.config import ChameleonConfig, ModelConfig, TrainConfig
 from repro_torch.common.device import resolve_device
+from repro_torch.core.runtime import ChameleonRuntime
 from repro_torch.data.synthetic import SyntheticTokens
 from repro_torch.distributed import steps as S
 from repro_torch.models import convert
@@ -51,16 +53,20 @@ from repro_torch.runtime.straggler import StragglerDetector
 class TrainReport:
     losses: List[float] = field(default_factory=list)
     times: List[float] = field(default_factory=list)
-    # critical-path latency per step; with Chameleon off there is no
-    # end-of-iteration bookkeeping, so it equals ``times``
+    # full critical-path latency per step: ``times`` plus the
+    # ``end_iteration`` bookkeeping/adaptation that runs before the next
+    # dispatch (equal to ``times`` with Chameleon off)
     wall_times: List[float] = field(default_factory=list)
     skipped_steps: List[int] = field(default_factory=list)
     eval_losses: Dict[int, float] = field(default_factory=dict)
-    # Chameleon's stage per step: empty until the stage machine is ported
+    # Chameleon's stage per step (empty with Chameleon off)
     stages: List[str] = field(default_factory=list)
     checkpoints: List[str] = field(default_factory=list)
     failures: List[str] = field(default_factory=list)
+    # repro_torch.policystore: per-tier hit counters + adaptation
+    # latencies (None when the runtime has no store attached)
     policystore: Optional[dict] = None
+    # repro_torch.adapt: service counters
     adapt: Optional[dict] = None
 
     @property
@@ -79,16 +85,12 @@ class Trainer:
                  device: Union[str, torch.device, None] = None):
         self.cfg, self.tcfg = cfg, tcfg
         self.cham = cham or ChameleonConfig(enabled=False)
-        if self.cham.enabled:
-            raise NotImplementedError(
-                "Chameleon does not run in the trainer yet: its execution "
-                "and runtime come with ROADMAP.md queue 1 item 4b (item 4a, "
-                "monitoring and planning, is in repro_torch.core); pass "
-                "ChameleonConfig(enabled=False)")
-        if adapt_mode is not None:
-            raise NotImplementedError(
-                "adapt_mode places Chameleon's adaptation, which comes with "
-                "ROADMAP.md queue 1 items 4b and 8")
+        if adapt_mode is not None and adapt_mode != self.cham.adapt.mode:
+            # placement override (--adapt-mode); the port adapts inline and
+            # the runtime's service raises for the background placements
+            self.cham = dataclasses.replace(
+                self.cham,
+                adapt=dataclasses.replace(self.cham.adapt, mode=adapt_mode))
         if mesh is not None:
             raise NotImplementedError(
                 "meshes and sharded training come with ROADMAP.md queue 1 "
@@ -106,18 +108,34 @@ class Trainer:
         self.step = 0
         self.straggler = StragglerDetector(on_straggler=self._on_straggler)
         self.report = TrainReport()
-        # a lost async checkpoint write degrades (one fewer restore point,
-        # audited) instead of killing the train loop, as in the reference
-        self.ckpt = CheckpointManager(
-            tcfg.checkpoint_dir, keep=tcfg.keep_checkpoints,
-            on_error="degrade" if self.cham.resilience.enabled else "raise")
         self._grad = S.make_grad_step(cfg, tcfg)
         self._apply = S.make_apply_step(cfg, tcfg)
         self._eval = S.make_eval_step(cfg)
+        self.rt: Optional[ChameleonRuntime] = None
+        if self.cham.enabled:
+            self.rt = ChameleonRuntime(
+                self.cham, lambda policy: S.make_grad_step(cfg, tcfg, policy),
+                device=self.device)
+            # every dispatch of the iteration runs under the recorder
+            self._apply = self.rt.recorded(self._apply)
+            self._eval = self.rt.recorded(self._eval)
+        hostmem = self.rt.hostmem if self.rt is not None else None
+        # checkpoint drains share the host link with policy swaps: route
+        # them through the engine's lowest-priority checkpoint stream.  A
+        # lost async checkpoint write degrades (one fewer restore point,
+        # audited) instead of killing the train loop, as in the reference
+        self.ckpt = CheckpointManager(
+            tcfg.checkpoint_dir, keep=tcfg.keep_checkpoints,
+            engine=hostmem.engine if hostmem is not None else None,
+            on_error="degrade" if self.cham.resilience.enabled else "raise")
+        self._prepared = False
         self.metrics_out = metrics_out
         self.metrics_every = max(1, int(metrics_every))
         reg = obs.metrics()
+        if hostmem is not None:
+            reg.register_provider("hostmem", hostmem.stats)
         reg.register_provider("runtime", self._runtime_provider)
+        # via a lambda: set_ledger may swap the default between snapshots
         reg.register_provider("memory", lambda: obs.ledger().stats())
 
     def _on_straggler(self, ev) -> None:
@@ -128,8 +146,17 @@ class Trainer:
         obs.metrics().counter("straggler_flagged")
 
     def _runtime_provider(self) -> dict:
-        return {"step": self.step, "chameleon": False,
-                "skipped_steps": len(self.report.skipped_steps)}
+        if self.rt is None:
+            return {"step": self.step, "chameleon": False,
+                    "skipped_steps": len(self.report.skipped_steps)}
+        return {
+            "step": self.step,
+            "stage": self.rt.machine.stage.value,
+            "profiling_overhead_s": self.rt.profiling_overhead_s,
+            "adaptation_overhead_s": self.rt.adaptation_overhead_s,
+            "adaptations": len(self.rt.adaptations),
+            "adapt": self.rt.service.stats(),
+        }
 
     # ------------------------------------------------------------- utils
     def _device_batch(self, batch: Dict[str, np.ndarray]):
@@ -183,6 +210,9 @@ class Trainer:
               ) -> TrainReport:
         steps = steps if steps is not None else self.tcfg.steps
         batch = self._device_batch(self.data.get())
+        if self.rt is not None and not self._prepared:
+            self.rt.prepare((self.model, batch, self.loss_scale.scale))
+            self._prepared = True
         end = self.step + steps
         while self.step < end:
             try:
@@ -194,22 +224,32 @@ class Trainer:
                 self._checkpoint(block=True)   # emergency checkpoint
                 raise
         self.ckpt.wait()
+        if self.rt is not None:
+            self.report.policystore = self.rt.policystore_stats()
+            self.report.adapt = self.rt.service.stats()
         return self.report
 
     def _one_step(self, batch, fault_hook=None):
         faults.tick(self.step)   # armed fault plans key off the iteration
+        rt = self.rt
         t0 = time.perf_counter()
+        fn = rt.step_fn() if rt is not None else self._grad
+        args = (self.model, batch, self.loss_scale.scale)
         with obs.tracer().span(obs.LANE_COMPUTE, "train_step",
                                arg=self.step):
-            loss, grads, finite = self._grad(self.model, batch,
-                                             self.loss_scale.scale)
+            loss, grads, finite = fn(*args)
             finite_h = bool(finite)          # waits for the device
+        if rt is not None:
+            rt.record_dispatch("train", fn, args)
         if finite_h:
             with obs.tracer().span(obs.LANE_COMPUTE, "apply_step",
                                    arg=self.step):
                 self.model, self.opt_state, _m = self._apply(
                     self.model, self.opt_state, grads)
                 self._sync()
+            if rt is not None:
+                rt.record_dispatch("apply", self._apply,
+                                   (self.model, self.opt_state, grads))
         else:
             self.report.skipped_steps.append(self.step)
         del grads
@@ -222,13 +262,21 @@ class Trainer:
             with obs.tracer().span(obs.LANE_COMPUTE, "eval_step",
                                    arg=self.step):
                 el = float(self._eval(self.model, ebatch))
+            if rt is not None:
+                rt.record_dispatch("eval", self._eval, (self.model, ebatch))
             self.report.eval_losses[self.step] = el
 
         dt = time.perf_counter() - t0
-        self.straggler.observe(self.step, dt)
+        if rt is not None:
+            self.report.stages.append(rt.end_iteration(dt).value)
+        # flag on the full critical-path latency (compute + end_iteration
+        # bookkeeping): a degraded host link or a drift stall shows up in
+        # the wall time even when the step itself is healthy
+        wall = time.perf_counter() - t0
+        self.straggler.observe(self.step, wall)
         self.report.losses.append(float(loss))
         self.report.times.append(dt)
-        self.report.wall_times.append(dt)
+        self.report.wall_times.append(wall)
         self.step += 1
         # step is incremented BEFORE any failure can be raised for this
         # iteration: the emergency checkpoint then records post-step state

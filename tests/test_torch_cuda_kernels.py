@@ -527,3 +527,99 @@ def test_recorder_sees_k1_and_backward_ops_on_the_card(card):
     assert min(mm) < peak < max(mm)
     assert {(t.site, t.layer) for t in prof.candidates
             if t.site == "ffn_pre"} == {("ffn_pre", i) for i in range(L)}
+
+
+def _exec_step(card, bf16=False):
+    """Reduced llama2-paper on the card (flash attention: K1 both ways), one
+    batch from a numpy seed, the baseline grad step and its profile."""
+    import repro_torch.configs as PC
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.core.profiler import profile_step
+    from repro_torch.distributed import steps as S
+    from repro_torch.models import transformer as PT
+
+    cfg = PC.get_reduced("llama2_paper").replace(attn_impl="flash")
+    model = PT.init_model(cfg, seed=0, device=card)
+    rng = np.random.RandomState(0)
+    tok = torch.as_tensor(rng.randint(0, cfg.vocab_size, (2, 64)),
+                          device=card)
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+    grad = S.make_grad_step(cfg, TrainConfig())
+    loss, grads, _ = grad(model, batch, 1.0)
+    prof = profile_step(lambda: grad(model, batch, 1.0), device=card)
+    return cfg, model, batch, loss, grads, prof
+
+
+@pytest.mark.cuda
+def test_conservative_grad_step_on_the_card(card):
+    """One reduced grad step on the card under ``conservative()`` (every
+    site offloaded through the CUDA engine): loss and gradients bit-equal
+    to the baseline's, D2H bytes equal to H2D bytes > 0, every H2D issued
+    at its planned op (no on-demand fetch), no forced retire; and a
+    recorder over the step counts the baseline's tokens."""
+    from repro_torch.common.config import ChameleonConfig, TrainConfig
+    from repro_torch.core.executor import Executor
+    from repro_torch.core.tokenizer import OpStreamRecorder
+    from repro_torch.distributed import steps as S
+    from repro_torch.hostmem import HostMemTier
+
+    cfg, model, batch, loss0, grads0, prof = _exec_step(card)
+    tier = HostMemTier(device=card)
+    x = Executor(ChameleonConfig())
+    ex = x.execution(x.conservative(prof), tier.engine, prof)
+    grad = S.make_grad_step(cfg, TrainConfig(), ex)
+    rec = OpStreamRecorder()
+    with rec.iteration() as it:
+        loss, grads, _ = grad(model, batch, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(loss, loss0)
+    for k in grads0:
+        assert torch.equal(grads[k], grads0[k]), k
+    c = tier.engine.by_class["policy_swap"]
+    assert c.bytes_out == c.bytes_in == ex.last["staged_bytes"] > 0
+    assert ex.last["on_demand"] == 0 and ex.last["forced_retires"] == 0
+    assert ex.last["prefetched"] == ex.last["staged"]
+    np.testing.assert_array_equal(it.stream.tokens, prof.op_tokens)
+    assert tier.pool.bytes_in_use == 0
+
+
+@pytest.mark.cuda
+def test_recorder_counts_the_same_tokens_under_the_executor(card):
+    """A recorder over the card's grad step, with and without the executor
+    (a lowered policy with remat): the same tokens, op for op."""
+    from repro_torch.common.config import ChameleonConfig, TrainConfig
+    from repro_torch.core.executor import Executor
+    from repro_torch.core.memtrace import build_timeline
+    from repro_torch.core.policy import ChameleonOOMError, generate_policy
+    from repro_torch.core.tokenizer import OpStreamRecorder
+    from repro_torch.distributed import steps as S
+    from repro_torch.hostmem import HostMemTier
+
+    cfg, model, batch, loss0, grads0, prof = _exec_step(card)
+    tl = build_timeline(prof)
+    pcfg = ChameleonConfig(groups_per_phase=cfg.num_layers)
+    pol = None
+    for frac in (0.9, 0.95, 0.98):       # the first budget a policy meets
+        try:
+            pol = generate_policy(prof, pcfg, int(
+                prof.static_bytes + frac * (tl.peak - prof.static_bytes)),
+                timeline=tl)
+            break
+        except ChameleonOOMError:
+            continue
+    assert pol is not None and pol.entries
+    x = Executor(pcfg)
+    ap = x.lower(pol, prof)
+    tier = HostMemTier(device=card)
+    x.bind_release_points(ap, tier.engine)
+    streams = []
+    for ex in (None, x.execution(ap, tier.engine, prof)):
+        rec = OpStreamRecorder()
+        with rec.iteration() as it:
+            loss, grads, _ = S.make_grad_step(cfg, TrainConfig(), ex)(
+                model, batch, 1.0)
+        streams.append(it.stream.tokens)
+        assert torch.equal(loss, loss0)
+        assert all(torch.equal(grads[k], grads0[k]) for k in grads0)
+    np.testing.assert_array_equal(streams[0], streams[1])
+    assert ex.last["recomputed"] == cfg.num_layers

@@ -237,7 +237,12 @@ def test_port_imports_neither_jax_nor_reference():
         "need = ['optim.adamw', 'optim.loss_scale', 'optim.schedules',\n"
         "        'data.synthetic', 'distributed.steps',\n"
         "        'checkpointing.manager', 'runtime.trainer',\n"
-        "        'runtime.straggler', 'launch.train', 'launch.serve']\n"
+        "        'runtime.straggler', 'launch.train', 'launch.serve',\n"
+        "        'core.executor', 'core.runtime', 'obs.overlap',\n"
+        "        'faults.ladder', 'policystore.fingerprint',\n"
+        "        'policystore.lshindex', 'policystore.store',\n"
+        "        'policystore.drift', 'adapt.snapshot', 'adapt.pipeline',\n"
+        "        'adapt.service']\n"
         "bad += ['missing ' + n for n in need\n"
         "        if 'repro_torch.' + n not in sys.modules]\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]), bad)\n")

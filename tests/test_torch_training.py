@@ -329,19 +329,38 @@ def test_train_cli_on_cpu(tmpdir, impl):
 
 
 def test_chameleon_and_later_slices_raise(tmpdir):
+    """Chameleon runs in the trainer and in the CLI (``--budget-gib``,
+    ``--stats-json``); the flags of later slices still raise, naming them."""
+    import json
     from repro_torch.launch import train
     cfg = PC.get_reduced("llama2_paper")
-    with pytest.raises(NotImplementedError, match="item 4a"):
-        Trainer(cfg, _tcfg(TrainConfig, tmpdir), ChameleonConfig(enabled=True),
-                device="cpu")
-    with pytest.raises(NotImplementedError, match="items 4a and 4b"):
-        train.main(["--reduced", "--device", "cpu", "--steps", "1"])
+    tr = Trainer(cfg, _tcfg(TrainConfig, tmpdir),
+                 ChameleonConfig(enabled=True),
+                 data=SyntheticTokens(cfg.vocab_size, 32, 2, seed=0),
+                 device="cpu")
+    rep = tr.train(3)
+    assert len(rep.losses) == 3 and np.isfinite(rep.losses).all()
+    assert rep.stages == ["WarmUp"] * 3 and rep.policystore is not None
+    path = os.path.join(tmpdir, "stats.json")
+    stats = train.main(["--reduced", "--device", "cpu", "--steps", "3",
+                        "--seq", "32", "--global-batch", "2",
+                        "--budget-gib", "0.004", "--stats-json", path,
+                        "--ckpt-dir", tmpdir])
+    assert stats["steps"] == 3 and len(stats["stages"]) == 3
+    assert stats["applied"] != "baseline-save-sites"    # 4 MiB needs swaps
+    with open(path) as f:
+        snap = json.load(f)
+    assert snap["runtime"]["stage"] == "WarmUp"
+    assert snap["runtime"]["hostmem"]["engine"]["bytes_out"] > 0
     with pytest.raises(NotImplementedError, match="item 11"):
         train.main(["--reduced", "--device", "cpu", "--no-chameleon",
                     "--mesh", "single"])
     with pytest.raises(NotImplementedError, match="item 8"):
         train.main(["--reduced", "--device", "cpu", "--no-chameleon",
                     "--policy-store-dir", tmpdir])
+    with pytest.raises(NotImplementedError, match="item 8"):
+        train.main(["--reduced", "--device", "cpu", "--adapt-mode",
+                    "async"])
 
 
 def test_entry_points_refuse_cpu_fallback(tmpdir, monkeypatch):
