@@ -2,6 +2,8 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, one card, a few minutes
+    python3 chip_smoke.py --zoo-grads 6   # the train phases' gradient
+                                          # check on 6 seeds, ungated
 
 Phases, each printing JSON lines:
 
@@ -53,6 +55,22 @@ Phases, each printing JSON lines:
               plain version, with the tensor-core bound (``ssd_bound``),
               the f32-FMA bound (``bound_f32_ms``) and the device kernels
               one call launches (``passes``, torch.profiler).
+6b. ssd_bwd_kernel  K4's backward (``ssd_scan_bwd``) against its plain
+              version (``ssd_scan_bwd_plain``, f32 on the same inputs) at
+              mamba2-780m's and zamba2-1.2b's train shapes (2 x 2048, bf16),
+              a ragged length, one chunk, and f32 cases (SSD_BWD_CASES,
+              SSD_BWD_TOL); every case launched twice and the two results
+              bit-equal; the forward that saved the states (the saved
+              layout a train step launches) held to its plain version on
+              the same inputs (SSD_TOL); the train shapes timed warm and
+              cold beside the
+              plain version and the bound (``ssd_bwd_bound``), with each
+              pass's device time.
+6c. kernel_d64  K1's forward and backward and K3 at head dim 64 against
+              their plain versions (K1's limits): granite-moe's prefill
+              shapes, the zoo's train shapes (32 x 32 and 16 over 8 heads,
+              timed, both dtypes) and granite's decode shape (timed warm
+              and cold).
 7. serve      ``repro_torch.launch.serve.main`` on full-width llama2-paper
               (bf16, random weights from a seed) with ``--attn-impl flash``:
               8 requests, 4 slots, prompts of 65..900 tokens, 32 new tokens
@@ -86,6 +104,9 @@ Phases, each printing JSON lines:
 14. ssm_crosscheck  mamba2-780m prefill logits of a 64-token prompt against
               token-by-token decode, in f32 and in bf16 (limits below), and
               a profile of its serving loop.
+14b. serve_moe ``serve.main`` on full-width granite-moe-1b-a400m (flash),
+              the serve phase's traffic; K1 launches = prefills x 24, K3 =
+              ticks x 24.
 15. train     ``Trainer`` on full-width llama2-paper cut to 8 layers (bf16,
               AdamW with f32 master, flash attention, Chameleon off), 2 x
               2048 synthetic tokens, 6 steps: finite losses that fall, K1's
@@ -133,6 +154,18 @@ Phases, each printing JSON lines:
               against the baseline policy (both through the runtime, in
               turns, timed too).
 
+19-21. train_ssm, train_hybrid, train_moe  ``Trainer`` at full width and
+              full depth on mamba2-780m (48 layers), zamba2-1.2b (38, the
+              shared attention block 6 times) and granite-moe-1b-a400m (24),
+              2 x 2048 tokens, bf16, ZOO_STEPS steps: finite losses, K1's
+              and K4's launches each way = steps x the step's attention
+              applications / ssm layers; step ms, tokens/s, peak memory; a
+              profile of 2 more steps; then the kernel path's gradients at
+              full width and 2 layers against the plain path's (f32, the
+              plain SSD scan, chunked attention; moe routes replayed), on
+              ZOO_GRAD_SEEDS, beside a bf16 control through the plain
+              versions (ZOO_LOSS_TOL, ZOO_GRAD_TOL).
+
 Any failure raises, so the exit code is non-zero and no result line is
 printed.  The last lines are the kernels summary, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -143,9 +176,11 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -355,6 +390,69 @@ DECODE_COLD_LAYERS = 32
 SSD_LENS = (77, 384, 901)
 SSD_TOL = {"float32": (2e-3, 1e-4), "bfloat16": (2e-2, 1e-2)}
 SSD_STATE_TOL = (2e-3, 1e-4)
+# K4's backward (``ssd_scan_bwd``) against ``ssd_scan_bwd_plain`` (f32 on
+# the same inputs): (arch, B, S, H, P, N, chunk, dtype, timed).  The train
+# phases' shapes, 2 x 2048 tokens of mamba2-780m (48 heads, N 128) and of
+# zamba2-1.2b (64 heads, N 64), timed; mamba2's widths at a ragged length
+# (the last chunk 232 of 256 tokens) and with one chunk; and f32 cases,
+# ragged, with a chunk that is not a multiple of the kernel's 64-token
+# tiles.  Each of dx, ddt, dA, dB and dC is held to (relative Frobenius,
+# max |err| / max |ref|).  bf16: dx, dB and dC are rounded to bf16 (2^-9
+# relative), and the running sums of dt * A (|cs| up to ~6e3 over a chunk
+# at A = -(1..H)) are summed in another order by the plain version on the
+# card than by the forward kernel, which moves exp(cs_i - cs_j) by ~1e-4
+# relative where it matters; dcs cancels (row sums of dM o M minus column
+# sums) before its running sum, so ddt and dA carry more of it.  So 1e-2
+# and 2^-5, K1 backward's bf16 limits.  f32: the same inputs, the same
+# cs order question and summation order only: 1e-3 and 2^-8.
+SSD_BWD_CASES = [
+    ("mamba2-780m", 2, 2048, 48, 64, 128, 256, "bfloat16", True),
+    ("zamba2-1.2b", 2, 2048, 64, 64, 64, 256, "bfloat16", True),
+    ("mamba2-780m", 2, 1000, 48, 64, 128, 256, "bfloat16", False),
+    ("mamba2-780m", 1, 200, 48, 64, 128, 256, "bfloat16", False),
+    ("mamba2-780m", 1, 300, 8, 64, 128, 256, "float32", False),
+    ("reduced", 2, 77, 4, 16, 16, 32, "float32", False),
+    ("reduced", 1, 130, 3, 40, 8, 100, "float32", False),
+]
+SSD_BWD_TOL = {"bfloat16": (1e-2, 2.0 ** -5), "float32": (1e-3, 2.0 ** -8)}
+SSD_BWD_COLD_LAYERS = 8
+# The decoder zoo's train phases: phase -> arch, each at full width and full
+# depth (AdamW state at 16 B a parameter: 12.5, 18.7 and 21.4 GB), Trainer
+# with Chameleon off, TRAIN_BATCH x TRAIN_SEQ synthetic tokens, bf16, flash
+# attention, ZOO_STEPS steps (the first pays the kernels' first launches
+# and is left out of the p50).  Each checks finite losses and the launch
+# counts of K1 (forward, backward) and K4 (forward, backward) against
+# steps x (attention applications, ssm layers) of one step, then holds the
+# kernel path's gradients against the plain path's (``zoo_grad_check``):
+# the same module at full width cut to ZOO_GRAD_LAYERS layers (zamba2's
+# shared block after each, so both applications share it), for each seed
+# of ZOO_GRAD_SEEDS (weights and batch), bf16 through the kernels against
+# f32 through the plain versions (``ssd_scan_plain`` swapped in for
+# ``ssd_scan``, chunked attention for flash).  A control runs the bf16
+# weights through the plain versions: its distance from f32 is what bf16
+# rounding alone does to each gradient.  The moe family's plain sides
+# route every token to the experts the kernel side chose (``RouteReplay``):
+# top-k routing is discontinuous, and without it bf16's rounding sends some
+# tokens to other experts than f32 does (a 9% median per gradient on the
+# card), which says nothing of the kernels.  Both losses within
+# ZOO_LOSS_TOL and every gradient of the kernel side within ZOO_GRAD_TOL
+# relative Frobenius on every seed.  ZOO_GRAD_TOL is set from the readings
+# of ``python3 chip_smoke.py --zoo-grads 6`` (six seeds a family, kernel
+# and control; PERF.md): twice the largest of either (0.039, A_log of a
+# mamba2 layer, the kernel's and the control's alike; the gated seeds read
+# 0.025 at most), which a kernel fault (that moves a gradient by its own
+# size) still exceeds by an order of magnitude.
+ZOO_TRAIN = {"train_ssm": "mamba2-780m", "train_hybrid": "zamba2-1.2b",
+             "train_moe": "granite-moe-1b-a400m"}
+ZOO_STEPS = 4
+ZOO_GRAD_LAYERS = 2
+ZOO_GRAD_SEEDS = (1, 2, 3)
+ZOO_LOSS_TOL = 5e-2
+ZOO_GRAD_TOL = 8e-2
+MOE_SERVE_ARGS = ["--arch", "granite-moe-1b-a400m", "--attn-impl", "flash",
+                  "--requests", "8", "--max-batch", "4", "--max-len", "1024",
+                  "--min-prompt-len", "65", "--max-prompt-len", "900",
+                  "--new-tokens", "32"]
 SSM_SERVE_ARGS = ["--arch", "mamba2-780m", "--requests", "8",
                   "--max-batch", "4", "--max-len", "1024",
                   "--min-prompt-len", "65", "--max-prompt-len", "900",
@@ -1086,6 +1184,28 @@ def device_kernel_counts(fn) -> dict:
             if e.device_type == DeviceType.CUDA}
 
 
+def device_kernel_ms(fn, key: str, calls: int = 5) -> dict:
+    """Device ms per call of each kernel whose name contains ``key`` over
+    ``calls`` calls of ``fn`` (torch.profiler), by the kernel's name up to
+    its template arguments."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and key in e.key:
+            name = re.search(rf"\w*{key}\w*", e.key).group(0)
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / calls
+    return out
+
+
 def device_kernels(fn, key: str) -> int:
     """Device kernels whose name contains ``key`` that one call of ``fn``
     launches (torch.profiler)."""
@@ -1141,6 +1261,178 @@ def phase_ssd_kernel(device, cfg):
         if not row["ok"]:
             raise AssertionError(f"ssd_scan disagrees with its plain "
                                  f"version: {row}")
+    return timed
+
+
+def ssd_bwd_bytes(B, S, H, P, N, chunk, esize):
+    """Bytes K4's backward must move: x, dy, Bm, Cm, dt, A and the forward's
+    saved incoming states, CB and cs read once, dx, ddt, dA, dB and dC
+    written once."""
+    nc = -(-S // chunk)
+    saved = 4 * (B * nc * H * P * N + B * nc * chunk * chunk
+                 + B * nc * H * chunk)
+    return (3 * B * S * H * P * esize + 4 * B * S * N * esize
+            + 2 * 4 * B * S * H + 2 * 4 * H + saved)
+
+
+def ssd_bwd_macs(B, S, H, P, N, chunk):
+    """Multiply-adds of the chunked SSD backward, as (bf16 x bf16 products,
+    products with one f32 operand, f32 element operations): per head dM =
+    dy x^T over the causal pairs (both operands exact in bf16), and M^T dy,
+    D B^T, exp(cs) dy C^T (Q), S_0 C^T and S_0^T dy (chunks after the first)
+    and D^T x w (f32 on one side); per chunk dG B and dG^T C; per head and
+    pair the exp of L and about eight multiplies of M, dM o L o dt and
+    their sums."""
+    exact = f32_side = elem = 0
+    for c0 in range(0, S, chunk):
+        c = min(chunk, S - c0)
+        pairs = c * (c + 1) // 2
+        inter = c * P * N if c0 else 0
+        exact += B * H * pairs * P
+        f32_side += B * (2 * pairs * N
+                         + H * (pairs * P + 3 * c * P * N + 2 * inter))
+        elem += B * H * (9 * pairs + 8 * c)
+    return exact, f32_side, elem
+
+
+def ssd_bwd_bound(B, S, H, P, N, chunk, esize):
+    """Least time for K4's backward on these inputs: the bytes over HBM
+    bandwidth against the larger of the tensor-core work at the dense bf16
+    peak (a product with an f32 operand twice, that operand split into two
+    bf16 halves, as the forward's bound counts it) and the element
+    operations at the f32 peak.  Returns (ms, "bytes" or "operations",
+    f32_ms): f32_ms counts every multiply-add as an f32 FMA at the f32 peak,
+    the bound of a kernel that runs its products off the tensor cores."""
+    exact, f32_side, elem = ssd_bwd_macs(B, S, H, P, N, chunk)
+    t_bytes = ssd_bwd_bytes(B, S, H, P, N, chunk, esize) / H100_HBM_BYTES_S
+    t_ops = max(2 * (exact + 2 * f32_side) / H100_BF16_FLOPS,
+                elem / H100_F32_FLOPS)
+    f32 = max(t_bytes, (2 * (exact + f32_side) + elem) / H100_F32_FLOPS)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", f32 * 1e3)
+
+
+def ssd_bwd_check(got, want, dname) -> dict:
+    """K4 backward's dx, ddt, dA, dB and dC against its plain version (f32
+    on the same inputs): finite, and each inside SSD_BWD_TOL[dname]."""
+    import torch
+    fro_tol, max_tol = SSD_BWD_TOL[dname]
+    row, ok = {}, True
+    for key, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        g, w = g.float(), w.float()
+        diff = (g - w).abs()
+        scale = float(w.abs().max())
+        row[f"{key}_max_abs_err"] = float(diff.max())
+        row[f"{key}_max_abs_ref"] = scale
+        row[f"{key}_rel_fro"] = float(diff.norm() / w.norm())
+        ok = (ok and bool(torch.isfinite(g).all())
+              and row[f"{key}_rel_fro"] <= fro_tol
+              and row[f"{key}_max_abs_err"] <= max_tol * scale)
+    row["ok"] = ok
+    return row
+
+
+def ssd_bwd_cold_ms(ins, dy, dst, chunk, layers) -> float:
+    """Cold-L2 device time per launch of K4's backward: one CUDA graph
+    launches it once per layer over ``layers`` copies of the inputs and
+    saved states, as a train step's backward does."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as SSD
+    sets = []
+    for _ in range(layers):
+        x, dt, A, Bm, Cm = (t.clone() for t in ins)
+        sets.append((x, dt, A, Bm, Cm, dy.clone(), dst.clone(),
+                     SSD.ssd_scan_saved(x, dt, A, Bm, Cm, chunk=chunk)[2]))
+    ms = graph_ms(lambda: [SSD.ssd_scan_bwd(*z[:7], saved=z[7], chunk=chunk)
+                           for z in sets], iters=1, reps=5) / layers
+    del sets
+    torch.cuda.empty_cache()
+    return ms
+
+
+def ssd_bwd_rows(device, cases):
+    """K4's backward against ``ssd_scan_bwd_plain`` (f32 on the same
+    inputs) on every case of ``cases`` (SSD_BWD_CASES' layout): x, Bm, Cm
+    as for K4's forward (views into one tensor), dy and the final state's
+    cotangent unit normals; each case launched twice on the same saved
+    states, and ``bit_equal`` says whether the two agree.  The forward
+    that saved them (``ssd_scan_saved``, as a train step launches it) is
+    held to ``ssd_scan_plain`` on the same inputs (``ssd_check``).  No
+    timing; yields (backward row, forward row, inputs of the timed cases
+    or None)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as SSD
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    for arch, B, S, H, P, N, chunk, dname, is_timed in cases:
+        dtype = getattr(torch, dname)
+        ins = ssd_inputs(gen, B, S, H, P, N, dtype, device)
+        dy = torch.randn(B, S, H, P, generator=gen, device=device).to(dtype)
+        dst = torch.randn(B, H, P, N, generator=gen, device=device)
+        y, st, saved = SSD.ssd_scan_saved(*ins, chunk=chunk)
+        torch.cuda.synchronize()
+        yr, sr = SSD.ssd_scan_plain(*ins, chunk=chunk)
+        fwd = {"arch": arch, "shape": [B, S, H, P, N], "chunk": chunk,
+               "dtype": dname, "layout": "saved",
+               **ssd_check(y, yr, st, sr, dname)}
+        del y, st, yr, sr
+        got = SSD.ssd_scan_bwd(*ins, dy, dst, saved=saved, chunk=chunk)
+        again = SSD.ssd_scan_bwd(*ins, dy, dst, saved=saved, chunk=chunk)
+        torch.cuda.synchronize()
+        want = SSD.ssd_scan_bwd_plain(*(t.float() for t in ins), dy.float(),
+                                      dst, chunk=chunk)
+        row = {"arch": arch, "shape": [B, S, H, P, N], "chunk": chunk,
+               "dtype": dname, **ssd_bwd_check(got, want, dname),
+               "bit_equal": all(torch.equal(a, b) for a, b in zip(got, again)),
+               "tol": SSD_BWD_TOL[dname]}
+        del got, again, want
+        yield row, fwd, ((ins, dy, dst, saved) if is_timed else None)
+        torch.cuda.empty_cache()
+
+
+def phase_ssd_bwd_kernel(device, cases):
+    """K4's backward on every case of ``ssd_bwd_rows``; each must be inside
+    SSD_BWD_TOL and bit-equal over its two launches, and the forward that
+    saved its states inside SSD_TOL and SSD_STATE_TOL.  The timed cases (the
+    train phases' shapes) also give the device time warm (CUDA graph, one
+    input replayed) and cold (SSD_BWD_COLD_LAYERS layers' own inputs),
+    each pass's device time, the plain version's time, and the bound.
+    Returns the timed rows, each with its forward row under ``fwd``."""
+    from repro_torch.kernels.ssd_scan import ops as SSD
+
+    timed = []
+    for row, fwd, inputs in ssd_bwd_rows(device, cases):
+        emit("ssd_kernel", name="ssd_scan_fwd", **fwd)
+        if not fwd["ok"]:
+            raise AssertionError(f"ssd_scan (saved layout) disagrees with "
+                                 f"its plain version: {fwd}")
+        if inputs is not None:
+            ins, dy, dst, saved = inputs
+            B, S, H, P, N = row["shape"]
+            chunk = row["chunk"]
+            row["ms"] = graph_ms(lambda: SSD.ssd_scan_bwd(
+                *ins, dy, dst, saved=saved, chunk=chunk), iters=5)
+            row["cold_ms"] = ssd_bwd_cold_ms(ins, dy, dst, chunk,
+                                             SSD_BWD_COLD_LAYERS)
+            row["cold_layers"] = SSD_BWD_COLD_LAYERS
+            row["plain_ms"] = graph_ms(lambda: SSD.ssd_scan_bwd_plain(
+                *ins, dy, dst, chunk=chunk), iters=1, reps=3)
+            (row["bound_ms"], row["bound_by"],
+             row["bound_f32_ms"]) = ssd_bwd_bound(B, S, H, P, N, chunk,
+                                                  ins[0].dtype.itemsize)
+            row["pass_ms"] = device_kernel_ms(lambda: SSD.ssd_scan_bwd(
+                *ins, dy, dst, saved=saved, chunk=chunk), "ssd_bwd")
+            row["passes"] = len(row["pass_ms"])
+            row["library_ms"] = None
+            row["library"] = ("none: no single PyTorch call computes the "
+                              "SSD backward")
+            row["fwd"] = fwd
+            timed.append(row)
+            del inputs, ins, dy, dst, saved
+        emit("ssd_bwd_kernel", name="ssd_scan_bwd", **row)
+        if not (row["ok"] and row["bit_equal"]):
+            raise AssertionError(f"ssd_scan_bwd disagrees with its plain "
+                                 f"version or with itself: {row}")
     return timed
 
 
@@ -1544,7 +1836,7 @@ def phase_train(device):
     return fwd, bwd
 
 
-def train_profile(tr, n_steps: int = 2):
+def train_profile(tr, n_steps: int = 2, phase: str = "train_profile"):
     """torch.profiler over ``n_steps`` more train steps: device busy time
     (sum of CUDA kernel times, one stream), idle share 1 - busy / wall, and
     K1's forward and backward device time and share of busy time."""
@@ -1569,6 +1861,10 @@ def train_profile(tr, n_steps: int = 2):
     bwd = sum(ms for k, ms, _ in kern if "bwd_dkdv" in k or "bwd_dq" in k
               or "bwd_delta" in k)
     bwd_calls = sum(n for k, _, n in kern if "bwd_dkdv" in k)
+    # K4's forward passes (ssd_scan_chunk / _state / _output, or the f32
+    # ssd_scan_f32) and its backward's (ssd_bwd_*)
+    ssd_fwd = sum(ms for k, ms, _ in kern if "ssd_scan_" in k)
+    ssd_bwd = sum(ms for k, ms, _ in kern if "ssd_bwd_" in k)
     # device time by kind: cuBLAS products (nvjet / gemm kernels), PyTorch's
     # elementwise and reduction kernels, and the rest
     kinds = {"gemm": ("nvjet", "gemm", "cutlass", "xmma"),
@@ -1576,11 +1872,12 @@ def train_profile(tr, n_steps: int = 2):
     by_kind = {name: sum(ms for k, ms, _ in kern
                          if any(w in k.lower() for w in words))
                for name, words in kinds.items()}
-    by_kind["other"] = busy - fwd - bwd - sum(by_kind.values())
-    emit("train_profile", steps=n_steps, wall_ms=wall, device_busy_ms=busy,
+    by_kind["other"] = (busy - fwd - bwd - ssd_fwd - ssd_bwd
+                        - sum(by_kind.values()))
+    emit(phase, steps=n_steps, wall_ms=wall, device_busy_ms=busy,
          idle_share=1 - busy / wall if wall else None,
          k1_fwd_ms=fwd, k1_bwd_ms=bwd, k1_bwd_calls=bwd_calls,
-         by_kind_ms=by_kind,
+         k4_fwd_ms=ssd_fwd, k4_bwd_ms=ssd_bwd, by_kind_ms=by_kind,
          k1_fwd_share=fwd / busy if busy else None,
          k1_bwd_share=bwd / busy if busy else None,
          kernel_launches=sum(n for _, _, n in kern),
@@ -1615,6 +1912,310 @@ def train_crosscheck(tr):
     torch.cuda.empty_cache()
     if not row["ok"]:
         raise AssertionError(f"flash and chunked training disagree: {row}")
+
+
+def zoo_counts():
+    """The kernel launch counters of K1 (forward, backward) and K4
+    (forward, backward), as a dict."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.ssd_scan import ops as SSD
+    return {"k1_fwd": ops.flash_attention.launches,
+            "k1_bwd": ops.flash_attention_bwd.launches,
+            "k4_fwd": SSD.ssd_scan.launches,
+            "k4_bwd": SSD.ssd_scan_bwd.launches}
+
+
+def zero_zoo_counts() -> None:
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.ssd_scan import ops as SSD
+    ops.flash_attention.launches = ops.flash_attention_bwd.launches = 0
+    SSD.ssd_scan.launches = SSD.ssd_scan_bwd.launches = 0
+
+
+def zoo_per_step(cfg) -> dict:
+    """Launches of each kernel one train step of ``cfg`` makes: K1 once per
+    attention application each way, K4 once per ssm layer each way."""
+    ssm = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    attn = {"dense": cfg.num_layers, "moe": cfg.num_layers, "ssm": 0,
+            "hybrid": cfg.num_layers // max(cfg.hybrid_attn_every, 1)
+            }[cfg.family]
+    return {"k1_fwd": attn, "k1_bwd": attn, "k4_fwd": ssm, "k4_bwd": ssm}
+
+
+class RouteReplay:
+    """Records the moe family's top-k choices on the kernel side and makes
+    the plain sides route the same tokens to the same experts (each gate
+    value taken from its own probabilities), so a routing flip under
+    another rounding does not hide or fake a kernel fault.  A no-op for
+    the other families."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.route, self.seen, self.at = moe, moe.route, [], 0
+
+    def record(self):
+        def route(probs, k):
+            gates, idx = self.route(probs, k)
+            self.seen.append(idx)
+            return gates, idx
+        self.moe.route = route
+
+    def replay(self):
+        self.at = 0
+
+        def route(probs, k):
+            idx = self.seen[self.at]
+            self.at += 1
+            gates = probs.gather(-1, idx)
+            return gates / gates.sum(-1, keepdim=True), idx
+        self.moe.route = route
+
+    def restore(self):
+        self.moe.route = self.route
+
+
+def zoo_grads_once(device, small, seed: int) -> dict:
+    """One batch and one set of weights (``seed``): one grad step of the
+    bf16 model through K1 / K4 (the kernel side), of the same weights in
+    f32 through the plain versions (``ssd_scan_plain`` swapped in for
+    ``ssd_scan``, chunked attention), and of the bf16 weights through the
+    plain versions (the control); moe routes replayed (``RouteReplay``).
+    Returns each side's loss, finite flag, launches and the kernel side's
+    and the control's relative Frobenius error per gradient against f32."""
+    import torch
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.distributed import steps as S
+    from repro_torch.kernels.ssd_scan import ops as SSD
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models import transformer as T
+
+    b = SyntheticTokens(small.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                        seed=seed).next_batch()
+    batch = {k: torch.as_tensor(v, dtype=torch.int64, device=device)
+             for k, v in b.items()}
+    sides = {"kernel": small,
+             "plain": small.replace(dtype="float32", param_dtype="float32",
+                                    attn_impl="chunked"),
+             "control": small.replace(attn_impl="chunked")}
+    model = T.init_model(small, seed=seed, device=device)
+    replay = RouteReplay()
+    ops_module = ssm_lib.ssd_ops
+    out = {}
+    try:
+        for side, cfg in sides.items():      # the kernel side first
+            m = model
+            if side != "kernel":
+                m = T.init_model(cfg, seed=seed, device=device)
+                with torch.no_grad():
+                    for q, p in zip(m.parameters(), model.parameters()):
+                        q.copy_(p)
+                # the model's SSD scan -> the plain one
+                ssm_lib.ssd_ops = types.SimpleNamespace(
+                    ssd_scan=SSD.ssd_scan_plain)
+                replay.replay()
+            else:
+                replay.record()
+            counts = zoo_counts()
+            loss, grads, finite = S.make_grad_step(cfg, TrainConfig())(
+                m, batch, 1.0)
+            out[side] = {"loss": float(loss), "finite": bool(finite),
+                         "launched": {k: v - counts[k]
+                                      for k, v in zoo_counts().items()},
+                         "grads": grads}
+            del m
+    finally:
+        ssm_lib.ssd_ops = ops_module
+        replay.restore()
+    ref = out["plain"].pop("grads")
+    for side in ("kernel", "control"):
+        g = out[side].pop("grads")
+        out[side]["rel"] = {
+            n: float((g[n].float() - ref[n]).norm()
+                     / ref[n].norm().clamp(min=1e-30)) for n in ref}
+        del g
+    del ref, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def worst_of(rel: dict) -> dict:
+    n = max(rel, key=rel.get)
+    return {"max": rel[n], "max_at": n,
+            "median": sorted(rel.values())[len(rel) // 2]}
+
+
+def zoo_grad_check(device, cfg, phase: str, seeds=None, gate: bool = True
+                   ) -> dict:
+    """The kernel path's gradients against the plain path's at full width
+    and ZOO_GRAD_LAYERS layers (see ZOO_TRAIN), for each seed of ``seeds``
+    (default ZOO_GRAD_SEEDS): ``zoo_grads_once``.  With ``gate``, fails
+    unless on every seed both losses are finite and within ZOO_LOSS_TOL,
+    every gradient of the kernel side is within ZOO_GRAD_TOL, the kernel
+    side launched K1 / K4 once per application each way and the plain
+    sides launched nothing."""
+    small = cfg.replace(num_layers=ZOO_GRAD_LAYERS, attn_impl="flash")
+    if cfg.family == "hybrid":
+        small = small.replace(hybrid_attn_every=1)
+    want = zoo_per_step(small)
+    nothing = {k: 0 for k in want}
+    readings, ok = [], True
+    for seed in (ZOO_GRAD_SEEDS if seeds is None else seeds):
+        r = zoo_grads_once(device, small, seed)
+        row = {"seed": seed,
+               "loss_kernel": r["kernel"]["loss"],
+               "loss_plain": r["plain"]["loss"],
+               "loss_control": r["control"]["loss"],
+               "loss_diff": abs(r["kernel"]["loss"] - r["plain"]["loss"]),
+               "kernel": worst_of(r["kernel"]["rel"]),
+               "control": worst_of(r["control"]["rel"]),
+               "finite": all(r[s]["finite"] for s in r),
+               "kernel_launches": r["kernel"]["launched"],
+               "plain_launches": [r["plain"]["launched"],
+                                  r["control"]["launched"]]}
+        row["ok"] = (row["finite"] and row["loss_diff"] <= ZOO_LOSS_TOL
+                     and row["kernel"]["max"] <= ZOO_GRAD_TOL
+                     and row["kernel_launches"] == want
+                     and row["plain_launches"] == [nothing, nothing])
+        ok = ok and row["ok"]
+        readings.append(row)
+    out = {"arch": cfg.name, "layers": ZOO_GRAD_LAYERS,
+           "kernel_dtype": small.dtype, "seeds": readings,
+           "kernel_max": max(r["kernel"]["max"] for r in readings),
+           "control_max": max(r["control"]["max"] for r in readings),
+           "loss_tol": ZOO_LOSS_TOL, "grad_tol": ZOO_GRAD_TOL,
+           "gated": gate, "ok": ok}
+    emit(f"{phase}_grads", **out)
+    if gate and not ok:
+        raise AssertionError(f"{phase}: the kernel path's gradients disagree "
+                             f"with the plain path's: {out}")
+    return out
+
+
+def phase_train_zoo(device, phase: str) -> dict:
+    """``Trainer`` on ZOO_TRAIN[phase] at full width and depth (see
+    ZOO_TRAIN): K1's and K4's launch counts reset just before the steps and
+    equal to steps x their per-step launches just after; finite losses;
+    step ms p50, tokens/s, peak memory; a profile of 2 more steps; then the
+    gradient check.  Returns the launches."""
+    import torch
+    import repro_torch.configs as C
+    from repro_torch.common.config import ChameleonConfig
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.runtime.trainer import Trainer
+
+    allocated_before = release_device_memory(device)
+    cfg = C.get_config(ZOO_TRAIN[phase]).replace(attn_impl="flash")
+    tcfg = train_config()
+    data = SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    tr = Trainer(cfg, tcfg, ChameleonConfig(enabled=False), data=data,
+                 device=device)
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    torch.cuda.synchronize()
+    zero_zoo_counts()                                 # count the main path only
+    rep = tr.train(ZOO_STEPS)
+    launches = zoo_counts()
+    want = {k: ZOO_STEPS * v for k, v in zoo_per_step(cfg).items()}
+    times = rep.times[1:]
+    step_ms = sorted(times)[len(times) // 2] * 1e3
+    row = {"arch": cfg.name, "family": cfg.family, "layers": cfg.num_layers,
+           "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": ZOO_STEPS, "losses": rep.losses, "xent": rep.xent,
+           "aux": rep.aux, "step_ms": [t * 1e3 for t in rep.times],
+           "step_ms_p50": step_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(device),
+           "allocated_before": allocated_before, "launches": launches,
+           "want_launches": want, "skipped_steps": rep.skipped_steps}
+    ok = (all(math.isfinite(x) for x in rep.losses) and launches == want
+          and not rep.skipped_steps)
+    emit(phase, ok=ok, **row)
+    if not ok:
+        raise AssertionError(f"{phase}: want {ZOO_STEPS} finite losses and "
+                             f"{want} launches: {row}")
+    train_profile(tr, phase=f"{phase}_profile")
+    drop_trainer(tr)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo_grad_check(device, cfg, phase)
+    return launches
+
+
+def phase_serve_moe(device):
+    """``serve.main`` on full-width granite-moe-1b-a400m (bf16, random
+    weights from a seed, flash attention): the serve phase's traffic, 8
+    requests over 4 slots.  K1's launches must equal prefills x 24 layers
+    and K3's decode ticks x 24 (counts reset just before).  Returns (K1,
+    K3) launches."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import serve
+
+    allocated_before = release_device_memory(device)
+    ops.flash_attention.launches = 0                  # count the main path only
+    ops.flash_decode.launches = 0
+    stats = serve.main(MOE_SERVE_ARGS)
+    launches, decode_launches = (ops.flash_attention.launches,
+                                 ops.flash_decode.launches)
+    n_req, n_new, n_layers = 8, 32, 24
+    lengths = {rid: len(toks) for rid, toks in stats["results"].items()}
+    prefills = stats["latency"]["prefill_ms"]["n"]
+    ok = (stats["completed"] == n_req and set(lengths.values()) == {n_new}
+          and prefills == n_req and launches == prefills * n_layers
+          and decode_launches == stats["ticks"] * n_layers)
+    emit("serve_moe", ok=ok, arch=stats["arch"], launches=launches,
+         decode_launches=decode_launches, prefills=prefills,
+         prompt_lens=stats["prompt_lens"], tokens=stats["tokens"],
+         wall_s=stats["wall_s"], tokens_per_s=stats["tokens_per_s"],
+         ticks=stats["ticks"], tick_ms=stats["latency"]["tick_ms"],
+         prefill_ms=stats["latency"]["prefill_ms"],
+         max_memory_allocated=stats["max_memory_allocated"],
+         allocated_before=allocated_before)
+    if not ok:
+        raise AssertionError(f"serve_moe: want {n_req} requests of {n_new} "
+                             f"tokens and K1 / K3 launched per prefill / "
+                             f"tick x {n_layers} layers: {lengths}, "
+                             f"{launches}, {decode_launches}")
+    return launches, decode_launches
+
+
+def phase_kernel_d64(device) -> dict:
+    """K1 forward and backward and K3 at head dim 64, the decoder zoo's:
+    K1's forward at granite-moe's prefill shapes (every serve_moe prompt
+    length, bf16) and at the train phases' shapes (zamba2's 32 heads, MHA;
+    granite's 16 over 8 KV heads; both dtypes, timed); K1's backward at the
+    train shapes (both dtypes, timed: GQA G = 2 in the dK/dV pass); K3 at
+    granite's decode shape (4, 1024, 8 KV heads of 64), timed warm and
+    cold.  Returns the timed bf16 rows."""
+    import repro_torch.configs as C
+    g = C.get_config("granite-moe-1b-a400m")
+    z = C.get_config("zamba2-1.2b")
+    trains = [(z.num_heads, z.num_kv_heads), (g.num_heads, g.num_kv_heads)]
+    fwd_cases = [(1, S, S, g.num_heads, g.num_kv_heads, 64, True, None,
+                  ("bfloat16",), False)
+                 for S in map(len, serve_prompts(8, g.vocab_size))]
+    fwd_cases += [(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, H, Kh, 64, True, None,
+                   BOTH, True) for H, Kh in trains]
+    rows = phase_kernel(device, fwd_cases)
+    out = {"fwd": {f"{H}x{Kh}": rows[(c, "bfloat16")]
+                   for c, (H, Kh) in zip(fwd_cases[-2:], trains)}}
+    out["fwd_max_abs_err"] = max(rows[(c, "bfloat16")]["max_abs_err"]
+                                 for c in fwd_cases)
+    out["bwd"] = {f"{H}x{Kh}": phase_kernel_bwd(device, [
+        (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, H, Kh, 64, True, None, BOTH,
+         True)]) for H, Kh in trains}
+    lens = tuple(len(p) + 1 for p in serve_prompts(4, g.vocab_size))
+    out["decode"], _ = phase_decode_kernel(
+        device, [(4, 1024, g.num_heads, g.num_kv_heads, 64, lens, True)])
+    return out
+
+
+def d64_summary(row) -> dict:
+    """The timing fields of a D 64 row for the kernels line."""
+    return {k: row.get(k) for k in ("shape", "ms", "cold_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "max_abs_err")}
 
 
 def phase_train_cli(device):
@@ -2359,8 +2960,18 @@ def phase_chameleon_exec(device):
     return fwd, bwd
 
 
-def main() -> int:
+def zoo_grad_readings(device, n_seeds: int) -> None:
+    """``--zoo-grads N``: the gradient check of every ZOO_TRAIN phase on
+    seeds 1..N with no gate (the readings that set ZOO_GRAD_TOL)."""
+    import repro_torch.configs as C
+    for phase, arch in ZOO_TRAIN.items():
+        zoo_grad_check(device, C.get_config(arch), phase,
+                       seeds=range(1, n_seeds + 1), gate=False)
+
+
+def main(argv=None) -> int:
     import torch
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -2385,6 +2996,10 @@ def main() -> int:
                                              "spill", "C75"))]
                 for n, p in paths.items()})
 
+    if argv[:1] == ["--zoo-grads"]:
+        zoo_grad_readings(device, int(argv[1]))
+        return 0
+
     import repro_torch.configs as C
     from repro_torch.models import transformer as T
     cfg = C.get_config("llama2-paper")
@@ -2404,6 +3019,8 @@ def main() -> int:
     quant_times, quant_q_err, quant_out_err = phase_quant(device)
     decode_row, decode_err = phase_decode_kernel(device, decode_cases(cfg))
     ssd_times = phase_ssd_kernel(device, scfg)
+    ssd_bwd_rows = phase_ssd_bwd_kernel(device, SSD_BWD_CASES)
+    d64 = phase_kernel_d64(device)
     launches, decode_launches, resident = phase_serve(device)
     quant_launches = phase_serve_spill(device, resident)
     gc.collect()                       # the serve phases' models are gone
@@ -2421,12 +3038,14 @@ def main() -> int:
     phase_ssm_crosscheck(device, scfg, model)
     phase_profile(device, scfg, model)
     del model
+    moe_launches = phase_serve_moe(device)
     gc.collect()                       # the serve phases' models are gone
     torch.cuda.empty_cache()
     train_launches, bwd_launches = phase_train(device)
     phase_train_cli(device)
     phase_chameleon(device, tier)
     exec_launches = phase_chameleon_exec(device)
+    zoo = {phase: phase_train_zoo(device, phase) for phase in ZOO_TRAIN}
 
     summary = next(rows[(c, "bfloat16")] for c in main_path
                    if c[1] == SUMMARY_LEN)
@@ -2452,7 +3071,13 @@ def main() -> int:
         # chameleon_exec: the trainer under Chameleon's applied policies
         "chameleon_exec_launches": exec_launches[0],
         "train_cold_ms": k1_cold["train"]["cold_ms"],
-        "train_library_cold_ms": k1_cold["train"]["library_cold_ms"]}, {
+        "train_library_cold_ms": k1_cold["train"]["library_cold_ms"],
+        # the decoder zoo: serve_moe's prefills, the train phases' steps
+        "zoo_launches": {"serve_moe": moe_launches[0],
+                         **{p: zoo[p]["k1_fwd"] for p in zoo}},
+        # head dim 64 (zamba2 32 x 32 heads, granite 16 over 8), bf16
+        "d64": {k: d64_summary(r) for k, r in d64["fwd"].items()},
+        "d64_max_abs_err": d64["fwd_max_abs_err"]}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_bwd.cu",
@@ -2469,6 +3094,8 @@ def main() -> int:
         "library_ms": bwd_row["library_ms"],
         "sdpa_ratio": bwd_row["sdpa_ratio"],
         "cold_ms": bwd_row["cold_ms"],
+        "zoo_launches": {p: zoo[p]["k1_bwd"] for p in zoo},
+        "d64": {k: d64_summary(r) for k, r in d64["bwd"].items()},
         "at": {"shape": bwd_row["shape"], "causal": True,
                "dtype": "bfloat16"}}] + [{
         "name": name, "route": "cuda",
@@ -2501,6 +3128,8 @@ def main() -> int:
         # cold L2, one launch per layer of a 32-layer cache (decode_cold_ms)
         "cold_ms": decode_row["cold_ms"],
         "library_cold_ms": decode_row["library_cold_ms"],
+        "zoo_launches": {"serve_moe": moe_launches[1]},
+        "d64": d64_summary(d64["decode"]),
         "at": {"shape": decode_row["shape"], "lens": decode_row["lens"],
                "dtype": "bfloat16"}}, {
         "name": "ssd_scan_fwd", "route": "cuda",
@@ -2509,13 +3138,36 @@ def main() -> int:
         "launches": ssd_launches,
         # the largest bf16 error of y over mamba2-780m's prefill lengths
         "max_abs_err": max(r["y_max_abs_err"] for r in ssd_times.values()),
+        # ... and at the train phases' shapes, the saved layout
+        "train_max_abs_err": max(r["fwd"]["y_max_abs_err"]
+                                 for r in ssd_bwd_rows),
         "ms": ssd_times[max(SSD_LENS)]["ms"],
         "plain_ms": ssd_times[max(SSD_LENS)]["plain_ms"],
         "bound_ms": ssd_times[max(SSD_LENS)]["bound_ms"],
         "bound_by": ssd_times[max(SSD_LENS)]["bound_by"],
         "library_ms": None,
+        "zoo_launches": {p: zoo[p]["k4_fwd"] for p in zoo},
         "at": {"shape": ssd_times[max(SSD_LENS)]["shape"],
-               "chunk": scfg.ssm_chunk, "dtype": "bfloat16"}}]}),
+               "chunk": scfg.ssm_chunk, "dtype": "bfloat16"}}, {
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/models/ssm.py:73",
+        # the train phases' backward steps: steps x ssm layers each
+        "launches": sum(zoo[p]["k4_bwd"] for p in zoo),
+        "zoo_launches": {p: zoo[p]["k4_bwd"] for p in zoo},
+        # the largest bf16 error over dx, dB, dC at the train shapes
+        "max_abs_err": max(r[f"{g}_max_abs_err"] for r in ssd_bwd_rows
+                           for g in ("dx", "dB", "dC")),
+        "ms": ssd_bwd_rows[0]["ms"], "plain_ms": ssd_bwd_rows[0]["plain_ms"],
+        "bound_ms": ssd_bwd_rows[0]["bound_ms"],
+        "bound_by": ssd_bwd_rows[0]["bound_by"],
+        "bound_f32_ms": ssd_bwd_rows[0]["bound_f32_ms"],
+        "cold_ms": ssd_bwd_rows[0]["cold_ms"],
+        "library_ms": None,
+        "at": {"shape": ssd_bwd_rows[0]["shape"], "chunk": 256,
+               "dtype": "bfloat16"},
+        "zamba2": {k: ssd_bwd_rows[1][k] for k in (
+            "shape", "ms", "cold_ms", "plain_ms", "bound_ms", "bound_by")}}]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,7 @@ after it, unchanged.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -59,31 +59,37 @@ def _run(policy):
 
 def _backward(loss_fn, model, batch, loss_scale, policy=None):
     """Scaled loss and its backward, under ``policy``; returns (loss,
-    {name: param}) with each parameter's ``.grad`` filled (zeros where the
-    loss does not reach it)."""
+    {name: param}, metrics) with each parameter's ``.grad`` filled (zeros
+    where the loss does not reach it) and the loss's parts (``xent``,
+    ``aux``) detached."""
     params = dict(model.named_parameters())
     for p in params.values():
         p.grad = None
     with _run(policy):
-        scaled, (loss, _m) = loss_fn(model, batch, loss_scale)
+        scaled, (loss, m) = loss_fn(model, batch, loss_scale)
         scaled.backward()
     for p in params.values():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    return loss.detach(), params
+    return loss.detach(), params, {k: v.detach() for k, v in m.items()}
 
 
-def make_grad_step(cfg: ModelConfig, tcfg: TrainConfig,
-                   policy=None) -> Callable:
+def make_grad_step(cfg: ModelConfig, tcfg: TrainConfig, policy=None,
+                   on_parts: Optional[Callable[[Dict[str, torch.Tensor]],
+                                               None]] = None) -> Callable:
     """(model, batch, loss_scale) -> (loss, grads, finite): grads unscaled
     (f32) keyed by parameter name, ``finite`` a 0-d bool tensor.  The
-    parameters' ``.grad`` are released."""
+    parameters' ``.grad`` are released.  ``on_parts``, if given, takes each
+    call's loss parts (``xent``, ``aux``), detached."""
     loss_fn = make_loss_fn(cfg)
 
     def grad_step(model: nn.Module, batch, loss_scale
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                              torch.Tensor]:
-        loss, params = _backward(loss_fn, model, batch, loss_scale, policy)
+        loss, params, parts = _backward(loss_fn, model, batch, loss_scale,
+                                        policy)
+        if on_parts is not None:
+            on_parts(parts)
         scale = torch.tensor(loss_scale, dtype=torch.float32)
         grads = {}
         for n, p in params.items():
@@ -115,7 +121,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 
     def train_step(model: nn.Module, opt_state: AdamWState, batch,
                    loss_scale):
-        loss, params = _backward(loss_fn, model, batch, loss_scale, policy)
+        loss, params, _m = _backward(loss_fn, model, batch, loss_scale,
+                                     policy)
         grads = {}
         for n, p in params.items():
             g = p.grad

@@ -44,6 +44,8 @@ SOURCES: Dict[str, Path] = {
         KERNELS_DIR / "quant_offload" / "csrc" / "quant_offload.cu",
     "ssd_scan_fwd":
         KERNELS_DIR / "ssd_scan" / "csrc" / "ssd_scan_fwd.cu",
+    "ssd_scan_bwd":
+        KERNELS_DIR / "ssd_scan" / "csrc" / "ssd_scan_bwd.cu",
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -51,14 +51,17 @@
 // their strides (B and C are column slices of the convolution output, x a
 // head split of it), so nothing is transposed or padded in device memory:
 // a ragged last chunk is masked by index, with dt and x taken as 0 past the
-// end, so the final state is the state after token S - 1.  The scratch
-// (dS, incoming states, CB, cs) is allocated by the caller.
+// end, so the final state is the state after token S - 1.  The caller
+// allocates the scratch (incoming states, CB, cs: what a backward reads)
+// and, apart from it, the dS buffer, which is dead once the call returns.
 //
 // f32 inputs run the one-block-per-(P half, head, batch row) kernel
 // ssd_scan_f32: the chunk axis a loop inside the block, the state in
 // shared memory, every product a scalar f32 FMA (tensor cores would round
 // f32 operands), 64-row query tiles against key tiles j <= i.  Nothing
-// served runs f32.
+// served runs f32.  Given scratch (a forward whose backward follows), it
+// also writes the incoming states, CB and cs in the bf16 passes' layout
+// which is what the backward (ssd_scan_bwd.cu) reads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -168,8 +171,9 @@ __global__ void __launch_bounds__(NT)
 ssd_scan_f32(const T* __restrict__ x, const float* __restrict__ dt,
          const float* __restrict__ A, const T* __restrict__ Bm,
          const T* __restrict__ Cm, T* __restrict__ y,
-         float* __restrict__ state, int S, int H, int P, int N, int chunk,
-         Strides sd) {
+         float* __restrict__ state, float* __restrict__ sv_sin,
+         float* __restrict__ sv_cb, float* __restrict__ sv_cs, int S, int H,
+         int P, int N, int chunk, Strides sd) {
   constexpr int LDM = TI + 4;
   const int NP = N + 4;
   const int CLP = round_up(chunk, TI);
@@ -202,8 +206,10 @@ ssd_scan_f32(const T* __restrict__ x, const float* __restrict__ dt,
   for (int i = tid; i < PB * NP; i += NT) sS[i] = 0.f;
   for (int i = tid; i < PB * LDM; i += NT) sXt[i] = 0.f;   // columns past P stay 0
 
+  const int nc = (S + chunk - 1) / chunk;
   for (int c0 = 0; c0 < S; c0 += chunk) {
     const int cl = min(chunk, S - c0);      // valid rows of this chunk
+    const int64_t bc = (int64_t)b * nc + c0 / chunk;
     __syncthreads();                        // the last chunk is done with sCs, sDt, sW
     for (int t = tid; t < CLP; t += NT) sDt[t] = t < cl ? dtb[(c0 + t) * sd.dt] : 0.f;
     __syncthreads();
@@ -228,6 +234,14 @@ ssd_scan_f32(const T* __restrict__ x, const float* __restrict__ dt,
     __syncthreads();
     const float cs_last = sCs[cl - 1];
     for (int t = tid; t < CLP; t += NT) sW[t] = sDt[t] * expf(cs_last - sCs[t]);
+    if (sv_cs) {                            // saved for the backward
+      if (blockIdx.x == 0)
+        for (int t = tid; t < chunk; t += NT) sv_cs[(bc * H + h) * chunk + t] = sCs[t];
+      for (int e = tid; e < PB * N; e += NT) {
+        const int p = e / N, n = e % N;
+        if (p0 + p < P) sv_sin[((bc * H + h) * P + p0 + p) * N + n] = sS[p * NP + n];
+      }
+    }
 
     const int nt = (cl + TI - 1) / TI;
     float supd[4][4];                       // rows pg + 8 a, columns n0 + k
@@ -292,6 +306,16 @@ ssd_scan_f32(const T* __restrict__ x, const float* __restrict__ dt,
           for (int r = 0; r < 4; ++r)
 #pragma unroll
             for (int c = 0; c < 4; ++c) s[r][c] = dot4(cv[r], bv[c], s[r][c]);
+        }
+        if (sv_cb && blockIdx.x == 0 && h == 0) {
+          float* g = sv_cb + bc * chunk * chunk;
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int i = i0 + ty + 16 * r, j = j0 + tx + 16 * c;
+              if (i < chunk && j < chunk) g[(int64_t)i * chunk + j] = s[r][c];
+            }
         }
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
@@ -383,8 +407,9 @@ ssd_scan_f32(const T* __restrict__ x, const float* __restrict__ dt,
 }
 
 int launch_f32(const void* x, const float* dt, const float* A, const void* Bm,
-               const void* Cm, void* y, float* state, int B, int S, int H,
-               int P, int N, int chunk, const Strides& sd, cudaStream_t stream) {
+               const void* Cm, void* y, float* state, float* sv_sin,
+               float* sv_cb, float* sv_cs, int B, int S, int H, int P, int N,
+               int chunk, const Strides& sd, cudaStream_t stream) {
   const int smem = smem_floats(N, chunk) * (int)sizeof(float);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   static std::atomic<uint64_t> ready{0};
@@ -393,8 +418,8 @@ int launch_f32(const void* x, const float* dt, const float* A, const void* Bm,
   const dim3 grid((P + PB - 1) / PB, H, B);
   ssd_scan_f32<float><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(x), dt, A, static_cast<const float*>(Bm),
-      static_cast<const float*>(Cm), static_cast<float*>(y), state, S, H, P, N,
-      chunk, sd);
+      static_cast<const float*>(Cm), static_cast<float*>(y), state, sv_sin,
+      sv_cb, sv_cs, S, H, P, N, chunk, sd);
   return (int)cudaGetLastError();
 }
 
@@ -407,9 +432,10 @@ constexpr int LDW = T64 + 1;   // f32 row stride of the transposed weighted x
 constexpr int LDF = T64 + 4;   // f32 row stride of a CB tile
 constexpr int LDS = NMAX + 4;  // f32 row stride of a state tile
 
-// The caller's scratch, carved in this order (every part a multiple of 4
-// floats): dS and the incoming state, (B, nc, H, P, N) each; CB,
-// (B, nc, chunk, chunk); cs, (B, nc, H, chunk).
+// The caller's scratch, carved in this order (every part but the last a
+// multiple of 4 floats): the incoming states, (B, nc, H, P, N); CB,
+// (B, nc, chunk, chunk); cs, (B, nc, H, chunk).  dS, (B, nc, H, P, N), is
+// a buffer of its own (ds_floats), so a backward keeps the scratch alone.
 struct Scratch {
   float* ds;
   float* sin;
@@ -421,14 +447,15 @@ __host__ __device__ inline int64_t scratch_floats(int B, int nc, int H, int P,
                                                   int N, int chunk) {
   const int64_t state = (int64_t)B * nc * H * P * N;
   const int64_t cb = ((int64_t)B * nc * chunk * chunk + 3) / 4 * 4;
-  return 2 * state + cb + (int64_t)B * nc * H * chunk;
+  return state + cb + (int64_t)B * nc * H * chunk;
 }
 
-inline Scratch carve(float* base, int B, int nc, int H, int P, int N, int chunk) {
+inline Scratch carve(float* base, float* ds, int B, int nc, int H, int P, int N,
+                     int chunk) {
   Scratch s;
   const int64_t state = (int64_t)B * nc * H * P * N;
-  s.ds = base;
-  s.sin = s.ds + state;
+  s.ds = ds;
+  s.sin = base;
   s.cb = s.sin + state;
   s.cs = s.cb + ((int64_t)B * nc * chunk * chunk + 3) / 4 * 4;
   return s;
@@ -865,8 +892,8 @@ ssd_scan_output(const bf16* __restrict__ x, const float* __restrict__ dt,
 }
 
 int launch_bf16(const void* x, const float* dt, const float* A, const void* Bm,
-                const void* Cm, void* y, float* state, float* scratch, int B,
-                int S, int H, int P, int N, int chunk, const Strides& sd,
+                const void* Cm, void* y, float* state, float* scratch, float* ds,
+                int B, int S, int H, int P, int N, int chunk, const Strides& sd,
                 cudaStream_t stream) {
   const int nc = (S + chunk - 1) / chunk, npt = (P + T64 - 1) / T64;
   const int nit = (chunk + T64 - 1) / T64;
@@ -880,7 +907,7 @@ int launch_bf16(const void* x, const float* dt, const float* A, const void* Bm,
   if (err) return err;
   if ((err = allow_smem(reinterpret_cast<const void*>(ssd_scan_output), ready_out)))
     return err;
-  const Scratch sc = carve(scratch, B, nc, H, P, N, chunk);
+  const Scratch sc = carve(scratch, ds, B, nc, H, P, N, chunk);
   const bf16* xh = static_cast<const bf16*>(x);
   const bf16* Bh = static_cast<const bf16*>(Bm);
   const bf16* Ch = static_cast<const bf16*>(Cm);
@@ -898,7 +925,9 @@ int launch_bf16(const void* x, const float* dt, const float* A, const void* Bm,
 }  // namespace
 
 // Floats of scratch the C entry point needs for these shapes and dtype
-// (0 = float32, 1 = bfloat16): 0 for float32.
+// (0 = float32, 1 = bfloat16): 0 for float32, which takes the bf16 layout's
+// size only to save what its backward reads.  The dS buffer of a bf16 call
+// is B * ceil(S / chunk) * H * P * N floats more.
 extern "C" long long ssd_scan_scratch_floats(int B, int S, int H, int P, int N,
                                              int chunk, int dtype) {
   if (dtype != 1 || B <= 0 || S <= 0 || chunk <= 0) return 0;
@@ -908,27 +937,33 @@ extern "C" long long ssd_scan_scratch_floats(int B, int S, int H, int P, int N,
 // C entry point.  dtype (of x, Bm, Cm and y): 0 = float32, 1 = bfloat16;
 // dt and A are float32.  Strides are in elements.  scratch: at least
 // ssd_scan_scratch_floats(...) floats on the device, 16-byte aligned (may
-// be null for float32).  Returns a cudaError_t (0 on success): the launch
+// be null for float32); ds: the dS buffer of a bf16 call, 16-byte aligned
+// (unused by float32).  Returns a cudaError_t (0 on success): the launch
 // status from cudaGetLastError, or cudaErrorInvalidValue for a shape or
-// dtype it does not take.
+// dtype it does not take.  float32 with scratch also writes the incoming
+// states, CB and cs there.
 extern "C" int ssd_scan_fwd(const void* x, const float* dt, const float* A,
                             const void* Bm, const void* Cm, void* y,
-                            float* state, float* scratch, int B, int S, int H,
-                            int P, int N, int chunk, long long sxb,
-                            long long sxt, long long sxh, long long sdb,
-                            long long sdt, long long sdh, long long sbb,
-                            long long sbt, long long scb, long long sct,
-                            int dtype, void* stream) {
+                            float* state, float* scratch, float* ds, int B,
+                            int S, int H, int P, int N, int chunk,
+                            long long sxb, long long sxt, long long sxh,
+                            long long sdb, long long sdt, long long sdh,
+                            long long sbb, long long sbt, long long scb,
+                            long long sct, int dtype, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || N <= 0 || N > NMAX ||
       N % 4 != 0 || chunk <= 0 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   const Strides sd{sxb, sxt, sxh, sdb, sdt, sdh, sbb, sbt, scb, sct};
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_f32(x, dt, A, Bm, Cm, y, state, B, S, H, P, N, chunk, sd, cs);
+  if (dtype == 0) {
+    Scratch sv{nullptr, nullptr, nullptr, nullptr};
+    if (scratch) sv = carve(scratch, nullptr, B, (S + chunk - 1) / chunk, H, P, N, chunk);
+    return launch_f32(x, dt, A, Bm, Cm, y, state, sv.sin, sv.cb, sv.cs, B, S, H,
+                      P, N, chunk, sd, cs);
+  }
   if (dtype == 1) {
-    if (!scratch) return (int)cudaErrorInvalidValue;
-    return launch_bf16(x, dt, A, Bm, Cm, y, state, scratch, B, S, H, P, N,
+    if (!scratch || !ds) return (int)cudaErrorInvalidValue;
+    return launch_bf16(x, dt, A, Bm, Cm, y, state, scratch, ds, B, S, H, P, N,
                        chunk, sd, cs);
   }
   return (int)cudaErrorInvalidValue;

@@ -6,7 +6,9 @@
 
 ``--arch mamba2-780m`` serves the Mamba-2 (ssm) family: every prefill's
 SSD scan runs on the hand-written SSD-scan kernel, decode is the one-token
-recurrence; ``--attn-impl`` does not apply to it.  With ``--attn-impl
+recurrence; ``--attn-impl`` does not apply to it.  ``--arch
+granite-moe-1b-a400m`` and ``--arch qwen3-moe-30b-a3b`` serve the moe
+family, whose blocks route each token to its top-k experts.  With ``--attn-impl
 flash`` a dense model's prefills run on the flash-attention kernel and its
 decode attention on the flash-decode kernel.
 

@@ -14,7 +14,11 @@ async|speculative`` (item 8), ``--autotune`` (item 10), ``--mesh`` /
 every attention through the flash-attention forward and backward
 kernels), as ``launch/serve.py`` does.  Weights are random, drawn on the
 device from ``TrainConfig.seed``; batches are the reference's synthetic
-tokens.  ``main(argv)`` returns the run's stats dict.
+tokens.  Every decoder-only family trains: ``--arch mamba2-780m`` and
+``--arch zamba2-1.2b`` through the SSD-scan kernel and its backward on the
+card, ``--arch granite-moe-1b-a400m`` and ``--arch qwen3-moe-30b-a3b``
+with the moe load-balance loss (``aux``, reported beside ``xent``), with
+``--no-chameleon``.  ``main(argv)`` returns the run's stats dict.
 """
 from __future__ import annotations
 
@@ -109,12 +113,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
         if args.resume:
             tr.resume()
         rep = tr.train(args.steps)
+        if rep.aux and any(rep.aux):
+            print(f"xent {rep.xent[0]:.3f} -> {rep.xent[-1]:.3f}; "
+                  f"aux {rep.aux[0]:.4f} -> {rep.aux[-1]:.4f}", flush=True)
         print(f"done: loss {rep.losses[0]:.3f} -> {rep.losses[-1]:.3f}; "
               f"skipped={rep.skipped_steps}; "
               f"checkpoints={len(rep.checkpoints)}", flush=True)
         out = {"arch": cfg.name, "device": str(device),
                "attn_impl": cfg.attn_impl, "steps": tr.step,
-               "losses": rep.losses, "eval_losses": rep.eval_losses,
+               "losses": rep.losses, "xent": rep.xent, "aux": rep.aux,
+               "eval_losses": rep.eval_losses,
                "times": rep.times, "skipped_steps": rep.skipped_steps,
                "checkpoints": rep.checkpoints, "stages": rep.stages}
         if tr.rt is not None:

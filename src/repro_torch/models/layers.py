@@ -7,10 +7,11 @@ whose attribute names are the reference's dict keys (``scale``, ``wi_up``,
 ``models.convert`` copies a reference pytree leaf for leaf.  Each module
 draws its weights from the ``torch.Generator`` it is given, on the target
 device; with no generator it allocates them uninitialised, to be filled by
-``models.convert.params_from_reference``.  The dense configs use SiLU-GLU,
-RoPE and no logit soft-cap; the reference's GELU, non-gated MLP, learned
-positions and soft-cap come with the families that use them
-(``transformer.check_family`` refuses them until then).
+``models.convert.params_from_reference``.  The MLP is gated, with SiLU or
+GELU (``_act``: the reference's ``jax.nn.gelu`` is the tanh approximation
+by default, so ``F.gelu(approximate="tanh")``).  The non-gated MLP,
+learned positions and the logit soft-cap come with the encoder-decoder and
+VLM families (``transformer.check_family`` refuses them until then).
 """
 from __future__ import annotations
 
@@ -116,17 +117,29 @@ class Mlp(nn.Module):
         self.wo = dense_init(cfg.d_ff, cfg.d_model, cfg, **kw)
 
 
+def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act == "silu":
+        return F.silu(x)
+    return F.gelu(x, approximate="tanh")
+
+
 def _glu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
 
 
+def _gelu_glu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return F.gelu(gate, approximate="tanh") * up
+
+
 def apply_mlp(cfg: ModelConfig, p: Mlp, x: torch.Tensor) -> torch.Tensor:
-    """SiLU-GLU: x (B, S, d) -> (B, S, d).  ``ffn_act`` carries its
-    recompute recipe: an applied policy that remats it rebuilds it from
-    ``gate`` and ``up`` in the backward (``core.executor``)."""
+    """Gated MLP ``act(x Wg) * (x Wu)``: x (B, S, d) -> (B, S, d).
+    ``ffn_act`` carries its recompute recipe: an applied policy that remats
+    it rebuilds it from ``gate`` and ``up`` in the backward
+    (``core.executor``)."""
     up = tag(x @ p.wi_up, "ffn_pre")
     gate = tag(x @ p.wi_gate, "ffn_pre")
-    h = tag(_glu(gate, up), "ffn_act", recompute=(_glu, (gate, up)))
+    fn = _glu if cfg.act == "silu" else _gelu_glu
+    h = tag(fn(gate, up), "ffn_act", recompute=(fn, (gate, up)))
     return tag(h @ p.wo, "ffn_out")
 
 

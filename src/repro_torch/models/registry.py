@@ -1,7 +1,8 @@
 """Family dispatch: one uniform API over the model zoo.
 
-Port of ``repro/models/registry.py`` for the dense and ssm families; other
-families raise until their slice (``transformer.check_family``).
+Port of ``repro/models/registry.py`` for the decoder-only families (dense,
+moe, ssm, hybrid); vlm and encdec raise until their slice
+(``transformer.check_family``).
 """
 from __future__ import annotations
 

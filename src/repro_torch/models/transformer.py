@@ -1,10 +1,16 @@
-"""Decoder-only LM, dense and ssm (Mamba-2) families.
+"""Decoder-only LM: the dense, moe, ssm (Mamba-2) and hybrid (zamba2)
+families.
 
-Port of the dense and ssm families of ``repro/models/transformer.py``.  The
+Port of the decoder-only families of ``repro/models/transformer.py``.  The
 layer stack is a Python loop over an ``nn.ModuleList`` where the reference
-scans over stacked parameters.  The other families raise
-``NotImplementedError`` naming the slice of ROADMAP.md queue 1 that ports
-them.
+scans over stacked parameters.  A moe block is a dense block whose MLP is
+``models.moe`` (its load-balance loss summed into ``aux``).  The hybrid
+family runs ``hybrid_attn_every`` Mamba-2 layers, then one dense block
+whose parameters (``shared_attn``) are shared by every application, with
+``num_layers % hybrid_attn_every`` Mamba-2 layers left after the last one;
+each application keeps its own KV cache when decoding.  The vlm and encdec
+families raise ``NotImplementedError`` naming the slice of ROADMAP.md
+queue 1 that ports them (7b: cross-attention and the second input path).
 """
 from __future__ import annotations
 
@@ -19,32 +25,32 @@ from repro_torch.core import sites
 from repro_torch.core.sites import tag
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 
-PORTED_FAMILIES = ("dense", "ssm")
-# family -> the slice of ROADMAP.md queue 1 that ports it
-_FAMILY_SLICE = {"hybrid": "slice 7 (the rest of the model zoo, with the "
-                           "hybrid family's shared attention block)"}
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_SLICE_7B = ("slice 7b of ROADMAP.md queue 1 (cross-attention, the second "
+             "input path through Trainer and Server(memory=), the non-gated "
+             "MLP, learned positions and the logit soft-cap)")
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
-        where = _FAMILY_SLICE.get(cfg.family, "slice 7 (the rest of the model zoo)")
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: it comes with {where} "
-            f"of ROADMAP.md queue 1; the port runs {PORTED_FAMILIES}")
+            f"family {cfg.family!r} is not ported yet: it comes with "
+            f"{_SLICE_7B}; the port runs {PORTED_FAMILIES}")
     if cfg.family == "ssm":
         if (cfg.pos_embedding, cfg.tie_embeddings, cfg.logits_softcap) != (
                 "none", True, 0.0):
             raise NotImplementedError(
                 "the ssm port runs tied embeddings with no position "
-                "embedding and no logit soft-cap; other variants come with "
-                "slice 7 of ROADMAP.md queue 1")
-    elif (cfg.act, cfg.glu, cfg.pos_embedding, cfg.logits_softcap) != (
-            "silu", True, "rope", 0.0):
+                f"embedding and no logit soft-cap; other variants come with "
+                f"{_SLICE_7B}")
+    elif (cfg.glu, cfg.pos_embedding, cfg.logits_softcap) != (
+            True, "rope", 0.0):
         raise NotImplementedError(
-            "the dense port runs SiLU-GLU with RoPE and no logit soft-cap; "
-            "other variants come with slice 7 of ROADMAP.md queue 1")
+            f"the {cfg.family} port runs a gated MLP with RoPE and no logit "
+            f"soft-cap; other variants come with {_SLICE_7B}")
 
 
 # ===================================================================== init
@@ -56,7 +62,10 @@ class DenseBlock(nn.Module):
         self.ln1 = L.Norm(cfg, device=device)
         self.attn = attn.Attention(cfg, **kw)
         self.ln2 = L.Norm(cfg, device=device)
-        self.mlp = L.Mlp(cfg, **kw)
+        if cfg.family == "moe":
+            self.moe = moe_lib.Moe(cfg, **kw)
+        else:
+            self.mlp = L.Mlp(cfg, **kw)
 
 
 class SsmBlock(nn.Module):
@@ -68,8 +77,9 @@ class SsmBlock(nn.Module):
 
 
 class Model(nn.Module):
-    """Parameters of a dense or ssm decoder; attribute names follow the
-    reference's parameter pytree (``embed``, ``ln_f``, ``blocks``)."""
+    """Parameters of a decoder; attribute names follow the reference's
+    parameter pytree (``embed``, ``ln_f``, ``blocks``, and for the hybrid
+    family ``shared_attn``)."""
 
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator], device: torch.device):
@@ -78,9 +88,11 @@ class Model(nn.Module):
         kw = dict(generator=generator, device=device)
         self.embed = L.Embedding(cfg, **kw)
         self.ln_f = L.Norm(cfg, device=device)
-        block = SsmBlock if cfg.family == "ssm" else DenseBlock
+        block = SsmBlock if cfg.family in ("ssm", "hybrid") else DenseBlock
         self.blocks = nn.ModuleList(
             [block(cfg, **kw) for _ in range(cfg.num_layers)])
+        if cfg.family == "hybrid":
+            self.shared_attn = DenseBlock(cfg, **kw)
 
     @property
     def device(self) -> torch.device:
@@ -109,7 +121,11 @@ def dense_block(cfg: ModelConfig, p: DenseBlock, x, positions, *,
     a_out, kv = a if return_kv else (a, None)
     x = tag(x + a_out, "resid_mid")
     h = L.apply_norm(cfg, p.ln2, x)
-    x = tag(x + L.apply_mlp(cfg, p.mlp, h), "resid_post")
+    if hasattr(p, "moe"):
+        out, aux = moe_lib.apply_moe_auto(cfg, p.moe, h)
+    else:
+        out = L.apply_mlp(cfg, p.mlp, h)
+    x = tag(x + out, "resid_post")
     return (x, aux, kv) if return_kv else (x, aux)
 
 
@@ -136,8 +152,20 @@ def _forward(cfg: ModelConfig, model: Model, tokens, positions, causal: bool,
     check_family(cfg)
     x = L.embed_tokens(cfg, model.embed, tokens)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    every = cfg.hybrid_attn_every
     for i, blk in enumerate(model.blocks):
         with sites.layer(i):        # the layer a detailed profile records
+            if cfg.family == "hybrid":
+                if kv_sink is not None:
+                    raise NotImplementedError(
+                        "the hybrid family has no prefill: the reference "
+                        "serves it by decode_step only")
+                x = ssm_block(cfg, blk, x)
+                if (i + 1) % every == 0:      # the shared block, after a segment
+                    x, a = dense_block(cfg, model.shared_attn, x, positions,
+                                       causal=causal)
+                    aux_total = aux_total + a
+                continue
             if cfg.family == "ssm":
                 if kv_sink is None:
                     x = ssm_block(cfg, blk, x)
@@ -187,6 +215,14 @@ class DecodeState(NamedTuple):
     pos: torch.Tensor                 # (B,) int64 next write index
 
 
+def _n_attn_layers(cfg: ModelConfig) -> int:
+    if cfg.family in ("dense", "moe"):
+        return cfg.num_layers
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.hybrid_attn_every
+    return 0
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       params: Optional[Model] = None, *,
                       device: Union[str, torch.device, None] = None
@@ -194,15 +230,22 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     """Zeroed cache on ``params``' device when given, else on ``device``
     (default ``cuda``).  The ssm family keeps no KV cache: its state is the
     conv window (L,B,W-1,ch) in the activation dtype and the SSD state
-    (L,B,H,P,N) in f32, whatever ``max_len``."""
+    (L,B,H,P,N) in f32, whatever ``max_len``.  The hybrid family keeps both:
+    a KV cache per application of its shared block, and every Mamba-2
+    layer's state."""
     check_family(cfg)
     dev = params.device if params is not None else resolve_device(device)
     pos = torch.zeros((batch,), dtype=torch.int64, device=dev)
-    if cfg.family == "ssm":
+    k = v = conv = ssd = None
+    n_attn = _n_attn_layers(cfg)
+    if n_attn:
+        cache = attn.init_kv_cache(cfg.replace(num_layers=n_attn), batch,
+                                   max_len, device=dev)
+        k, v = cache.k, cache.v
+    if cfg.family in ("ssm", "hybrid"):
         st = ssm_lib.init_ssm_state(cfg, batch, device=dev)
-        return DecodeState(None, None, st.conv, st.ssd, None, None, pos)
-    cache = attn.init_kv_cache(cfg, batch, max_len, device=dev)
-    return DecodeState(cache.k, cache.v, None, None, None, None, pos)
+        conv, ssd = st.conv, st.ssd
+    return DecodeState(k, v, conv, ssd, None, None, pos)
 
 
 def _dense_decode_block(cfg, p: DenseBlock, x, kv, positions):
@@ -210,7 +253,11 @@ def _dense_decode_block(cfg, p: DenseBlock, x, kv, positions):
     a_out, kv = attn.decode_self_attention(cfg, p.attn, h, kv, positions)
     x = x + a_out
     h = L.apply_norm(cfg, p.ln2, x)
-    return x + L.apply_mlp(cfg, p.mlp, h), kv
+    if hasattr(p, "moe"):
+        out, _ = moe_lib.apply_moe(cfg, p.moe, h)
+    else:
+        out = L.apply_mlp(cfg, p.mlp, h)
+    return x + out, kv
 
 
 def _ssm_decode_block(cfg, p: SsmBlock, x, state):
@@ -226,12 +273,18 @@ def decode_step(cfg: ModelConfig, model: Model, tokens, state: DecodeState):
     check_family(cfg)
     positions = state.pos
     x = L.embed_tokens(cfg, model.embed, tokens)
+    every = cfg.hybrid_attn_every
     for i, blk in enumerate(model.blocks):
-        if cfg.family == "ssm":
+        if cfg.family in ("ssm", "hybrid"):
             x, (conv, ssd) = _ssm_decode_block(
                 cfg, blk, x, (state.ssm_conv[i], state.ssm_ssd[i]))
             state.ssm_conv[i] = conv
             state.ssm_ssd[i] = ssd
+            if cfg.family == "hybrid" and (i + 1) % every == 0:
+                a = (i + 1) // every - 1      # this application's cache
+                x, _ = _dense_decode_block(cfg, model.shared_attn, x,
+                                           (state.attn_k[a], state.attn_v[a]),
+                                           positions)
             continue
         x, _ = _dense_decode_block(cfg, blk, x,
                                    (state.attn_k[i], state.attn_v[i]),

@@ -13,8 +13,10 @@ kvspill``) and rotating them back in round-robin.  Raw spill → restore is
 bit-exact, so a request decodes the same tokens whether or not it was
 ever parked.
 
-The model runs eagerly under ``torch.no_grad()``; the reference's
-``jax.jit`` has no counterpart here.  The policy store and the async
+The server takes the families whose prefill the reference's server
+covers: dense, moe and ssm (the hybrid and vlm families raise, as the
+reference's assertion refuses them).  The model runs eagerly under
+``torch.no_grad()``; the reference's ``jax.jit`` has no counterpart here.  The policy store and the async
 adaptation modes come with slice 8 of ROADMAP.md queue 1 and raise.
 """
 from __future__ import annotations
@@ -61,6 +63,11 @@ class Server:
                  hostmem=None, rotate_every: int = 1, policystore=None,
                  adapt_mode: str = "inline"):
         self.api = get_api(cfg)             # raises for unported families
+        if cfg.family not in ("dense", "moe", "ssm"):
+            raise NotImplementedError(
+                f"the server's prefill path covers dense, moe and ssm, as "
+                f"the reference's does; {cfg.family!r} serves by decode_step "
+                f"alone there")
         if policystore is not None or adapt_mode != "inline":
             raise NotImplementedError(
                 "the policy store and async adaptation come with slice 8 of "

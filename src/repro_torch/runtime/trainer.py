@@ -52,6 +52,10 @@ from repro_torch.runtime.straggler import StragglerDetector
 @dataclass
 class TrainReport:
     losses: List[float] = field(default_factory=list)
+    # the loss's parts per step (xent + aux = loss; aux is the moe family's
+    # load-balance loss, 0 for the others)
+    xent: List[float] = field(default_factory=list)
+    aux: List[float] = field(default_factory=list)
     times: List[float] = field(default_factory=list)
     # full critical-path latency per step: ``times`` plus the
     # ``end_iteration`` bookkeeping/adaptation that runs before the next
@@ -108,13 +112,15 @@ class Trainer:
         self.step = 0
         self.straggler = StragglerDetector(on_straggler=self._on_straggler)
         self.report = TrainReport()
-        self._grad = S.make_grad_step(cfg, tcfg)
+        self._parts = None             # the last grad step's loss parts
+        self._grad = S.make_grad_step(cfg, tcfg, on_parts=self._take_parts)
         self._apply = S.make_apply_step(cfg, tcfg)
         self._eval = S.make_eval_step(cfg)
         self.rt: Optional[ChameleonRuntime] = None
         if self.cham.enabled:
             self.rt = ChameleonRuntime(
-                self.cham, lambda policy: S.make_grad_step(cfg, tcfg, policy),
+                self.cham, lambda policy: S.make_grad_step(
+                    cfg, tcfg, policy, on_parts=self._take_parts),
                 device=self.device)
             # every dispatch of the iteration runs under the recorder
             self._apply = self.rt.recorded(self._apply)
@@ -229,6 +235,9 @@ class Trainer:
             self.report.adapt = self.rt.service.stats()
         return self.report
 
+    def _take_parts(self, parts) -> None:
+        self._parts = parts
+
     def _one_step(self, batch, fault_hook=None):
         faults.tick(self.step)   # armed fault plans key off the iteration
         rt = self.rt
@@ -238,6 +247,7 @@ class Trainer:
         with obs.tracer().span(obs.LANE_COMPUTE, "train_step",
                                arg=self.step):
             loss, grads, finite = fn(*args)
+            parts = self._parts              # before any replay of fn
             finite_h = bool(finite)          # waits for the device
         if rt is not None:
             rt.record_dispatch("train", fn, args)
@@ -275,6 +285,8 @@ class Trainer:
         wall = time.perf_counter() - t0
         self.straggler.observe(self.step, wall)
         self.report.losses.append(float(loss))
+        self.report.xent.append(float(parts["xent"]))
+        self.report.aux.append(float(parts["aux"]))
         self.report.times.append(dt)
         self.report.wall_times.append(wall)
         self.step += 1

@@ -460,6 +460,142 @@ def test_ssd_scan_rejects_what_it_does_not_take(card):
         SSD.ssd_scan(x, dt, A, big, big, chunk=32)
 
 
+# K4 backward, through ``ssd_scan``'s autograd Function on the card, against
+# ``ssd_scan_bwd_plain`` on f32 copies of the same inputs: dx, ddt, dA, dB
+# and dC each within (relative Frobenius, max |err| / max |ref|), as
+# chip_smoke.py's SSD_BWD_TOL (bf16 outputs rounded to bf16; the running
+# sums of dt * A in another order).  The sweep's shapes, the train phases'
+# head widths at a short length, and a seeded final-state cotangent.
+SSD_BWD_TOL = {"bfloat16": (1e-2, 2.0 ** -5), "float32": (1e-3, 2.0 ** -8)}
+SSD_BWD_SWEEP = SSD_SWEEP + [
+    (2, 300, 48, 64, 128, 256),      # mamba2-780m's heads, ragged
+    (1, 520, 64, 64, 64, 256),       # zamba2-1.2b's heads, ragged
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_BWD_SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_backward_matches_plain(card, B, S, H, P, N, chunk, dtype):
+    x, dt, A, Bm, Cm = ssd_inputs(card, B, S, H, P, N, dtype, seed=3)
+    rng = np.random.RandomState(4)
+    dy = torch.from_numpy(rng.randn(B, S, H, P).astype(np.float32)).to(
+        card, x.dtype)
+    dst = torch.from_numpy(rng.randn(B, H, P, N).astype(np.float32)).to(card)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    fwd, bwd = SSD.ssd_scan.launches, SSD.ssd_scan_bwd.launches
+    y, st = SSD.ssd_scan(*leaves, chunk=chunk)
+    got = torch.autograd.grad((y, st), leaves, (dy, dst))
+    torch.cuda.synchronize()
+    assert (SSD.ssd_scan.launches, SSD.ssd_scan_bwd.launches) == (fwd + 1,
+                                                                  bwd + 1)
+    want = SSD.ssd_scan_bwd_plain(*(t.float() for t in (x, dt, A, Bm, Cm)),
+                                  dy.float(), dst, chunk=chunk)
+    fro, mx = SSD_BWD_TOL[dtype]
+    for g, w, leaf in zip(got, want, leaves):
+        assert g.dtype == leaf.dtype
+        g, w = g.float().cpu().numpy(), w.float().cpu().numpy()
+        assert np.isfinite(g).all()
+        assert np.linalg.norm(g - w) <= fro * np.linalg.norm(w)
+        assert np.abs(g - w).max() <= mx * np.abs(w).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_backward_repeats_bit_for_bit(card, dtype):
+    """dB, dC (shared by every head) and dA (summed over batch and
+    sequence) are reduced in a fixed order with no atomics."""
+    x, dt, A, Bm, Cm = ssd_inputs(card, 2, 700, 16, 64, 128, dtype, seed=5)
+    dy = torch.randn(2, 700, 16, 64, device=card).to(x.dtype)
+    _, _, saved = SSD.ssd_scan_saved(x, dt, A, Bm, Cm, chunk=256)
+    first = SSD.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, None, saved=saved,
+                             chunk=256)
+    second = SSD.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, None, saved=saved,
+                              chunk=256)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_keeps_only_what_its_backward_reads(card, dtype):
+    """The Function saves the incoming states, C B^T and the running sums
+    of dt * A, and not the bf16 passes' dS buffer: (B*nc*H*P*N) +
+    (B*nc*chunk^2, rounded up to 4) + (B*nc*H*chunk) floats."""
+    B, S, H, P, N, chunk = 2, 700, 16, 64, 128, 256
+    x, dt, A, Bm, Cm = ssd_inputs(card, B, S, H, P, N, dtype, seed=6)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    saved = []
+
+    def pack(t):
+        saved.append(t)
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        y, st = SSD.ssd_scan(*leaves, chunk=chunk)
+    nc = -(-S // chunk)
+    want = (B * nc * H * P * N + -(-B * nc * chunk * chunk // 4) * 4
+            + B * nc * H * chunk)
+    flat = [t for t in saved if t.dim() == 1 and t.dtype == torch.float32
+            and t.numel() > H]
+    assert [t.numel() for t in flat] == [want]
+    got = torch.autograd.grad((y, st), leaves,
+                              (torch.ones_like(y), torch.ones_like(st)))
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_backward_rejects_what_it_does_not_take(card):
+    x, dt, A, Bm, Cm = ssd_inputs(card, 1, 64, 2, 128, 8, "float32")
+    with pytest.raises(ValueError, match="up to 64"):
+        SSD.ssd_scan(x.detach().clone().requires_grad_(), dt, A, Bm, Cm,
+                     chunk=32)
+    x, dt, A, Bm, Cm = ssd_inputs(card, 1, 64, 2, 16, 8, "float32")
+    with pytest.raises(ValueError, match="scratch"):
+        SSD.ssd_scan_bwd(x, dt, A, Bm, Cm, torch.zeros_like(x), chunk=32)
+
+
+# K1 forward and backward and K3 at head dim 64, at the shapes the decoder
+# zoo's train and serve phases give them: zamba2-1.2b's shared block (32
+# heads, MHA) and granite-moe-1b-a400m (16 heads over 8 KV heads).
+D64_SHAPES = [(2, 512, 32, 32), (2, 512, 16, 8), (1, 901, 16, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Kh", D64_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_d64_attention_kernels_match_plain(card, B, S, H, Kh, dtype):
+    D = 64
+    rng = np.random.RandomState(6)
+    q, k, v, do = (torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                    * scale).to(card, getattr(torch, dtype))
+                   for shape, scale in (((B, S, H, D), QK_SCALE),
+                                        ((B, S, Kh, D), QK_SCALE),
+                                        ((B, S, Kh, D), 1.0),
+                                        ((B, S, H, D), 1.0)))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = ops.flash_attention(qg, kg, vg, causal=True)
+    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    o, lse = ops.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    o_, r = out.detach().float().cpu().numpy(), o.float().cpu().numpy()
+    assert np.linalg.norm(o_ - r) <= FRO_TOL[dtype] * np.linalg.norm(r)
+    assert np.abs(o_ - r).max() <= MAX_TOL[dtype] * np.abs(r).max()
+    ref = ops.flash_attention_bwd_plain(q, k, v, out.detach(), lse, do,
+                                        causal=True)
+    for g, w in zip(got, ref):
+        g, w = g.float().cpu().numpy(), w.float().cpu().numpy()
+        assert np.linalg.norm(g - w) <= BWD_FRO_TOL[dtype] * np.linalg.norm(w)
+        assert np.abs(g - w).max() <= BWD_MAX_TOL[dtype] * np.abs(w).max()
+    lens = torch.tensor([S - 7 * b for b in range(B)], dtype=torch.int32,
+                        device=card)
+    dq, dk, dv = _decode_inputs(card, B, S, H, Kh, D, dtype, seed=7)
+    dout = ops.flash_decode(dq, dk, dv, lens)
+    dref = ops.flash_decode_plain(dq, dk, dv, lens)
+    a, b = dout.float().cpu().numpy(), dref.float().cpu().numpy()
+    assert np.linalg.norm(a - b) <= FRO_TOL[dtype] * np.linalg.norm(b)
+    assert np.abs(a - b).max() <= MAX_TOL[dtype] * np.abs(b).max()
+
+
 # ------------------------------------- K1 as custom ops, in the op stream
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -27,6 +27,7 @@ def _load_tool(name):
 
 TOOL = _load_tool("flash_attention_mutants")
 VARIANTS = _load_tool("k1_bwd_variants")
+DECODE_SSD = _load_tool("decode_ssd_mutants")
 MUTANT_CASES = [(table, name) for table in ("MUTANTS", "BWD_MUTANTS")
                 for name in getattr(TOOL, table)]
 
@@ -98,3 +99,12 @@ def test_k1_bwd_variant_edits_apply_once(name, tmp_path):
     (src, lib), = VARIANTS.write_variants(tmp_path, [name]).values()
     assert src.read_text() != text and (src.parent / HEADER).exists()
     assert lib.parent == src.parent
+
+
+@pytest.mark.parametrize("name", sorted(DECODE_SSD.MUTANTS))
+def test_decode_ssd_mutant_texts_are_in_their_sources(name):
+    """Every fault ``tools/decode_ssd_mutants.py`` plants (K3, K4, K4's
+    backward, K2a) finds its text exactly once in its library's source."""
+    lib, old, new = DECODE_SSD.MUTANTS[name]
+    assert old != new
+    assert _build.SOURCES[lib].read_text().count(old) == 1

@@ -222,3 +222,49 @@ def test_from_arrays_round_trip(llama_profile):
         scan_layers=ref.scan_layers)
     assert prof.n_ops == ref.n_ops and prof.scan_layers == ref.scan_layers
     assert [vars(t) for t in prof.tensors] == [vars(t) for t in ts]
+
+
+# The moe and ssm sites of a reduced granite-moe and mamba2 train step, as
+# (site, layer) pairs, against the reference's jaxpr profile of the same
+# step.  ``ssm_gate`` tags z, a slice of the in-projection tagged
+# ``ssm_in``: the reference's backward saves the slice, so it finds an
+# ``ssm_gate`` and no ``ssm_in``; the port labels a storage by its first
+# tag (as with ``ln_in`` above), so the same buffer is its ``ssm_in``.
+ZOO_FAMILY_SITES = {"granite_moe_1b_a400m": ("router_", "moe_"),
+                    "mamba2_780m": ("ssm_",)}
+
+
+@pytest.mark.parametrize("arch", sorted(ZOO_FAMILY_SITES))
+def test_zoo_sites_labelled_as_reference(arch):
+    import jax.numpy as jnp
+    import repro.configs as RC
+    from repro.core.profiler import profile_jaxpr
+    from repro.models.registry import get_api as ref_get_api
+    from repro_torch.core.sites import base_site
+
+    rcfg, pcfg = RC.get_reduced(arch), PC.get_reduced(arch)
+    api = ref_get_api(rcfg)
+    params, _ = api.init(rcfg, jax.random.PRNGKey(0))
+
+    def train_step(p, batch):
+        loss, g = jax.value_and_grad(lambda q: api.loss_fn(rcfg, q, batch)[0])(p)
+        return loss, jax.tree.map(lambda a, b: a - 1e-3 * b, p, g)
+
+    rbatch = {k: jnp.ones((2, 16), jnp.int32) for k in ("tokens", "labels")}
+    ref = profile_jaxpr(jax.make_jaxpr(train_step)(params, rbatch), t_iter=1.0)
+    model = convert.params_from_reference(
+        pcfg, jax.tree.map(np.asarray, params), device="cpu")
+    pbatch = {k: torch.ones((2, 16), dtype=torch.int64)
+              for k in ("tokens", "labels")}
+    port = profile_step(_step(pcfg, model, pbatch), device="cpu")
+    fam = ZOO_FAMILY_SITES[arch]
+
+    def pairs(prof):
+        return {(base_site(t.site), t.layer) for t in prof.candidates
+                if base_site(t.site).startswith(fam)}
+    want = {("ssm_in", i) if s == "ssm_gate" else (s, i)
+            for s, i in pairs(ref)}
+    assert pairs(port) == want
+    assert {s for s, _ in want} >= (
+        {"router_logits", "moe_dispatch", "moe_act", "moe_out"}
+        if "moe_" in fam else {"ssm_in", "ssm_conv", "ssm_state", "ssm_out"})

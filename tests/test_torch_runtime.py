@@ -13,6 +13,7 @@ program does (``ChameleonRuntime._static_bytes``).
 import shutil
 import tempfile
 
+import numpy as np
 import pytest
 import torch
 
@@ -23,6 +24,7 @@ from repro.common.config import TrainConfig as RTrainConfig
 from repro.data.synthetic import SyntheticTokens as RTokens
 from repro.runtime.trainer import Trainer as RTrainer
 from repro_torch.common.config import ChameleonConfig, TrainConfig
+from repro_torch import obs
 from repro_torch.core.runtime import ChameleonRuntime
 from repro_torch.data.synthetic import SyntheticTokens
 from repro_torch.runtime.trainer import Trainer
@@ -57,6 +59,9 @@ def forty():
                                         hbm_budget_bytes=20 << 20),
                        data=RTokens(rcfg.vocab_size, 64, 4, seed=0))
         ref = rtr.train(40)
+        # the memory ledger is process-wide: count this run's iterations
+        # only, whatever ran before in this process
+        obs.ledger().clear()
         on = _port(dirs[1], cham=True, eval_every=13, steps=40,
                    budget=20 << 20)
         rep_on = on.train(40)
@@ -103,6 +108,15 @@ def test_runtime_stats_surface(forty):
     assert len(tr.rt.history) == 40
     assert tr.rt.obs_stats()["overlap"]["iterations"] == 40
     assert tr.rt.adaptation_overhead_s > 0 and tr.rt.profiling_overhead_s > 0
+
+
+def test_loss_parts_reported_with_chameleon_on(forty):
+    """The report's xent and aux fill through Chameleon's dispatch as
+    through the plain one: one of each a step, summing to the loss."""
+    for rep in (forty["rep_on"], forty["rep_off"]):
+        assert len(rep.xent) == len(rep.aux) == len(rep.losses) == 40
+        np.testing.assert_allclose(np.add(rep.xent, rep.aux), rep.losses,
+                                   rtol=1e-6)
 
 
 def test_profiling_overhead_small():

@@ -111,9 +111,14 @@ def test_ssd_chunk_size_invariance_and_strided_inputs(chunk):
 
 
 def test_ssd_cuda_path_raises_instead_of_falling_back(monkeypatch):
+    """A non-CPU tensor never reaches the plain versions: without grad the
+    forward launch raises (no card here); with an input that needs grad the
+    call goes to ``_SSDScanFn``, whose forward keeps the backward's states
+    (``keep=True``), and never to the differentiable plain scan."""
     def fail(*a, **k):
         raise AssertionError("plain version called for a non-CPU tensor")
     monkeypatch.setattr(ops, "ssd_scan_plain", fail)
+    monkeypatch.setattr(ops, "ssd_scan_bwd_plain", fail)
     x = torch.empty(1, 8, 2, 16, device="meta")
     dt = torch.empty(1, 8, 2, device="meta")
     A = torch.empty(2, device="meta")
@@ -121,6 +126,23 @@ def test_ssd_cuda_path_raises_instead_of_falling_back(monkeypatch):
     before = ops.ssd_scan.launches
     with pytest.raises(RuntimeError):
         ops.ssd_scan(x, dt, A, Bm, Bm, chunk=4)
+    assert ops.ssd_scan.launches == before
+
+    calls = []
+    real = ops._forward
+
+    def spy(*a, keep):
+        calls.append((keep, torch.is_grad_enabled()))
+        return real(*a, keep=keep)
+    monkeypatch.setattr(ops, "_forward", spy)
+    xg = x.clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.ssd_scan(xg, dt, A, Bm, Bm, chunk=4)
+    # inside the Function's forward: the kept states, autograd off
+    assert calls == [(True, False)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.ssd_scan_bwd(x, dt, A, Bm, Bm, torch.empty_like(x), chunk=4,
+                         saved=torch.empty(0, device="meta"))
     assert ops.ssd_scan.launches == before
 
 
@@ -131,12 +153,15 @@ def test_ssd_rejects_bad_shapes():
         ops.ssd_scan(x, dt[:, :8], A, Bm, Cm, chunk=8)
     with pytest.raises(ValueError, match="positive"):
         ops.ssd_scan(x, dt, A, Bm, Cm, chunk=0)
-    # on the card the kernel is forward only (K4 backward is not ported):
-    # an input that requires grad raises rather than run the plain scan
+    # off the CPU an input that requires grad goes to the kernel pair (K4
+    # and its backward), whose launch takes only one CUDA device: a meta
+    # tensor raises rather than run the plain scan
     xm, dtm, Am, Bmm = (torch.empty(t.shape, device="meta", requires_grad=True)
                         for t in (x, dt, A, Bm))
-    with pytest.raises(RuntimeError, match="forward only"):
+    with pytest.raises(RuntimeError, match="one CUDA device"):
         ops.ssd_scan(xm, dtm, Am, Bmm, Bmm, chunk=8)
+    with pytest.raises(ValueError, match="disagree"):
+        ops.ssd_scan_bwd(x, dt[:, :8], A, Bm, Cm, x, chunk=8)
 
 
 # ------------------------------------------------------- reduced mamba2-780m

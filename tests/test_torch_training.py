@@ -68,16 +68,18 @@ def _tcfg(cls, d, **kw):
     return cls(**{**base, **kw})
 
 
-def _port_trainer(d, impl="chunked", *, seed=0, seq=32, batch=4, **kw):
-    cfg = PC.get_reduced("llama2_paper").replace(attn_impl=impl)
+def _port_trainer(d, impl="chunked", *, seed=0, seq=32, batch=4,
+                  arch="llama2_paper", **kw):
+    cfg = PC.get_reduced(arch).replace(attn_impl=impl)
     return Trainer(cfg, _tcfg(TrainConfig, d, **kw),
                    ChameleonConfig(enabled=False),
                    data=SyntheticTokens(cfg.vocab_size, seq, batch, seed=seed),
                    device="cpu")
 
 
-def _ref_trainer(d, impl="chunked", *, seed=0, seq=32, batch=4, **kw):
-    cfg = RC.get_reduced("llama2_paper").replace(attn_impl=REF_IMPL[impl])
+def _ref_trainer(d, impl="chunked", *, seed=0, seq=32, batch=4,
+                 arch="llama2_paper", **kw):
+    cfg = RC.get_reduced(arch).replace(attn_impl=REF_IMPL[impl])
     return RTrainer(cfg, _tcfg(RTrainConfig, d, **kw),
                     RChameleonConfig(enabled=False),
                     data=RTokens(cfg.vocab_size, seq, batch, seed=seed))
@@ -139,6 +141,29 @@ def test_trainer_losses_match_reference(tmpdir, impl):
     assert not prep.failures and not prep.skipped_steps
     np.testing.assert_allclose(prep.losses, rrep.losses, **LOSS_TOL)
     assert prep.stages == [] and prep.policystore is None
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "zamba2_1_2b"])
+def test_trainer_losses_match_reference_families(tmpdir, arch):
+    """The trainer bar above for the moe and hybrid families: 10 steps from
+    the reference's initial state give its losses (2e-4), and the port
+    reports the loss's parts (xent + aux = loss; aux > 0 only for moe).
+    zamba2 trains at 4 tokens: the reference's gradients through its SSD
+    scan turn NaN (F5) once dt |A| summed over a chunk's upper triangle
+    passes ~88, which its own updates reach within 10 steps at 8 tokens
+    (steps 2, 3, 8 and 9 skipped), so its trainer takes other steps than
+    the port's, whose gradients stay finite."""
+    seq = 4 if arch == "zamba2_1_2b" else 32
+    rt = _ref_trainer(os.path.join(tmpdir, "ref"), arch=arch, seq=seq)
+    pt = _port_trainer(os.path.join(tmpdir, "port"), arch=arch, seq=seq)
+    _start_from_reference(pt, rt)
+    rrep, prep = rt.train(10), pt.train(10)
+    assert not rrep.skipped_steps
+    assert not prep.failures and not prep.skipped_steps
+    np.testing.assert_allclose(prep.losses, rrep.losses, **LOSS_TOL)
+    np.testing.assert_allclose(np.add(prep.xent, prep.aux), prep.losses,
+                               rtol=1e-6)
+    assert all(a > 0 for a in prep.aux) == (arch != "zamba2_1_2b")
 
 
 def test_reference_checkpoint_resumes_in_port(tmpdir):
@@ -263,14 +288,20 @@ def test_straggler_matches_reference():
 
 
 # ------------------------------------ tests/test_models_smoke.py's bars
-@pytest.mark.parametrize("arch", ["llama2_paper", "mamba2_780m"])
+DECODER_ARCHS = [a for a in RC.ARCH_IDS
+                 if a not in ("whisper_large_v3", "llama3_2_vision_90b")
+                 ] + ["llama2_paper"]
+
+
+@pytest.mark.parametrize("arch", DECODER_ARCHS)
 def test_forward_and_train_step(arch):
-    """Forward shape and no NaN; one fused train step gives a finite loss,
-    advances the optimizer and moves the parameters; and the grad step's
-    gradients match the reference's (for mamba2 through the plain SSD scan,
-    the port of the reference's differentiable ``ssd_chunked``: fault P1).
-    mamba2's gradients are compared at 8 tokens: at 16 the reference's are
-    not finite (F5, ``test_reference_ssm_gradients_overflow``)."""
+    """Every decoder-only config (dense, moe, ssm, hybrid): forward shape
+    and no NaN; one fused train step gives a finite loss, advances the
+    optimizer and moves the parameters; and the grad step's gradients
+    match the reference's (through the plain SSD scan for the ssm-bearing
+    families, the port of the reference's differentiable ``ssd_chunked``).
+    Their gradients are compared at 8 tokens: at 16 the reference's are not
+    finite (F5, ``test_reference_ssm_gradients_overflow``)."""
     rcfg, pcfg = RC.get_reduced(arch), PC.get_reduced(arch)
     rparams, _ = ref_get_api(rcfg).init(rcfg, jax.random.PRNGKey(0))
     model = convert.params_from_reference(pcfg, _np(rparams), device="cpu")
@@ -291,8 +322,9 @@ def test_forward_and_train_step(arch):
     assert any(not torch.allclose(a, b) for a, b in
                zip(before, model.parameters()))
     assert all(torch.isfinite(p).all() for p in model.parameters())
-    _check_grads(arch, None, dict(seed=1, batch=B,
-                                  seq=8 if pcfg.family == "ssm" else S_))
+    _check_grads(arch, None, dict(
+        seed=1, batch=B,
+        seq=8 if pcfg.family in ("ssm", "hybrid") else S_))
 
 
 def test_reference_ssm_gradients_overflow():
@@ -361,6 +393,10 @@ def test_chameleon_and_later_slices_raise(tmpdir):
     with pytest.raises(NotImplementedError, match="item 8"):
         train.main(["--reduced", "--device", "cpu", "--adapt-mode",
                     "async"])
+    for arch in ("llama-3.2-vision-90b", "whisper-large-v3"):
+        with pytest.raises(NotImplementedError, match="slice 7b"):
+            train.main(["--arch", arch, "--reduced", "--device", "cpu",
+                        "--no-chameleon", "--steps", "1"])
 
 
 def test_entry_points_refuse_cpu_fallback(tmpdir, monkeypatch):
