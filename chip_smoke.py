@@ -65,7 +65,8 @@ Phases, each printing JSON lines:
               the same inputs (SSD_TOL); the train shapes timed warm and
               cold beside the
               plain version and the bound (``ssd_bwd_bound``), with each
-              pass's device time.
+              pass's device time, and the forward that keeps the states
+              timed there warm and cold beside its bound (``ssd_bound``).
 6c. kernel_d64  K1's forward and backward and K3 at head dim 64 against
               their plain versions (K1's limits): granite-moe's prefill
               shapes, the zoo's train shapes (32 x 32 and 16 over 8 heads,
@@ -1350,6 +1351,20 @@ def ssd_bwd_cold_ms(ins, dy, dst, chunk, layers) -> float:
     return ms
 
 
+def ssd_fwd_cold_ms(ins, chunk, layers) -> float:
+    """Cold-L2 device time per launch of K4's forward as a train step
+    launches it (keeping the states its backward reads): one CUDA graph
+    launches it once per layer over ``layers`` copies of the inputs."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as SSD
+    sets = [tuple(t.clone() for t in ins) for _ in range(layers)]
+    ms = graph_ms(lambda: [SSD.ssd_scan_saved(*z, chunk=chunk) for z in sets],
+                  iters=1, reps=5) / layers
+    del sets
+    torch.cuda.empty_cache()
+    return ms
+
+
 def ssd_bwd_rows(device, cases):
     """K4's backward against ``ssd_scan_bwd_plain`` (f32 on the same
     inputs) on every case of ``cases`` (SSD_BWD_CASES' layout): x, Bm, Cm
@@ -1396,12 +1411,22 @@ def phase_ssd_bwd_kernel(device, cases):
     saved its states inside SSD_TOL and SSD_STATE_TOL.  The timed cases (the
     train phases' shapes) also give the device time warm (CUDA graph, one
     input replayed) and cold (SSD_BWD_COLD_LAYERS layers' own inputs),
-    each pass's device time, the plain version's time, and the bound.
+    each pass's device time, the plain version's time, and the bound, and
+    their forward (``ssd_scan_saved``) warm, cold and its bound.
     Returns the timed rows, each with its forward row under ``fwd``."""
     from repro_torch.kernels.ssd_scan import ops as SSD
 
     timed = []
     for row, fwd, inputs in ssd_bwd_rows(device, cases):
+        if inputs is not None:       # the forward at the train shape, timed
+            ins, _, _, _ = inputs
+            B, S, H, P, N = fwd["shape"]
+            fwd["ms"] = graph_ms(lambda: SSD.ssd_scan_saved(
+                *ins, chunk=fwd["chunk"]), iters=5)
+            fwd["cold_ms"] = ssd_fwd_cold_ms(ins, fwd["chunk"],
+                                             SSD_BWD_COLD_LAYERS)
+            fwd["bound_ms"], fwd["bound_by"] = ssd_bound(
+                B, S, H, P, N, fwd["chunk"], ins[0].dtype.itemsize)
         emit("ssd_kernel", name="ssd_scan_fwd", **fwd)
         if not fwd["ok"]:
             raise AssertionError(f"ssd_scan (saved layout) disagrees with "
@@ -3148,7 +3173,11 @@ def main(argv=None) -> int:
         "library_ms": None,
         "zoo_launches": {p: zoo[p]["k4_fwd"] for p in zoo},
         "at": {"shape": ssd_times[max(SSD_LENS)]["shape"],
-               "chunk": scfg.ssm_chunk, "dtype": "bfloat16"}}, {
+               "chunk": scfg.ssm_chunk, "dtype": "bfloat16"},
+        # at the train phases' shapes, keeping the states for the backward
+        "train": {r["arch"]: {k: r["fwd"][k] for k in (
+            "shape", "ms", "cold_ms", "bound_ms", "bound_by")}
+            for r in ssd_bwd_rows}}, {
         "name": "ssd_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
         "replaces": "src/repro/models/ssm.py:73",

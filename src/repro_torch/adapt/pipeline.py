@@ -178,7 +178,14 @@ class AdaptationPipeline:
                 bwmodel=None, engine=None, tl=None) -> PolicyVariant:
         """One GenPolicy variant: Algo-2 generation under ``knob`` groups
         per phase.  ``bwmodel``/``engine`` price transfers and link
-        backlog — live objects inline, frozen snapshot views async."""
+        backlog — live objects inline, frozen snapshot views async.  A
+        fresh policy whose timeline replay (``projected_peak``) is still
+        over the budget is not lowered: Algo 2 stops when its MRL is empty,
+        and the MRL counts a swap from the tensor's birth where the replay
+        counts it from the end of its swap-out.  Such a variant is the
+        conservative fallback, as under ``ChameleonOOMError``, so another
+        knob's variant that fits wins the ranking (the reference lowers it
+        as it is)."""
         groups = max(1, int((prof.scan_layers or 32) * knob))
         cfg_v = dataclasses.replace(self.cfg, groups_per_phase=groups)
         tl = tl if tl is not None else build_timeline(prof)
@@ -187,6 +194,10 @@ class AdaptationPipeline:
                 swap = generate_policy(
                     prof, cfg_v, budget, timeline=tl, bwmodel=bwmodel,
                     engine=engine, register_free_times=False)
+                if swap.projected_peak > budget:
+                    raise ChameleonOOMError(
+                        f"the policy replays to {swap.projected_peak} bytes, "
+                        f"over the budget of {budget}")
                 applied = self.executor.lower(swap, prof)
             else:
                 swap, applied = None, self.executor.baseline()

@@ -7,10 +7,13 @@ own into a shared library with a plain C interface::
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<stem>-<hash>.so <src>
 
 at first use, into ``build/kernels/`` at the repository root (listed in
-``.gitignore``).  The file name carries a hash of the source, of every
-header (``*.cuh``) in its ``csrc/`` directory and of the flags, so an edited
-source or shared header (``flash_attention/csrc/hopper_sm90.cuh``) is
-rebuilt and a stale library is never loaded.
+``.gitignore``), with ``-I`` for each of ``INCLUDE_DIRS`` (the Hopper
+helpers ``flash_attention/csrc/hopper_sm90.cuh``, which K4's backward
+includes too).  The file name carries a hash of the source, of every
+header it includes (its ``#include "..."`` lines followed, found beside the
+source first and then in ``INCLUDE_DIRS``, as nvcc finds them) and of the
+flags, so an edited source or shared header is rebuilt and a stale library
+is never loaded.
 ``build()`` starts one ``nvcc`` per missing library, all at once, and
 raises with the compiler's output if any of them fails; the ``ptxas``
 report (registers, shared memory, spills) is kept beside each library as
@@ -21,16 +24,20 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 KERNELS_DIR = Path(__file__).resolve().parent
 REPO_ROOT = KERNELS_DIR.parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# searched after a source's own directory for its quoted includes
+INCLUDE_DIRS: Tuple[Path, ...] = (KERNELS_DIR / "flash_attention" / "csrc",)
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 # library name -> CUDA source (one library per source file)
 SOURCES: Dict[str, Path] = {
@@ -62,11 +69,31 @@ def nvcc_path() -> str:
                        "/usr/local/cuda/bin); the CUDA kernels cannot be built")
 
 
+def included_headers(src: Path) -> List[Path]:
+    """Every header ``src`` includes with ``#include "..."``, directly or
+    through another header, each found as nvcc finds it: beside the file
+    that includes it, then in ``INCLUDE_DIRS``.  An include found nowhere
+    is left to nvcc to report."""
+    found: List[Path] = []
+    todo = [src]
+    while todo:
+        cur = todo.pop()
+        for name in _INCLUDE.findall(cur.read_text()):
+            for d in (cur.parent, *INCLUDE_DIRS):
+                hdr = (d / name).resolve()
+                if hdr.is_file():
+                    if hdr not in found:
+                        found.append(hdr)
+                        todo.append(hdr)
+                    break
+    return found
+
+
 def source_hash(src: Path) -> str:
-    """Hash of a CUDA source, the headers beside it (which it may include)
-    and the nvcc flags."""
+    """Hash of a CUDA source, the headers it includes and the nvcc
+    flags."""
     h = hashlib.sha256(src.read_bytes())
-    for hdr in sorted(src.parent.glob("*.cuh")):
+    for hdr in sorted(included_headers(src), key=lambda p: (p.name, str(p))):
         h.update(hdr.name.encode())
         h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -88,7 +115,8 @@ def compile_all(jobs: Dict[str, Tuple[Path, Path]]) -> None:
     for n, (src, lib) in jobs.items():
         lib.parent.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, *(f"-I{d}" for d in INCLUDE_DIRS), "-o",
+               str(tmp), str(src)]
         procs[n] = (lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []

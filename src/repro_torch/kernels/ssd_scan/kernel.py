@@ -26,6 +26,7 @@ BWD_LIB = "ssd_scan_bwd"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 128                 # NMAX of the kernel; N a multiple of 4
 MAX_HEAD_DIM_BWD = 64           # PMAX of the backward
+MAX_CHUNK_BWD_BF16 = 256        # CHUNK_WG of the backward's bf16 passes
 
 _lib: Optional[ctypes.CDLL] = None
 _fn = None
@@ -91,7 +92,7 @@ def bind_bwd(lib: ctypes.CDLL):
                    + [ci, vp])     # dtype stream
     fn.restype = ci
     size = lib.ssd_scan_bwd_workspace_floats
-    size.argtypes, size.restype = [ci] * 6, cl    # B S H P N chunk
+    size.argtypes, size.restype = [ci] * 7, cl    # B S H P N chunk dtype
     return fn, size
 
 
@@ -104,10 +105,11 @@ def _bwd_entry():
 
 
 def bwd_workspace_floats(B: int, S: int, H: int, P: int, N: int,
-                         chunk: int) -> int:
-    """Floats of device workspace ``ssd_scan_bwd`` needs for these shapes."""
+                         chunk: int, dtype: torch.dtype) -> int:
+    """Floats of device workspace ``ssd_scan_bwd`` needs for these shapes
+    and dtype."""
     _bwd_entry()
-    return int(_work_fn(B, S, H, P, N, chunk))
+    return int(_work_fn(B, S, H, P, N, chunk, DTYPE_CODES[dtype]))
 
 
 def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

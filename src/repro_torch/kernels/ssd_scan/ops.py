@@ -196,15 +196,27 @@ def _cuda_checks(ts, x, Bm, Cm, what: str) -> None:
                          "but needs unit stride in the last dim")
 
 
+def _check_bwd_shape(x, chunk: int) -> None:
+    """Raise for a head dim or chunk (already cut to S) that K4's backward
+    does not take in x's dtype."""
+    P = x.shape[3]
+    if P > K.MAX_HEAD_DIM_BWD:
+        raise ValueError(f"head dim {P}: the SSD backward kernel takes up to "
+                         f"{K.MAX_HEAD_DIM_BWD}")
+    if x.dtype == torch.bfloat16 and (P % 8 or chunk > K.MAX_CHUNK_BWD_BF16):
+        raise ValueError(f"head dim {P}, chunk {chunk}: the bf16 SSD backward "
+                         f"takes a head dim that is a multiple of 8 and a "
+                         f"chunk of up to {K.MAX_CHUNK_BWD_BF16}")
+
+
 def _forward(x, dt, A, Bm, Cm, chunk: int, keep: bool):
     """Launch the forward on the card; with ``keep`` also return the
     scratch its backward reads (else None).  The dS buffer of the bf16
     passes lives only for the call."""
     _cuda_checks((x, dt, A, Bm, Cm), x, Bm, Cm, "ssd_scan")
     B, S, H, P = x.shape
-    if keep and P > K.MAX_HEAD_DIM_BWD:
-        raise ValueError(f"head dim {P}: the SSD backward kernel takes up to "
-                         f"{K.MAX_HEAD_DIM_BWD}")
+    if keep:
+        _check_bwd_shape(x, min(chunk, S))
     dt = dt.to(torch.float32)
     A = A.to(torch.float32).contiguous()
     N, chunk = Bm.shape[2], min(chunk, S)
@@ -269,9 +281,7 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     N, chunk = Bm.shape[2], min(chunk, S)
     if tuple(dy.shape) != (B, S, H, P):
         raise ValueError(f"dy {tuple(dy.shape)} != x {tuple(x.shape)}")
-    if P > K.MAX_HEAD_DIM_BWD:
-        raise ValueError(f"head dim {P}: the SSD backward kernel takes up to "
-                         f"{K.MAX_HEAD_DIM_BWD}")
+    _check_bwd_shape(x, chunk)
     if saved is None or saved.numel() < K.saved_floats(B, S, H, P, N, chunk):
         raise ValueError("ssd_scan_bwd needs the scratch of the forward on "
                          "these inputs (ssd_scan_saved)")
@@ -289,7 +299,7 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dA = torch.empty(H, dtype=torch.float32, device=dev)
     dB = torch.empty(B, S, N, dtype=x.dtype, device=dev)
     dC = torch.empty(B, S, N, dtype=x.dtype, device=dev)
-    work = torch.empty(K.bwd_workspace_floats(B, S, H, P, N, chunk),
+    work = torch.empty(K.bwd_workspace_floats(B, S, H, P, N, chunk, x.dtype),
                        dtype=torch.float32, device=dev)
     K.ssd_scan_bwd(x, dt32, A32, Bm, Cm, dy, dfin, saved, work, dx, ddt, dA,
                    dB, dC, chunk=chunk)

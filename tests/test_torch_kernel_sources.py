@@ -1,7 +1,10 @@
 """The port's CUDA sources as files, checked on the CPU (no nvcc, no card):
-the build hash covers the shared header, and every planted fault of
-``tools/flash_attention_mutants.py`` and every edit of
-``tools/k1_bwd_variants.py`` still finds its text in the sources, so
+the build hash covers the shared header of every source that includes it
+(K1's forward and backward beside it, K4's backward through the include
+path) and no header a source leaves out, and every planted fault of
+``tools/flash_attention_mutants.py`` and ``tools/decode_ssd_mutants.py``
+and every edit of ``tools/k1_bwd_variants.py`` and
+``tools/ssd_bwd_variants.py`` still finds its text in the sources, so
 neither the stale-library guard nor those tools can rot silently.
 """
 import importlib.util
@@ -14,6 +17,7 @@ from repro_torch.kernels import _build
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "flash_attention" / "csrc"
+SSD_CSRC = ROOT / "src" / "repro_torch" / "kernels" / "ssd_scan" / "csrc"
 HEADER = "hopper_sm90.cuh"
 
 
@@ -28,24 +32,52 @@ def _load_tool(name):
 TOOL = _load_tool("flash_attention_mutants")
 VARIANTS = _load_tool("k1_bwd_variants")
 DECODE_SSD = _load_tool("decode_ssd_mutants")
+SSD_VARIANTS = _load_tool("ssd_bwd_variants")
 MUTANT_CASES = [(table, name) for table in ("MUTANTS", "BWD_MUTANTS")
                 for name in getattr(TOOL, table)]
 
 
 @pytest.fixture
-def csrc_copy(tmp_path):
-    return Path(shutil.copytree(CSRC, tmp_path / "csrc"))
+def csrc_copy(tmp_path, monkeypatch):
+    """A copy of K1's sources and the shared header, searched for includes
+    in place of the package's, beside a copy of K4's sources."""
+    copy = Path(shutil.copytree(CSRC, tmp_path / "csrc"))
+    shutil.copytree(SSD_CSRC, tmp_path / "ssd_csrc")
+    monkeypatch.setattr(_build, "INCLUDE_DIRS", (copy,))
+    return copy
 
 
 @pytest.mark.parametrize("source", ["flash_attention_fwd.cu",
-                                    "flash_attention_bwd.cu"])
+                                    "flash_attention_bwd.cu",
+                                    "ssd_scan_bwd.cu"])
 def test_editing_the_shared_header_changes_the_library(csrc_copy, source):
     src = csrc_copy / source
+    if not src.exists():                  # K4's backward: not beside the header
+        src = csrc_copy.parent / "ssd_csrc" / source
     assert f'#include "{HEADER}"' in src.read_text()
+    assert _build.included_headers(src) == [(csrc_copy / HEADER).resolve()]
     before = _build.source_hash(src)
     hdr = csrc_copy / HEADER
     hdr.write_text(hdr.read_text() + "\n// edited\n")
     assert _build.source_hash(src) != before
+
+
+@pytest.mark.parametrize("where", ["beside K4", "beside the shared header"])
+def test_editing_a_header_no_source_includes_leaves_k4(csrc_copy, where):
+    """A header that K4's backward does not include, beside it or in the
+    include path, is not in its hash; nor is the shared header in the hash
+    of a source that does not include it (K4's forward)."""
+    ssd = csrc_copy.parent / "ssd_csrc"
+    bwd, fwd = ssd / "ssd_scan_bwd.cu", ssd / "ssd_scan_fwd.cu"
+    before = _build.source_hash(bwd), _build.source_hash(fwd)
+    other = (ssd if where == "beside K4" else csrc_copy) / "unused.cuh"
+    other.write_text("#pragma once\n")
+    other.write_text(other.read_text() + "// edited\n")
+    assert (_build.source_hash(bwd), _build.source_hash(fwd)) == before
+    hdr = csrc_copy / HEADER
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    assert _build.source_hash(fwd) == before[1]
+    assert _build.source_hash(bwd) != before[0]
 
 
 def test_editing_another_source_leaves_the_library(csrc_copy):
@@ -108,3 +140,15 @@ def test_decode_ssd_mutant_texts_are_in_their_sources(name):
     lib, old, new = DECODE_SSD.MUTANTS[name]
     assert old != new
     assert _build.SOURCES[lib].read_text().count(old) == 1
+
+
+@pytest.mark.parametrize("name", sorted(SSD_VARIANTS.VARIANTS))
+def test_ssd_bwd_variant_edits_apply_once(name, tmp_path):
+    """Every ablation of ``tools/ssd_bwd_variants.py`` edits K4 backward's
+    source where it means to: each text found exactly once."""
+    text = SSD_VARIANTS.SOURCE.read_text()
+    for old, new in SSD_VARIANTS.VARIANTS[name]:
+        assert old != new
+        assert text.count(old) == 1, f"{name}: {old[:60]!r}"
+    (src, lib), = SSD_VARIANTS.write_variants(tmp_path, [name]).values()
+    assert src.read_text() != text and lib.parent == src.parent

@@ -382,3 +382,64 @@ def test_remap_policy_hit_rate():
     pe, phit = pmatch.remap_policy(pp, port, pnew)
     assert ([_entry(e) for e in pe], phit) == ([_entry(e) for e in re], rhit)
     assert phit >= 0.9 and {e.site for e in pe} == {e.site for e in pp.entries}
+
+
+# -------------------------------------------- a fresh variant's replay (P3)
+def _variants(ref, budget, knob, **kw):
+    """The reference's and the port's ``AdaptationPipeline.variant`` on the
+    same profile: (reference variant, port variant)."""
+    from repro.adapt.pipeline import AdaptationPipeline as RPipe
+    from repro.core.executor import Executor as RExec
+    from repro_torch.adapt.pipeline import AdaptationPipeline as PPipe
+    from repro_torch.core.executor import Executor as PExec
+    rcfg, pcfg = cfgs(**kw)
+    rv = RPipe(rcfg, RExec(rcfg)).variant(ref, knob, budget)
+    pv = PPipe(pcfg, PExec(pcfg)).variant(to_port(ref), knob, budget)
+    return rv, pv
+
+
+def _applied(v):
+    a = v.applied
+    return (sorted(a.offload), sorted(a.save), sorted(a.remat),
+            a.fingerprint, a.release_plan,
+            None if v.swap is None else _policy(v.swap))
+
+
+@pytest.mark.parametrize("frac", [0.9, 0.7, 0.5])
+def test_variant_over_budget_replay_lowers_conservative(frac):
+    """A fast step (t_iter 10 ms) leaves the swap-outs no time to finish
+    before the peak: Algo 2 clears its MRL but the replay stays over the
+    budget.  The reference lowers that policy; the port takes the
+    conservative fallback, as under ChameleonOOMError."""
+    ref = synth_profile(n_layers=4, ops_per_layer=2, t_iter=0.01)
+    budget = int(frac * rmem.build_timeline(ref).peak)
+    rv, pv = _variants(ref, budget, 0.25)
+    assert rv.swap is not None and rv.swap.projected_peak > budget
+    assert pv.swap is None and pv.knob == rv.knob
+    assert pv.applied.fingerprint == "warmup-offload-all"
+    assert pv.applied.offload == {"resid_post"}
+
+
+@pytest.mark.parametrize("frac,knob", [(0.95, 0.25), (0.8, 0.5), (0.6, 1.0),
+                                       (0.4, 0.25), (0.2, 0.5)])
+def test_variant_equals_the_references_where_the_replay_fits(
+        llama_profile, frac, knob):
+    """Wherever the reference's fresh policy replays within the budget (or
+    Algo 2 raises, or the baseline fits), the port's variant is the
+    reference's: the same sites, release plan and policy entries."""
+    ref = llama_profile[0]
+    tl = rmem.build_timeline(ref)
+    budget = int(ref.static_bytes + frac * (tl.peak - ref.static_bytes))
+    rv, pv = _variants(ref, budget, knob)
+    assert rv.swap is None or rv.swap.projected_peak <= budget
+    assert _applied(pv) == _applied(rv) and pv.knob == rv.knob
+
+
+def test_variant_equals_the_references_on_a_slow_step():
+    """The synthetic profile with time to swap (t_iter 2 s): the replay
+    fits and both packages lower the same policy."""
+    ref = synth_profile(t_iter=2.0)
+    budget = int(0.6 * rmem.build_timeline(ref).peak)
+    rv, pv = _variants(ref, budget, 0.5, groups_per_phase=8)
+    assert rv.swap is not None and rv.swap.projected_peak <= budget
+    assert _applied(pv) == _applied(rv)

@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
-"""Mutation check of ``chip_smoke.py``'s flash-decode (K3), SSD-scan (K4)
-and int8 quantize (K2a) checks, on one NVIDIA GPU:
+"""Mutation check of ``chip_smoke.py``'s flash-decode (K3), SSD-scan (K4),
+K4-backward and int8 quantize (K2a) checks, on one NVIDIA GPU:
 
     python3 tools/decode_ssd_mutants.py
 
 Plants each fault of ``MUTANTS`` in its own copy of the kernel's source
 (``src/repro_torch/kernels/flash_attention/csrc/flash_decode_fwd.cu``,
-``src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_fwd.cu`` or
+``src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_fwd.cu``,
+``src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu`` or
 ``src/repro_torch/kernels/quant_offload/csrc/quant_offload.cu``) under
 ``build/mutants/``, builds the copies (one ``nvcc`` each, all at once), and
 runs every copy, and each unchanged kernel as a control, through
 ``chip_smoke.py``'s own check of that kernel: ``decode_rows`` over K3's
 cases (peaked q and k, a random cache past lens, both dtypes, split
 boundaries), ``ssd_rows`` over K4's mamba2-780m prefill lengths (both
-dtypes) and ``quant_rows`` over K2a/K2b's shapes and the KV spill's slot
-row (bit for bit).  A mutant is caught when at least one case fails the
-check.  Prints one JSON line per kernel and exits non-zero if a mutant is
-missed or a control fails.
+dtypes), ``ssd_bwd_rows`` over K4 backward's cases (``SSD_BWD_CASES``: the
+train shapes, ragged chunks, f32; within ``SSD_BWD_TOL`` and bit-equal over
+two launches) and ``quant_rows`` over K2a/K2b's shapes and the KV spill's
+slot row (bit for bit).  Every run starts from the unchanged libraries,
+with only the one under test replaced.  A mutant is caught when at least
+one case fails the check.  Prints one JSON line per kernel and exits
+non-zero if a mutant is missed or a control fails.
 """
 from __future__ import annotations
 
@@ -97,6 +101,38 @@ MUTANTS = {
         "ssd_scan_fwd",
         "        mma_bf16(acc[nt], xw_lo, b0, b1);\n",
         ""),
+    # K4 backward's dB / dC drop the last head group's dG partial
+    "ssd_bwd_group_dropped": (
+        "ssd_scan_bwd",
+        "for (int gi = 0; gi < G; ++gi) {",
+        "for (int gi = 0; gi < G - 1; ++gi) {"),
+    # K4 backward's causal select loses the diagonal (j < i)
+    "ssd_bwd_causal_off_by_one": (
+        "ssd_scan_bwd",
+        "const bool keep = i < cl && j <= i;",
+        "const bool keep = i < cl && j < i;"),
+    # K4 backward's dC leaves out the carried state's term
+    "ssd_bwd_dc_no_s0": (
+        "ssd_scan_bwd",
+        "wt = expf(cst);",
+        "wt = 0.f;"),
+    # K4 backward loses the last token's extra dcs (exp(cs_last) <D, S_0>
+    # and the key tile's sum of w_j x_j . U_j)
+    "ssd_bwd_no_last_token_term": (
+        "ssd_scan_bwd",
+        "if (i0 + tid == cl - 1) v += ext;",
+        "if (i0 + tid == cl) v += ext;"),
+    # K4 backward drops a ragged chunk's partial row tile (the row tiles
+    # rounded down): its rows get no intra-chunk terms
+    "ssd_bwd_ragged_tile_dropped": (
+        "ssd_scan_bwd",
+        "const int nit = (cl + TT - 1) / TT, nt = nit - jt;",
+        "const int nit = cl / TT, nt = nit - jt;"),
+    # K4 backward's state cotangent skips the chunks' decay exp(cs_last)
+    "ssd_bwd_no_state_decay": (
+        "ssd_scan_bwd",
+        "const float g = expf(lastv[k]);",
+        "const float g = 1.f;"),
 }
 
 
@@ -129,6 +165,9 @@ def install(lib_name: str, path) -> None:
     elif lib_name == "quant_offload":
         QK._lib = lib
         QK._quant, QK._dequant = QK.bind(lib)
+    elif lib_name == "ssd_scan_bwd":
+        SK._bwd_lib = lib
+        SK._bwd_fn, SK._work_fn = SK.bind_bwd(lib)
     else:
         SK._lib = lib
         SK._fn, SK._scratch_fn = SK.bind(lib)
@@ -148,6 +187,13 @@ def run_check(device, lib_name: str, dcfg, scfg) -> dict:
         return {"caught": bool(failed), "failed": failed,
                 "cases": len(rows),
                 "worst_q_diff": max(r["q_max_abs_diff"] for r in rows)}
+    elif lib_name == "ssd_scan_bwd":
+        rows = [r for r, _, _ in chip_smoke.ssd_bwd_rows(
+            device, chip_smoke.SSD_BWD_CASES)]
+        failed = [[r["shape"], r["chunk"], r["dtype"]] for r in rows
+                  if not (r["ok"] and r["bit_equal"])]
+        worst = max(r[f"{g}_rel_fro"] for r in rows
+                    for g in ("dx", "ddt", "dA", "dB", "dC"))
     else:
         rows = [r for r, _ in chip_smoke.ssd_rows(
             device, scfg, chip_smoke.SSD_LENS, chip_smoke.BOTH)]
@@ -173,11 +219,13 @@ def main() -> int:
     print(chip_smoke.nvidia_smi_line(), flush=True)
     dcfg, scfg = C.get_config("llama2-paper"), C.get_config("mamba2-780m")
     controls = _build.build(["flash_decode_fwd", "ssd_scan_fwd",
-                             "quant_offload"])
+                             "ssd_scan_bwd", "quant_offload"])
     libs = {f"control_{n}": (n, p) for n, p in controls.items()}
     libs.update(build_mutants())
     bad = []
     for name, (lib_name, path) in libs.items():
+        for n, p in controls.items():      # K4 backward reads K4's saved states
+            install(n, p)
         install(lib_name, path)
         row = run_check(device, lib_name, dcfg, scfg)
         print(json.dumps({"kernel": name, "library": lib_name, **row}),
@@ -186,6 +234,7 @@ def main() -> int:
             bad.append(name)
     FK._decode_lib = FK._decode_fn = None
     SK._lib = SK._fn = SK._scratch_fn = None
+    SK._bwd_lib = SK._bwd_fn = SK._work_fn = None
     QK._lib = QK._quant = QK._dequant = None
     if bad:
         print(f"the checks got these wrong: {bad}", file=sys.stderr)
