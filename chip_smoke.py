@@ -166,6 +166,28 @@ Phases, each printing JSON lines:
               plain SSD scan, chunked attention; moe routes replayed), on
               ZOO_GRAD_SEEDS, beside a bf16 control through the plain
               versions (ZOO_LOSS_TOL, ZOO_GRAD_TOL).
+6d. kernel_cross  (run after 6c) K1's forward and backward at the second
+              input path's shapes (CROSS_CASES: whisper's encoder and
+              cross-attention, the vision model's cross- and
+              self-attention; bf16, each launched twice and bit-equal, K1's
+              limits), timed warm and cold beside SDPA and the bound; K3
+              over a whole memory (DECODE_CROSS_CASES).
+22. train_encdec  the zoo's train phase on whisper-large-v3 (32 + 32
+              layers), 8 x 448 tokens and 8 x 1500 zero frames a step
+              (ZOO_TRAFFIC): K1 96 launches a step each way; a profile; the
+              gradient check at 2 + 2 layers with random memory and every
+              xgate at OPEN_XGATE (the key biases' gradients, 0 in exact
+              arithmetic, reported, not gated: SHIFT_FREE).
+23. decode_encdec  whisper at full width and depth through the model API:
+              4 requests of 1500 random frames encoded by
+              ``init_decode_state(memory=)`` (K1 x 32), a 4-token prompt
+              and 32 new tokens through ``decode_step`` (K3 x 64 a tick);
+              the first 4 ticks' logits against chunked attention.
+24. decode_vlm  llama-3.2-vision-90b at full width cut to VLM_LAYERS: a
+              512-token prompt into 6404 random image tokens, 4 requests,
+              ``prefill`` (K1 x 12) and 31 ticks (K3 x 12 a tick); the
+              prefill's and the first 4 ticks' logits against chunked
+              attention.
 
 Any failure raises, so the exit code is non-zero and no result line is
 printed.  The last lines are the kernels summary, the nvidia-smi line and
@@ -444,7 +466,8 @@ SSD_BWD_COLD_LAYERS = 8
 # 0.025 at most), which a kernel fault (that moves a gradient by its own
 # size) still exceeds by an order of magnitude.
 ZOO_TRAIN = {"train_ssm": "mamba2-780m", "train_hybrid": "zamba2-1.2b",
-             "train_moe": "granite-moe-1b-a400m"}
+             "train_moe": "granite-moe-1b-a400m",
+             "train_encdec": "whisper-large-v3"}
 ZOO_STEPS = 4
 ZOO_GRAD_LAYERS = 2
 ZOO_GRAD_SEEDS = (1, 2, 3)
@@ -470,6 +493,49 @@ SSM_SERVE_ARGS = ["--arch", "mamba2-780m", "--requests", "8",
 # exceeds twice the largest logit difference.
 SSM_CROSSCHECK_LEN = 64
 SSM_CROSSCHECK_TOL = 5e-3
+# The second input path (cross-attention; vlm and encdec).  K1 forward and
+# backward at the shapes its phases give them, bf16, each launched twice
+# (bit-equal) and held to K1's limits (TOL / FRO_TOL / MAX_TOL, and
+# BWD_FRO_TOL / BWD_MAX_TOL): (B, Sq, Sk, H, Kh, D, causal, name).
+# Whisper's encoder (8 windows of 1500 frames, non-causal) and its decoder's
+# cross-attention (448 text tokens into 1500 frames); the vision model's
+# cross-attention (a 512-token prompt into 6404 image tokens, 64 heads over
+# 8) and its prefill self-attention.  1500 and 6404 are multiples of no
+# tile, 448 of 64 rows but not of 128.
+CROSS_CASES = [
+    (8, 1500, 1500, 20, 20, 64, False, "whisper_encoder"),
+    (8, 448, 1500, 20, 20, 64, False, "whisper_cross"),
+    (4, 512, 6404, 64, 8, 128, False, "vlm_cross"),
+    (4, 512, 512, 64, 8, 128, True, "vlm_self"),
+]
+# K3 over a whole memory (lens = its length): a cross-attention decode step
+# of whisper (1500 frames, 20 heads, 6 splits of 256 keys) and of the vision
+# model (6404 image tokens, 64 over 8 heads, 26 splits).
+DECODE_CROSS_CASES = [
+    (4, 1500, 20, 20, 64, (1500,) * 4, True),
+    (4, 6404, 64, 8, 128, (6404,) * 4, True),
+]
+# train_encdec's traffic: Whisper's own training window (arXiv:2212.04356),
+# 30 s of audio (1500 frames, fed as zeros as the reference's trainer
+# feeds its stub frontend) and a 448-token text context, 8 windows a step.
+ZOO_TRAFFIC = {"train_encdec": (8, 448)}
+# Every cross block's gate in the encdec gradient check and the decode
+# phases: at the init's 0, tanh(0) multiplies the cross-attention away and
+# with it every gradient into the cross K/V and the encoder.
+OPEN_XGATE = 0.5
+# decode_encdec: full-width whisper, DECODE_REQUESTS requests of 1500 random
+# frames, a DECODE_PROMPT-token prompt fed through decode_step, DECODE_NEW
+# new tokens (greedy), max_len 448.  decode_vlm: the vision model at full
+# width with its depth cut to VLM_LAYERS (two groups of 4 self blocks + 1
+# cross block; its 100 layers are 176 GB of bf16 weights), DECODE_REQUESTS
+# requests sharing one VLM_PROMPT-token prompt, 6404 random image tokens
+# each, max_len 1024, DECODE_NEW new tokens (the first from the prefill).
+# Both cross-check their first CROSSCHECK_TICKS ticks' logits (and vlm's
+# prefill) against the same model with chunked attention (CROSSCHECK_TOL).
+DECODE_REQUESTS, DECODE_PROMPT, DECODE_NEW = 4, 4, 32
+ENCDEC_MAX_LEN = 448
+VLM_LAYERS, VLM_PROMPT, VLM_MAX_LEN = 10, 512, 1024
+CROSSCHECK_TICKS = 4
 
 
 def decode_cases(cfg):
@@ -648,26 +714,29 @@ def lse_check(lse, ref) -> dict:
             "lse_ok": same_inf and err <= BWD_LSE_TOL}
 
 
-def k1_cold_ms(B, S, H, Kh, D, layers, device) -> dict:
-    """Cold-L2 device time per launch of K1's forward and of SDPA, causal:
-    one CUDA graph launches each once per layer over its own q, k and v,
-    as a prefill or a train forward does (``graph_ms`` replays one input,
-    which stays in L2 when it fits)."""
+def k1_cold_ms(B, S, H, Kh, D, layers, device, Sk=None, causal=True
+               ) -> dict:
+    """Cold-L2 device time per launch of K1's forward and of SDPA (causal
+    unless asked, Sq = S, Sk = ``Sk`` or S): one CUDA graph launches each
+    once per layer over its own q, k and v, as a prefill or a train forward
+    does (``graph_ms`` replays one input, which stays in L2 when it
+    fits)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
 
     gen = torch.Generator(device=device).manual_seed(2)
-    qkv = [k1_inputs(gen, B, S, S, H, Kh, D, torch.bfloat16, device)
+    qkv = [k1_inputs(gen, B, S, Sk or S, H, Kh, D, torch.bfloat16, device)
            for _ in range(layers)]
     out = {"cold_ms": graph_ms(lambda: [ops.flash_attention(q, k, v,
-                                                            causal=True)
+                                                            causal=causal)
                                         for q, k, v in qkv],
                                iters=1, reps=10) / layers}
     qkv = [tuple(t.transpose(1, 2).contiguous() for t in x) for x in qkv]
     gqa = {"enable_gqa": True} if H != Kh else {}
     out["library_cold_ms"] = graph_ms(
-        lambda: [F.scaled_dot_product_attention(q, k, v, is_causal=True, **gqa)
+        lambda: [F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                **gqa)
                  for q, k, v in qkv], iters=1, reps=10) / layers
     out["cold_layers"] = layers
     return out
@@ -1085,6 +1154,83 @@ def phase_decode_kernel(device, cases):
             raise AssertionError(f"flash_decode disagrees with its plain "
                                  f"version: {row}")
     return timed_row, main_err
+
+
+def phase_kernel_cross(device) -> dict:
+    """K1's forward and backward at CROSS_CASES, bf16.  The forward is
+    launched twice (the two outputs bit-equal) and held to its plain
+    version, then timed warm (CUDA graph), cold (``k1_cold_ms``, one launch
+    per layer's own q, k, v over TRAIN_LAYERS layers) and beside its plain
+    version, SDPA and the bound; the backward goes through
+    ``phase_kernel_bwd`` (two bit-equal launches, its plain version, timed
+    warm and cold beside SDPA's backward and the bound).  Returns
+    {name: {"fwd": row, "bwd": row}}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    out = {}
+    for B, Sq, Sk, H, Kh, D, causal, name in CROSS_CASES:
+        dtype = torch.bfloat16
+        q, k, v = k1_inputs(gen, B, Sq, Sk, H, Kh, D, dtype, device)
+        got = ops.flash_attention(q, k, v, causal=causal)
+        again = ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        bit_repeat = torch.equal(got, again)
+        del again
+        ref = ops.flash_attention_plain(q, k, v, causal=causal)
+        row = {"case": name, "shape": [B, Sq, Sk, H, Kh, D],
+               "causal": causal, "dtype": "bfloat16",
+               "bit_repeat": bit_repeat, **k1_check(got, ref, "bfloat16")}
+        row["ok"] = row["ok"] and bit_repeat
+        del got, ref
+        row["ms"] = graph_ms(lambda: ops.flash_attention(q, k, v,
+                                                         causal=causal))
+        row["plain_ms"] = cuda_ms(lambda: ops.flash_attention_plain(
+            q, k, v, causal=causal), iters=3, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        row["library_ms"] = graph_ms(
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal,
+                **({"enable_gqa": True} if H != Kh else {})))
+        del q, k, v, qt, kt, vt
+        row["sdpa_ratio"] = row["ms"] / row["library_ms"]
+        row["bound_ms"], row["bound_by"] = attention_bound(
+            B, Sq, Sk, H, Kh, D, causal, None, dtype)
+        row.update(k1_cold_ms(B, Sq, H, Kh, D, TRAIN_LAYERS, device, Sk=Sk,
+                              causal=causal))
+        emit("kernel_cross", name="flash_attention_fwd", **row)
+        if not row["ok"]:
+            raise AssertionError(f"flash_attention disagrees with its plain "
+                                 f"version or with itself at {name}: {row}")
+        torch.cuda.empty_cache()
+        bwd = phase_kernel_bwd(device, [(B, Sq, Sk, H, Kh, D, causal, None,
+                                         ("bfloat16",), True)])
+        out[name] = {"fwd": row, "bwd": bwd}
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_decode_cross(device) -> dict:
+    """K3 over a whole memory at DECODE_CROSS_CASES (``phase_decode_kernel``:
+    both dtypes against the plain version, bf16 timed warm and cold beside
+    SDPA and the byte bound).  Returns {"T_mem x H/Kh": bf16 row}."""
+    import torch
+    out = {}
+    for case in DECODE_CROSS_CASES:
+        row, _ = phase_decode_kernel(device, [case])
+        out[f"{case[1]}x{case[2]}/{case[3]}"] = row
+        torch.cuda.empty_cache()
+    return out
+
+
+def cross_summary(row) -> dict:
+    """The timing fields of a cross-path row for the kernels line."""
+    return {k: row.get(k) for k in (
+        "shape", "causal", "lens", "ms", "cold_ms", "plain_ms", "bound_ms",
+        "bound_by", "library_ms", "library_cold_ms", "max_abs_err",
+        "bit_repeat")}
 
 
 def ssd_inputs(gen, B, S, H, P, N, dtype, device):
@@ -1959,12 +2105,35 @@ def zero_zoo_counts() -> None:
 
 def zoo_per_step(cfg) -> dict:
     """Launches of each kernel one train step of ``cfg`` makes: K1 once per
-    attention application each way, K4 once per ssm layer each way."""
+    attention application each way (encdec: each encoder block, and each
+    decoder block's self- and cross-attention), K4 once per ssm layer each
+    way."""
     ssm = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
     attn = {"dense": cfg.num_layers, "moe": cfg.num_layers, "ssm": 0,
-            "hybrid": cfg.num_layers // max(cfg.hybrid_attn_every, 1)
-            }[cfg.family]
+            "hybrid": cfg.num_layers // max(cfg.hybrid_attn_every, 1),
+            "encdec": cfg.encoder_layers + 2 * cfg.num_layers}[cfg.family]
     return {"k1_fwd": attn, "k1_bwd": attn, "k4_fwd": ssm, "k4_bwd": ssm}
+
+
+def open_gates(model) -> None:
+    """Every cross block's ``xgate`` to OPEN_XGATE (see there)."""
+    import torch
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("xgate"):
+                p.fill_(OPEN_XGATE)
+
+
+def memory_input(cfg, B, device, seed):
+    """Random stub-frontend embeddings (B, T_mem, d) in the activation
+    dtype for the families with a second input, else None."""
+    import torch
+    T = {"vlm": cfg.image_tokens, "encdec": cfg.encoder_seq}.get(cfg.family)
+    if T is None:
+        return None
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(B, T, cfg.d_model, generator=gen, device=device).to(
+        getattr(torch, cfg.dtype))
 
 
 class RouteReplay:
@@ -1999,12 +2168,15 @@ class RouteReplay:
         self.moe.route = self.route
 
 
-def zoo_grads_once(device, small, seed: int) -> dict:
+def zoo_grads_once(device, small, seed: int, traffic=(TRAIN_BATCH,
+                                                      TRAIN_SEQ)) -> dict:
     """One batch and one set of weights (``seed``): one grad step of the
     bf16 model through K1 / K4 (the kernel side), of the same weights in
     f32 through the plain versions (``ssd_scan_plain`` swapped in for
     ``ssd_scan``, chunked attention), and of the bf16 weights through the
     plain versions (the control); moe routes replayed (``RouteReplay``).
+    ``traffic`` is (batch, tokens); a family with a second input also gets
+    random memory (``memory_input``) and open cross gates (``open_gates``).
     Returns each side's loss, finite flag, launches and the kernel side's
     and the control's relative Frobenius error per gradient against f32."""
     import torch
@@ -2013,17 +2185,22 @@ def zoo_grads_once(device, small, seed: int) -> dict:
     from repro_torch.distributed import steps as S
     from repro_torch.kernels.ssd_scan import ops as SSD
     from repro_torch.models import ssm as ssm_lib
-    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_api
 
-    b = SyntheticTokens(small.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
-                        seed=seed).next_batch()
+    B, seq = traffic
+    b = SyntheticTokens(small.vocab_size, seq, B, seed=seed).next_batch()
     batch = {k: torch.as_tensor(v, dtype=torch.int64, device=device)
              for k, v in b.items()}
+    memory = memory_input(small, B, device, seed)
+    if memory is not None:
+        batch["memory"] = memory
     sides = {"kernel": small,
              "plain": small.replace(dtype="float32", param_dtype="float32",
                                     attn_impl="chunked"),
              "control": small.replace(attn_impl="chunked")}
-    model = T.init_model(small, seed=seed, device=device)
+    init = get_api(small).init
+    model = init(small, seed=seed, device=device)
+    open_gates(model)
     replay = RouteReplay()
     ops_module = ssm_lib.ssd_ops
     out = {}
@@ -2031,7 +2208,7 @@ def zoo_grads_once(device, small, seed: int) -> dict:
         for side, cfg in sides.items():      # the kernel side first
             m = model
             if side != "kernel":
-                m = T.init_model(cfg, seed=seed, device=device)
+                m = init(cfg, seed=seed, device=device)
                 with torch.no_grad():
                     for q, p in zip(m.parameters(), model.parameters()):
                         q.copy_(p)
@@ -2057,12 +2234,26 @@ def zoo_grads_once(device, small, seed: int) -> dict:
         g = out[side].pop("grads")
         out[side]["rel"] = {
             n: float((g[n].float() - ref[n]).norm()
-                     / ref[n].norm().clamp(min=1e-30)) for n in ref}
+                     / ref[n].norm().clamp(min=1e-30))
+            for n in ref if not n.endswith(SHIFT_FREE)}
+        # the key biases' gradients, 0 in exact arithmetic: their size
+        # beside the value biases' (reported, not gated)
+        out[side]["key_bias"] = max(
+            (float(g[n].float().norm()
+                   / g[n[:-1] + "v"].float().norm().clamp(min=1e-30))
+             for n in ref if n.endswith(SHIFT_FREE)), default=None)
         del g
     del ref, model
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# The attention key biases (whisper's ``bk``): softmax ignores a shift
+# shared by every key, so their gradient is 0 in exact arithmetic and a
+# relative error of its rounding noise says nothing; a fault in dK shows in
+# ``wk``'s gradient, which is gated.
+SHIFT_FREE = ("attn.bk",)
 
 
 def worst_of(rel: dict) -> dict:
@@ -2083,11 +2274,14 @@ def zoo_grad_check(device, cfg, phase: str, seeds=None, gate: bool = True
     small = cfg.replace(num_layers=ZOO_GRAD_LAYERS, attn_impl="flash")
     if cfg.family == "hybrid":
         small = small.replace(hybrid_attn_every=1)
+    if cfg.family == "encdec":
+        small = small.replace(encoder_layers=ZOO_GRAD_LAYERS)
     want = zoo_per_step(small)
     nothing = {k: 0 for k in want}
     readings, ok = [], True
     for seed in (ZOO_GRAD_SEEDS if seeds is None else seeds):
-        r = zoo_grads_once(device, small, seed)
+        r = zoo_grads_once(device, small, seed,
+                           ZOO_TRAFFIC.get(phase, (TRAIN_BATCH, TRAIN_SEQ)))
         row = {"seed": seed,
                "loss_kernel": r["kernel"]["loss"],
                "loss_plain": r["plain"]["loss"],
@@ -2095,6 +2289,8 @@ def zoo_grad_check(device, cfg, phase: str, seeds=None, gate: bool = True
                "loss_diff": abs(r["kernel"]["loss"] - r["plain"]["loss"]),
                "kernel": worst_of(r["kernel"]["rel"]),
                "control": worst_of(r["control"]["rel"]),
+               "key_bias": [r["kernel"]["key_bias"],
+                            r["control"]["key_bias"]],
                "finite": all(r[s]["finite"] for s in r),
                "kernel_launches": r["kernel"]["launched"],
                "plain_launches": [r["plain"]["launched"],
@@ -2133,7 +2329,8 @@ def phase_train_zoo(device, phase: str) -> dict:
     allocated_before = release_device_memory(device)
     cfg = C.get_config(ZOO_TRAIN[phase]).replace(attn_impl="flash")
     tcfg = train_config()
-    data = SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    B, seq = ZOO_TRAFFIC.get(phase, (TRAIN_BATCH, TRAIN_SEQ))
+    data = SyntheticTokens(cfg.vocab_size, seq, B, seed=0)
     tr = Trainer(cfg, tcfg, ChameleonConfig(enabled=False), data=data,
                  device=device)
     n_params = sum(p.numel() for p in tr.model.parameters())
@@ -2145,11 +2342,12 @@ def phase_train_zoo(device, phase: str) -> dict:
     times = rep.times[1:]
     step_ms = sorted(times)[len(times) // 2] * 1e3
     row = {"arch": cfg.name, "family": cfg.family, "layers": cfg.num_layers,
-           "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "encoder_layers": cfg.encoder_layers,
+           "params": n_params, "batch": B, "seq": seq,
            "steps": ZOO_STEPS, "losses": rep.losses, "xent": rep.xent,
            "aux": rep.aux, "step_ms": [t * 1e3 for t in rep.times],
            "step_ms_p50": step_ms,
-           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+           "tokens_per_s": B * seq / (step_ms / 1e3),
            "max_memory_allocated": torch.cuda.max_memory_allocated(device),
            "allocated_before": allocated_before, "launches": launches,
            "want_launches": want, "skipped_steps": rep.skipped_steps}
@@ -2166,6 +2364,202 @@ def phase_train_zoo(device, phase: str) -> dict:
     torch.cuda.empty_cache()
     zoo_grad_check(device, cfg, phase)
     return launches
+
+
+def logit_check(lf, lc) -> dict:
+    """Flash logits against chunked ones: finite, and the largest
+    difference over the largest chunked logit within CROSSCHECK_TOL; with
+    greedy agreement reported."""
+    import torch
+    lf, lc = lf.float(), lc.float()
+    dmax = float((lf - lc).abs().max())
+    rel = dmax / float(lc.abs().max())
+    finite = bool(torch.isfinite(lf).all())
+    return {"max_abs_dlogit": dmax, "rel_dlogit": rel,
+            "argmax_agree": bool((lf.argmax(-1) == lc.argmax(-1)).all()),
+            "finite": finite, "ok": finite and rel <= CROSSCHECK_TOL}
+
+
+def decode_ticks(cfg, api, model, state, tokens, n_ticks, feed=None):
+    """``n_ticks`` greedy decode steps from ``tokens`` (B,1), each synced
+    and timed; ``feed`` (B,P) replaces the greedy token while it lasts (a
+    prompt fed through decode_step).  Returns (tick seconds, logits of the
+    first CROSSCHECK_TICKS ticks, the tokens fed, the state)."""
+    import torch
+    times, first, fed = [], [], []
+    tok = tokens
+    with torch.no_grad():
+        for t in range(n_ticks):
+            fed.append(tok)
+            t0 = time.perf_counter()
+            logits, state = api.decode_step(cfg, model, tok, state)
+            nxt = logits[:, -1].argmax(-1)[:, None]
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if t < CROSSCHECK_TICKS:
+                first.append(logits.float())
+            tok = (feed[:, t + 1:t + 2] if feed is not None
+                   and t + 1 < feed.shape[1] else nxt)
+    return times, first, fed, state
+
+
+def crosscheck_ticks(cfg, api, model, state, fed, first) -> dict:
+    """The first CROSSCHECK_TICKS ticks of ``first`` replayed under chunked
+    attention from ``state`` (a chunked path's state) with the same tokens
+    (``fed``): the worst tick's ``logit_check``, ``ok`` over all."""
+    import torch
+    ccfg = cfg.replace(attn_impl="chunked")
+    checks = []
+    with torch.no_grad():
+        for t in range(CROSSCHECK_TICKS):
+            logits, state = api.decode_step(ccfg, model, fed[t], state)
+            checks.append(dict(logit_check(first[t], logits), tick=t))
+    worst = max(checks, key=lambda c: c["rel_dlogit"])
+    return dict(worst, ok=all(c["ok"] for c in checks))
+
+
+def tick_stats(times) -> dict:
+    xs = sorted(t * 1e3 for t in times)
+    return {"n": len(xs), "p50": xs[len(xs) // 2],
+            "p95": xs[min(int(0.95 * len(xs)), len(xs) - 1)], "max": xs[-1]}
+
+
+def phase_decode_encdec(device) -> dict:
+    """Full-width, full-depth whisper-large-v3 (bf16, random weights from a
+    seed, every xgate at OPEN_XGATE, flash attention) decoding through the
+    model API: DECODE_REQUESTS requests of 1500 random frames;
+    ``init_decode_state(memory=)`` encodes them (K1 once per encoder layer,
+    non-causal over 1500 frames) and projects every decoder block's cross
+    K/V; a DECODE_PROMPT-token prompt and DECODE_NEW greedy tokens through
+    ``decode_step`` (K3 for each block's self- and cross-attention a tick).
+    Counts reset just before; the first CROSSCHECK_TICKS ticks' logits held
+    against the same model and inputs with chunked attention.  Returns the
+    launches (K1, K3)."""
+    import torch
+    import repro_torch.configs as C
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.registry import get_api
+
+    allocated_before = release_device_memory(device)
+    cfg = C.get_config("whisper-large-v3").replace(attn_impl="flash")
+    api = get_api(cfg)
+    model = api.init(cfg, seed=0, device=device)
+    open_gates(model)
+    B = DECODE_REQUESTS
+    memory = memory_input(cfg, B, device, seed=1)
+    gen = torch.Generator(device=device).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, DECODE_PROMPT),
+                           generator=gen, device=device)
+    torch.cuda.synchronize()
+    ops.flash_attention.launches = ops.flash_decode.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        state = api.init_decode_state(cfg, B, ENCDEC_MAX_LEN, params=model,
+                                      memory=memory)
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    enc_launches = ops.flash_attention.launches
+    n_ticks = DECODE_PROMPT + DECODE_NEW - 1
+    times, first, fed, state = decode_ticks(cfg, api, model, state,
+                                            prompt[:, :1], n_ticks, prompt)
+    k1, k3 = ops.flash_attention.launches, ops.flash_decode.launches
+    del state
+    with torch.no_grad():       # the encoder through chunked attention too
+        start = api.init_decode_state(cfg.replace(attn_impl="chunked"), B,
+                                      ENCDEC_MAX_LEN, params=model,
+                                      memory=memory)
+    check = crosscheck_ticks(cfg, api, model, start, fed, first)
+    want_k3 = 2 * cfg.num_layers * n_ticks
+    row = {"arch": cfg.name, "requests": B, "frames": cfg.encoder_seq,
+           "prompt": DECODE_PROMPT, "new_tokens": DECODE_NEW,
+           "ticks": n_ticks, "max_len": ENCDEC_MAX_LEN,
+           "params": sum(p.numel() for p in model.parameters()),
+           "encode_ms": encode_ms, "tick_ms": tick_stats(times),
+           "k1_launches": k1, "k1_encode_launches": enc_launches,
+           "k3_launches": k3, "want_k3": want_k3, "crosscheck": check,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(device),
+           "allocated_before": allocated_before}
+    row["ok"] = (k1 == enc_launches == cfg.encoder_layers and k3 == want_k3
+                 and check["ok"])
+    emit("decode_encdec", **row)
+    del model, start, memory
+    if not row["ok"]:
+        raise AssertionError(f"decode_encdec: want K1 x {cfg.encoder_layers} "
+                             f"in the encode, K3 x {want_k3} and the chunked "
+                             f"path's logits: {row}")
+    return k1, k3
+
+
+def phase_decode_vlm(device) -> dict:
+    """llama-3.2-vision-90b at full width with its depth cut to VLM_LAYERS
+    (bf16, random weights from a seed, every xgate at OPEN_XGATE, flash
+    attention): DECODE_REQUESTS requests sharing a VLM_PROMPT-token prompt,
+    6404 random image tokens each, through ``prefill`` (K1 for every
+    layer's self-attention and every cross block's cross-attention) and
+    DECODE_NEW - 1 greedy ``decode_step`` ticks (K3 the same way).  Counts
+    reset just before; the prefill's logits and the first CROSSCHECK_TICKS
+    ticks' held against the same model and inputs with chunked attention.
+    Returns the launches (K1, K3)."""
+    import torch
+    import repro_torch.configs as C
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.registry import get_api
+
+    allocated_before = release_device_memory(device)
+    cfg = C.get_config("llama-3.2-vision-90b").replace(
+        num_layers=VLM_LAYERS, attn_impl="flash")
+    api = get_api(cfg)
+    model = api.init(cfg, seed=0, device=device)
+    open_gates(model)
+    n_cross = len(model.cross_blocks)
+    B = DECODE_REQUESTS
+    memory = memory_input(cfg, B, device, seed=2)
+    gen = torch.Generator(device=device).manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (1, VLM_PROMPT), generator=gen,
+                           device=device).expand(B, VLM_PROMPT)
+    torch.cuda.synchronize()
+    ops.flash_attention.launches = ops.flash_decode.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, state = api.prefill(cfg, model, prompt, VLM_MAX_LEN,
+                                    memory=memory)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    k1 = ops.flash_attention.launches
+    with torch.no_grad():
+        clog, cstate = api.prefill(cfg.replace(attn_impl="chunked"), model,
+                                   prompt, VLM_MAX_LEN, memory=memory)
+    pre_check = logit_check(logits[:, -1], clog[:, -1])
+    del clog
+    first_tok = logits[:, -1].argmax(-1)[:, None]
+    n_ticks = DECODE_NEW - 1
+    k3_before = ops.flash_decode.launches
+    times, first, fed, state = decode_ticks(cfg, api, model, state,
+                                            first_tok, n_ticks)
+    k3 = ops.flash_decode.launches - k3_before
+    check = crosscheck_ticks(cfg, api, model, cstate, fed, first)
+    per_tick = cfg.num_layers + n_cross
+    row = {"arch": cfg.name, "layers": cfg.num_layers, "cut_from": 100,
+           "cross_blocks": n_cross, "requests": B,
+           "image_tokens": cfg.image_tokens, "prompt": VLM_PROMPT,
+           "new_tokens": DECODE_NEW, "ticks": n_ticks,
+           "max_len": VLM_MAX_LEN,
+           "params": sum(p.numel() for p in model.parameters()),
+           "prefill_ms": prefill_ms, "tick_ms": tick_stats(times),
+           "k1_launches": k1, "want_k1": per_tick,
+           "k3_launches": k3, "want_k3": per_tick * n_ticks,
+           "prefill_crosscheck": pre_check, "crosscheck": check,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(device),
+           "allocated_before": allocated_before}
+    row["ok"] = (k1 == per_tick and k3 == per_tick * n_ticks
+                 and pre_check["ok"] and check["ok"])
+    emit("decode_vlm", **row)
+    del model, state, cstate, memory, logits
+    if not row["ok"]:
+        raise AssertionError(f"decode_vlm: want K1 x {per_tick} in the "
+                             f"prefill, K3 x {per_tick} a tick and the "
+                             f"chunked path's logits: {row}")
+    return k1, k3
 
 
 def phase_serve_moe(device):
@@ -3046,6 +3440,8 @@ def main(argv=None) -> int:
     ssd_times = phase_ssd_kernel(device, scfg)
     ssd_bwd_rows = phase_ssd_bwd_kernel(device, SSD_BWD_CASES)
     d64 = phase_kernel_d64(device)
+    cross = phase_kernel_cross(device)
+    decode_cross = phase_decode_cross(device)
     launches, decode_launches, resident = phase_serve(device)
     quant_launches = phase_serve_spill(device, resident)
     gc.collect()                       # the serve phases' models are gone
@@ -3071,6 +3467,8 @@ def main(argv=None) -> int:
     phase_chameleon(device, tier)
     exec_launches = phase_chameleon_exec(device)
     zoo = {phase: phase_train_zoo(device, phase) for phase in ZOO_TRAIN}
+    second = {"decode_encdec": phase_decode_encdec(device),
+              "decode_vlm": phase_decode_vlm(device)}
 
     summary = next(rows[(c, "bfloat16")] for c in main_path
                    if c[1] == SUMMARY_LEN)
@@ -3099,10 +3497,13 @@ def main(argv=None) -> int:
         "train_library_cold_ms": k1_cold["train"]["library_cold_ms"],
         # the decoder zoo: serve_moe's prefills, the train phases' steps
         "zoo_launches": {"serve_moe": moe_launches[0],
-                         **{p: zoo[p]["k1_fwd"] for p in zoo}},
+                         **{p: zoo[p]["k1_fwd"] for p in zoo},
+                         **{p: n[0] for p, n in second.items()}},
         # head dim 64 (zamba2 32 x 32 heads, granite 16 over 8), bf16
         "d64": {k: d64_summary(r) for k, r in d64["fwd"].items()},
-        "d64_max_abs_err": d64["fwd_max_abs_err"]}, {
+        "d64_max_abs_err": d64["fwd_max_abs_err"],
+        # the second input path's shapes (CROSS_CASES), bf16
+        "cross": {k: cross_summary(r["fwd"]) for k, r in cross.items()}}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_bwd.cu",
@@ -3121,6 +3522,9 @@ def main(argv=None) -> int:
         "cold_ms": bwd_row["cold_ms"],
         "zoo_launches": {p: zoo[p]["k1_bwd"] for p in zoo},
         "d64": {k: d64_summary(r) for k, r in d64["bwd"].items()},
+        "cross": {k: dict(cross_summary(r["bwd"]), max_abs_err=max(
+            r["bwd"][f"{g}_max_abs_err"] for g in ("dq", "dk", "dv")))
+            for k, r in cross.items()},
         "at": {"shape": bwd_row["shape"], "causal": True,
                "dtype": "bfloat16"}}] + [{
         "name": name, "route": "cuda",
@@ -3153,8 +3557,11 @@ def main(argv=None) -> int:
         # cold L2, one launch per layer of a 32-layer cache (decode_cold_ms)
         "cold_ms": decode_row["cold_ms"],
         "library_cold_ms": decode_row["library_cold_ms"],
-        "zoo_launches": {"serve_moe": moe_launches[1]},
+        "zoo_launches": {"serve_moe": moe_launches[1],
+                         **{p: n[1] for p, n in second.items()}},
         "d64": d64_summary(d64["decode"]),
+        # a whole memory as lens (DECODE_CROSS_CASES), bf16
+        "cross": {k: cross_summary(r) for k, r in decode_cross.items()},
         "at": {"shape": decode_row["shape"], "lens": decode_row["lens"],
                "dtype": "bfloat16"}}, {
         "name": "ssd_scan_fwd", "route": "cuda",

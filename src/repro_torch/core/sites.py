@@ -14,7 +14,9 @@ executor runs a step under an applied policy (``core.executor``), which
 labels storages the same way and decides, when autograd saves a tensor,
 whether its storage is offloaded, recomputed or kept.  The layer is the
 index of the block ``models/transformer.py::_forward`` is running
-(``layer``), -1 outside the stack.  When neither is active, ``tag``
+(``layer``; ``models/whisper.py`` numbers its encoder's and its decoder's
+blocks from 0 each, as the reference's two scans do), -1 outside the
+stack.  When neither is active, ``tag``
 checks the name and returns ``x`` after two flag checks.
 
 ``tag(x, site, recompute=(fn, args))`` also tells the executor how to

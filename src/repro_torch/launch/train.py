@@ -14,11 +14,15 @@ async|speculative`` (item 8), ``--autotune`` (item 10), ``--mesh`` /
 every attention through the flash-attention forward and backward
 kernels), as ``launch/serve.py`` does.  Weights are random, drawn on the
 device from ``TrainConfig.seed``; batches are the reference's synthetic
-tokens.  Every decoder-only family trains: ``--arch mamba2-780m`` and
-``--arch zamba2-1.2b`` through the SSD-scan kernel and its backward on the
-card, ``--arch granite-moe-1b-a400m`` and ``--arch qwen3-moe-30b-a3b``
-with the moe load-balance loss (``aux``, reported beside ``xent``), with
-``--no-chameleon``.  ``main(argv)`` returns the run's stats dict.
+tokens.  Every family trains: ``--arch mamba2-780m`` and ``--arch
+zamba2-1.2b`` through the SSD-scan kernel and its backward on the card,
+``--arch granite-moe-1b-a400m`` and ``--arch qwen3-moe-30b-a3b`` with the
+moe load-balance loss (``aux``, reported beside ``xent``), with
+``--no-chameleon``; ``--arch whisper-large-v3`` (encoder-decoder) and
+``--arch llama-3.2-vision-90b --reduced`` (cross-attention into image
+embeddings) with the trainer's second input, zero frames or patches as the
+reference feeds them.  The full-width vision model does not fit one card's
+AdamW state.  ``main(argv)`` returns the run's stats dict.
 """
 from __future__ import annotations
 

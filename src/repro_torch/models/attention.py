@@ -13,6 +13,15 @@ its decode stays on the chunked path, which ``flash`` decode matches.  In a
 train step (grad enabled) ``flash`` prefill attention goes through the
 kernels' autograd function: the forward kernel also writes each row's
 log-sum-exp and the backward kernel computes dq, dk and dv from it.
+
+Cross-attention (``cross_attention``, over K/V that ``project_cross_kv``
+projects once from the encoder output or the image embeddings) attends
+non-causally: under ``flash`` a full sequence goes to the flash-attention
+kernel with Sq != Sk (forward and backward), and a decode step's one query
+row, given ``mem_lens`` (every row the memory's length), to the
+flash-decode kernel, which computes exactly that attention.  The
+reference computes decode cross-attention on its chunked path, outside
+any kernel: the routing to the decode kernel is the port's.
 """
 from __future__ import annotations
 
@@ -170,10 +179,12 @@ def self_attention(cfg: ModelConfig, p: Attention, x, positions, *,
 
     With ``return_kv`` it also returns the rope'd (k, v) it attended over,
     which is what ``transformer.prefill`` stores in the decode cache."""
-    cos, sin = rope_frequencies(cfg, positions)
-    q = apply_rope(_project_q(cfg, p, x), cos, sin)
+    q = _project_q(cfg, p, x)
     k, v = _project_kv(cfg, p, x)
-    k = apply_rope(k, cos, sin)
+    if cfg.pos_embedding == "rope":
+        cos, sin = rope_frequencies(cfg, positions)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     q = tag(q, "qkv_proj")
     k = tag(k, "qkv_proj")
     v = tag(v, "qkv_proj")
@@ -187,6 +198,32 @@ def _out_proj(cfg: ModelConfig, p: Attention, ctx):
     B, S = ctx.shape[:2]
     out = ctx.reshape(B, S, cfg.q_dim) @ p.wo
     return tag(out, "attn_out")
+
+
+def cross_attention(cfg: ModelConfig, p: Attention, x,
+                    kv_cache: Tuple[torch.Tensor, torch.Tensor], *,
+                    mem_lens: Optional[torch.Tensor] = None):
+    """Cross-attention against precomputed encoder / image K/V
+    (B,T_mem,Kh,D). x (B,S,d).  ``mem_lens`` (B,), each the memory's
+    length, routes a decode step's one query row to the flash-decode
+    kernel under ``flash``; every other case attends as the reference
+    does."""
+    q = tag(_project_q(cfg, p, x), "qkv_proj")
+    k, v = kv_cache
+    if cfg.attn_impl == "flash" and mem_lens is not None and q.shape[1] == 1:
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        ctx = fa_ops.flash_decode(q, k, v, mem_lens)
+    else:
+        ctx = _attend(cfg, q, k, v, causal=False)
+    ctx = tag(ctx, "cross_ctx")
+    return _out_proj(cfg, p, ctx)
+
+
+def project_cross_kv(cfg: ModelConfig, p: Attention, memory):
+    """Precompute cross-attention K/V (B,T_mem,Kh,D) from the encoder
+    output or the image embeddings (B,T_mem,d)."""
+    k, v = _project_kv(cfg, p, memory)
+    return tag(k, "cross_kv"), tag(v, "cross_kv")
 
 
 # ------------------------------------------------------------ decode path
@@ -215,10 +252,12 @@ def decode_self_attention(cfg: ModelConfig, p: Attention, x, layer_cache,
     ``[b, positions[b]]`` gives identical values, and a position at or
     past ``Smax`` leaves the row unchanged, as the all-zero one-hot does."""
     ck, cv = layer_cache
-    cos, sin = rope_frequencies(cfg, positions[:, None])
-    q = apply_rope(_project_q(cfg, p, x), cos, sin)
+    q = _project_q(cfg, p, x)
     k_new, v_new = _project_kv(cfg, p, x)
-    k_new = apply_rope(k_new, cos, sin)
+    if cfg.pos_embedding == "rope":
+        cos, sin = rope_frequencies(cfg, positions[:, None])
+        q = apply_rope(q, cos, sin)
+        k_new = apply_rope(k_new, cos, sin)
     B, Smax = ck.shape[:2]
     rows = torch.arange(B, device=ck.device)
     idx = torch.clamp(positions, max=Smax - 1)

@@ -1,16 +1,19 @@
 """Load a reference parameter pytree into the port's model.
 
-The reference keeps parameters as nested dicts of arrays, with the blocks
-(dense, or ssm with ``ln`` and the eight ``ssm`` leaves) stacked along a
-leading layer axis ``(L, ...)`` and weights in ``(in, out)`` layout.  ``params_from_reference`` takes that pytree with
-numpy leaves (the caller converts from JAX; the port never imports it) and
-copies every leaf into the matching parameter of a
-``transformer.Model``: module attribute names equal the pytree's keys, and
-each leaf takes its parameter's dtype (the ssm block's ``A_log``,
-``dt_bias`` and ``D`` are f32 parameters, so they stay f32).
-``decode_state_from_reference`` does the same for a decode state (KV
-cache, or the ssm family's ``ssm_conv`` and ``ssm_ssd``), so both packages
-can spill the same bytes.
+The reference keeps parameters as nested dicts of arrays, with each stack
+of blocks (``STACKS``: ``blocks``, vlm's ``cross_blocks``, whisper's
+``enc_blocks`` and ``dec_blocks``) stacked along a leading layer axis
+``(L, ...)`` and weights in ``(in, out)`` layout.  ``params_from_reference``
+takes that pytree with numpy leaves (the caller converts from JAX; the
+port never imports it) and copies every leaf into the matching parameter
+of a ``transformer.Model`` (``whisper.Model`` for encdec): module attribute
+names equal the pytree's keys, and each leaf takes its parameter's dtype
+(the ssm block's ``A_log``, ``dt_bias`` and ``D`` and a cross block's
+``xgate`` are f32 parameters, so they stay f32; stacked, ``xgate`` is
+``(L_cross,)``).  ``decode_state_from_reference`` does the same for a
+decode state (KV cache, the ssm family's ``ssm_conv`` and ``ssm_ssd``, the
+cross K/V, or whisper's ``EncDecState``), so both packages can spill the
+same bytes.
 
 For training, ``params_to_reference`` is the inverse of
 ``params_from_reference`` (the model's weights as the reference's pytree of
@@ -32,7 +35,11 @@ from torch import nn
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
+from repro_torch.models import whisper
 from repro_torch.models.transformer import DecodeState, Model
+
+# the parameter-tree keys whose blocks the reference stacks on a layer axis
+STACKS = ("blocks", "cross_blocks", "enc_blocks", "dec_blocks")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -63,7 +70,8 @@ def params_from_reference(cfg: ModelConfig, np_params: Mapping[str, Any],
                           ) -> Model:
     """A ``Model`` on ``device`` (default ``cuda``) holding the reference
     weights, cast to ``cfg.param_dtype``."""
-    model = Model(cfg, generator=None, device=resolve_device(device))
+    cls = whisper.Model if cfg.family == "encdec" else Model
+    model = cls(cfg, generator=None, device=resolve_device(device))
     return load_params_from_reference(model, np_params)
 
 
@@ -74,11 +82,11 @@ def load_params_from_reference(model: Model, np_params: Mapping[str, Any]
     seen: set = set()
     with torch.no_grad():
         for key, sub in np_params.items():
-            if key == "blocks":
-                for i, blk in enumerate(model.blocks):
-                    _load(blk, sub, i, f"blocks.{i}.", seen)
+            if key in STACKS:
+                for i, blk in enumerate(getattr(model, key)):
+                    _load(blk, sub, i, f"{key}.{i}.", seen)
             else:
-                _load(getattr(model, key), sub, None, key + ".", seen)
+                _load(model, {key: sub}, None, "", seen)
     missing = [n for n, p in model.named_parameters() if id(p) not in seen]
     if missing:
         raise ValueError(f"reference pytree lacks {missing}")
@@ -95,21 +103,24 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 def to_reference_tree(named: Mapping[str, Any], stack=np.stack
                       ) -> Dict[str, Any]:
     """Leaves keyed by the port's parameter names (``blocks.3.attn.wq``) as
-    the reference's nested dict, block leaves stacked along a leading layer
-    axis with ``stack`` (``np.stack``, or ``torch.stack`` for tensors)."""
+    the reference's nested dict, the leaves of each stack of ``STACKS``
+    stacked along a leading layer axis with ``stack`` (``np.stack``, or
+    ``torch.stack`` for tensors)."""
     tree: Dict[str, Any] = {}
     layers: Dict[tuple, list] = {}
     for name, leaf in named.items():
         parts = name.split(".")
-        if parts[0] == "blocks":
-            layers.setdefault(tuple(parts[2:]), []).append((int(parts[1]), leaf))
+        if parts[0] in STACKS:
+            layers.setdefault((parts[0],) + tuple(parts[2:]), []).append(
+                (int(parts[1]), leaf))
             continue
         node = tree
         for key in parts[:-1]:
             node = node.setdefault(key, {})
         node[parts[-1]] = leaf
     for path, items in layers.items():
-        node = tree.setdefault("blocks", {})
+        node = tree.setdefault(path[0], {})
+        path = path[1:]
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = stack([leaf for _, leaf in sorted(items,
@@ -125,10 +136,10 @@ def from_reference_tree(tree: Mapping[str, Any], prefix: str = ""
     for key, sub in tree.items():
         name = f"{prefix}{key}"
         if isinstance(sub, Mapping):
-            if name == "blocks":
+            if name in STACKS:
                 for path, leaf in from_reference_tree(sub).items():
                     for i in range(leaf.shape[0]):
-                        out[f"blocks.{i}.{path}"] = leaf[i]
+                        out[f"{name}.{i}.{path}"] = leaf[i]
             else:
                 out.update(from_reference_tree(sub, name + "."))
         else:
@@ -181,15 +192,17 @@ def opt_state_from_reference(model: Model, np_opt) -> "AdamWState":
 
 
 def decode_state_from_reference(np_state, device: Union[str, torch.device,
-                                                        None] = None
-                                ) -> DecodeState:
-    """A port ``DecodeState`` on ``device`` (default ``cuda``) holding a
-    reference decode state whose fields are numpy arrays (the caller
-    converts from JAX) or None.  Cache fields keep their dtype (a bfloat16
-    cache stays bfloat16, exactly); ``pos`` becomes int64."""
+                                                        None] = None):
+    """A port ``DecodeState`` (``whisper.EncDecState`` for the reference's
+    ``EncDecState``) on ``device`` (default ``cuda``) holding a reference
+    decode state whose fields are numpy arrays (the caller converts from
+    JAX) or None.  Cache fields keep their dtype (a bfloat16 cache stays
+    bfloat16, exactly); ``pos`` becomes int64."""
     dev = resolve_device(device)
+    cls = (whisper.EncDecState if type(np_state).__name__ == "EncDecState"
+           else DecodeState)
     fields = {}
-    for name in DecodeState._fields:
+    for name in cls._fields:
         a = getattr(np_state, name, None)
         if a is None:
             fields[name] = None
@@ -201,4 +214,4 @@ def decode_state_from_reference(np_state, device: Union[str, torch.device,
         elif bf16:
             t = t.to(torch.bfloat16)
         fields[name] = t
-    return DecodeState(**fields)
+    return cls(**fields)

@@ -112,15 +112,18 @@ class Mlp(nn.Module):
                  generator: Optional[torch.Generator], device: torch.device):
         super().__init__()
         kw = dict(generator=generator, device=device)
-        self.wi_gate = dense_init(cfg.d_model, cfg.d_ff, cfg, **kw)
+        if cfg.glu:
+            self.wi_gate = dense_init(cfg.d_model, cfg.d_ff, cfg, **kw)
         self.wi_up = dense_init(cfg.d_model, cfg.d_ff, cfg, **kw)
         self.wo = dense_init(cfg.d_ff, cfg.d_model, cfg, **kw)
 
 
-def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    if cfg.act == "silu":
-        return F.silu(x)
+def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
+
+
+def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x) if cfg.act == "silu" else _gelu(x)
 
 
 def _glu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
@@ -128,18 +131,21 @@ def _glu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 
 
 def _gelu_glu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-    return F.gelu(gate, approximate="tanh") * up
+    return _gelu(gate) * up
 
 
 def apply_mlp(cfg: ModelConfig, p: Mlp, x: torch.Tensor) -> torch.Tensor:
-    """Gated MLP ``act(x Wg) * (x Wu)``: x (B, S, d) -> (B, S, d).
-    ``ffn_act`` carries its recompute recipe: an applied policy that remats
-    it rebuilds it from ``gate`` and ``up`` in the backward
-    (``core.executor``)."""
+    """Gated MLP ``act(x Wg) * (x Wu)``, or ``act(x Wu)`` without ``glu``:
+    x (B, S, d) -> (B, S, d).  ``ffn_act`` carries its recompute recipe: an
+    applied policy that remats it rebuilds it from ``gate`` and ``up`` (or
+    ``up`` alone) in the backward (``core.executor``)."""
     up = tag(x @ p.wi_up, "ffn_pre")
-    gate = tag(x @ p.wi_gate, "ffn_pre")
-    fn = _glu if cfg.act == "silu" else _gelu_glu
-    h = tag(fn(gate, up), "ffn_act", recompute=(fn, (gate, up)))
+    if cfg.glu:
+        gate = tag(x @ p.wi_gate, "ffn_pre")
+        fn, args = (_glu if cfg.act == "silu" else _gelu_glu), (gate, up)
+    else:
+        fn, args = (F.silu if cfg.act == "silu" else _gelu), (up,)
+    h = tag(fn(*args), "ffn_act", recompute=(fn, args))
     return tag(h @ p.wo, "ffn_out")
 
 
@@ -152,17 +158,30 @@ class Embedding(nn.Module):
         self.tok = _normal((cfg.vocab_size, cfg.d_model), 0.02, cfg, **kw)
         if not cfg.tie_embeddings:
             self.unembed = dense_init(cfg.d_model, cfg.vocab_size, cfg, **kw)
+        if cfg.pos_embedding == "learned":
+            self.pos = _normal((cfg.max_position, cfg.d_model), 0.02, cfg,
+                               **kw)
 
 
-def embed_tokens(cfg: ModelConfig, p: Embedding,
-                 tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(cfg: ModelConfig, p: Embedding, tokens: torch.Tensor,
+                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings in the activation dtype, plus the learned position
+    embeddings at ``positions`` (the shape of ``tokens``) when the config
+    learns them."""
     x = p.tok[tokens].to(torch_dtype(cfg.dtype))
+    if cfg.pos_embedding == "learned":
+        if positions is None:
+            raise ValueError("learned position embeddings need positions")
+        x = x + p.pos[positions].to(x.dtype)
     return tag(x, "embed_out")
 
 
 def unembed(cfg: ModelConfig, p: Embedding, x: torch.Tensor) -> torch.Tensor:
     w = p.tok.T if cfg.tie_embeddings else p.unembed
-    return x @ w.to(x.dtype)
+    logits = x @ w.to(x.dtype)
+    if cfg.logits_softcap:
+        logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
+    return logits
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

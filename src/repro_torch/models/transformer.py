@@ -1,16 +1,23 @@
-"""Decoder-only LM: the dense, moe, ssm (Mamba-2) and hybrid (zamba2)
+"""Decoder LM: the dense, moe, ssm (Mamba-2), hybrid (zamba2) and vlm
 families.
 
-Port of the decoder-only families of ``repro/models/transformer.py``.  The
-layer stack is a Python loop over an ``nn.ModuleList`` where the reference
-scans over stacked parameters.  A moe block is a dense block whose MLP is
-``models.moe`` (its load-balance loss summed into ``aux``).  The hybrid
-family runs ``hybrid_attn_every`` Mamba-2 layers, then one dense block
-whose parameters (``shared_attn``) are shared by every application, with
+Port of ``repro/models/transformer.py``.  The layer stack is a Python loop
+over ``nn.ModuleList``s where the reference scans over stacked parameters.
+A moe block is a dense block whose MLP is ``models.moe`` (its
+load-balance loss summed into ``aux``).  The hybrid family runs
+``hybrid_attn_every`` Mamba-2 layers, then one dense block whose
+parameters (``shared_attn``) are shared by every application, with
 ``num_layers % hybrid_attn_every`` Mamba-2 layers left after the last one;
-each application keeps its own KV cache when decoding.  The vlm and encdec
-families raise ``NotImplementedError`` naming the slice of ROADMAP.md
-queue 1 that ports them (7b: cross-attention and the second input path).
+each application keeps its own KV cache when decoding.  The vlm family
+(llama-3.2-vision) takes a second input, ``memory``: the image-patch
+embeddings of a stubbed frontend (B, image_tokens, d).  Its stack runs, for
+each of the ``num_layers // cross_attn_every`` cross blocks, ``every - 1``
+self blocks and then the cross block (self-attention, then gated
+cross-attention into ``memory``, ``x + tanh(xgate) * xa``), then the self
+blocks left over (``_stack``).  Its self-attention caches keep the
+reference's layout, which is not the execution order: the grouped self
+blocks first, then the cross blocks, then the remainder.  The encdec
+family (whisper) is ``models.whisper``.
 """
 from __future__ import annotations
 
@@ -28,41 +35,36 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-_SLICE_7B = ("slice 7b of ROADMAP.md queue 1 (cross-attention, the second "
-             "input path through Trainer and Server(memory=), the non-gated "
-             "MLP, learned positions and the logit soft-cap)")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: it comes with "
-            f"{_SLICE_7B}; the port runs {PORTED_FAMILIES}")
-    if cfg.family == "ssm":
-        if (cfg.pos_embedding, cfg.tie_embeddings, cfg.logits_softcap) != (
-                "none", True, 0.0):
-            raise NotImplementedError(
-                "the ssm port runs tied embeddings with no position "
-                f"embedding and no logit soft-cap; other variants come with "
-                f"{_SLICE_7B}")
-    elif (cfg.glu, cfg.pos_embedding, cfg.logits_softcap) != (
-            True, "rope", 0.0):
-        raise NotImplementedError(
-            f"the {cfg.family} port runs a gated MLP with RoPE and no logit "
-            f"soft-cap; other variants come with {_SLICE_7B}")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"family {cfg.family!r} is not a decoder family "
+                         f"{FAMILIES}; encdec is models.whisper")
 
 
 # ===================================================================== init
 class DenseBlock(nn.Module):
+    """Pre-norm block: ``ln1``, ``attn``, ``ln2`` and ``mlp`` (``moe`` for
+    the moe family); a cross block adds ``lnx``, ``xattn`` and ``xgate``,
+    an f32 scalar whatever the parameter dtype, zero at init as in the
+    reference, so ``tanh(xgate)`` starts the cross-attention shut."""
+
     def __init__(self, cfg: ModelConfig, *,
-                 generator: Optional[torch.Generator], device: torch.device):
+                 generator: Optional[torch.Generator], device: torch.device,
+                 cross: bool = False):
         super().__init__()
         kw = dict(generator=generator, device=device)
         self.ln1 = L.Norm(cfg, device=device)
         self.attn = attn.Attention(cfg, **kw)
+        if cross:
+            self.lnx = L.Norm(cfg, device=device)
+            self.xattn = attn.Attention(cfg, **kw)
+            self.xgate = nn.Parameter(torch.zeros((), dtype=torch.float32,
+                                                  device=device))
         self.ln2 = L.Norm(cfg, device=device)
-        if cfg.family == "moe":
+        if cfg.family == "moe" and not cross:
             self.moe = moe_lib.Moe(cfg, **kw)
         else:
             self.mlp = L.Mlp(cfg, **kw)
@@ -76,10 +78,16 @@ class SsmBlock(nn.Module):
         self.ssm = ssm_lib.Ssm(cfg, generator=generator, device=device)
 
 
+def _vlm_sizes(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(cross blocks, self blocks, self blocks before each cross block)."""
+    n_cross = cfg.num_layers // cfg.cross_attn_every
+    return n_cross, cfg.num_layers - n_cross, cfg.cross_attn_every - 1
+
+
 class Model(nn.Module):
     """Parameters of a decoder; attribute names follow the reference's
     parameter pytree (``embed``, ``ln_f``, ``blocks``, and for the hybrid
-    family ``shared_attn``)."""
+    family ``shared_attn``, for the vlm family ``cross_blocks``)."""
 
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator], device: torch.device):
@@ -89,10 +97,15 @@ class Model(nn.Module):
         self.embed = L.Embedding(cfg, **kw)
         self.ln_f = L.Norm(cfg, device=device)
         block = SsmBlock if cfg.family in ("ssm", "hybrid") else DenseBlock
-        self.blocks = nn.ModuleList(
-            [block(cfg, **kw) for _ in range(cfg.num_layers)])
+        n_self = cfg.num_layers
+        if cfg.family == "vlm":
+            n_cross, n_self, _ = _vlm_sizes(cfg)
+        self.blocks = nn.ModuleList([block(cfg, **kw) for _ in range(n_self)])
         if cfg.family == "hybrid":
             self.shared_attn = DenseBlock(cfg, **kw)
+        if cfg.family == "vlm":
+            self.cross_blocks = nn.ModuleList(
+                [DenseBlock(cfg, cross=True, **kw) for _ in range(n_cross)])
 
     @property
     def device(self) -> torch.device:
@@ -108,11 +121,39 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     return Model(cfg, generator=gen, device=dev)
 
 
+def _stack(cfg: ModelConfig, model: Model
+           ) -> List[Tuple[DenseBlock, int, Optional[int]]]:
+    """The dense and vlm stacks in execution order: (block, its
+    self-attention cache index, its cross index or None)."""
+    if cfg.family != "vlm":
+        return [(blk, i, None) for i, blk in enumerate(model.blocks)]
+    n_cross, n_self, inner = _vlm_sizes(cfg)
+    grouped = n_cross * inner
+    order = []
+    for g in range(n_cross):
+        order += [(model.blocks[j], j, None)
+                  for j in range(g * inner, (g + 1) * inner)]
+        order.append((model.cross_blocks[g], grouped + g, g))
+    order += [(model.blocks[j], j + n_cross, None)
+              for j in range(grouped, n_self)]
+    return order
+
+
 # ================================================================= blocks
+def _cross(cfg: ModelConfig, p: DenseBlock, x, cross_kv, mem_lens=None):
+    """x + tanh(xgate) * cross-attention(lnx(x)) (the gate in f32, cast to
+    the activations' dtype as the reference does)."""
+    h = L.apply_norm(cfg, p.lnx, x)
+    xa = attn.cross_attention(cfg, p.xattn, h, cross_kv, mem_lens=mem_lens)
+    return x + torch.tanh(p.xgate).to(x.dtype) * xa
+
+
 def dense_block(cfg: ModelConfig, p: DenseBlock, x, positions, *,
-                causal: bool = True, return_kv: bool = False):
+                causal: bool = True, return_kv: bool = False,
+                cross_kv=None):
     """Pre-norm transformer block; returns (x, aux), or (x, aux, (k, v))
-    with ``return_kv``."""
+    with ``return_kv``.  ``cross_kv`` (k, v) of a cross block adds its
+    gated cross-attention after the self-attention."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = tag(x, "ln_in")
     h = L.apply_norm(cfg, p.ln1, x)
@@ -120,6 +161,8 @@ def dense_block(cfg: ModelConfig, p: DenseBlock, x, positions, *,
                             return_kv=return_kv)
     a_out, kv = a if return_kv else (a, None)
     x = tag(x + a_out, "resid_mid")
+    if cross_kv is not None:
+        x = _cross(cfg, p, x, cross_kv)
     h = L.apply_norm(cfg, p.ln2, x)
     if hasattr(p, "moe"):
         out, aux = moe_lib.apply_moe_auto(cfg, p.moe, h)
@@ -145,59 +188,74 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device)[None, :].expand(B, S)
 
 
+def _memory(cfg: ModelConfig, memory) -> torch.Tensor:
+    if memory is None:
+        raise ValueError(f"the {cfg.family} family needs its second input "
+                         "`memory` (the stub frontend's embeddings)")
+    return memory.to(L.torch_dtype(cfg.dtype))
+
+
 def _forward(cfg: ModelConfig, model: Model, tokens, positions, causal: bool,
-             kv_sink: Optional[List[Tuple[torch.Tensor, torch.Tensor]]]):
-    """The layer stack.  ``kv_sink`` collects each layer's decode state:
-    (k, v) for dense blocks, (conv, ssd) for ssm blocks."""
+             kv_sink: Optional[List[Tuple[torch.Tensor, torch.Tensor]]],
+             memory=None):
+    """The layer stack.  ``kv_sink`` collects each layer's decode state in
+    execution order: (k, v) for dense blocks, (conv, ssd) for ssm blocks."""
     check_family(cfg)
-    x = L.embed_tokens(cfg, model.embed, tokens)
+    x = L.embed_tokens(cfg, model.embed, tokens, positions)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    every = cfg.hybrid_attn_every
-    for i, blk in enumerate(model.blocks):
-        with sites.layer(i):        # the layer a detailed profile records
-            if cfg.family == "hybrid":
-                if kv_sink is not None:
-                    raise NotImplementedError(
-                        "the hybrid family has no prefill: the reference "
-                        "serves it by decode_step only")
-                x = ssm_block(cfg, blk, x)
-                if (i + 1) % every == 0:      # the shared block, after a segment
-                    x, a = dense_block(cfg, model.shared_attn, x, positions,
-                                       causal=causal)
-                    aux_total = aux_total + a
-                continue
-            if cfg.family == "ssm":
-                if kv_sink is None:
+    if cfg.family in ("ssm", "hybrid"):
+        every = cfg.hybrid_attn_every
+        for i, blk in enumerate(model.blocks):
+            with sites.layer(i):    # the layer a detailed profile records
+                if cfg.family == "hybrid":
+                    if kv_sink is not None:
+                        raise NotImplementedError(
+                            "the hybrid family has no prefill: the "
+                            "reference serves it by decode_step only")
+                    x = ssm_block(cfg, blk, x)
+                    if (i + 1) % every == 0:  # the shared block, after a segment
+                        x, a = dense_block(cfg, model.shared_attn, x,
+                                           positions, causal=causal)
+                        aux_total = aux_total + a
+                elif kv_sink is None:
                     x = ssm_block(cfg, blk, x)
                 else:
                     x, st = ssm_block(cfg, blk, x, return_state=True)
                     kv_sink.append(st)
-                continue
-            if kv_sink is None:
-                x, a = dense_block(cfg, blk, x, positions, causal=causal)
-            else:
-                x, a, kv = dense_block(cfg, blk, x, positions, causal=causal,
-                                       return_kv=True)
-                kv_sink.append(kv)
-        aux_total = aux_total + a
+    else:
+        if cfg.family == "vlm":
+            memory = _memory(cfg, memory)
+        for i, (blk, _, g) in enumerate(_stack(cfg, model)):
+            with sites.layer(i):
+                kv = (None if g is None else
+                      attn.project_cross_kv(cfg, blk.xattn, memory))
+                out = dense_block(cfg, blk, x, positions, causal=causal,
+                                  return_kv=kv_sink is not None, cross_kv=kv)
+            x, a = out[:2]
+            if kv_sink is not None:
+                kv_sink.append(out[2])
+            aux_total = aux_total + a
     x = L.apply_norm(cfg, model.ln_f, x)
     x = tag(x, "final_norm")
     return L.unembed(cfg, model.embed, x), aux_total
 
 
 def forward(cfg: ModelConfig, model: Model, tokens, *, positions=None,
-            causal: bool = True):
-    """tokens (B,S) -> (logits (B,S,V), aux)."""
+            memory=None, causal: bool = True):
+    """tokens (B,S) -> (logits (B,S,V), aux).  ``memory`` is the vlm
+    family's image-patch embeddings (B,T_img,d)."""
     B, S = tokens.shape
     if positions is None:
         positions = _positions(B, S, tokens.device)
-    return _forward(cfg, model, tokens, positions, causal, None)
+    return _forward(cfg, model, tokens, positions, causal, None, memory)
 
 
 def loss_fn(cfg: ModelConfig, model: Model, batch):
     """Next-token loss of ``batch`` (``tokens``, ``labels``, optional
-    ``mask``): (xent + aux, {"xent": xent, "aux": aux})."""
-    logits, aux = forward(cfg, model, batch["tokens"])
+    ``mask``, and ``memory`` for vlm): (xent + aux, {"xent": xent,
+    "aux": aux})."""
+    logits, aux = forward(cfg, model, batch["tokens"],
+                          memory=batch.get("memory"))
     loss = L.cross_entropy(logits, batch["labels"], batch.get("mask"))
     return loss + aux, {"xent": loss, "aux": aux}
 
@@ -216,15 +274,15 @@ class DecodeState(NamedTuple):
 
 
 def _n_attn_layers(cfg: ModelConfig) -> int:
-    if cfg.family in ("dense", "moe"):
-        return cfg.num_layers
+    if cfg.family in ("dense", "moe", "vlm"):
+        return cfg.num_layers     # vlm: self-attention in every layer
     if cfg.family == "hybrid":
         return cfg.num_layers // cfg.hybrid_attn_every
     return 0
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
-                      params: Optional[Model] = None, *,
+                      params: Optional[Model] = None, *, memory=None,
                       device: Union[str, torch.device, None] = None
                       ) -> DecodeState:
     """Zeroed cache on ``params``' device when given, else on ``device``
@@ -232,11 +290,13 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     conv window (L,B,W-1,ch) in the activation dtype and the SSD state
     (L,B,H,P,N) in f32, whatever ``max_len``.  The hybrid family keeps both:
     a KV cache per application of its shared block, and every Mamba-2
-    layer's state."""
+    layer's state.  The vlm family needs ``params`` and ``memory``: every
+    cross block's K/V over ``memory`` is projected here, once, into
+    ``cross_k`` / ``cross_v``, each layer's (B,T_mem,Kh,D) contiguous."""
     check_family(cfg)
     dev = params.device if params is not None else resolve_device(device)
     pos = torch.zeros((batch,), dtype=torch.int64, device=dev)
-    k = v = conv = ssd = None
+    k = v = conv = ssd = ck = cv = None
     n_attn = _n_attn_layers(cfg)
     if n_attn:
         cache = attn.init_kv_cache(cfg.replace(num_layers=n_attn), batch,
@@ -245,13 +305,41 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     if cfg.family in ("ssm", "hybrid"):
         st = ssm_lib.init_ssm_state(cfg, batch, device=dev)
         conv, ssd = st.conv, st.ssd
-    return DecodeState(k, v, conv, ssd, None, None, pos)
+    if cfg.family == "vlm":
+        if params is None:
+            raise ValueError("the vlm decode state projects the cross K/V: "
+                             "pass params= and memory=")
+        ck, cv = project_cross_state(cfg, params.cross_blocks,
+                                     _memory(cfg, memory))
+    return DecodeState(k, v, conv, ssd, ck, cv, pos)
 
 
-def _dense_decode_block(cfg, p: DenseBlock, x, kv, positions):
+@torch.no_grad()
+def project_cross_state(cfg: ModelConfig, blocks, memory
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every cross block's K/V over ``memory``, stacked: (L_cross, B,
+    T_mem, Kh, D) each, in the activation dtype."""
+    kvs = [attn.project_cross_kv(cfg, blk.xattn, memory) for blk in blocks]
+    dt = L.torch_dtype(cfg.dtype)
+    return (torch.stack([k for k, _ in kvs]).to(dt),
+            torch.stack([v for _, v in kvs]).to(dt))
+
+
+def cross_lens(cross_k: torch.Tensor) -> torch.Tensor:
+    """(B,) int32, each the memory's length: what the decode step's
+    cross-attention passes to the flash-decode kernel."""
+    _, B, T = cross_k.shape[:3]
+    return torch.full((B,), T, dtype=torch.int32, device=cross_k.device)
+
+
+def _dense_decode_block(cfg, p: DenseBlock, x, kv, positions, cross=None):
+    """One token through a dense block; ``cross`` is (k, v, mem_lens) of a
+    cross block."""
     h = L.apply_norm(cfg, p.ln1, x)
     a_out, kv = attn.decode_self_attention(cfg, p.attn, h, kv, positions)
     x = x + a_out
+    if cross is not None:
+        x = _cross(cfg, p, x, cross[:2], cross[2])
     h = L.apply_norm(cfg, p.ln2, x)
     if hasattr(p, "moe"):
         out, _ = moe_lib.apply_moe(cfg, p.moe, h)
@@ -272,10 +360,10 @@ def decode_step(cfg: ModelConfig, model: Model, tokens, state: DecodeState):
     them."""
     check_family(cfg)
     positions = state.pos
-    x = L.embed_tokens(cfg, model.embed, tokens)
-    every = cfg.hybrid_attn_every
-    for i, blk in enumerate(model.blocks):
-        if cfg.family in ("ssm", "hybrid"):
+    x = L.embed_tokens(cfg, model.embed, tokens, positions[:, None])
+    if cfg.family in ("ssm", "hybrid"):
+        every = cfg.hybrid_attn_every
+        for i, blk in enumerate(model.blocks):
             x, (conv, ssd) = _ssm_decode_block(
                 cfg, blk, x, (state.ssm_conv[i], state.ssm_ssd[i]))
             state.ssm_conv[i] = conv
@@ -285,36 +373,44 @@ def decode_step(cfg: ModelConfig, model: Model, tokens, state: DecodeState):
                 x, _ = _dense_decode_block(cfg, model.shared_attn, x,
                                            (state.attn_k[a], state.attn_v[a]),
                                            positions)
-            continue
-        x, _ = _dense_decode_block(cfg, blk, x,
-                                   (state.attn_k[i], state.attn_v[i]),
-                                   positions)
+    else:
+        lens = None if state.cross_k is None else cross_lens(state.cross_k)
+        for blk, c, g in _stack(cfg, model):
+            cross = (None if g is None else
+                     (state.cross_k[g], state.cross_v[g], lens))
+            x, _ = _dense_decode_block(cfg, blk, x,
+                                       (state.attn_k[c], state.attn_v[c]),
+                                       positions, cross)
     x = L.apply_norm(cfg, model.ln_f, x)
     logits = L.unembed(cfg, model.embed, x)
     return logits, state._replace(pos=state.pos + 1)
 
 
-def prefill(cfg: ModelConfig, model: Model, tokens, max_len: int):
+def prefill(cfg: ModelConfig, model: Model, tokens, max_len: int, *,
+            memory=None):
     """Run the full-sequence forward and build the decode state.
 
     The reference runs the layer stack a second time to re-project K/V or
     to rerun each SSM layer's scan for its final state; here each layer's
     rope'd K/V, or its conv window and the SSD scan's final state, are
-    collected in the same pass, which gives the same state and logits."""
+    collected in the same pass, which gives the same state and logits.
+    The vlm family's cache is filled at every layer's cache index (F6: the
+    reference's ``prefill`` leaves it zero for vlm, so its decode after a
+    prefill attends to zeros over the prompt)."""
     B, S = tokens.shape
     if S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
     kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
     logits, _ = _forward(cfg, model, tokens, _positions(B, S, tokens.device),
-                         True, kvs)
-    state = init_decode_state(cfg, B, max_len, params=model)
+                         True, kvs, memory)
+    state = init_decode_state(cfg, B, max_len, params=model, memory=memory)
     pos = torch.full((B,), S, dtype=torch.int64, device=tokens.device)
     if cfg.family == "ssm":
         for i, (conv, ssd) in enumerate(kvs):
             state.ssm_conv[i] = conv
             state.ssm_ssd[i] = ssd
         return logits, state._replace(pos=pos)
-    for i, (k, v) in enumerate(kvs):
-        state.attn_k[i, :, :S] = k.to(state.attn_k.dtype)
-        state.attn_v[i, :, :S] = v.to(state.attn_v.dtype)
+    for (_, c, _), (k, v) in zip(_stack(cfg, model), kvs):
+        state.attn_k[c, :, :S] = k.to(state.attn_k.dtype)
+        state.attn_v[c, :, :S] = v.to(state.attn_v.dtype)
     return logits, state._replace(pos=pos)

@@ -14,8 +14,11 @@ bit-exact, so a request decodes the same tokens whether or not it was
 ever parked.
 
 The server takes the families whose prefill the reference's server
-covers: dense, moe and ssm (the hybrid and vlm families raise, as the
-reference's assertion refuses them).  The model runs eagerly under
+covers: dense, moe and ssm.  The hybrid, vlm and encdec families raise, as
+the reference's assertion refuses them ("others serve via decode-only"):
+they decode through the model API (``init_decode_state(memory=,
+params=)`` and ``decode_step``).  ``memory`` is the reference's argument,
+passed to ``init_decode_state``.  The model runs eagerly under
 ``torch.no_grad()``; the reference's ``jax.jit`` has no counterpart here.  The policy store and the async
 adaptation modes come with slice 8 of ROADMAP.md queue 1 and raise.
 """
@@ -59,15 +62,16 @@ def _sync(device: torch.device) -> None:
 
 class Server:
     def __init__(self, cfg: ModelConfig, params: Model, *, max_batch: int = 8,
-                 max_len: int = 512, max_active: Optional[int] = None,
-                 hostmem=None, rotate_every: int = 1, policystore=None,
+                 max_len: int = 512, memory=None,
+                 max_active: Optional[int] = None, hostmem=None,
+                 rotate_every: int = 1, policystore=None,
                  adapt_mode: str = "inline"):
-        self.api = get_api(cfg)             # raises for unported families
+        self.api = get_api(cfg)
         if cfg.family not in ("dense", "moe", "ssm"):
             raise NotImplementedError(
                 f"the server's prefill path covers dense, moe and ssm, as "
                 f"the reference's does; {cfg.family!r} serves by decode_step "
-                f"alone there")
+                f"alone there (others serve via decode-only)")
         if policystore is not None or adapt_mode != "inline":
             raise NotImplementedError(
                 "the policy store and async adaptation come with slice 8 of "
@@ -82,7 +86,7 @@ class Server:
             hostmem = HostMemTier(device=self.device)
         self.hostmem = hostmem
         self.state = self.api.init_decode_state(cfg, max_batch, max_len,
-                                                params=params)
+                                                params=params, memory=memory)
         self.free_slots = list(range(max_batch))
         self.active: Dict[int, Request] = {}       # resident in a slot
         self.spilled: Dict[int, Request] = {}      # parked in the host pool

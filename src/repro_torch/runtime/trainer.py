@@ -42,6 +42,7 @@ from repro_torch.core.runtime import ChameleonRuntime
 from repro_torch.data.synthetic import SyntheticTokens
 from repro_torch.distributed import steps as S
 from repro_torch.models import convert
+from repro_torch.models.layers import torch_dtype
 from repro_torch.models.registry import get_api
 from repro_torch.optim.adamw import adamw_init
 from repro_torch.optim.loss_scale import (LossScaleState, init_loss_scale,
@@ -166,8 +167,19 @@ class Trainer:
 
     # ------------------------------------------------------------- utils
     def _device_batch(self, batch: Dict[str, np.ndarray]):
-        return {k: torch.as_tensor(v, dtype=torch.int64).to(self.device)
-                for k, v in batch.items()}
+        """The token arrays as int64 on the device; for the vlm and encdec
+        families also ``memory``, zeros of (B, image_tokens | encoder_seq,
+        d_model) in the activation dtype, as the reference's trainer feeds
+        its stub frontend."""
+        out = {k: torch.as_tensor(v, dtype=torch.int64).to(self.device)
+               for k, v in batch.items()}
+        mem = {"vlm": self.cfg.image_tokens,
+               "encdec": self.cfg.encoder_seq}.get(self.cfg.family)
+        if mem is not None:
+            out["memory"] = torch.zeros(
+                (out["tokens"].shape[0], mem, self.cfg.d_model),
+                dtype=torch_dtype(self.cfg.dtype), device=self.device)
+        return out
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

@@ -596,6 +596,70 @@ def test_d64_attention_kernels_match_plain(card, B, S, H, Kh, dtype):
     assert np.abs(a - b).max() <= MAX_TOL[dtype] * np.abs(b).max()
 
 
+# K1 and K3 at the second input path's shapes (chip_smoke.py's CROSS_CASES
+# and DECODE_CROSS_CASES): whisper's encoder (non-causal over 1500 frames)
+# and its decoder's cross-attention (448 into 1500), the vision model's
+# cross-attention (512 into 6404, 64 heads over 8) and prefill
+# self-attention; K3 over a whole memory as lens.
+CROSS_SHAPES = [
+    (8, 1500, 1500, 20, 20, 64, False),
+    (8, 448, 1500, 20, 20, 64, False),
+    (4, 512, 6404, 64, 8, 128, False),
+    (4, 512, 512, 64, 8, 128, True),
+]
+DECODE_CROSS_SHAPES = [(4, 1500, 20, 20, 64), (4, 6404, 64, 8, 128)]
+
+
+def _close(got, want, fro, mx):
+    g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
+    assert np.isfinite(g).all()
+    assert np.linalg.norm(g - w) <= fro * np.linalg.norm(w)
+    assert np.abs(g - w).max() <= mx * np.abs(w).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,Kh,D,causal", CROSS_SHAPES)
+def test_cross_attention_shapes_match_plain(card, B, Sq, Sk, H, Kh, D,
+                                            causal):
+    """bf16 forward and backward through autograd, each launched twice
+    (bit-equal), against the plain versions at K1's limits."""
+    dtype = "bfloat16"
+    rng = np.random.RandomState(8)
+    q, k, v, do = (torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                    * scale).to(card, torch.bfloat16)
+                   for shape, scale in (((B, Sq, H, D), QK_SCALE),
+                                        ((B, Sk, Kh, D), QK_SCALE),
+                                        ((B, Sk, Kh, D), 1.0),
+                                        ((B, Sq, H, D), 1.0)))
+    runs = []
+    for _ in range(2):
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        out = ops.flash_attention(qg, kg, vg, causal=causal)
+        runs.append((out.detach(),) + torch.autograd.grad(out, (qg, kg, vg),
+                                                          do))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    out, got = runs[0][0], runs[0][1:]
+    ref, lse = ops.flash_attention_plain(q, k, v, causal=causal,
+                                         return_lse=True)
+    _close(out, ref, FRO_TOL[dtype], MAX_TOL[dtype])
+    refs = ops.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                         causal=causal)
+    for g, r in zip(got, refs):
+        _close(g, r, BWD_FRO_TOL[dtype], BWD_MAX_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sk,H,Kh,D", DECODE_CROSS_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_decode_shapes_match_plain(card, B, Sk, H, Kh, D, dtype):
+    q, k, v = _decode_inputs(card, B, Sk, H, Kh, D, dtype, seed=9)
+    lens = torch.full((B,), Sk, dtype=torch.int32, device=card)
+    _close(ops.flash_decode(q, k, v, lens),
+           ops.flash_decode_plain(q, k, v, lens), FRO_TOL[dtype],
+           MAX_TOL[dtype])
+
+
 # ------------------------------------- K1 as custom ops, in the op stream
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

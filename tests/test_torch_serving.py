@@ -189,13 +189,27 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
 
 
 def test_unported_family_raises():
-    """The vlm and encdec families raise, naming the slice that ports them
-    (7b); the server refuses the hybrid family, whose prefill the
-    reference's server does not cover either."""
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        PT.init_model(PC.get_reduced("llama-3.2-vision-90b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        PT.init_model(PC.get_reduced("whisper-large-v3"), device="cpu")
+    """The vlm and encdec families initialise and decode through the model
+    API (``init_decode_state(memory=, params=)``, ``decode_step``), as the
+    reference serves them; the server refuses them and the hybrid family,
+    whose prefill the reference's server does not cover either."""
+    from repro_torch.models.registry import get_api
+    for arch in ("llama-3.2-vision-90b", "whisper-large-v3"):
+        cfg = PC.get_reduced(arch).replace(attn_impl="flash")
+        api = get_api(cfg)
+        model = api.init(cfg, device="cpu")
+        T = cfg.image_tokens if cfg.family == "vlm" else cfg.encoder_seq
+        memory = torch.randn(2, T, cfg.d_model,
+                             generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            state = api.init_decode_state(cfg, 2, 8, params=model,
+                                          memory=memory)
+            logits, state = api.decode_step(
+                cfg, model, torch.zeros((2, 1), dtype=torch.int64), state)
+        assert logits.shape == (2, 1, cfg.vocab_size)
+        assert torch.isfinite(logits).all() and state.pos.tolist() == [1, 1]
+        with pytest.raises(NotImplementedError, match="decode-only"):
+            Server(cfg, model, memory=memory)
     cfg = PC.get_reduced("zamba2-1.2b")
     with pytest.raises(NotImplementedError, match="decode_step"):
         Server(cfg, PT.init_model(cfg, device="cpu"))
@@ -248,7 +262,7 @@ def test_port_imports_neither_jax_nor_reference():
         "        'faults.ladder', 'policystore.fingerprint',\n"
         "        'policystore.lshindex', 'policystore.store',\n"
         "        'policystore.drift', 'adapt.snapshot', 'adapt.pipeline',\n"
-        "        'adapt.service', 'models.moe']\n"
+        "        'adapt.service', 'models.moe', 'models.whisper']\n"
         "bad += ['missing ' + n for n in need\n"
         "        if 'repro_torch.' + n not in sys.modules]\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]), bad)\n")
