@@ -117,7 +117,13 @@ Phases, each printing JSON lines:
               step with flash against one with chunked attention
               (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL).
 16. train_cli ``repro_torch.launch.train.main`` on the card, reduced
-              llama2-paper (f32: the f32 paths of both K1 kernels), 3 steps.
+              llama2-paper (f32: the f32 paths of both K1 kernels), 3 steps;
+              then (``train_cli_store``) 30 steps under the async worker
+              with a policy store, ``--trace-out`` / ``--metrics-out`` /
+              ``--audit-out`` through ``python -m repro_torch.obs.validate``
+              and ``python -m repro_torch.obs.report``, and the serve CLI
+              on that store (a background re-scan, the train run's
+              records).
 17. chameleon Chameleon's monitoring and planning (``repro_torch.core``) on
               the train phase's model with an eval every 6 steps: 10
               ``Trainer.train(1)`` steps inside the op-stream recorder,
@@ -154,6 +160,23 @@ Phases, each printing JSON lines:
               policy falls by at least half the projected reduction
               against the baseline policy (both through the runtime, in
               turns, timed too).
+
+18b. chameleon_async  adaptation off the training thread
+              (``repro_torch.adapt``): the budget is the lowest a policy
+              meets for the 2 x 3072 grad dispatch + CHAM_EXEC_MARGIN; 48
+              steps of 2 x 2048 and 2 x 3072 tokens alternating every 12
+              (ASYNC_*) under inline, async and speculative, then Chameleon
+              off on the same batches.  Checks, in steps 24-47: async's
+              worst step within ASYNC_RATIO of its bucket's Stable median,
+              inline's over it; a speculative hit with no GenPolicy step;
+              in every placement no failed job or watchdog fire, every
+              visit after the first ending in an install, losses bit-equal
+              to Chameleon off's, K1 (steps + replays) x 8 each way; the
+              async run's trace (lanes compute, policy_swap, adapt),
+              metrics and audit through the validators and the report (at
+              least one scored iteration).  Printed: kickoff-to-install
+              latency, ADAPTING p50 over Stable, first-visit spikes, P4's
+              measured against projected stall, the worker's ms per job.
 
 19-21. train_ssm, train_hybrid, train_moe  ``Trainer`` at full width and
               full depth on mamba2-780m (48 layers), zamba2-1.2b (38, the
@@ -332,6 +355,31 @@ P2_COPIES, P2_BYTES, P2_RATIO = 4, 256 << 20, 2.0
 CHAM_EXEC_STEPS, CHAM_EXEC_EVAL_EVERY = 18, 13
 CHAM_EXEC_MARGIN = 1.01
 CHAM_EXEC_TURNS = 3
+# The chameleon_async phase (the drift-stall suite of
+# benchmarks/adapt_bench.py at the train phase's width): two buckets of
+# TRAIN_BATCH x ASYNC_SEQS tokens (the reference's 64 : 96) alternate every
+# ASYNC_PERIOD steps, ASYNC_STEPS steps a placement, the policy store off,
+# no eval.  The budget is the lowest a policy meets for the longer bucket's
+# grad dispatch + CHAM_EXEC_MARGIN.  The guard window starts at
+# ASYNC_SKIP, where both buckets have had their first visit (first replay,
+# first K1 launches at a new shape).  ASYNC_RATIO is the reference's bar:
+# async's worst step within 1.5x its bucket's Stable median, inline's over.
+ASYNC_SEQS = (2048, 3072)
+ASYNC_PERIOD, ASYNC_STEPS, ASYNC_SKIP = 12, 48, 24
+ASYNC_RATIO = 1.5
+ASYNC_MODES = ("inline", "async", "speculative")
+ASYNC_LANES = ("compute", "policy_swap", "adapt")
+# The train_cli phase's async run: reduced llama2-paper under Chameleon
+# with the background worker, a policy store, and its trace, metrics and
+# audit; then the serve CLI on that store, long enough (> 256 ticks) for
+# one background re-scan.
+TRAIN_CLI_ASYNC_ARGS = ["--arch", "llama2-paper", "--reduced", "--steps",
+                        "30", "--seq", "64", "--global-batch", "4",
+                        "--attn-impl", "flash", "--adapt-mode", "async",
+                        "--metrics-every", "5"]
+SERVE_CLI_STORE_ARGS = ["--arch", "llama2-paper", "--reduced", "--requests",
+                        "2", "--max-batch", "2", "--new-tokens", "260",
+                        "--max-len", "300", "--adapt-mode", "async"]
 # K1 forward's host cost per call through the custom op: back-to-back calls
 # at a shape whose kernel is shorter than the host's work.
 OP_COST_SHAPE, OP_COST_CALLS = (1, 64, 32, 128), 2000
@@ -2667,6 +2715,77 @@ def phase_train_cli(device):
          bwd_launches=bwd)
     if not ok:
         raise AssertionError(f"train_cli: {stats}")
+    train_cli_store(device)
+
+
+def train_cli_store(device):
+    """The train CLI under Chameleon with the background worker and a
+    policy store (TRAIN_CLI_ASYNC_ARGS), its trace, metrics and audit
+    through ``python -m repro_torch.obs.validate`` and ``python -m
+    repro_torch.obs.report``, then the serve CLI on that store
+    (SERVE_CLI_STORE_ARGS): at least one background re-scan, and the
+    records the training run wrote."""
+    import shutil
+    import tempfile
+    from repro_torch import obs
+    from repro_torch.launch import serve, train
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    f = {k: os.path.join(d, k) for k in ("store", "ckpt", "trace.json",
+                                         "metrics.jsonl", "audit.jsonl",
+                                         "report.md")}
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    try:
+        stats = train.main(TRAIN_CLI_ASYNC_ARGS + [
+            "--device", str(device),
+            "--policy-store-dir", f["store"], "--ckpt-dir", f["ckpt"],
+            "--trace-out", f["trace.json"], "--metrics-out",
+            f["metrics.jsonl"], "--audit-out", f["audit.jsonl"]])
+        for name in ("runtime", "hostmem", "memory"):
+            obs.metrics().unregister_provider(name)
+        tools = {
+            "validate": subprocess.run(
+                [sys.executable, "-m", "repro_torch.obs.validate",
+                 f["trace.json"], "--require-lanes", "compute,adapt",
+                 "--metrics", f["metrics.jsonl"], "--require-providers",
+                 "memory,runtime"], capture_output=True, text=True, env=env,
+                timeout=120),
+            "report": subprocess.run(
+                [sys.executable, "-m", "repro_torch.obs.report", "--trace",
+                 f["trace.json"], "--metrics", f["metrics.jsonl"], "--audit",
+                 f["audit.jsonl"], "--out", f["report.md"]],
+                capture_output=True, text=True, env=env, timeout=120)}
+        with open(f["report.md"]) as fh:
+            report_md = fh.read()
+        srv = serve.main(SERVE_CLI_STORE_ARGS + [
+            "--device", str(device), "--policy-store-dir", f["store"]])
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    ad, ps = stats["adapt"], srv["policystore"]
+    problems = [k for k, r in tools.items() if r.returncode != 0]
+    if not ad or ad["installed"] < 1 or ad["failed"]:
+        problems.append("train: no install, or a failed job")
+    if stats["policystore"]["store"]["records"] < 1:
+        problems.append("train: no store record")
+    if "adaptation:" not in report_md:
+        problems.append("report: no adaptation events")
+    if srv["adapt"]["store_refreshes"] < 1:
+        problems.append("serve: no store refresh")
+    if ps["records"] != stats["policystore"]["store"]["records"]:
+        problems.append("serve: the store's records differ from the train "
+                        "run's")
+    emit("train_cli_store", ok=not problems, problems=problems,
+         stages=stats["stages"], adapt=ad,
+         store=stats["policystore"]["store"],
+         validate=tools["validate"].stdout.strip().splitlines(),
+         report_rc=tools["report"].returncode,
+         report=[ln for ln in report_md.splitlines() if ln.startswith("- ")],
+         serve_ticks=srv["ticks"], serve_adapt=srv["adapt"],
+         serve_store=ps)
+    if problems:
+        raise AssertionError(f"train_cli_store: {problems}; "
+                             f"{tools['validate'].stderr[-2000:]} "
+                             f"{tools['report'].stderr[-2000:]}")
 
 
 def phase_serve_ssm(device):
@@ -3135,19 +3254,23 @@ def phase_chameleon(device, tier):
          total_memory=torch.cuda.get_device_properties(device).total_memory)
 
 
-def exec_train(device, cfg, cham):
-    """A trainer of the chameleon_exec phase (a fresh checkpoint dir)."""
+def exec_train(device, cfg, cham, seq=TRAIN_SEQ,
+               eval_every=CHAM_EXEC_EVAL_EVERY, data=None, adapt_mode=None):
+    """A trainer of the chameleon_exec phase (a fresh checkpoint dir); the
+    chameleon_async phase's with its own sequence length, no eval, its
+    bucket's data and a placement."""
     import tempfile
     from repro_torch.common.config import TrainConfig
     from repro_torch.data.synthetic import SyntheticTokens
     from repro_torch.runtime.trainer import Trainer
     tcfg = TrainConfig(steps=100, learning_rate=TRAIN_LR,
                        warmup_steps=TRAIN_WARMUP,
-                       eval_every=CHAM_EXEC_EVAL_EVERY, checkpoint_every=0,
+                       eval_every=eval_every, checkpoint_every=0,
                        checkpoint_dir=tempfile.mkdtemp(prefix="chip_smoke_"))
-    return Trainer(cfg, tcfg, cham,
-                   data=SyntheticTokens(cfg.vocab_size, TRAIN_SEQ,
-                                        TRAIN_BATCH, seed=0), device=device)
+    if data is None:
+        data = SyntheticTokens(cfg.vocab_size, seq, TRAIN_BATCH, seed=0)
+    return Trainer(cfg, tcfg, cham, data=data, device=device,
+                   adapt_mode=adapt_mode)
 
 
 def drop_trainer(tr) -> None:
@@ -3163,19 +3286,20 @@ def drop_trainer(tr) -> None:
     shutil.rmtree(tr.tcfg.checkpoint_dir, ignore_errors=True)
 
 
-def exec_budget(device, cfg):
+def exec_budget(device, cfg, seq=TRAIN_SEQ, phase="chameleon_exec"):
     """B for the chameleon_exec phase: after two steps of a Chameleon-on
     trainer with no budget to meet (the baseline policy runs), its
     runtime's detailed profile of the grad dispatch (``profile_step`` over
     a replay, the profile its GenPolicy steps take), priced at the second
     step's time and bisected between its floor and its peak.  Returns
-    (B, row)."""
+    (B, row).  The chameleon_async phase takes it at its longer bucket."""
     import torch
     from repro_torch.common.config import ChameleonConfig
     from repro_torch.core.memtrace import build_timeline
 
     tr = exec_train(device, cfg, ChameleonConfig(enabled=True,
-                                                 hbm_budget_bytes=1 << 62))
+                                                 hbm_budget_bytes=1 << 62),
+                    seq=seq)
     for _ in range(2):
         tr.train(1)
     prof = tr.rt._baseline_profile(tr.rt._last_train_args,
@@ -3184,8 +3308,7 @@ def exec_budget(device, cfg):
     floor = timeline_floor(prof)
     pol, got, tried = tightest_plan(prof, None, floor, tl.peak)
     if pol is None or pol.projected_peak > got["budget"]:
-        raise AssertionError(f"chameleon_exec: no policy under a budget: "
-                             f"{got}")
+        raise AssertionError(f"{phase}: no policy under a budget: {got}")
     budget = int(got["budget"] * CHAM_EXEC_MARGIN)
     row = {"budget": budget, "floor": floor, "peak": tl.peak,
            "peak_op": tl.peak_op, "n_ops": prof.n_ops,
@@ -3379,6 +3502,286 @@ def phase_chameleon_exec(device):
     return fwd, bwd
 
 
+def async_bucket(step: int) -> int:
+    """The chameleon_async bucket a step trains on."""
+    return (step // ASYNC_PERIOD) % 2
+
+
+def async_run(device, cfg, budget, mode, out_dir=None) -> dict:
+    """One run of the chameleon_async phase: the placement ``mode``, or
+    Chameleon off (None), on the same batches (the step hook switches the
+    bucket every ASYNC_PERIOD steps).  ``out_dir``: export the run's
+    Chrome trace, metrics JSONL and audit JSONL there.  Counts K1's
+    launches over the run alone."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.common.config import ChameleonConfig, PolicyStoreConfig
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.kernels.flash_attention import ops
+
+    for o in (obs.tracer(), obs.ledger(), obs.metrics()):
+        o.clear()                        # this run's records only
+    buckets = [SyntheticTokens(cfg.vocab_size, seq, TRAIN_BATCH, seed=i)
+               for i, seq in enumerate(ASYNC_SEQS)]
+    cham = ChameleonConfig(enabled=mode is not None, hbm_budget_bytes=budget,
+                           policystore=PolicyStoreConfig(enabled=False))
+    tr = exec_train(device, cfg, cham, eval_every=0, data=buckets[0],
+                    adapt_mode=mode)
+    rt = tr.rt
+    ran, hook_t, installs, machine = [], [], [], ["WarmUp"]
+    gcs, gc_t0, allocator = [], [], []
+
+    def on_gc(phase, info):              # the collector's pauses, by step
+        if phase == "start":
+            gc_t0.append(time.perf_counter())
+        elif gc_t0:
+            gcs.append({"step": len(hook_t), "gen": info["generation"],
+                        "ms": (time.perf_counter() - gc_t0.pop()) * 1e3})
+
+    def hook(step):
+        hook_t.append(time.perf_counter())
+        if rt is not None:
+            d = rt._last_dispatch                # the policy this step ran
+            pol = d.applied
+            ran.append({"policy": pol.fingerprint[:60],
+                        "entries": len(pol.swap.entries) if pol.swap else 0,
+                        "projected_stall_s": (pol.swap.stall_time
+                                              if pol.swap else 0.0),
+                        "exec": (dict(d.execution.last)
+                                 if d.execution is not None else None),
+                        "slab_allocs": rt.hostmem.pool.slab_allocs})
+            now = rt.machine.stage.value
+            if now == "Stable" and machine[-1] != "Stable":
+                installs.append(step)            # installed at this boundary
+            machine.append(now)
+        if device.type == "cuda":        # the caching allocator's work
+            m = torch.cuda.memory_stats(device)
+            allocator.append({k: m.get(k) for k in (
+                "num_alloc_retries", "num_device_alloc", "num_device_free",
+                "reserved_bytes.all.current")})
+        if (step + 1) % ASYNC_PERIOD == 0:
+            tr.data = buckets[async_bucket(step + 1)]
+
+    paths = ({k: os.path.join(out_dir, f"async.{k}")
+              for k in ("trace.json", "metrics.jsonl", "audit.jsonl")}
+             if out_dir else None)
+    if paths:
+        obs.audit().attach_file(paths["audit.jsonl"])
+    torch.cuda.synchronize()
+    ops.flash_attention.launches = 0             # count the main path only
+    ops.flash_attention_bwd.launches = 0
+    gc.callbacks.append(on_gc)
+    try:
+        rep = tr.train(ASYNC_STEPS, fault_hook=hook)
+    finally:
+        gc.callbacks.remove(on_gc)
+        if paths:
+            obs.audit().detach_file()
+    k1 = (ops.flash_attention.launches, ops.flash_attention_bwd.launches)
+    if paths:
+        obs.metrics().write_jsonl(paths["metrics.jsonl"])
+        counters = {"overlap_efficiency": [
+            (h["t"], h["efficiency"]) for h in rt.overlap_history
+            if h["efficiency"] is not None]}
+        counters.update(obs.ledger().counter_tracks())
+        obs.export_chrome_trace(paths["trace.json"], obs.tracer(),
+                                counters=counters,
+                                meta={"phase": "chameleon_async"})
+    out = {"mode": mode or "off", "losses": list(rep.losses),
+           "wall_s": list(rep.wall_times), "step_s": list(rep.times),
+           "stages": list(rep.stages),
+           "gc": [g for g in gcs if g["gen"] == 2 or g["ms"] > 5],
+           "allocator": allocator,
+           "k1_launches": k1, "ran": ran, "installs": installs,
+           "hook_t": hook_t, "paths": paths}
+    if rt is not None:
+        # the worker's and the inline search's spans: ms per job and per
+        # variant (its host work, which contends with the training thread)
+        adapt_ms = {}
+        for sp in obs.tracer().records():
+            if sp["lane"] == obs.LANE_ADAPT and sp["kind"] == "span":
+                adapt_ms.setdefault(sp["name"], []).append(
+                    (sp["t1"] - sp["t0"]) * 1e3)
+        out.update(replays=rt.replays, adapt=rep.adapt, adapt_ms=adapt_ms,
+                   adaptations=list(rt.adaptations),
+                   genpolicy_steps=rep.genpolicy_steps,
+                   transitions=[tuple(t) for t in rt.machine.transitions],
+                   adaptation_overhead_s=rt.adaptation_overhead_s,
+                   ledger=obs.ledger().scoreboard())
+    drop_trainer(tr)
+    del tr, rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def async_window(run: dict, off: dict) -> dict:
+    """The guard window's readings of one placement: each step against
+    its own bucket's Stable median, the ADAPTING steps' p50 against it,
+    the first-visit spikes, kickoff-to-install latency, and (P4) each
+    bucket's measured stall (Stable median on minus off) beside the
+    installed policy's projected stall."""
+    wall, stages = run["wall_s"], run["stages"]
+    window = range(ASYNC_SKIP, ASYNC_STEPS)
+    med, adapting, p4 = {}, {}, {}
+    for b in (0, 1):
+        steps = [i for i in window if async_bucket(i) == b]
+        stable = [i for i in steps if stages[i] == "Stable"]
+        med[b] = p50([wall[i] for i in stable or steps])
+        ad = [wall[i] for i in steps if stages[i] == "Adapting"]
+        adapting[b] = {"p50_ms": p50(ad) * 1e3 if ad else None,
+                       "over_stable": p50(ad) / med[b] if ad else None}
+        off_med = p50([off["wall_s"][i] for i in stable or steps])
+        last = run["ran"][steps[-1]]
+        p4[ASYNC_SEQS[b]] = {
+            "policy": last["policy"], "entries": last["entries"],
+            "measured_stall_ms": (med[b] - off_med) * 1e3,
+            "projected_stall_ms": last["projected_stall_s"] * 1e3}
+    ratios = {i: wall[i] / med[async_bucket(i)] for i in window}
+    worst = max(ratios, key=ratios.get)
+    spikes = {}
+    for v in range(ASYNC_SKIP // ASYNC_PERIOD):
+        vis = range(v * ASYNC_PERIOD, (v + 1) * ASYNC_PERIOD)
+        i = max(vis, key=lambda j: wall[j])
+        spikes[ASYNC_SEQS[async_bucket(i)]] = {
+            "step": i, "stage": stages[i], "ms": wall[i] * 1e3,
+            "over_stable": wall[i] / med[async_bucket(i)]}
+    latency = []
+    for v in range(ASYNC_STEPS // ASYNC_PERIOD):
+        vis = range(v * ASYNC_PERIOD, (v + 1) * ASYNC_PERIOD)
+        kick = next((i for i in vis if stages[i] in ("Adapting",
+                                                     "GenPolicy")), None)
+        inst = next((i for i in run["installs"] if i in vis), None)
+        if kick is not None and inst is not None:
+            latency.append({"visit": v, "kickoff": kick, "install": inst,
+                            "steps": inst - kick,
+                            "s": run["hook_t"][inst] - run["hook_t"][kick]})
+    return {"stable_ms": {ASYNC_SEQS[b]: m * 1e3 for b, m in med.items()},
+            "worst": {"step": worst, "stage": stages[worst],
+                      "ms": wall[worst] * 1e3, "ratio": ratios[worst]},
+            "adapting": {ASYNC_SEQS[b]: a for b, a in adapting.items()},
+            "first_visit": spikes, "latency": latency, "p4": p4}
+
+
+def async_artifacts(run: dict) -> dict:
+    """The async run's trace, metrics and audit through the port's
+    validators and post-mortem report: the trace's lanes, the metrics'
+    providers, and at least one iteration scored against a projected
+    peak (the peak error is printed, not gated)."""
+    from repro_torch import obs
+    from repro_torch.obs import report
+    p = run["paths"]
+    with open(p["trace.json"]) as f:
+        tsum = obs.validate_chrome_trace(json.load(f),
+                                         require_lanes=ASYNC_LANES)
+    msum = obs.validate_metrics_jsonl(p["metrics.jsonl"],
+                                      require_providers=("memory",
+                                                         "runtime"))
+    out_json = os.path.join(os.path.dirname(p["trace.json"]), "report.json")
+    rc = report.main(["--trace", p["trace.json"],
+                      "--metrics", p["metrics.jsonl"],
+                      "--audit", p["audit.jsonl"],
+                      "--out", out_json[:-4] + "md", "--json", out_json])
+    with open(out_json) as f:
+        rj = json.load(f)
+    mem = rj["memory"] or {}
+    return {"report_rc": rc, "span_lanes": tsum["span_lanes"],
+            "counters": tsum["counters"], "snapshots": msum["snapshots"],
+            "scored": (mem.get("scoreboard") or {}).get("n", 0),
+            "max_abs_peak_error": mem.get("max_abs_peak_error"),
+            "adaptation_events": (rj["audit"] or {}).get("adaptation")}
+
+
+def phase_chameleon_async(device) -> dict:
+    """Adaptation off the training thread (``repro_torch.adapt``) on the
+    train phase's model: the lowest budget a policy meets for the longer
+    bucket (+ CHAM_EXEC_MARGIN), then ASYNC_STEPS steps under each of
+    ASYNC_MODES and with Chameleon off, on the same batches.  Every check
+    raises.  Returns K1's launches in the async run (forward, backward)."""
+    import shutil
+    import tempfile
+    import torch
+    import repro_torch.configs as C
+    from repro_torch import obs
+
+    for name in ("runtime", "hostmem"):      # earlier phases' trainers
+        obs.metrics().unregister_provider(name)
+    release_device_memory(device)
+    cfg = C.get_config("llama2-paper").replace(num_layers=TRAIN_LAYERS,
+                                               attn_impl="flash")
+    budget, brow = exec_budget(device, cfg, seq=ASYNC_SEQS[1],
+                               phase="chameleon_async")
+    emit("chameleon_async_budget", seq=ASYNC_SEQS[1], **brow)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_async_")
+    try:
+        runs = {m: async_run(device, cfg, budget, m,
+                             out_dir if m == "async" else None)
+                for m in ASYNC_MODES}
+        off = async_run(device, cfg, budget, None)
+        arts = async_artifacts(runs["async"])
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    problems, rows = [], {}
+    for m, r in runs.items():
+        w = async_window(r, off)
+        ad = r["adapt"]
+        rows[m] = dict(w, stages=r["stages"],
+                       wall_ms=[t * 1e3 for t in r["wall_s"]],
+                       step_ms=[t * 1e3 for t in r["step_s"]], gc=r["gc"],
+                       allocator=r["allocator"],
+                       replays=r["replays"], adapt=ad,
+                       adaptations=r["adaptations"],
+                       genpolicy_steps=r["genpolicy_steps"],
+                       transitions=r["transitions"], ran=r["ran"],
+                       k1_launches=r["k1_launches"], ledger=r["ledger"],
+                       adapt_ms=r["adapt_ms"],
+                       adaptation_overhead_s=r["adaptation_overhead_s"])
+        emit("chameleon_async_run", mode=m, **rows[m])
+        if ad["failed"] or ad["watchdog_fired"]:
+            problems.append(f"{m}: failed / watchdog")
+        for v in range(1, ASYNC_STEPS // ASYNC_PERIOD):
+            lo, hi = v * ASYNC_PERIOD, (v + 1) * ASYNC_PERIOD
+            if not any(lo <= a["trigger_step"] < hi and a["end_step"] < hi
+                       and a["tier"] != "timeout" for a in r["adaptations"]):
+                problems.append(f"{m}: visit {v} ends in no install")
+        if r["losses"] != off["losses"]:
+            problems.append(f"{m}: losses differ from Chameleon off's")
+        want = (ASYNC_STEPS + r["replays"]) * TRAIN_LAYERS
+        if r["k1_launches"] != (want, want):
+            problems.append(f"{m}: K1 launches {r['k1_launches']} != {want}")
+    if rows["async"]["worst"]["ratio"] > ASYNC_RATIO:
+        problems.append("async: worst step over 1.5x its bucket's Stable")
+    if rows["inline"]["worst"]["ratio"] <= ASYNC_RATIO:
+        problems.append("inline: worst step within 1.5x (no stall shown)")
+    sp = runs["speculative"]
+    if sp["adapt"]["speculative_hits"] < 1 or sp["genpolicy_steps"] != 0:
+        problems.append("speculative: no hit, or GenPolicy steps")
+    if arts["report_rc"] != 0 or arts["scored"] < 1:
+        problems.append("async artifacts: report failed or nothing scored")
+    summary = {
+        "ok": not problems, "problems": problems, "budget": budget,
+        "worst_ratio": {m: r["worst"]["ratio"] for m, r in rows.items()},
+        "stable_ms": {m: r["stable_ms"] for m, r in rows.items()},
+        "off_stable_ms": {ASYNC_SEQS[b]: p50([
+            off["wall_s"][i] for i in range(ASYNC_SKIP, ASYNC_STEPS)
+            if async_bucket(i) == b]) * 1e3 for b in (0, 1)},
+        "latency": {m: r["latency"] for m, r in rows.items()},
+        "adapting": {m: r["adapting"] for m, r in rows.items()},
+        "first_visit": {m: r["first_visit"] for m, r in rows.items()},
+        "p4": {m: r["p4"] for m, r in rows.items()},
+        "replays": {m: r["replays"] for m, r in rows.items()},
+        "speculative_hits": sp["adapt"]["speculative_hits"],
+        "genpolicy_steps": {m: r["genpolicy_steps"] for m, r in rows.items()},
+        "bit_equal": {m: r["losses"] == off["losses"]
+                      for m, r in runs.items()},
+        "k1_launches": {m: r["k1_launches"] for m, r in runs.items()},
+        "artifacts": arts}
+    emit("chameleon_async", **summary)
+    if problems:
+        raise AssertionError(f"chameleon_async: {problems}")
+    return runs["async"]["k1_launches"]
+
+
 def zoo_grad_readings(device, n_seeds: int) -> None:
     """``--zoo-grads N``: the gradient check of every ZOO_TRAIN phase on
     seeds 1..N with no gate (the readings that set ZOO_GRAD_TOL)."""
@@ -3466,6 +3869,7 @@ def main(argv=None) -> int:
     phase_train_cli(device)
     phase_chameleon(device, tier)
     exec_launches = phase_chameleon_exec(device)
+    async_launches = phase_chameleon_async(device)
     zoo = {phase: phase_train_zoo(device, phase) for phase in ZOO_TRAIN}
     second = {"decode_encdec": phase_decode_encdec(device),
               "decode_vlm": phase_decode_vlm(device)}
@@ -3493,6 +3897,8 @@ def main(argv=None) -> int:
         "train_launches": train_launches,
         # chameleon_exec: the trainer under Chameleon's applied policies
         "chameleon_exec_launches": exec_launches[0],
+        # chameleon_async: the async placement's run, (steps + replays) x 8
+        "chameleon_async_launches": async_launches[0],
         "train_cold_ms": k1_cold["train"]["cold_ms"],
         "train_library_cold_ms": k1_cold["train"]["library_cold_ms"],
         # the decoder zoo: serve_moe's prefills, the train phases' steps
@@ -3510,6 +3916,7 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/flash_attention/ops.py:54",
         "launches": bwd_launches,
         "chameleon_exec_launches": exec_launches[1],
+        "chameleon_async_launches": async_launches[1],
         # the largest bf16 error of dq, dk, dv at the training shape
         "max_abs_err": max(bwd_row[f"{g}_max_abs_err"]
                            for g in ("dq", "dk", "dv")),

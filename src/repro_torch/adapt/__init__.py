@@ -7,18 +7,21 @@ GenPolicy variant search → policy application), factored out of
   * :class:`AdaptSnapshot` — the immutable inputs one adaptation reads;
   * :class:`AdaptationPipeline` — the cycle itself as deterministic
     computation (a copy of the reference's);
-  * :class:`AdaptationService` — the adaptation bookkeeping for the
-    ``inline`` placement.  The ``async`` and ``speculative`` placements
-    (background worker, mailbox, speculative pre-generation) come with
-    ROADMAP.md queue 1 item 8 and raise until then.
+  * :class:`AdaptationService` — the placement: the inline bookkeeping,
+    and for ``async`` / ``speculative`` a job queue, one worker thread
+    (numpy only: it never touches the card), a single-slot mailbox with
+    generation-counter staleness, and speculative pre-generation of
+    policies for recurring fingerprints (:class:`RecurrencePredictor`).
 """
 from repro_torch.adapt.pipeline import (VARIANT_KNOBS, AdaptResult,
                                         AdaptationPipeline, CachedApply,
                                         PolicyVariant)
-from repro_torch.adapt.service import AdaptationService
+from repro_torch.adapt.service import (AdaptJob, AdaptationService,
+                                       RecurrencePredictor)
 from repro_torch.adapt.snapshot import AdaptSnapshot, FrozenBacklog
 
 __all__ = [
+    "AdaptJob",
     "AdaptResult",
     "AdaptSnapshot",
     "AdaptationPipeline",
@@ -26,5 +29,6 @@ __all__ = [
     "CachedApply",
     "FrozenBacklog",
     "PolicyVariant",
+    "RecurrencePredictor",
     "VARIANT_KNOBS",
 ]

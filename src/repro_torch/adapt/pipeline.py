@@ -2,7 +2,8 @@
 
 A copy of ``repro/adapt/pipeline.py``: numpy over a ``ProfileData``, so
 the same profile and budget give the reference's variants, records and
-decisions.  The port runs it inline only (``AdaptationService``).
+decisions.  The runtime calls its parts inline; the async worker
+(``AdaptationService``) calls :meth:`AdaptationPipeline.run`.
 
 Everything the old 600-line ``ChameleonRuntime`` did between "drift
 settled" and "policy chosen" lives here, factored so the *same code*

@@ -1,28 +1,26 @@
 """Immutable adaptation inputs (repro_torch.adapt).
 
 Port of ``repro/adapt/snapshot.py``.  An :class:`AdaptSnapshot` freezes
-everything the §5 adaptation cycle reads, at the moment drift settles:
+everything the §5 adaptation cycle reads, at the moment drift settles, so
+the background worker never touches live runtime state:
 
   * the Detailed-mode :class:`~repro_torch.core.profiler.ProfileData` of
-    the grad dispatch, or a callable that produces one (the reference
-    carries a traced jaxpr here; an eager step has none, and its profile
-    is a replay of the dispatch, ``ChameleonRuntime._baseline_profile``),
-    plus the measured ``t_iter`` it should be priced at;
+    the grad dispatch, already materialized, priced at the measured
+    ``t_iter``.  The reference may carry a traced jaxpr here and let the
+    worker profile it; an eager step has none, and its profile is a replay
+    of the dispatch on the device (``ChameleonRuntime._baseline_profile``),
+    which only the training thread may run;
   * a *copy* of the bandwidth-model curve
     (:meth:`~repro_torch.hostmem.bwmodel.BandwidthModel.snapshot`);
   * the transfer engine's per-class backlog at snapshot time
     (``queued_delay`` seconds + per-class queued bytes and occupancy);
   * the HBM budget and the grouping knobs the search will try;
   * the iteration fingerprint the snapshot was taken from.
-
-:meth:`ensure_profile` materializes a callable profile once and prices it
-at the snapshot's ``t_iter``.
 """
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple
 
 from repro_torch.core.profiler import ProfileData
 
@@ -51,9 +49,8 @@ class FrozenBacklog:
 
 @dataclass
 class AdaptSnapshot:
-    """One adaptation's frozen inputs.  ``profile`` is the only field
-    written later (the :meth:`ensure_profile` memo)."""
-    profile: Union[ProfileData, Callable[[], ProfileData], None] = None
+    """One adaptation's frozen inputs, immutable after construction."""
+    profile: Optional[ProfileData] = None
     t_iter: float = 1.0                  # measured iteration time to price at
     budget: int = 0                      # HBM budget (bytes)
     bwmodel: Any = None                  # frozen BandwidthModel copy (or None)
@@ -65,12 +62,9 @@ class AdaptSnapshot:
     step: int = 0                        # step the snapshot was taken at
 
     def ensure_profile(self) -> ProfileData:
-        """The Detailed-mode profile, priced at ``t_iter``."""
+        """The Detailed-mode profile (materialized on the training thread)."""
         if self.profile is None:
             raise ValueError("snapshot carries no profile")
-        if callable(self.profile):
-            prof = self.profile()
-            self.profile = dataclasses.replace(prof, t_iter=self.t_iter)
         return self.profile
 
     def engine_view(self) -> FrozenBacklog:

@@ -342,9 +342,12 @@ class AdaptConfig:
     # t_iter, capped at ``pace_cap_s``) so an overlapped training step
     # contends with at most one variant's worth of host-side work instead
     # of the whole bank.  Costs background latency only — the job still
-    # lands within the drift window.  0 disables pacing.
+    # lands within the drift window.  0 disables pacing.  The cap is 1 s
+    # where the reference's is 0.25 s: an eager step on the card takes
+    # 0.26-0.39 s (llama2-paper, 8 layers, 2 x 2048-3072 tokens), and a
+    # cap under t_iter let two variants' host work land in one step.
     pace_s: float = 0.02
-    pace_cap_s: float = 0.25
+    pace_cap_s: float = 1.0
 
 
 @dataclass(frozen=True)

@@ -18,9 +18,20 @@ the logical-layer grouping knob) and, after n steps, keeps the variant with
 the best measured iteration time — the paper's §7.1 "generates five policies
 and selects the one with the best runtime performance".  The adaptation
 pipeline (classification, cached-policy re-association, variant
-construction, store write-back) lives in ``repro_torch.adapt`` and runs
-inline; the ``async`` and ``speculative`` placements come with ROADMAP.md
-queue 1 item 8 (``AdaptationService`` raises for them).
+construction, store write-back) lives in ``repro_torch.adapt``; this
+module keeps the iteration-loop state machine and the install points.
+With ``cfg.adapt.mode`` set to ``async`` or ``speculative`` the settled
+WarmUp enqueues an :class:`~repro_torch.adapt.AdaptSnapshot` to the
+background :class:`~repro_torch.adapt.AdaptationService` instead of
+running GenPolicy iterations inline; the worker's result installs at the
+next iteration boundary (after the engine sweep of the policy that just
+ran), so drift never stalls an iteration.  The snapshot's profile is
+materialized here, on the training thread (``_snapshot``): it is a replay
+on the device, memoized by arg shapes (async keeps that memo across
+WarmUp re-entries) or taken from ``_profile_lru`` for a recurring
+stream, so a stream's first visit pays one replay in every placement and
+later visits a dict hit.  ``_baseline_profile`` raises off the thread
+that built the runtime: the worker runs numpy only.
 
 What eager PyTorch changes:
 
@@ -62,6 +73,8 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
@@ -71,8 +84,9 @@ import torch
 from repro_torch import obs
 # PolicyVariant / VARIANT_KNOBS live in repro_torch.adapt.pipeline;
 # re-exported here because callers import them from the runtime module
-from repro_torch.adapt import (VARIANT_KNOBS, AdaptationPipeline,
-                               AdaptationService, PolicyVariant)
+from repro_torch.adapt import (VARIANT_KNOBS, AdaptResult, AdaptSnapshot,
+                               AdaptationPipeline, AdaptationService,
+                               PolicyVariant)
 from repro_torch.common.config import ChameleonConfig
 from repro_torch.common.device import resolve_device
 from repro_torch.core import tokenizer
@@ -145,6 +159,20 @@ class ChameleonRuntime:
         # key: a replay of the dispatch (module doc), memoized
         self._baseprof_cache: Dict[Tuple, ProfileData] = {}
         self.replays = 0                     # grad dispatches replayed
+        # the replay runs on the card: only the thread that built the
+        # runtime (the training thread) may run one, never the worker
+        self._owner_thread = threading.get_ident()
+        # detailed profiles of streams adapted before, keyed by iteration
+        # fingerprint: a recurring stream's snapshot carries the profile
+        # its last install used, at the t_iter it was measured at
+        self._profile_lru: "collections.OrderedDict[str, ProfileData]" = \
+            collections.OrderedDict()
+        self._profile_lru_cap = 8
+        # async: the policy last installed for each train arg-shape key
+        # (with its plan profile), recalled when that bucket's arguments
+        # come back (step_fn)
+        self._shape_policy: Dict[Tuple, Tuple[AppliedPolicy,
+                                              Optional[ProfileData]]] = {}
         self.applied: AppliedPolicy = self.executor.baseline()
         self.profile: Optional[ProfileData] = None
         self.baseline_profile: Optional[ProfileData] = None
@@ -174,7 +202,7 @@ class ChameleonRuntime:
             self.pipeline, adapt_mode, max_parked=cfg.adapt.max_parked,
             max_snapshots=cfg.adapt.max_snapshots, history=cfg.adapt.history,
             pace_s=cfg.adapt.pace_s, pace_cap_s=cfg.adapt.pace_cap_s)
-        self.machine = StageMachine(cfg, async_mode=False)
+        self.machine = StageMachine(cfg, async_mode=adapt_mode != "inline")
         # ---- degradation ladder (repro_torch.faults): link health drives
         # the applied policy down full → trimmed → conservative → no_swap
         # and probe-driven recovery climbs it back up
@@ -230,10 +258,15 @@ class ChameleonRuntime:
     def _baseline_profile(self, args, t_iter: float) -> ProfileData:
         """The detailed profile of the grad dispatch under the baseline
         policy: a replay on ``args`` (memoized by arg shapes), priced at
-        ``t_iter``."""
+        ``t_iter``.  Raises off the thread that built the runtime."""
         key = ("baseline",) + self._args_key(args)
         prof = self._baseprof_cache.get(key)
         if prof is None:
+            if threading.get_ident() != self._owner_thread:
+                raise RuntimeError(
+                    "ChameleonRuntime._baseline_profile: a replay of the grad "
+                    "dispatch may run only on the thread that built the "
+                    "runtime, not beside its training step")
             fn = self.step_builder(None)
             prof = profile_step(lambda: fn(*args), device=self.device,
                                 static_bytes=self._static_bytes(args))
@@ -385,14 +418,31 @@ class ChameleonRuntime:
         self.service.finish(tier, self.step_idx)
 
     # ------------------------------------------------------ per-iteration
-    def step_fn(self) -> Callable:
+    def step_fn(self, args: Optional[tuple] = None) -> Callable:
         """The grad dispatch under the current applied policy, recorded;
         its ``execution`` (None for a plain policy) keeps the executor's
-        counters."""
+        counters.  Given the dispatch's ``args`` in an async placement, a
+        recurring shape bucket runs the policy last installed for it at
+        once: the drift is seen only after a step, and the previous
+        bucket's policy on these shapes moves its bytes in a step too short
+        to hide them.  An eager dispatch knows its arguments before it
+        runs; the reference's traced step learns its shapes when it runs."""
+        if args is not None and self.machine.async_mode:
+            self._recall_shape_policy(self._args_key(args))
         d = self._last_dispatch
         if d is None or d.applied is not self.applied:
             d = self._last_dispatch = self._get_step(self.applied)
         return d
+
+    def _recall_shape_policy(self, key: Tuple) -> None:
+        memo = self._shape_policy.get(key)
+        if key == self._train_shape or memo is None or memo[0] is self.applied:
+            return
+        self.applied, prof = memo
+        if prof is not None:
+            self.profile = prof
+        self._bind_release_plan(self.applied.swap)
+        self._audit_apply("shape-recall")
 
     def record_dispatch(self, name: str, fn: Callable, args: tuple) -> None:
         """Lightweight mode: the op stream ``fn``'s last call recorded
@@ -451,15 +501,27 @@ class ChameleonRuntime:
             self._genpolicy_step(t_iter)
         elif stage is Stage.STABLE and prev_stage is Stage.GENPOLICY:
             self._select_best()
+        elif stage is Stage.ADAPTING and prev_stage is not Stage.ADAPTING:
+            # async placement: the sequence settled — hand the background
+            # worker an immutable snapshot (or install a parked
+            # speculative result on the spot) and keep iterating
+            self._async_kickoff(t_iter)
         elif stage is Stage.WARMUP and (prev_stage is not Stage.WARMUP
                                         or shape_drift):
             # sequence (or dispatch shape) changed: back to the
-            # conservative fit (Fig 2 loop), re-profiling from scratch as
-            # the paper's loop does
+            # conservative fit (Fig 2 loop)
             self.service.reset_search()
+            if self.machine.async_mode:
+                # supersede anything in flight for the old stream
+                self.service.invalidate("shape-drift" if shape_drift
+                                        else "seq-change")
             if self._example_args is not None:
                 args = self._last_train_args or self._example_args
-                self._baseprof_cache.clear()
+                if not self.machine.async_mode:
+                    # inline: re-profile from scratch, as the paper's loop
+                    # does; async keeps the shape-keyed replays, so a
+                    # recurring bucket's re-entry costs a dict hit
+                    self._baseprof_cache.clear()
                 self.prepare(args)
         adapt_dt = time.perf_counter() - t_adapt
         self.adaptation_overhead_s += adapt_dt
@@ -471,6 +533,22 @@ class ChameleonRuntime:
             eng = self.hostmem.engine
             eng.advance_op(max(ran.release_plan.values()))
             eng.begin_iteration()
+        # async swap-in point: only after the executed policy's planned
+        # releases were swept may a worker result replace self.applied
+        if self.machine.stage is Stage.ADAPTING:
+            t_install = time.perf_counter()
+            res = self.service.poll()
+            if res is not None:
+                self._install_result(res, "adapt-installed")
+            elif self.service.watchdog(self.cfg.resilience.adapt_timeout_s):
+                # hung or lost worker: supersede its epoch (a late result
+                # can never install) and un-wedge the stage machine; the
+                # current policy keeps serving (it fit before the drift)
+                self.service.invalidate("worker-timeout")
+                self.machine.complete_adapting(self.step_idx,
+                                               "adapt-timeout")
+                self._finish_adaptation("timeout")
+            self.adaptation_overhead_s += time.perf_counter() - t_install
         # degradation ladder (repro_torch.faults): react to link health
         # after this iteration's transfers; GenPolicy iterations are
         # skipped — the variant search overwrites self.applied anyway and
@@ -671,17 +749,92 @@ class ChameleonRuntime:
     def _select_best_timed(self, timed: List[PolicyVariant]) -> None:
         self.best = min(timed, key=lambda v: v.measured_t)
         self.applied = self.best.applied
-        if self.hostmem is not None and self.best.swap is not None:
-            # §5.4.2 hand-off: only the applied policy's release points
-            # reach the engine; the executor drives engine.advance_op over
-            # them so swapped buffers are freed at the promised op
-            self.applied.release_plan = {
-                SwapPolicy.entry_tag(e): e.swap_out_done_op
-                for e in self.best.swap.entries
-                if e.swap_out_done_op >= 0}
-            self.executor.bind_release_points(self.applied,
-                                              self.hostmem.engine)
-            self.hostmem.engine.begin_iteration()
+        self._bind_release_plan(self.best.swap)
+
+    def _bind_release_plan(self, swap: Optional[SwapPolicy]) -> None:
+        """§5.4.2 hand-off: only the applied policy's release points reach
+        the engine; the executor drives engine.advance_op over them so
+        swapped buffers are freed at the promised op."""
+        if self.hostmem is None or swap is None:
+            return
+        self.applied.release_plan = {
+            SwapPolicy.entry_tag(e): e.swap_out_done_op
+            for e in swap.entries if e.swap_out_done_op >= 0}
+        self.executor.bind_release_points(self.applied, self.hostmem.engine)
+        self.hostmem.engine.begin_iteration()
+
+    # ------------------------------------ async placement (repro_torch.adapt)
+    def _snapshot(self, args, t_iter: float) -> AdaptSnapshot:
+        """Freeze this adaptation's inputs.  The profile is materialized
+        here, on the training thread: the ``_profile_lru`` entry of a
+        stream adapted before, else the replay (memoized by arg shapes)."""
+        hm = self.hostmem
+        iter_fp = iter_exact = None
+        if self._last_sig is not None and len(self._last_sig):
+            iter_fp = self.pipeline.iteration_fingerprint(self._last_sig)
+            iter_exact = self._stream_key(iter_fp.exact)
+        prof = (self._profile_lru.get(iter_exact)
+                if iter_exact is not None else None)
+        if prof is None:
+            prof = self._baseline_profile(args, t_iter)
+        return AdaptSnapshot(
+            profile=prof, t_iter=t_iter, budget=self.budget,
+            bwmodel=hm.bwmodel.snapshot() if hm else None,
+            contention_s=hm.engine.queued_delay() if hm else 0.0,
+            backlog=hm.engine.backlog_snapshot() if hm else {},
+            gen_knobs=(),                  # worker classifies + seeds itself
+            iter_exact=iter_exact, iter_fp=iter_fp, step=self.step_idx)
+
+    def _stream_key(self, fp_exact: str) -> str:
+        """The live stream's identity: the iteration fingerprint and the
+        train dispatch's arg shapes.  A traced program's tokens change
+        with the sequence length; an eager op stream does not, so two
+        sequence-length buckets would share one fingerprint, one retained
+        snapshot and one profile without the shapes."""
+        return hashlib.sha1(
+            f"{fp_exact}|{self._train_shape}".encode()).hexdigest()
+
+    def _async_kickoff(self, t_iter: float) -> None:
+        """ADAPTING entry: install a parked speculative result if the
+        observed stream has one (zero GenPolicy steps, nothing in flight),
+        otherwise enqueue the snapshot for the worker."""
+        args = self._last_train_args or self._example_args
+        if args is None:
+            return
+        snap = self._snapshot(args, t_iter)
+        self.service.begin(self.step_idx)
+        hit = self.service.take_speculative(snap.iter_exact)
+        if hit is not None:
+            self._install_result(hit, "speculative-hit")
+            return
+        self.service.submit(snap)
+
+    def _install_result(self, res: AdaptResult, why: str) -> None:
+        """Swap-in: adopt a completed (worker or parked speculative)
+        adaptation at the iteration boundary, as ``_select_best_timed``
+        installs an inline winner: applied policy, engine release points,
+        stage transition, accounting."""
+        self.applied = res.applied
+        if res.profile is not None:
+            self.profile = res.profile
+            if res.iter_exact:           # a recurrence skips the profile
+                self._profile_lru[res.iter_exact] = res.profile
+                self._profile_lru.move_to_end(res.iter_exact)
+                while len(self._profile_lru) > self._profile_lru_cap:
+                    self._profile_lru.popitem(last=False)
+        self.best = PolicyVariant(res.applied, res.swap,
+                                  res.knob if res.knob is not None else 1.0,
+                                  measured_t=None)
+        self._bind_release_plan(res.swap)
+        self._shape_policy[self._train_shape] = (self.applied,
+                                                 self._plan_profile())
+        self.machine.complete_adapting(self.step_idx, why)
+        self.machine.n_genpolicy = None
+        self._gen_knobs = VARIANT_KNOBS
+        self._audit_apply(res.kind, knob=res.knob)
+        self.service.note_adapted(res.iter_exact)
+        self.service.finish(res.tier, self.step_idx)
+        self._last_decision = None
 
     def close(self) -> None:
         """Stop the background worker (a no-op inline)."""

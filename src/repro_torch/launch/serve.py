@@ -17,8 +17,13 @@ concurrent requests than device-resident slots by spilling preempted
 decode state into the pinned host pool (``repro_torch.hostmem``), raw or,
 with ``--spill-compression int8``, row-quantized by the int8 kernels.
 
-Port of ``repro/launch/serve.py`` without the autotune and policy-store
-flags (slices 10 and 8) and ``--spill-compression auto`` (slice 10).
+``--policy-store-dir D`` attaches the shared adaptation cache read-only
+and prints its stats; with ``--adapt-mode async|speculative`` the server
+re-scans ``D`` in the background every 256 ticks, so a co-located
+trainer's new records become visible without a tick waiting on the disk.
+
+Port of ``repro/launch/serve.py`` without the autotune flags and
+``--spill-compression auto`` (ROADMAP.md queue 1 item 10).
 Weights are random, drawn on the device from seed 0; prompts are drawn
 from ``RandomState(0)`` as the reference draws them.  Runs on ``cuda``
 unless ``--device cpu``.  ``main(argv)`` returns the run's stats dict.
@@ -60,6 +65,16 @@ def _parser() -> argparse.ArgumentParser:
                     help="attention implementation (default: the config's); "
                          "flash sends every prefill attention and every "
                          "decode attention to the CUDA kernels")
+    ap.add_argument("--policy-store-dir", default="",
+                    help="attach the shared adaptation cache (read-only "
+                         "visibility: cache warmth is reported in stats)")
+    ap.add_argument("--adapt-mode",
+                    choices=["inline", "async", "speculative"],
+                    default="inline",
+                    help="adaptation placement: async / speculative enable "
+                         "the background policy-store refresher so a "
+                         "co-located trainer's new policies become visible "
+                         "without a tick-loop stall")
     ap.add_argument("--trace-out", default="",
                     help="write a Chrome trace-event JSON here on exit "
                          "(open in Perfetto / chrome://tracing)")
@@ -77,7 +92,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
     import repro_torch.configs as C
     from repro_torch import obs
-    from repro_torch.common.config import HostMemConfig
+    from repro_torch.common.config import HostMemConfig, PolicyStoreConfig
     from repro_torch.common.device import resolve_device
     from repro_torch.hostmem import HostMemTier
     from repro_torch.models.registry import get_api
@@ -97,8 +112,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
             spill_compression=args.spill_compression), device=device)
         if args.calibrate_link:
             hostmem.calibrate()        # engine-path sweep
+    policystore = None
+    if args.policy_store_dir:
+        from repro_torch.policystore import PolicyStore
+        # readonly: a shared training store must not lose records to this
+        # reader's load-time eviction
+        policystore = PolicyStore(PolicyStoreConfig(dir=args.policy_store_dir),
+                                  readonly=True)
     srv = Server(cfg, model, max_batch=args.max_batch, max_len=args.max_len,
-                 max_active=max_active, hostmem=hostmem)
+                 max_active=max_active, hostmem=hostmem,
+                 policystore=policystore, adapt_mode=args.adapt_mode)
     rng = np.random.RandomState(0)
     prompt_lens = []
     t0 = time.perf_counter()      # submit() already prefills the first slots
@@ -110,6 +133,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     results = srv.run_until_done(max_ticks=10_000)
     dt = time.perf_counter() - t0
     toks = sum(len(v) for v in results.values())
+    srv.close()                   # a running store re-scan finishes
     lat = srv.latency_stats()
     srv_stats = srv.stats()
     print(f"{len(results)} requests, {toks} tokens, {dt:.2f}s, "
@@ -127,6 +151,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
                   f"{ks['bytes_raw'] / 2**20:.1f} MiB raw -> "
                   f"{ks['bytes_spilled'] / 2**20:.1f} MiB staged "
                   f"({ks['compression_ratio']:.2f}x)")
+    if policystore is not None:
+        print(f"policystore: {srv_stats['policystore']}")
+        ad = srv_stats["adapt"]
+        if ad["mode"] != "inline":
+            print(f"adapt[{ad['mode']}]: "
+                  f"store_refreshes={ad['store_refreshes']} "
+                  f"records_refreshed={ad['store_records_refreshed']}")
     if args.metrics_out:
         obs.metrics().write_jsonl(args.metrics_out)
     obs.metrics().unregister_provider("server")    # drop the model with srv
@@ -155,6 +186,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         "kv_spill_class": srv_stats["kv_spill_class"],
         "hostmem": srv_stats["hostmem"],
         "kvspill": srv_stats["hostmem"]["kvspill"] if hostmem else None,
+        "policystore": srv_stats["policystore"],
+        "adapt": srv_stats["adapt"],
         "link_curve": ({int(k): list(v) for k, v in hostmem.link_curve.items()}
                        if hostmem else None),
         "max_memory_allocated": (torch.cuda.max_memory_allocated(device)

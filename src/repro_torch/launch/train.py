@@ -6,10 +6,15 @@
 Port of the single-device subset of ``repro/launch/train.py``.  Chameleon
 runs unless ``--no-chameleon``: ``--budget-gib`` is its HBM budget, and
 ``--stats-json`` dumps the runtime's ``stats()``, a metrics snapshot and
-the audit tail on exit.  Flags of later slices raise, naming the slice:
-``--policy-store-dir`` / ``--no-policy-store`` / ``--adapt-mode
-async|speculative`` (item 8), ``--autotune`` (item 10), ``--mesh`` /
-``--multihost`` (item 11).  Besides the reference's flags it takes
+the audit tail on exit.  ``--policy-store-dir D`` persists adaptation
+policies in ``D`` (``--no-policy-store`` drops the in-memory cache too);
+``--adapt-mode async|speculative`` moves the variant search onto the
+background worker (``repro_torch.adapt``).  ``--trace-out`` writes the
+Chrome trace (with the overlap-efficiency and memory-ledger counter
+tracks) and ``--audit-out`` streams the audit log as JSONL; both are
+what ``python -m repro_torch.obs.validate`` and ``python -m
+repro_torch.obs.report`` read.  Flags of later slices raise, naming the
+slice: ``--autotune`` (item 10), ``--mesh`` / ``--multihost`` (item 11).  Besides the reference's flags it takes
 ``--device`` (``cuda`` unless asked) and ``--attn-impl`` (``flash`` trains
 every attention through the flash-attention forward and backward
 kernels), as ``launch/serve.py`` does.  Weights are random, drawn on the
@@ -33,10 +38,6 @@ from typing import List, Optional
 
 # flag -> (the value that means "not used", the ROADMAP.md slice it needs)
 _LATER = {
-    "policy_store_dir": ("", "queue 1 item 8 (the policy store's CLI)"),
-    "no_policy_store": (False, "queue 1 item 8 (the policy store's CLI)"),
-    "adapt_mode": ("inline", "queue 1 item 8 (async and speculative "
-                             "adaptation)"),
     "autotune": (False, "queue 1 item 10 (autotune)"),
     "autotune_cache_dir": ("", "queue 1 item 10 (autotune)"),
     "mesh": ("none", "queue 1 item 11 (distributed)"),
@@ -67,12 +68,28 @@ def _parser() -> argparse.ArgumentParser:
                          "during training")
     ap.add_argument("--metrics-every", type=int, default=25,
                     help="snapshot cadence for --metrics-out (steps)")
-    ap.add_argument("--policy-store-dir", default="")
-    ap.add_argument("--no-policy-store", action="store_true")
+    ap.add_argument("--policy-store-dir", default="",
+                    help="persist adaptation policies here (fingerprint-"
+                         "keyed; a restart with a warm store skips "
+                         "GenPolicy for recurring sequences)")
+    ap.add_argument("--no-policy-store", action="store_true",
+                    help="disable the in-memory policy cache too")
     ap.add_argument("--autotune", action="store_true")
     ap.add_argument("--autotune-cache-dir", default="")
     ap.add_argument("--adapt-mode", choices=["inline", "async", "speculative"],
-                    default="inline")
+                    default="inline",
+                    help="adaptation placement: inline runs the paper's "
+                         "measured GenPolicy iterations; async moves the "
+                         "variant search to a background worker (drift "
+                         "never stalls an iteration); speculative also "
+                         "pre-generates policies for recurring op "
+                         "sequences")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome trace-event JSON here on exit "
+                         "(open in Perfetto / chrome://tracing)")
+    ap.add_argument("--audit-out", default="",
+                    help="stream the audit log (JSONL) here as it is "
+                         "written")
     ap.add_argument("--multihost", action="store_true")
     ap.add_argument("--mesh", choices=["none", "single", "multi"],
                     default="none")
@@ -92,7 +109,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
     import repro_torch.configs as C
     from repro_torch import obs
-    from repro_torch.common.config import ChameleonConfig, TrainConfig
+    from repro_torch.common.config import (AdaptConfig, ChameleonConfig,
+                                           PolicyStoreConfig, TrainConfig)
     from repro_torch.common.device import resolve_device
     from repro_torch.data.synthetic import SyntheticTokens
     from repro_torch.runtime.trainer import Trainer
@@ -107,8 +125,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
                        checkpoint_every=max(args.steps // 4, 1),
                        eval_every=max(args.steps // 3, 1))
     cham = ChameleonConfig(enabled=not args.no_chameleon,
-                           hbm_budget_bytes=int(args.budget_gib * 2 ** 30))
+                           hbm_budget_bytes=int(args.budget_gib * 2 ** 30),
+                           policystore=PolicyStoreConfig(
+                               enabled=not args.no_policy_store,
+                               dir=args.policy_store_dir),
+                           adapt=AdaptConfig(mode=args.adapt_mode))
     data = SyntheticTokens(cfg.vocab_size, seq, gb).start()
+    if args.audit_out:
+        # stream every audit event, not just the in-memory tail: the
+        # evidence trail survives a crash
+        obs.audit().attach_file(args.audit_out)
     tr = None
     try:
         tr = Trainer(cfg, tcfg, cham, data=data,
@@ -133,15 +159,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
             _print_chameleon(tr, rep)
             out["applied"] = tr.rt.applied.fingerprint
             out["policystore"] = rep.policystore
+            out["adapt"] = rep.adapt
         return out
     finally:
         data.stop()
-        if args.metrics_out:
-            obs.metrics().write_jsonl(args.metrics_out)
         if tr is not None and tr.rt is not None:
             tr.rt.close()
-            if args.stats_json:
-                _write_stats(args.stats_json, tr.rt)
+        _export_obs(args, tr.rt if tr is not None else None)
 
 
 def _print_chameleon(tr, rep) -> None:
@@ -171,19 +195,43 @@ def _print_chameleon(tr, rep) -> None:
               f"regen={t['regen']} demoted={t['demoted']}; "
               f"genpolicy_steps={ps['genpolicy_steps_total']}; "
               f"adaptations={len(ps['adaptations'])}", flush=True)
+    ad = rep.adapt
+    if ad is not None and ad["mode"] != "inline":
+        print(f"adapt[{ad['mode']}]: jobs={ad['jobs']} "
+              f"published={ad['published']} installed={ad['installed']} "
+              f"discarded={ad['discarded']} failed={ad['failed']} "
+              f"spec_hits={ad['speculative_hits']}", flush=True)
 
 
-def _write_stats(path: str, rt) -> None:
-    """``--stats-json``: the runtime's stats(), a metrics-registry
-    snapshot and the audit tail, as the reference writes them."""
+def _export_obs(args, rt) -> None:
+    """Flush the obs artifacts the flags asked for, as the reference does.
+    Runs from the ``finally`` block, so a crashed run still leaves its
+    trace behind.  ``rt`` is None with Chameleon off."""
     import json
 
     from repro_torch import obs
-    snap = {"runtime": rt.stats(), "obs_snapshot": obs.metrics().snapshot(),
-            "audit_tail": obs.audit().tail(200)}
-    with open(path, "w") as f:
-        json.dump(snap, f, indent=1, default=repr)
-    print(f"stats: {path}", flush=True)
+    if args.audit_out:
+        obs.audit().detach_file()
+    if args.metrics_out:
+        obs.metrics().write_jsonl(args.metrics_out)
+    if args.trace_out:
+        counters = {"overlap_efficiency": [
+            (h["t"], h["efficiency"]) for h in rt.overlap_history
+            if h["efficiency"] is not None]} if rt is not None else {}
+        counters.update(obs.ledger().counter_tracks())
+        obs.export_chrome_trace(args.trace_out, obs.tracer(),
+                                counters=counters,
+                                meta={"arch": args.arch,
+                                      "steps": args.steps})
+        print(f"trace: {args.trace_out} "
+              f"({obs.tracer().stats()['retained']} events)", flush=True)
+    if args.stats_json and rt is not None:
+        snap = {"runtime": rt.stats(),
+                "obs_snapshot": obs.metrics().snapshot(),
+                "audit_tail": obs.audit().tail(200)}
+        with open(args.stats_json, "w") as f:
+            json.dump(snap, f, indent=1, default=repr)
+        print(f"stats: {args.stats_json}", flush=True)
 
 
 if __name__ == "__main__":

@@ -8,7 +8,9 @@ The port's copy of the reference ``repro.obs`` core: the ring-buffered
 transitions, engine retries and fallbacks) and the :class:`MemoryLedger`
 that the transfer engine and the KV spill report staged bytes to, and
 the per-iteration swap/compute overlap efficiency
-(:mod:`repro_torch.obs.overlap`).
+(:mod:`repro_torch.obs.overlap`), and the schema validators of exported
+traces and metrics (:mod:`repro_torch.obs.validate`; the post-mortem
+report is :mod:`repro_torch.obs.report`).
 Process-wide defaults are reached through :func:`tracer`, :func:`metrics`,
 :func:`audit` and :func:`ledger`; tests swap them with :func:`set_tracer`
 / :func:`set_metrics` / :func:`set_audit` / :func:`set_ledger` (each
@@ -24,6 +26,8 @@ from repro_torch.obs.overlap import (interval_union, overlap_efficiency,
 from repro_torch.obs.tracer import (LANE_ADAPT, LANE_CHECKPOINT, LANE_COMPUTE,
                                     LANE_ID, LANE_KV_SPILL, LANE_POLICY_SWAP,
                                     LANES, SpanTracer, export_chrome_trace)
+from repro_torch.obs.validate import (validate_chrome_trace,
+                                      validate_metrics_jsonl)
 
 __all__ = [
     "AuditLog", "MemoryLedger", "MetricsRegistry", "SpanTracer",
@@ -31,6 +35,7 @@ __all__ = [
     "LANES", "LANE_ID", "LANE_COMPUTE", "LANE_POLICY_SWAP", "LANE_KV_SPILL",
     "LANE_CHECKPOINT", "LANE_ADAPT", "export_chrome_trace",
     "interval_union", "overlap_efficiency", "window_efficiency",
+    "validate_chrome_trace", "validate_metrics_jsonl",
     "tracer", "metrics", "audit", "ledger",
     "set_tracer", "set_metrics", "set_audit", "set_ledger",
 ]

@@ -48,8 +48,9 @@ similarity evaluations so tests can assert probe work ≪ records —
 ``nearest_exhaustive`` stays as the parity oracle.
 
 The store is thread-safe (one re-entrant lock around record/index/row
-state), as the reference's, whose background adaptation worker shares it
-with the training thread (the port adapts inline until ROADMAP.md item 8).
+state), as the reference's: the background adaptation worker
+(``repro_torch.adapt.service``) shares it with the training thread, and a
+server's refresher re-scans it from a thread of its own.
 """
 from __future__ import annotations
 

@@ -19,12 +19,19 @@ the reference's assertion refuses them ("others serve via decode-only"):
 they decode through the model API (``init_decode_state(memory=,
 params=)`` and ``decode_step``).  ``memory`` is the reference's argument,
 passed to ``init_decode_state``.  The model runs eagerly under
-``torch.no_grad()``; the reference's ``jax.jit`` has no counterpart here.  The policy store and the async
-adaptation modes come with slice 8 of ROADMAP.md queue 1 and raise.
+``torch.no_grad()``; the reference's ``jax.jit`` has no counterpart here.
+
+A shared policy store (``policystore=``, ``repro_torch.policystore``,
+usually attached read-only) is reported in ``stats()``.  With
+``adapt_mode`` ``async`` or ``speculative`` a one-shot background thread
+re-scans the store's directory every ``_refresh_every_ticks`` ticks, so
+records a training process writes become visible without a restart and
+without a tick ever waiting on the disk; :meth:`close` joins it.
 """
 from __future__ import annotations
 
 import collections
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.adapt.service import MODES
 from repro_torch.common.config import ModelConfig
 from repro_torch.models.registry import get_api
 from repro_torch.models.transformer import Model
@@ -72,10 +80,8 @@ class Server:
                 f"the server's prefill path covers dense, moe and ssm, as "
                 f"the reference's does; {cfg.family!r} serves by decode_step "
                 f"alone there (others serve via decode-only)")
-        if policystore is not None or adapt_mode != "inline":
-            raise NotImplementedError(
-                "the policy store and async adaptation come with slice 8 of "
-                "ROADMAP.md queue 1; serve with adapt_mode='inline'")
+        if adapt_mode not in MODES:
+            raise ValueError(f"adaptation mode {adapt_mode!r} not in {MODES}")
         self.cfg, self.params = cfg, params
         self.device = params.device
         self.max_batch, self.max_len = max_batch, max_len
@@ -100,7 +106,13 @@ class Server:
         # strictest fairness; larger k trades waiter latency for k-fold
         # fewer spill round trips per generated token.
         self.rotate_every = max(rotate_every, 1)
+        # the shared adaptation cache and its background refresher
+        self.policystore = policystore
         self.adapt_mode = adapt_mode
+        self._refresh_thread: Optional[threading.Thread] = None
+        self._refresh_every_ticks = 256
+        self.n_store_refreshes = 0
+        self.n_store_refreshed = 0
         # tick-level batching log: (resident slots at decode, wall seconds,
         # tokens emitted) per tick, and per-prefill wall seconds.  Bounded:
         # a long-running server keeps a sliding window, not full history
@@ -253,8 +265,31 @@ class Server:
         self.ticks += 1
         self._admit()
         self._rotate()
+        if self.ticks % self._refresh_every_ticks == 0:
+            self._refresh_store()
         self.tick_log.append((n_resident, time.perf_counter() - t0, len(out)))
         return out
+
+    def _refresh_store(self) -> None:
+        """Kick one background store re-scan (never blocks the tick; a
+        still-running previous scan is left to finish)."""
+        if self.adapt_mode == "inline" or self.policystore is None:
+            return
+        if self._refresh_thread is not None and self._refresh_thread.is_alive():
+            return
+
+        def _scan():
+            self.n_store_refreshed += self.policystore.refresh()
+            self.n_store_refreshes += 1
+
+        self._refresh_thread = threading.Thread(
+            target=_scan, name="store-refresh", daemon=True)
+        self._refresh_thread.start()
+
+    def close(self, timeout: float = 30.0) -> None:
+        """Wait for a running store re-scan to finish."""
+        if self._refresh_thread is not None:
+            self._refresh_thread.join(timeout)
 
     def run_until_done(self, max_ticks: int = 1000) -> Dict[int, List[int]]:
         for _ in range(max_ticks):
@@ -324,7 +359,9 @@ class Server:
             "kv_spill_class": kv_cls,
             "hostmem": hm,
             "latency": self.latency_stats(),
-            "policystore": None,
-            "adapt": {"mode": self.adapt_mode, "store_refreshes": 0,
-                      "store_records_refreshed": 0},
+            "policystore": (self.policystore.stats()
+                            if self.policystore is not None else None),
+            "adapt": {"mode": self.adapt_mode,
+                      "store_refreshes": self.n_store_refreshes,
+                      "store_records_refreshed": self.n_store_refreshed},
         }

@@ -71,7 +71,8 @@ class TrainReport:
     # repro_torch.policystore: per-tier hit counters + adaptation
     # latencies (None when the runtime has no store attached)
     policystore: Optional[dict] = None
-    # repro_torch.adapt: service counters
+    # repro_torch.adapt: service counters (jobs / published / discarded /
+    # failed / installed / speculative hits / watchdog), live at the end
     adapt: Optional[dict] = None
 
     @property
@@ -91,8 +92,9 @@ class Trainer:
         self.cfg, self.tcfg = cfg, tcfg
         self.cham = cham or ChameleonConfig(enabled=False)
         if adapt_mode is not None and adapt_mode != self.cham.adapt.mode:
-            # placement override (--adapt-mode); the port adapts inline and
-            # the runtime's service raises for the background placements
+            # placement override (--adapt-mode): inline keeps the paper's
+            # measured GenPolicy iterations; async / speculative move the
+            # variant search onto the repro_torch.adapt background worker
             self.cham = dataclasses.replace(
                 self.cham,
                 adapt=dataclasses.replace(self.cham.adapt, mode=adapt_mode))
@@ -254,8 +256,8 @@ class Trainer:
         faults.tick(self.step)   # armed fault plans key off the iteration
         rt = self.rt
         t0 = time.perf_counter()
-        fn = rt.step_fn() if rt is not None else self._grad
         args = (self.model, batch, self.loss_scale.scale)
+        fn = rt.step_fn(args) if rt is not None else self._grad
         with obs.tracer().span(obs.LANE_COMPUTE, "train_step",
                                arg=self.step):
             loss, grads, finite = fn(*args)

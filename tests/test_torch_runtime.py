@@ -201,15 +201,3 @@ def test_record_dispatch_needs_a_recorded_function():
     fn(torch.ones(3))
     rt.record_dispatch("eval", fn, (torch.ones(3),))
     assert len(rt._iter_streams) == 1 and len(rt._iter_streams[0]) == 1
-
-
-def test_async_adaptation_is_a_later_slice():
-    d = tempfile.mkdtemp()
-    try:
-        cfg = PC.get_reduced("llama2_paper")
-        with pytest.raises(NotImplementedError, match="item 8"):
-            Trainer(cfg, TrainConfig(checkpoint_dir=d),
-                    ChameleonConfig(enabled=True), device="cpu",
-                    adapt_mode="async")
-    finally:
-        shutil.rmtree(d, ignore_errors=True)

@@ -126,14 +126,40 @@ def test_server_flash_matches_reference_pallas(pair):
     assert got == ref
 
 
-def test_server_refuses_unported_options(pair):
-    """The policy store and async adaptation (slice 8) still raise;
-    over-subscription no longer does (tests/test_torch_kvspill.py)."""
+def test_server_refuses_unported_options(pair, tmpdir):
+    """The options the server once refused now work: a read-only policy
+    store reported in ``stats()`` and re-scanned in the background every
+    ``_refresh_every_ticks`` ticks under ``adapt_mode="async"`` (records a
+    trainer writes meanwhile become visible), and over-subscription
+    (tests/test_torch_kvspill.py).  An unknown placement raises."""
+    from repro_torch.common.config import PolicyStoreConfig
+    from repro_torch.policystore import PolicyStore, fingerprint_tokens
+    from tests.test_torch_adapt_service import _record
     _, _, pcfg, model = pair
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        Server(pcfg, model, max_batch=2, policystore=object())
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        Server(pcfg, model, max_batch=2, adapt_mode="async")
+    d = str(tmpdir)
+    fp = lambda k: fingerprint_tokens(np.arange(64, dtype=np.int32) % k + 1,
+                                      cache=False)
+    writer = PolicyStore(PolicyStoreConfig(dir=d))
+    writer.put(_record(fp(7)))
+    store = PolicyStore(PolicyStoreConfig(dir=d), readonly=True)
+    srv = Server(pcfg, model, max_batch=2, policystore=store,
+                 adapt_mode="async")
+    srv._refresh_every_ticks = 2
+    writer.put(_record(fp(9)))           # a trainer's record, after attach
+    srv.submit(np.arange(1, 6), max_new_tokens=4)
+    srv.run_until_done()
+    srv.close()
+    st = srv.stats()
+    assert st["adapt"] == {"mode": "async", "store_refreshes": 1,
+                           "store_records_refreshed": 1}
+    assert st["policystore"]["records"] == 2 and st["policystore"]["dir"] == d
+    inline = Server(pcfg, model, max_batch=2, policystore=store)
+    inline._refresh_every_ticks = 1
+    inline.submit(np.arange(1, 6), max_new_tokens=3)
+    inline.run_until_done()
+    assert inline.stats()["adapt"]["store_refreshes"] == 0  # inline: none
+    with pytest.raises(ValueError, match="mode"):
+        Server(pcfg, model, max_batch=2, adapt_mode="eager")
     srv = Server(pcfg, model, max_batch=2, max_active=4)
     assert srv.hostmem is not None and srv.hostmem.device.type == "cpu"
 
@@ -175,6 +201,31 @@ def test_serve_cli_on_cpu():
     assert stats["completed"] == 3 and stats["attn_impl"] == "flash"
     assert all(len(v) == 3 for v in stats["results"].values())
     assert stats["latency"]["prefill_ms"]["n"] == 3
+    assert stats["policystore"] is None and stats["adapt"]["mode"] == "inline"
+
+
+def test_serve_cli_with_a_policy_store(tmp_path, capsys):
+    """``--policy-store-dir D --adapt-mode async``: the store attaches
+    read-only with the records a trainer wrote, and the server re-scans it
+    in the background once 256 ticks have passed."""
+    from repro_torch.common.config import PolicyStoreConfig
+    from repro_torch.launch import serve
+    from repro_torch.policystore import PolicyStore, fingerprint_tokens
+    from tests.test_torch_adapt_service import _record
+    d = str(tmp_path / "store")
+    PolicyStore(PolicyStoreConfig(dir=d)).put(_record(fingerprint_tokens(
+        np.arange(64, dtype=np.int32) % 7 + 1, cache=False)))
+    stats = serve.main(["--arch", "llama2-paper", "--reduced", "--device",
+                        "cpu", "--requests", "1", "--max-batch", "1",
+                        "--new-tokens", "258", "--max-len", "272",
+                        "--policy-store-dir", d, "--adapt-mode", "async"])
+    assert stats["ticks"] >= 256
+    assert stats["adapt"] == {"mode": "async", "store_refreshes": 1,
+                              "store_records_refreshed": 0}
+    assert stats["policystore"]["records"] == 1
+    out = capsys.readouterr().out
+    assert "policystore: {'records': 1" in out
+    assert "adapt[async]: store_refreshes=1" in out
 
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch):
@@ -262,7 +313,8 @@ def test_port_imports_neither_jax_nor_reference():
         "        'faults.ladder', 'policystore.fingerprint',\n"
         "        'policystore.lshindex', 'policystore.store',\n"
         "        'policystore.drift', 'adapt.snapshot', 'adapt.pipeline',\n"
-        "        'adapt.service', 'models.moe', 'models.whisper']\n"
+        "        'adapt.service', 'models.moe', 'models.whisper',\n"
+        "        'obs.validate', 'obs.report']\n"
         "bad += ['missing ' + n for n in need\n"
         "        if 'repro_torch.' + n not in sys.modules]\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]), bad)\n")

@@ -375,8 +375,9 @@ def test_train_cli_on_cpu(tmpdir, impl):
 
 def test_chameleon_and_later_slices_raise(tmpdir):
     """Chameleon runs in the trainer and in the CLI (``--budget-gib``,
-    ``--stats-json``); the flags of later slices still raise, naming them;
-    the vlm and encdec families train a step through the CLI."""
+    ``--stats-json``, the policy store's flags, ``--adapt-mode``); the
+    flags of later slices still raise, naming them; the vlm and encdec
+    families train a step through the CLI."""
     import json
     from repro_torch.launch import train
     cfg = PC.get_reduced("llama2_paper")
@@ -401,12 +402,28 @@ def test_chameleon_and_later_slices_raise(tmpdir):
     with pytest.raises(NotImplementedError, match="item 11"):
         train.main(["--reduced", "--device", "cpu", "--no-chameleon",
                     "--mesh", "single"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train.main(["--reduced", "--device", "cpu", "--no-chameleon",
-                    "--policy-store-dir", tmpdir])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train.main(["--reduced", "--device", "cpu", "--adapt-mode",
-                    "async"])
+    # the policy store's flags and the background placements (once
+    # refused) run: the store persists the worker's record in the dir
+    store = os.path.join(tmpdir, "store")
+    stats = train.main(["--reduced", "--device", "cpu", "--no-chameleon",
+                        "--steps", "1", "--seq", "32", "--global-batch",
+                        "2", "--policy-store-dir", store, "--ckpt-dir",
+                        tmpdir])
+    assert stats["steps"] == 1 and "adapt" not in stats
+    stats = train.main(["--reduced", "--device", "cpu", "--adapt-mode",
+                        "async", "--steps", "12", "--seq", "32",
+                        "--global-batch", "2", "--policy-store-dir", store,
+                        "--ckpt-dir", tmpdir])
+    assert stats["adapt"]["mode"] == "async" and stats["adapt"]["jobs"] >= 1
+    assert "GenPolicy" not in stats["stages"]
+    assert stats["policystore"]["store"]["dir"] == store
+    assert os.listdir(store)
+    stats = train.main(["--reduced", "--device", "cpu", "--no-policy-store",
+                        "--adapt-mode", "speculative", "--steps", "3",
+                        "--seq", "32", "--global-batch", "2", "--ckpt-dir",
+                        tmpdir])
+    assert stats["policystore"] is None
+    assert stats["adapt"]["mode"] == "speculative"
     for arch in ("llama-3.2-vision-90b", "whisper-large-v3"):
         stats = train.main(["--arch", arch, "--reduced", "--device", "cpu",
                             "--no-chameleon", "--steps", "1", "--seq", "16",
