@@ -211,6 +211,26 @@ Phases, each printing JSON lines:
               ``prefill`` (K1 x 12) and 31 ticks (K3 x 12 a tick); the
               prefill's and the first 4 ticks' logits against chunked
               attention.
+25. autotune  the kernel autotuner (``repro_torch.kernels.autotune``):
+              ``HostMemTier.autotune`` tunes K2a, K2b, K1 and K4 in f32 at
+              the reference's default shapes into a fresh cache directory,
+              then bf16 there and at AUTOTUNE_SHAPES (K1 at the training
+              shape, K2a / K2b at the spill's row); each entry's winner,
+              achieved GB/s, efficiency against ``h100_sxm``'s HBM rate and
+              variants measured, every variant held to its plain version
+              (K2a / K2b bit for bit, K1 ``k1_check``, K4 ``ssd_check``); a
+              second tier on the directory must measure nothing (one cache
+              hit per kernel); with its table installed, K1 at the training
+              shape cold beside the default rows (in turns) and K4 through
+              ``chunk=None``; the link's efficiency from the calibrate
+              phase's curve and the Eq-3 bandwidth it leaves, which must
+              not fall below the measured link (up to the spec's
+              ``host_bw``); then serve_spill's run through ``--autotune
+              --spill-compression auto`` on the warm directory: the
+              advisor's int8 / raw rows, tokens equal to the int8 (or raw)
+              run's when every row took int8 (or raw), spills = restores,
+              the pool empty, K2a / K2b launched once per int8 row.  Runs
+              last, and clears the table: no earlier phase runs with one.
 
 Any failure raises, so the exit code is non-zero and no result line is
 printed.  The last lines are the kernels summary, the nvidia-smi line and
@@ -389,6 +409,18 @@ SERVE_ARGS = ["--arch", "llama2-paper", "--attn-impl", "flash",
               "--min-prompt-len", "65", "--max-prompt-len", "900",
               "--new-tokens", "32"]
 SPILL_ARGS = ["--max-active", "8"]
+
+# The autotune phase: every kernel the tuner has a space for, in both
+# dtypes at the reference's default shapes, and in bf16 at the main path's
+# own shapes: K1 at the train phase's (TRAIN_BATCH x TRAIN_SEQ, 32 heads of
+# 128) and K2a / K2b at the KV spill's slot row (KV_CACHE_SHAPE's layers x
+# positions x heads rows of 128).  The serve run then spills through
+# ``--spill-compression auto`` on that warm cache.
+AUTOTUNE_KERNELS = ("quantize", "dequantize", "flash_attention", "ssd_scan")
+AUTOTUNE_SHAPES = [("flash_attention", (TRAIN_BATCH, TRAIN_SEQ, 32, 128)),
+                   ("quantize", (32 * 1024 * 32, 128)),
+                   ("dequantize", (32 * 1024 * 32, 128))]
+AUTO_SPILL_ARGS = ["--autotune", "--spill-compression", "auto"]
 
 # (B, Sq, Sk, H, Kh, D, causal, kv_lens, dtypes, timed)
 SWEEP_CASES = [
@@ -1738,12 +1770,12 @@ def phase_serve_spill(device, resident):
     """The serve run over-subscribed (8 requests admitted over 4 slots):
     raw spill must reproduce the resident run's tokens exactly; int8 spill
     must complete every request through K2a / K2b.  Returns the int8 run's
-    launch counts of K2a and K2b."""
+    launch counts of K2a and K2b, and each run's tokens by compression."""
     from repro_torch.kernels.quant_offload import ops as Q
     from repro_torch.launch import serve
 
     n_req, n_new = 8, 32
-    launches = {}
+    launches, runs = {}, {}
     for comp in ("none", "int8"):
         allocated_before = release_device_memory(device)
         Q.quantize.launches = Q.dequantize.launches = 0   # this run only
@@ -1752,7 +1784,7 @@ def phase_serve_spill(device, resident):
         launches = {"quantize_rows": Q.quantize.launches,
                     "dequantize_rows": Q.dequantize.launches}
         m = spill_metrics(stats)
-        got = stats["results"]
+        got = runs[comp] = stats["results"]
         lengths = {rid: len(t) for rid, t in got.items()}
         agree = [a == b for rid in resident
                  for a, b in zip(got.get(rid, []), resident[rid])]
@@ -1787,7 +1819,7 @@ def phase_serve_spill(device, resident):
             raise AssertionError(f"serve_spill (int8): launches {launches} "
                                  f"for {m['spills']} spills and "
                                  f"{m['restores']} restores")
-    return launches
+    return launches, runs
 
 
 def serve_prompts(n: int, vocab: int):
@@ -3782,6 +3814,231 @@ def phase_chameleon_async(device) -> dict:
     return runs["async"]["k1_launches"]
 
 
+def autotune_check(kernel, args, config, out, dname) -> dict:
+    """One tuned variant's output against its plain version on the same
+    inputs, with the limits this script holds that kernel to: K2a and K2b
+    bit for bit, K1 ``k1_check``, K4 ``ssd_check`` at the variant's chunk."""
+    import torch
+    from repro_torch.kernels.autotune.space import SPACES
+    from repro_torch.kernels.ssd_scan import ops as SSD
+    if kernel == "quantize":
+        qp, sp = SPACES[kernel].ref(args)
+        return {"ok": torch.equal(out[0], qp) and torch.equal(out[1], sp)}
+    if kernel == "dequantize":
+        return {"ok": torch.equal(out, SPACES[kernel].ref(args))}
+    if kernel == "flash_attention":
+        return k1_check(out, SPACES[kernel].ref(args), dname)
+    yr, sr = SSD.ssd_scan_plain(*args, chunk=config["chunk"])
+    return ssd_check(out[0], yr, out[1], sr, dname)
+
+
+def tuned_summary(row: dict) -> dict:
+    return {k: row[k] for k in ("shape", "dtype", "winner", "achieved_gbps",
+                                "efficiency")}
+
+
+def phase_autotune(device, cal_tier, spill_runs) -> dict:
+    """The kernel autotuner on the card (``repro_torch.kernels.autotune``).
+    Tunes AUTOTUNE_KERNELS through ``HostMemTier.autotune`` into a fresh
+    cache directory (f32, default shapes), then bf16 at the default shapes
+    and at AUTOTUNE_SHAPES; holds every variant to its plain version; a
+    second tier on that directory must measure nothing; with its table
+    installed, K1 at the training shape cold (tuned, default, default,
+    tuned) and K4 through ``chunk=None``; the link's efficiency from the
+    calibrate phase's curve and the Eq-3 bandwidth it leaves; then the
+    serve_spill run through ``--autotune --spill-compression auto`` on the
+    warm directory: its tokens must equal the int8 run's when the advisor
+    chose int8 for every row, the raw run's when raw for every row.
+    Returns each kernel's entry for the kernels line."""
+    import tempfile
+
+    import torch
+    from repro_torch.common.config import AutotuneConfig, ChameleonConfig
+    from repro_torch.hostmem import HostMemTier
+    from repro_torch.hostmem.bwmodel import BandwidthModel
+    from repro_torch.kernels.autotune import table as T
+    from repro_torch.kernels.autotune.space import SPACES
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.quant_offload import ops as Q
+    from repro_torch.kernels.ssd_scan import ops as SSD
+    from repro_torch.launch import serve
+
+    with tempfile.TemporaryDirectory() as cache_dir:
+        atcfg = AutotuneConfig(enabled=True, cache_dir=cache_dir,
+                               kernels=AUTOTUNE_KERNELS)
+        t0 = time.perf_counter()
+        tuner = HostMemTier(device=device).autotune(atcfg)
+        jobs = [(k, SPACES[k].default_shape, "float32")
+                for k in AUTOTUNE_KERNELS]
+        measured = {j: len(SPACES[j[0]].variants_for(j[2])) for j in jobs}
+        for job in ([(k, SPACES[k].default_shape, "bfloat16")
+                     for k in AUTOTUNE_KERNELS]
+                    + [(k, shape, "bfloat16") for k, shape in AUTOTUNE_SHAPES]):
+            before = tuner.n_measured
+            tuner.tune(job[0], job[1], getattr(torch, job[2]))
+            measured[job] = tuner.n_measured - before
+            jobs.append(job)
+        tuner.cache.save()
+        tune_s = time.perf_counter() - t0
+        if (tuner.spec.kind != "h100_sxm"
+                or tuner.n_measured != sum(measured.values())):
+            raise AssertionError(f"autotune: {tuner.stats()}, {measured}")
+        rows, failed = {}, []
+        for job in jobs:
+            kernel, shape, dname = job
+            space = SPACES[kernel]
+            e = tuner.cache.get(kernel, shape, dname)
+            args = space.make_args(shape, getattr(torch, dname), device)
+            checks = {}
+            for config in space.variants_for(dname):
+                res = autotune_check(kernel, args, config,
+                                     space.run(args, config), dname)
+                checks[json.dumps(config, sort_keys=True)] = res
+                if not res["ok"]:
+                    failed.append((kernel, list(shape), dname, config))
+            del args
+            rows[job] = {"kernel": kernel, "shape": list(shape),
+                         "dtype": dname, "winner": e["config"],
+                         "achieved_gbps": e["achieved_bps"] / 1e9,
+                         "efficiency": e["efficiency"],
+                         "measured_s": e["measured_s"],
+                         "bytes_moved": e["bytes_moved"],
+                         "n_measured": measured[job], "checks": checks}
+            emit("autotune", **rows[job])
+        emit("autotune_tuned", seconds=tune_s, **tuner.stats())
+        if failed:
+            raise AssertionError(f"autotune: variants differ from their "
+                                 f"plain versions: {failed}")
+
+        # a cold process on the warm directory
+        t2 = HostMemTier(device=device).autotune(atcfg)
+        entries = t2.cache.table_entries()
+        emit("autotune_restart", installed=T.installed_count(), **t2.stats())
+        if t2.n_measured != 0 or t2.n_cache_hits != len(AUTOTUNE_KERNELS):
+            raise AssertionError(f"autotune restart: {t2.stats()}")
+
+        # K1 at the training shape (llama2-paper's heads, MHA), cold, with
+        # the table and without
+        shape = AUTOTUNE_SHAPES[0][1]
+        B, S, H, D = shape
+        block_q = T.tuned_config("flash_attention", shape,
+                                 torch.bfloat16)["block_q"]
+        gen = torch.Generator(device=device).manual_seed(2)
+        qkv = [k1_inputs(gen, B, S, S, H, H, D, torch.bfloat16, device)
+               for _ in range(TRAIN_LAYERS)]
+
+        def run():
+            return [ops.flash_attention(q, k, v, causal=True)
+                    for q, k, v in qkv]
+        cold = {"tuned": [], "default": []}
+        ops.flash_attention.tuned_launches = 0
+        for which in ("tuned", "default", "default", "tuned"):
+            if which == "tuned":
+                T.install(entries)
+            else:
+                T.clear()
+            cold[which].append(graph_ms(run, iters=1, reps=10) / TRAIN_LAYERS)
+        k1_tuned = ops.flash_attention.tuned_launches
+        T.install(entries)
+        a = run()
+        T.clear()
+        b = run()
+        T.install(entries)
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        del qkv, a, b
+        # K4 through chunk=None
+        ssd_shape = SPACES["ssd_scan"].default_shape
+        ins = SPACES["ssd_scan"].make_args(ssd_shape, torch.bfloat16, device)
+        chunk = T.tuned_config("ssd_scan", ssd_shape, torch.bfloat16)["chunk"]
+        SSD.ssd_scan.tuned_launches = 0
+        y, st = SSD.ssd_scan(*ins)
+        y2, st2 = SSD.ssd_scan(*ins, chunk=chunk)
+        torch.cuda.synchronize()
+        k4_tuned = SSD.ssd_scan.tuned_launches
+        k4_same = torch.equal(y, y2) and torch.equal(st, st2)
+        emit("autotune_table", k1_shape=list(shape), k1_block_q=block_q,
+             k1_default_block_q=128, k1_tuned_cold_ms=cold["tuned"],
+             k1_default_cold_ms=cold["default"], k1_cold_layers=TRAIN_LAYERS,
+             k1_tuned_launches=k1_tuned, k1_equal_to_default=same,
+             k4_shape=list(ssd_shape), k4_chunk=chunk,
+             k4_tuned_launches=k4_tuned, k4_equal_to_explicit=k4_same)
+        # graph_ms calls ``run`` 3 times to warm up and once to capture
+        if k1_tuned != 2 * 4 * TRAIN_LAYERS or k4_tuned != 1 or not k4_same:
+            raise AssertionError(f"autotune: table launches K1 {k1_tuned}, "
+                                 f"K4 {k4_tuned} (equal {k4_same})")
+
+        # the link: the calibrate phase's curve against the spec's host_bw
+        eff = t2.link_efficiency(cal_tier.bwmodel)
+        size, _, link_gbps = cal_tier.bwmodel.curve()[-1]
+        host_gbps = ChameleonConfig().host_link_gbps
+        eq3 = BandwidthModel(host_gbps, link_efficiency=eff)
+        eq3_gbps = size / eq3.transfer_time(size) / 1e9
+        spec_gbps = t2.spec.host_bw / 1e9
+        emit("autotune_link", efficiency=eff, measured_gbps=link_gbps,
+             at_bytes=size, spec_host_gbps=spec_gbps,
+             eq3_gbps_untuned=host_gbps, eq3_gbps=eq3_gbps)
+        # the efficiency is capped at 1 (the reference's rule): the Eq-3
+        # bandwidth must not fall below the measured link up to host_bw
+        if eq3_gbps < min(link_gbps, spec_gbps) * (1 - 1e-9):
+            raise AssertionError(f"autotune: Eq-3 bandwidth {eq3_gbps} GB/s "
+                                 f"under the measured link {link_gbps}")
+
+        # serve_spill through --spill-compression auto on the warm cache
+        allocated_before = release_device_memory(device)
+        for f in (Q.quantize, Q.dequantize):
+            f.launches = f.tuned_launches = 0
+        stats = serve.main(SERVE_ARGS + SPILL_ARGS + AUTO_SPILL_ARGS
+                           + ["--autotune-cache-dir", cache_dir])
+        T.clear()
+    launches = {"quantize_rows": Q.quantize.launches,
+                "dequantize_rows": Q.dequantize.launches}
+    tuned_launches = {"quantize_rows": Q.quantize.tuned_launches,
+                      "dequantize_rows": Q.dequantize.tuned_launches}
+    adv, m = stats["kvspill"]["advisor"], spill_metrics(stats)
+    want = (spill_runs["int8"] if adv["n_raw"] == 0 else
+            spill_runs["none"] if adv["n_int8"] == 0 else None)
+    got = stats["results"]
+    lengths = {rid: len(t) for rid, t in got.items()}
+    emit("autotune_serve", advisor=adv, autotune=stats["autotune"],
+         tokens_equal_to=("int8" if adv["n_raw"] == 0 else "none"
+                          if adv["n_int8"] == 0 else None),
+         tokens_equal=got == want if want is not None else None,
+         launches=launches, tuned_launches=tuned_launches,
+         tokens=stats["tokens"], wall_s=stats["wall_s"],
+         tokens_per_s=stats["tokens_per_s"], ticks=stats["ticks"],
+         tick_ms=stats["latency"]["tick_ms"],
+         max_memory_allocated=stats["max_memory_allocated"],
+         allocated_before=allocated_before, **m)
+    if stats["completed"] != 8 or set(lengths.values()) != {32}:
+        raise AssertionError(f"autotune serve: {lengths}")
+    if (m["preemptions"] <= 0 or m["spills"] != m["restores"]
+            or m["pool_bytes_in_use"] != 0):
+        raise AssertionError(f"autotune serve: {m}")
+    if want is not None and got != want:
+        raise AssertionError("autotune serve: tokens differ from the "
+                             "static run of the advisor's choice")
+    if (stats["autotune"]["n_measured"] != 0
+            or launches != {k: adv["n_int8"] for k in launches}):
+        raise AssertionError(f"autotune serve: {stats['autotune']}, "
+                             f"launches {launches}, advisor {adv}")
+    return {
+        "flash_attention_fwd": dict(
+            tuned_summary(rows[("flash_attention", AUTOTUNE_SHAPES[0][1],
+                                "bfloat16")]),
+            tuned_launches=k1_tuned, block_q=block_q,
+            tuned_cold_ms=min(cold["tuned"]),
+            default_cold_ms=min(cold["default"])),
+        **{name: dict(tuned_summary(rows[(kernel, AUTOTUNE_SHAPES[i][1],
+                                          "bfloat16")]),
+                      tuned_launches=tuned_launches[name], advisor=adv)
+           for i, (name, kernel) in enumerate(
+               (("quantize_rows", "quantize"),
+                ("dequantize_rows", "dequantize")), 1)},
+        "ssd_scan_fwd": dict(
+            tuned_summary(rows[("ssd_scan", ssd_shape, "bfloat16")]),
+            tuned_launches=k4_tuned)}
+
+
 def zoo_grad_readings(device, n_seeds: int) -> None:
     """``--zoo-grads N``: the gradient check of every ZOO_TRAIN phase on
     seeds 1..N with no gate (the readings that set ZOO_GRAD_TOL)."""
@@ -3846,7 +4103,7 @@ def main(argv=None) -> int:
     cross = phase_kernel_cross(device)
     decode_cross = phase_decode_cross(device)
     launches, decode_launches, resident = phase_serve(device)
-    quant_launches = phase_serve_spill(device, resident)
+    quant_launches, spill_runs = phase_serve_spill(device, resident)
     gc.collect()                       # the serve phases' models are gone
     torch.cuda.empty_cache()
     model = T.init_model(cfg, seed=0, device=device)
@@ -3873,6 +4130,7 @@ def main(argv=None) -> int:
     zoo = {phase: phase_train_zoo(device, phase) for phase in ZOO_TRAIN}
     second = {"decode_encdec": phase_decode_encdec(device),
               "decode_vlm": phase_decode_vlm(device)}
+    tuned = phase_autotune(device, tier, spill_runs)
 
     summary = next(rows[(c, "bfloat16")] for c in main_path
                    if c[1] == SUMMARY_LEN)
@@ -3909,7 +4167,10 @@ def main(argv=None) -> int:
         "d64": {k: d64_summary(r) for k, r in d64["fwd"].items()},
         "d64_max_abs_err": d64["fwd_max_abs_err"],
         # the second input path's shapes (CROSS_CASES), bf16
-        "cross": {k: cross_summary(r["fwd"]) for k, r in cross.items()}}, {
+        "cross": {k: cross_summary(r["fwd"]) for k, r in cross.items()},
+        # the autotune phase: the tuned entry at the training shape and the
+        # launches that read it from the installed table
+        "autotune": tuned["flash_attention_fwd"]}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_bwd.cu",
@@ -3947,7 +4208,10 @@ def main(argv=None) -> int:
         "bound_by": quant_times[name]["bound_by"],
         "library_ms": quant_times[name]["library_ms"],
         "at": {"shape": list(KV_CACHE_SHAPE[:1] + KV_CACHE_SHAPE[2:]),
-               "dtype": "bfloat16", "strided": True}}
+               "dtype": "bfloat16", "strided": True},
+        # the autotune phase: the tuned entry at the spill's row shape and
+        # the auto serve run's launches under it
+        "autotune": tuned[name]}
         for name, line, err in (("quantize_rows", 43, quant_q_err),
                                 ("dequantize_rows", 61, quant_out_err))] + [{
         "name": "flash_decode_fwd", "route": "cuda",
@@ -3986,6 +4250,8 @@ def main(argv=None) -> int:
         "bound_by": ssd_times[max(SSD_LENS)]["bound_by"],
         "library_ms": None,
         "zoo_launches": {p: zoo[p]["k4_fwd"] for p in zoo},
+        # the autotune phase: the tuned chunk and its table launch
+        "autotune": tuned["ssd_scan_fwd"],
         "at": {"shape": ssd_times[max(SSD_LENS)]["shape"],
                "chunk": scfg.ssm_chunk, "dtype": "bfloat16"},
         # at the train phases' shapes, keeping the states for the backward

@@ -6,8 +6,8 @@ shapes in both packages.  One change: ``ModelConfig.attn_impl`` takes
 ``flash`` (the hand-written CUDA kernel in
 ``repro_torch.kernels.flash_attention``) where the reference takes
 ``pallas``.  The host-tier, autotune, policy-store, adaptation and
-resilience sections are kept as data; the modules that read them are
-later slices of the port.
+resilience sections are the reference's, read by the port's modules of
+the same names.  The H100's figures below are the port's own.
 """
 from __future__ import annotations
 
@@ -17,6 +17,16 @@ from typing import Optional, Tuple
 
 
 ATTN_IMPLS: Tuple[str, ...] = ("dense", "chunked", "flash")
+
+# The card's figures, read by ChameleonConfig and by the autotuner's
+# ``h100_sxm`` DeviceSpec (kernels/autotune/device.py).  Dense bf16
+# tensor-core peak and HBM3 bandwidth: NVIDIA's H100 SXM data sheet.
+H100_PEAK_FLOPS = 989e12
+H100_HBM_BYTES_S = 3.35e12
+# Eq 3 bandwidth B (GB/s): chip_smoke.py's calibrate phase on an NVIDIA H100
+# 80GB HBM3 (700 W) moved 512 MiB device to host in 14.2 ms and host to
+# device in 12.5 ms (PERF.md §5); 512 MiB over their mean time is 40.2 GB/s
+HOST_LINK_GBPS = 40.2
 
 
 @dataclass(frozen=True)
@@ -238,7 +248,7 @@ class HostMemConfig:
     # quant_offload kernels (row-wise symmetric int8 + f32 scales), 2-4x
     # fewer staged bytes at <=0.4% per-row error; "auto" prices raw vs
     # int8 per row from the tuned kernel rates + measured link curve
-    # (repro.kernels.autotune) and picks the cheaper one
+    # (repro_torch.kernels.autotune.advisor) and picks the cheaper one
     spill_compression: str = "none"              # none | int8 | auto
     spill_compress_min_bytes: int = 1 << 12      # rows below stay raw
     # per-traffic-class depth overrides, e.g. (("checkpoint", 16),) lets a
@@ -262,13 +272,16 @@ class AutotuneConfig:
     persists winners in a schema-versioned cache keyed by
     ``(kernel, shape-bucket, dtype, device_kind)`` — a warm cache means
     restart reuses tuned configs with zero re-measurement.  The measured
-    link efficiency also derates the simulator's Eq-3 constant."""
+    link efficiency also derates the simulator's Eq-3 constant.  Port of
+    the reference's section (repro_torch.kernels.autotune); the variants
+    are the CUDA kernels' own launch knobs."""
     enabled: bool = False
     cache_dir: str = ""                          # "" -> in-memory only
     iters: int = 3                               # timing reps per variant
-    # autotune.device registry key; an H100 DeviceSpec, selected by the
-    # CUDA device name, waits for ROADMAP.md queue 1 item 10
-    device_kind: str = "tpu_v5e"
+    # autotune.device registry key; "" -> the tier's own device
+    # (``h100_sxm`` on an H100, ``cpu`` on the CPU).  The reference
+    # defaults to its paper target, "tpu_v5e"
+    device_kind: str = ""
     # kernels to tune at startup; flash_attention / ssd_scan can be added
     # where their tuning cost is worth it
     kernels: Tuple[str, ...] = ("quantize", "dequantize")
@@ -406,10 +419,7 @@ class ChameleonConfig:
     # torch.cuda.get_device_properties(0).total_memory on that card
     # (chip_smoke.py phase chameleon prints it)
     hbm_budget_bytes: int = 85_017_493_504
-    # Eq 3 bandwidth B (GB/s): chip_smoke.py's calibrate phase on that
-    # card moved 512 MiB device to host in 14.2 ms and host to device in
-    # 12.5 ms (PERF.md §5); 512 MiB over their mean time is 40.2 GB/s
-    host_link_gbps: float = 40.2
+    host_link_gbps: float = HOST_LINK_GBPS       # Eq 3 bandwidth B (GB/s)
     m_warmup_stable: int = 2                     # Algo 1 `m`
     n_genpolicy_steps: int = 5                   # Algo 1 `n`
     len_change_threshold: float = 0.05           # 5% length diff
@@ -418,8 +428,8 @@ class ChameleonConfig:
     groups_per_phase: int = 0                    # 0 -> num_layers (Fig 4 insight)
     offload_mode: str = "exact"                  # exact | compressed (int8, beyond-paper)
     allow_remat_fallback: bool = True            # beyond-paper: 3-way save/offload/remat
-    peak_flops: float = 989e12                   # dense bf16, H100 data sheet
-    hbm_gbps: float = 3350.0                     # HBM3, H100 SXM data sheet
+    peak_flops: float = H100_PEAK_FLOPS          # dense bf16, H100 data sheet
+    hbm_gbps: float = H100_HBM_BYTES_S / 1e9     # HBM3, H100 SXM data sheet
     hostmem: HostMemConfig = HostMemConfig()     # host-memory tier (repro.hostmem)
     autotune: AutotuneConfig = AutotuneConfig()  # kernel autotuner (repro.kernels.autotune)
     policystore: PolicyStoreConfig = PolicyStoreConfig()  # repro.policystore

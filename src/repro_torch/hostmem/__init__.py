@@ -39,10 +39,6 @@ __all__ = [
     "TransferEngine", "TransferEvent",
 ]
 
-_AUTOTUNE_SLICE = ("the kernel autotuner comes with slice 10 of ROADMAP.md "
-                   "queue 1")
-
-
 class HostMemTier:
     """Pool + engine + bandwidth model + kv-spill, wired together."""
 
@@ -51,10 +47,6 @@ class HostMemTier:
                  device: Union[str, torch.device, None] = None):
         self.cfg = cfg or HostMemConfig()
         self.device = resolve_device(device)
-        if self.cfg.spill_compression == "auto":
-            raise NotImplementedError(
-                f"spill compression 'auto' needs the compression advisor: "
-                f"{_AUTOTUNE_SLICE}")
         self.pool = PinnedSlabPool(
             capacity_bytes=self.cfg.pool_bytes or None,
             min_class_bytes=self.cfg.min_class_bytes,
@@ -65,10 +57,17 @@ class HostMemTier:
                                      class_depths=dict(self.cfg.class_depths),
                                      resilience=resilience,
                                      device=self.device)
+        self.autotuner = None        # set by autotune()
+        advisor = None
+        if self.cfg.spill_compression == "auto":
+            from repro_torch.kernels.autotune.advisor import \
+                CompressionAdvisor
+            advisor = CompressionAdvisor(bwmodel=self.bwmodel)
         self.kvspill = KVSpillManager(
             self.pool, self.engine,
             compression=self.cfg.spill_compression,
-            compress_min_bytes=self.cfg.spill_compress_min_bytes)
+            compress_min_bytes=self.cfg.spill_compress_min_bytes,
+            advisor=advisor)
         # size -> (D2H seconds, H2D seconds), minima of the last calibrate()
         self.link_curve: Dict[int, Tuple[float, float]] = {}
         if self.cfg.calibrate:
@@ -88,9 +87,41 @@ class HostMemTier:
         return tier
 
     def autotune(self, atcfg=None, *, device_kind=None):
-        """Tune the swap-path kernels against the roofline (reference:
-        ``repro.kernels.autotune``)."""
-        raise NotImplementedError(f"HostMemTier.autotune: {_AUTOTUNE_SLICE}")
+        """Tune the kernels ``atcfg.kernels`` names against the roofline on
+        the tier's device and wire the results into pricing
+        (``repro_torch.kernels.autotune``).
+
+        Loads the cache (warm restart = zero re-measurement), measures
+        any missing kernels, installs winners into the process-wide tuned
+        table the kernel wrappers consult, derates the bandwidth model's
+        uncalibrated fallback by the measured link efficiency, points the
+        kv-spill compression advisor at the tuned rates, and persists
+        cache + bandwidth snapshot atomically.  The device kind is
+        ``device_kind``, else ``atcfg.device_kind``, else the tier's own
+        device's.  Returns the
+        :class:`~repro_torch.kernels.autotune.tuner.Autotuner`."""
+        from repro_torch.common.config import AutotuneConfig
+        from repro_torch.kernels.autotune import (Autotuner, AutotuneCache,
+                                                  get_device_spec,
+                                                  install_cache)
+        from repro_torch.kernels.autotune.device import device_kind as kind_of
+        atcfg = atcfg or AutotuneConfig(enabled=True)
+        kind = device_kind or atcfg.device_kind or kind_of(self.device)
+        cache = (AutotuneCache.load(atcfg.cache_dir, device_kind=kind)
+                 if atcfg.cache_dir else AutotuneCache(device_kind=kind))
+        tuner = Autotuner(cache=cache, spec=get_device_spec(kind),
+                          iters=atcfg.iters, device=self.device)
+        tuner.tune_all(atcfg.kernels)
+        eff = tuner.link_efficiency(self.bwmodel)
+        self.bwmodel.set_link_efficiency(eff)
+        cache.bwmodel = self.bwmodel.to_dict()
+        if atcfg.cache_dir:
+            cache.save()
+        install_cache(cache)
+        if self.kvspill.advisor is not None:
+            self.kvspill.advisor.cache = cache
+        self.autotuner = tuner
+        return tuner
 
     def calibrate(self, sizes=None, iters=None) -> BandwidthModel:
         """Calibration transfers through the *production* path: each size

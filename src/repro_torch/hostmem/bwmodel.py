@@ -41,7 +41,7 @@ class BandwidthModel:
                  link_efficiency: float = 1.0):
         self.constant_gbps = constant_gbps
         # achieved-vs-peak host-link efficiency measured by the kernel
-        # autotuner (slice 10 of the port).  It scales ONLY the
+        # autotuner (kernels/autotune).  It scales ONLY the
         # uncalibrated constant fallback: the calibrated curve is already
         # a measurement, so applying it there would double-count.  1.0
         # reproduces the paper's nominal-link pricing byte-for-byte.

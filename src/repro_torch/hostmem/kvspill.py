@@ -27,8 +27,11 @@ stream, so only the int8 payload and the scales cross the link (about
 from the image (at most half a quantization step of error per element).
 The reference pulls the row to the host to quantize it; the port never
 does.  Integer fields and small rows stay raw.  ``compression="auto"``
-(pricing raw against int8 per row) needs the autotuner, which comes with
-slice 10 of ROADMAP.md queue 1, and raises.
+makes raw-vs-int8 a *priced* decision: a
+:class:`~repro_torch.kernels.autotune.advisor.CompressionAdvisor` compares
+the measured link time of the raw row against K2a + the smaller transfer +
+K2b at the tuned kernel rates, per row shape; without an advisor it is the
+static int8 rule.
 
 Lifetime rules (regression-tested): ``restore`` *consumes* the spill
 image (the staged event is cleared, its slab freed by the H2D copy), and
@@ -37,6 +40,7 @@ image is a no-op, never a double free.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple
 
@@ -46,6 +50,7 @@ from repro_torch import obs
 from repro_torch.hostmem.engine import (TC_KV_SPILL, TransferEngine,
                                         TransferEvent)
 from repro_torch.hostmem.pool import HostMemError, PinnedSlabPool
+from repro_torch.kernels.autotune.advisor import COMPRESS_INT8
 from repro_torch.kernels.quant_offload import ops as Q
 
 STATE_FIELDS = ("attn_k", "attn_v", "ssm_conv", "ssm_ssd",
@@ -100,30 +105,37 @@ def _field(packed: torch.Tensor, offset: int, nbytes: int,
 class KVSpillManager:
     def __init__(self, pool: PinnedSlabPool, engine: TransferEngine,
                  compression: str = "none",
-                 compress_min_bytes: int = 1 << 12):
+                 compress_min_bytes: int = 1 << 12, advisor=None):
         if compression not in SPILL_COMPRESSIONS:
             raise ValueError(f"unknown spill compression {compression!r}; "
                              f"expected one of {SPILL_COMPRESSIONS}")
-        if compression == "auto":
-            raise NotImplementedError(
-                "spill compression 'auto' prices raw against int8 with the "
-                "kernel autotuner, which comes with slice 10 of ROADMAP.md "
-                "queue 1; use 'none' or 'int8'")
         self.pool = pool
         self.engine = engine
         self.compression = compression
         self.compress_min_bytes = compress_min_bytes
+        # "auto": a repro_torch.kernels.autotune.advisor.CompressionAdvisor
+        # that prices raw-vs-int8 per row from the tuned kernel rates and
+        # the measured link curve; without one, auto degrades to "int8"
+        self.advisor = advisor
         self.n_spills = self.n_restores = self.n_discards = 0
         self.bytes_spilled = self.bytes_restored = 0
         self.live_bytes = 0          # spill images currently host-resident
         self.hwm_live_bytes = 0      # ... and their high-water mark
         self.bytes_raw = 0             # pre-compression row bytes
 
-    def _compressible(self, arr: torch.Tensor, row_nbytes: int) -> bool:
-        return (self.compression == "int8"
-                and row_nbytes >= self.compress_min_bytes
-                and arr.dtype.is_floating_point
-                and arr.element_size() > 1)
+    def _compressible(self, arr: torch.Tensor, row_nbytes: int,
+                      row_shape=()) -> bool:
+        if (self.compression not in ("int8", "auto")
+                or row_nbytes < self.compress_min_bytes
+                or not arr.dtype.is_floating_point
+                or arr.element_size() <= 1):
+            return False
+        if self.compression == "int8" or self.advisor is None:
+            return True              # static rule (auto w/o advisor too)
+        rows = math.prod(row_shape[:-1]) if len(row_shape) > 1 else 1
+        choice, _ = self.advisor.decide(row_nbytes, arr.element_size(), rows,
+                                        cls=TC_KV_SPILL, tag="kvspill")
+        return choice == COMPRESS_INT8
 
     # -------------------------------------------------------------- spill
     def spill(self, state, slot: int, tag: str = "") -> SpilledSlot:
@@ -146,7 +158,7 @@ class KVSpillManager:
             row = arr[:, slot]
             row_nbytes = _nbytes(row)
             self.bytes_raw += row_nbytes
-            if self._compressible(arr, row_nbytes):
+            if self._compressible(arr, row_nbytes, tuple(row.shape)):
                 q, s = Q.quantize(row)          # K2a, on the current stream
                 qn, sn = _nbytes(q), _nbytes(s)
                 sp.layout.append(FieldSlice(
@@ -238,4 +250,5 @@ class KVSpillManager:
                 "bytes_raw": self.bytes_raw,
                 "compression_ratio": (self.bytes_raw / self.bytes_spilled
                                       if self.bytes_spilled else 1.0),
-                "advisor": None}
+                "advisor": (self.advisor.stats()
+                            if self.advisor is not None else None)}

@@ -34,15 +34,39 @@ _decode_lib: Optional[ctypes.CDLL] = None
 _decode_fn = None
 
 
+# query rows per block of the bf16 kernel -> its consumer warpgroups (the
+# wgs argument); the f32 kernel has one tile of F32_BLOCK_Q rows
+BF16_BLOCK_Q = {64: 1, 128: 2}
+F32_BLOCK_Q = 64
+
+
 def bind(lib: ctypes.CDLL):
-    """The typed C entry point ``flash_attention_fwd`` of a loaded library."""
-    fn = lib.flash_attention_fwd
+    """The typed C entry point ``flash_attention_fwd_wgs`` of a loaded
+    library: ``flash_attention_fwd`` with the bf16 kernel's consumer
+    warpgroups per block (0: the kernel's default rule) before the stream."""
+    fn = lib.flash_attention_fwd_wgs
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, vp, vp, vp, vp, vp,        # q k v o lse kv_lens
                    ci, ci, ci, ci, ci, ci, ci,    # B H Kh Sq Sk D dtype
-                   ctypes.c_float, ci, vp]        # sm_scale causal stream
+                   ctypes.c_float, ci, ci, vp]    # sm_scale causal wgs stream
     fn.restype = ci
     return fn
+
+
+def warpgroups(dtype: torch.dtype, block_q: Optional[int]) -> int:
+    """The ``wgs`` argument for ``block_q`` query rows per block (None: 0,
+    the kernel's own rule, 64 rows up to 128 queries and 128 above).
+    Raises for rows the kernel of ``dtype`` does not take."""
+    if block_q is None:
+        return 0
+    if dtype == torch.bfloat16:
+        rows = BF16_BLOCK_Q
+    else:
+        rows = {F32_BLOCK_Q: 0}
+    if block_q not in rows:
+        raise ValueError(f"block_q {block_q}: the {dtype} flash-attention "
+                         f"kernel takes {sorted(rows)} query rows a block")
+    return rows[block_q]
 
 
 def _entry():
@@ -60,20 +84,24 @@ def _ptr(t: Optional[torch.Tensor]):
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, kv_lens: Optional[torch.Tensor], *,
                         causal: bool, sm_scale: float,
-                        lse: Optional[torch.Tensor] = None) -> None:
+                        lse: Optional[torch.Tensor] = None,
+                        block_q: Optional[int] = None) -> None:
     """Launch on the current stream of ``q``'s device and return without
     synchronising.  q/out (B,Sq,H,D), k/v (B,Sk,Kh,D), contiguous, 16-byte
     aligned (the bf16 kernel reads them through tensor maps), one dtype;
     kv_lens (B,) int32 on the same device, or None; lse (B,H,Sq) f32 to
-    receive each row's log-sum-exp, or None."""
+    receive each row's log-sum-exp, or None; ``block_q`` query rows per
+    block (``warpgroups``), or None for the kernel's own rule."""
     B, Sq, H, D = q.shape
     Sk, Kh = k.shape[1], k.shape[2]
+    wgs = warpgroups(q.dtype, block_q)
     lib, fn = _entry()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  _ptr(lse), _ptr(kv_lens), B, H, Kh, Sq, Sk, D,
-                 DTYPE_CODES[q.dtype], float(sm_scale), int(causal), stream)
+                 DTYPE_CODES[q.dtype], float(sm_scale), int(causal), wgs,
+                 stream)
     _build.check(lib, err, "flash_attention_fwd launch")
 
 

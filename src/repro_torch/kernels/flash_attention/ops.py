@@ -39,6 +39,14 @@ launches; one ``flash_decode`` call is one launch, though on the card it
 runs two kernels (the split-KV pass and its combine,
 ``csrc/flash_decode_fwd.cu``), and one ``flash_attention_bwd`` call is one
 launch of three kernels (delta, dK/dV, dQ).
+
+The forward reads the autotuner's installed table
+(``repro_torch.kernels.autotune.table``) where the caller names no query
+rows per block, as the reference's wrapper reads ``block_q``: below the
+custom op, in ``_forward``, so the op's schema and the token the recorder
+sees stay the same.  With no table installed every launch is the kernel's
+own rule.  ``flash_attention.tuned_launches`` counts launches whose rows
+came from the table.
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.autotune.table import tuned_config
 from repro_torch.kernels.flash_attention import kernel as K
 
 NEG_INF = -1e30
@@ -171,9 +180,18 @@ def _lens32(kv_lens, device):
     return kv_lens.to(device=device, dtype=torch.int32).contiguous()
 
 
-def _forward(q, k, v, *, causal, sm_scale, kv_lens, with_lse: bool):
+def tuned_block_q(q: torch.Tensor) -> Optional[int]:
+    """Query rows per block the installed autotune table holds for q's
+    shape bucket and dtype, or None."""
+    cfg = tuned_config("flash_attention", q.shape, q.dtype)
+    return int(cfg["block_q"]) if cfg else None
+
+
+def _forward(q, k, v, *, causal, sm_scale, kv_lens, with_lse: bool,
+             block_q: Optional[int] = None):
     """The forward on the CPU (plain) or the card (the kernel); returns
-    (out, lse or None)."""
+    (out, lse or None).  ``block_q``: query rows per block on the card
+    (None: the tuned table's, else the kernel's own rule)."""
     if _on_cpu(q, k, v):
         if with_lse:
             return flash_attention_plain(q, k, v, causal=causal,
@@ -189,9 +207,13 @@ def _forward(q, k, v, *, causal, sm_scale, kv_lens, with_lse: bool):
     if with_lse:
         B, Sq, H, _ = q.shape
         lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    tuned = tuned_block_q(q) if block_q is None else None
     K.flash_attention_fwd(q, k, v, out, kv_lens, causal=causal,
-                          sm_scale=sm_scale, lse=lse)
+                          sm_scale=sm_scale, lse=lse,
+                          block_q=block_q or tuned)
     flash_attention.launches += 1
+    if tuned:
+        flash_attention.tuned_launches += 1
     return out, lse
 
 
@@ -290,6 +312,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.tuned_launches = 0
 
 
 def _check_decode(q, k, v, lens):

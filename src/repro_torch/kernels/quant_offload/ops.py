@@ -16,8 +16,12 @@ or runs along the leading dim with any stride there: a KV slot row
 ``cache[:, b]`` is quantized, and restored, in place (see
 ``csrc/quant_offload.cu``).  ``quantize.launches`` and
 ``dequantize.launches`` count kernel launches.  The reference's
-autotuned ``block_rows`` has no counterpart: the kernels take one warp per
-row, and the autotuner is ported with slice 10 of ROADMAP.md queue 1.
+autotuned ``block_rows`` has no counterpart: the kernels choose their
+lanes a row from the layout, so the autotuner measures the one launch
+(its achieved bytes/s prices ``spill_compression="auto"``).  The wrappers
+look their shape up in the installed table all the same, and
+``quantize.tuned_launches`` / ``dequantize.tuned_launches`` count the
+launches that had an entry there.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.sites import tag
+from repro_torch.kernels.autotune.table import tuned_config
 from repro_torch.kernels.quant_offload import kernel as K
 
 
@@ -105,6 +110,8 @@ def quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         K.quantize_rows(x, q, s, rows=R, rows_per_outer=rpo,
                         outer_stride=stride, features=F)
         quantize.launches += 1
+        if tuned_config("quantize", (R, F), x.dtype) is not None:
+            quantize.tuned_launches += 1
     return q, s
 
 
@@ -138,11 +145,13 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor,
         K.dequantize_rows(q, scales, out, rows=R, rows_per_outer=rpo,
                           outer_stride=stride, features=F)
         dequantize.launches += 1
+        if tuned_config("dequantize", (R, F), out.dtype) is not None:
+            dequantize.tuned_launches += 1
     return out
 
 
-quantize.launches = 0
-dequantize.launches = 0
+quantize.launches = quantize.tuned_launches = 0
+dequantize.launches = dequantize.tuned_launches = 0
 
 
 # ------------------------------------------------------ compressed offload

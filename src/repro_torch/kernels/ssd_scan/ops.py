@@ -28,6 +28,11 @@ the tests and for holding the kernel to on the card; it never runs on a
 CUDA tensor inside ``ssd_scan_bwd``.  ``ssd_scan.launches`` and
 ``ssd_scan_bwd.launches`` count calls that launch a kernel: one per call,
 whatever the passes.
+
+``ssd_scan(chunk=None)`` reads the chunk from the autotuner's installed
+table (``repro_torch.kernels.autotune.table``), else takes 256, as the
+reference's wrapper does; the model zoo passes ``cfg.ssm_chunk``.
+``ssd_scan.tuned_launches`` counts launches whose chunk came from the table.
 """
 from __future__ import annotations
 
@@ -37,7 +42,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.sites import tag
+from repro_torch.kernels.autotune.table import tuned_config
 from repro_torch.kernels.ssd_scan import kernel as K
+
+DEFAULT_CHUNK = 256
 
 
 def _check_shapes(x, dt, A, Bm, Cm, chunk):
@@ -311,20 +319,30 @@ ssd_scan_bwd.launches = 0
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 256
+             Bm: torch.Tensor, Cm: torch.Tensor, *,
+             chunk: Optional[int] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,H,P); dt (B,S,H); A (H,); Bm/Cm (B,S,N) -> (y (B,S,H,P) in
     x's dtype, final state (B,H,P,N) f32).  Differentiable on the CPU
-    (autograd through the plain version) and on the card (``_SSDScanFn``)."""
+    (autograd through the plain version) and on the card (``_SSDScanFn``).
+    ``chunk=None`` takes the installed autotune table's, else 256."""
+    tuned = None
+    if chunk is None:
+        tuned = tuned_config("ssd_scan", x.shape, x.dtype)
+        chunk = int(tuned["chunk"]) if tuned else DEFAULT_CHUNK
     _check_shapes(x, dt, A, Bm, Cm, chunk)
     ts = (x, dt, A, Bm, Cm)
     if all(t.device.type == "cpu" for t in ts):
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        return _SSDScanFn.apply(x, dt.to(torch.float32), A.to(torch.float32),
-                                Bm, Cm, chunk)
-    y, state, _ = _forward(x, dt, A, Bm, Cm, chunk, keep=False)
-    return y, state
+        out = _SSDScanFn.apply(x, dt.to(torch.float32), A.to(torch.float32),
+                               Bm, Cm, chunk)
+    else:
+        out = _forward(x, dt, A, Bm, Cm, chunk, keep=False)[:2]
+    if tuned:
+        ssd_scan.tuned_launches += 1
+    return out
 
 
 ssd_scan.launches = 0
+ssd_scan.tuned_launches = 0

@@ -15,16 +15,19 @@ decode attention on the flash-decode kernel.
 Over-subscription: ``--max-active`` beyond ``--max-batch`` admits more
 concurrent requests than device-resident slots by spilling preempted
 decode state into the pinned host pool (``repro_torch.hostmem``), raw or,
-with ``--spill-compression int8``, row-quantized by the int8 kernels.
+with ``--spill-compression int8``, row-quantized by the int8 kernels;
+``--spill-compression auto`` prices raw against int8 per row.
+``--autotune`` tunes the int8 kernels against the roofline at startup
+(``repro_torch.kernels.autotune``), feeding the ``auto`` advisor;
+``--autotune-cache-dir D`` keeps the tuned entries in ``D``, so a restart
+on it measures nothing.
 
 ``--policy-store-dir D`` attaches the shared adaptation cache read-only
 and prints its stats; with ``--adapt-mode async|speculative`` the server
 re-scans ``D`` in the background every 256 ticks, so a co-located
 trainer's new records become visible without a tick waiting on the disk.
 
-Port of ``repro/launch/serve.py`` without the autotune flags and
-``--spill-compression auto`` (ROADMAP.md queue 1 item 10).
-Weights are random, drawn on the device from seed 0; prompts are drawn
+Port of ``repro/launch/serve.py``.  Weights are random, drawn on the device from seed 0; prompts are drawn
 from ``RandomState(0)`` as the reference draws them.  Runs on ``cuda``
 unless ``--device cpu``.  ``main(argv)`` returns the run's stats dict.
 """
@@ -45,11 +48,20 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-active", type=int, default=0,
                     help="admitted concurrency (> max-batch spills KV state "
                          "to the host pool; 0 = max-batch)")
-    ap.add_argument("--spill-compression", choices=["none", "int8"],
+    ap.add_argument("--spill-compression", choices=["none", "int8", "auto"],
                     default="none",
                     help="int8: KV spill crosses the link row-quantized by "
                          "the int8 kernels (about 1.9x fewer bytes for bf16, "
-                         "at most half a quantization step per element)")
+                         "at most half a quantization step per element); "
+                         "auto: raw-vs-int8 priced per row from the tuned "
+                         "kernel rates + measured link curve")
+    ap.add_argument("--autotune", action="store_true",
+                    help="tune the int8 kernels against the roofline at "
+                         "startup (repro_torch.kernels.autotune); feeds the "
+                         "auto spill-compression advisor")
+    ap.add_argument("--autotune-cache-dir", default="",
+                    help="persist/reuse tuned configs here (warm cache = "
+                         "zero re-measurement)")
     ap.add_argument("--calibrate-link", action="store_true",
                     help="measure the host link before serving")
     ap.add_argument("--max-len", type=int, default=128)
@@ -107,11 +119,15 @@ def main(argv: Optional[List[str]] = None) -> dict:
     max_active = args.max_active or args.max_batch
     hostmem = None
     if (max_active > args.max_batch or args.calibrate_link
-            or args.spill_compression != "none"):
+            or args.spill_compression != "none" or args.autotune):
         hostmem = HostMemTier(HostMemConfig(
             spill_compression=args.spill_compression), device=device)
         if args.calibrate_link:
             hostmem.calibrate()        # engine-path sweep
+        if args.autotune:
+            from repro_torch.common.config import AutotuneConfig
+            hostmem.autotune(AutotuneConfig(
+                enabled=True, cache_dir=args.autotune_cache_dir))
     policystore = None
     if args.policy_store_dir:
         from repro_torch.policystore import PolicyStore
@@ -151,6 +167,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
                   f"{ks['bytes_raw'] / 2**20:.1f} MiB raw -> "
                   f"{ks['bytes_spilled'] / 2**20:.1f} MiB staged "
                   f"({ks['compression_ratio']:.2f}x)")
+        if ks["advisor"] is not None:
+            print(f"spill advisor: {ks['advisor']['n_int8']} rows int8, "
+                  f"{ks['advisor']['n_raw']} raw")
+        if hostmem.autotuner is not None:
+            print(f"autotune: {hostmem.autotuner.stats()}")
     if policystore is not None:
         print(f"policystore: {srv_stats['policystore']}")
         ad = srv_stats["adapt"]
@@ -186,6 +207,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         "kv_spill_class": srv_stats["kv_spill_class"],
         "hostmem": srv_stats["hostmem"],
         "kvspill": srv_stats["hostmem"]["kvspill"] if hostmem else None,
+        "autotune": (hostmem.autotuner.stats()
+                     if hostmem is not None and hostmem.autotuner else None),
         "policystore": srv_stats["policystore"],
         "adapt": srv_stats["adapt"],
         "link_curve": ({int(k): list(v) for k, v in hostmem.link_curve.items()}

@@ -13,8 +13,11 @@ background worker (``repro_torch.adapt``).  ``--trace-out`` writes the
 Chrome trace (with the overlap-efficiency and memory-ledger counter
 tracks) and ``--audit-out`` streams the audit log as JSONL; both are
 what ``python -m repro_torch.obs.validate`` and ``python -m
-repro_torch.obs.report`` read.  Flags of later slices raise, naming the
-slice: ``--autotune`` (item 10), ``--mesh`` / ``--multihost`` (item 11).  Besides the reference's flags it takes
+repro_torch.obs.report`` read.  ``--autotune`` tunes the host tier's
+kernels against the roofline at startup (``repro_torch.kernels.autotune``),
+keeping the cache in ``--autotune-cache-dir``, by default
+``<policy-store-dir>/autotune``.  Flags of a later slice raise, naming it:
+``--mesh`` / ``--multihost`` (item 11).  Besides the reference's flags it takes
 ``--device`` (``cuda`` unless asked) and ``--attn-impl`` (``flash`` trains
 every attention through the flash-attention forward and backward
 kernels), as ``launch/serve.py`` does.  Weights are random, drawn on the
@@ -38,8 +41,6 @@ from typing import List, Optional
 
 # flag -> (the value that means "not used", the ROADMAP.md slice it needs)
 _LATER = {
-    "autotune": (False, "queue 1 item 10 (autotune)"),
-    "autotune_cache_dir": ("", "queue 1 item 10 (autotune)"),
     "mesh": ("none", "queue 1 item 11 (distributed)"),
     "multihost": (False, "queue 1 item 11 (distributed)"),
 }
@@ -74,8 +75,17 @@ def _parser() -> argparse.ArgumentParser:
                          "GenPolicy for recurring sequences)")
     ap.add_argument("--no-policy-store", action="store_true",
                     help="disable the in-memory policy cache too")
-    ap.add_argument("--autotune", action="store_true")
-    ap.add_argument("--autotune-cache-dir", default="")
+    ap.add_argument("--autotune", action="store_true",
+                    help="tune the host tier's kernels against the "
+                         "memory-bandwidth roofline at startup and price "
+                         "the achieved efficiency into policy generation "
+                         "(repro_torch.kernels.autotune)")
+    ap.add_argument("--autotune-cache-dir", default="",
+                    help="persist tuned configs + bandwidth snapshot here "
+                         "(schema-versioned autotune.json; a warm cache "
+                         "means restart re-measures nothing).  Defaults "
+                         "to <policy-store-dir>/autotune when a policy "
+                         "store dir is set")
     ap.add_argument("--adapt-mode", choices=["inline", "async", "speculative"],
                     default="inline",
                     help="adaptation placement: inline runs the paper's "
@@ -109,7 +119,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
     import repro_torch.configs as C
     from repro_torch import obs
-    from repro_torch.common.config import (AdaptConfig, ChameleonConfig,
+    from repro_torch.common.config import (AdaptConfig, AutotuneConfig,
+                                           ChameleonConfig,
                                            PolicyStoreConfig, TrainConfig)
     from repro_torch.common.device import resolve_device
     from repro_torch.data.synthetic import SyntheticTokens
@@ -124,12 +135,18 @@ def main(argv: Optional[List[str]] = None) -> dict:
     tcfg = TrainConfig(steps=args.steps, checkpoint_dir=args.ckpt_dir,
                        checkpoint_every=max(args.steps // 4, 1),
                        eval_every=max(args.steps // 3, 1))
+    at_dir = args.autotune_cache_dir
+    if args.autotune and not at_dir and args.policy_store_dir:
+        # warm-start colocation: tuned configs restart with the policies
+        at_dir = os.path.join(args.policy_store_dir, "autotune")
     cham = ChameleonConfig(enabled=not args.no_chameleon,
                            hbm_budget_bytes=int(args.budget_gib * 2 ** 30),
                            policystore=PolicyStoreConfig(
                                enabled=not args.no_policy_store,
                                dir=args.policy_store_dir),
-                           adapt=AdaptConfig(mode=args.adapt_mode))
+                           adapt=AdaptConfig(mode=args.adapt_mode),
+                           autotune=AutotuneConfig(
+                               enabled=args.autotune, cache_dir=at_dir))
     data = SyntheticTokens(cfg.vocab_size, seq, gb).start()
     if args.audit_out:
         # stream every audit event, not just the in-memory tail: the
@@ -160,6 +177,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
             out["applied"] = tr.rt.applied.fingerprint
             out["policystore"] = rep.policystore
             out["adapt"] = rep.adapt
+            hm = tr.rt.hostmem
+            out["autotune"] = (hm.autotuner.stats() if hm is not None
+                               and hm.autotuner is not None else None)
         return out
     finally:
         data.stop()

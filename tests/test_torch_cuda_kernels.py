@@ -823,3 +823,94 @@ def test_recorder_counts_the_same_tokens_under_the_executor(card):
         assert all(torch.equal(grads[k], grads0[k]) for k in grads0)
     np.testing.assert_array_equal(streams[0], streams[1])
     assert ex.last["recomputed"] == cfg.num_layers
+
+
+# --------------------------------------------- the autotuner's variants
+from repro_torch.kernels.autotune import table as TUNED  # noqa: E402
+from repro_torch.kernels.autotune.space import SPACES  # noqa: E402
+
+
+def _check_k1(out, ref, dtype):
+    o, r = out.float().cpu().numpy(), ref.float().cpu().numpy()
+    np.testing.assert_allclose(o, r, rtol=TOL[dtype], atol=TOL[dtype])
+    assert np.linalg.norm(o - r) <= FRO_TOL[dtype] * np.linalg.norm(r)
+    assert np.abs(o - r).max() <= MAX_TOL[dtype] * np.abs(r).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Kh,D", [(2, 200, 8, 2, 64),
+                                        (1, 384, 32, 32, 128),
+                                        (1, 77, 4, 4, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_autotune_k1_rows_per_block_match_plain(card, B, S, H, Kh, D, dtype):
+    """Every query-rows variant the tuner measures (bf16 64 and 128, f32's
+    one tile) against the plain version, K1's limits, peaked inputs."""
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32) * scale)
+               .to(card, getattr(torch, dtype))
+               for shape, scale in (((B, S, H, D), QK_SCALE),
+                                    ((B, S, Kh, D), QK_SCALE),
+                                    ((B, S, Kh, D), 1.0)))
+    ref = ops.flash_attention_plain(q, k, v, causal=True)
+    space = SPACES["flash_attention"]
+    for config in space.variants_for(dtype):
+        before = ops.flash_attention.launches
+        out = space.run((q, k, v), config)
+        torch.cuda.synchronize()
+        assert ops.flash_attention.launches == before + 1
+        _check_k1(out, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,N", [(1, 600, 4, 64, 128),
+                                       (2, 300, 3, 64, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_autotune_k4_chunks_match_plain(card, B, S, H, P, N, dtype):
+    """Every chunk the tuner measures against the plain version at that
+    chunk, y and the final state (SSD_TOL)."""
+    x, dt, A, Bm, Cm = ssd_inputs(card, B, S, H, P, N, dtype)
+    space = SPACES["ssd_scan"]
+    for config in space.variants_for(dtype):
+        y, st = space.run((x, dt, A, Bm, Cm), config)
+        torch.cuda.synchronize()
+        yr, sr = SSD.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=config["chunk"])
+        tol, fro = SSD_TOL[dtype]
+        for got, want, t, f in ((y, yr, tol, fro), (st, sr, 2e-3, 1e-4)):
+            g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
+            np.testing.assert_allclose(g, w, rtol=t, atol=t)
+            assert np.linalg.norm(g - w) <= f * np.linalg.norm(w)
+
+
+@pytest.mark.cuda
+def test_wrappers_launch_with_the_installed_table(card):
+    """With a table installed, K1 takes its rows, K4 its chunk, and K2a /
+    K2b count their launches under an entry; outputs as without it."""
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rng.randn(1, 300, 8, 64).astype(np.float32)
+                                * s).to(card, torch.bfloat16)
+               for s in (QK_SCALE, QK_SCALE, 1.0))
+    x = torch.from_numpy(rng.randn(64, 128).astype(np.float32)).to(
+        card, torch.bfloat16)
+    ins = ssd_inputs(card, 1, 300, 4, 64, 128, "bfloat16")
+    TUNED.install({
+        TUNED.table_key("flash_attention", q.shape, q.dtype): {"block_q": 64},
+        TUNED.table_key("ssd_scan", ins[0].shape, ins[0].dtype): {"chunk": 64},
+        TUNED.table_key("quantize", x.shape, x.dtype): {},
+        TUNED.table_key("dequantize", x.shape, x.dtype): {}})
+    counts = [f.tuned_launches for f in (ops.flash_attention, SSD.ssd_scan,
+                                         Q.quantize, Q.dequantize)]
+    try:
+        out = ops.flash_attention(q, k, v, causal=True)
+        y, _ = SSD.ssd_scan(*ins)
+        qx, sx = Q.quantize(x)
+        back = Q.dequantize(qx, sx, x.dtype)
+        torch.cuda.synchronize()
+    finally:
+        TUNED.clear()
+    assert [f.tuned_launches for f in (ops.flash_attention, SSD.ssd_scan,
+                                       Q.quantize, Q.dequantize)] == [
+        c + 1 for c in counts]
+    _check_k1(out, ops.flash_attention_plain(q, k, v, causal=True),
+              "bfloat16")
+    assert torch.equal(y, SSD.ssd_scan(*ins, chunk=64)[0])
+    assert torch.equal(back, Q.dequantize(*Q.quantize(x), x.dtype))

@@ -314,7 +314,10 @@ def test_port_imports_neither_jax_nor_reference():
         "        'policystore.lshindex', 'policystore.store',\n"
         "        'policystore.drift', 'adapt.snapshot', 'adapt.pipeline',\n"
         "        'adapt.service', 'models.moe', 'models.whisper',\n"
-        "        'obs.validate', 'obs.report']\n"
+        "        'obs.validate', 'obs.report', 'kernels.autotune.device',\n"
+        "        'kernels.autotune.table', 'kernels.autotune.cache',\n"
+        "        'kernels.autotune.space', 'kernels.autotune.tuner',\n"
+        "        'kernels.autotune.advisor']\n"
         "bad += ['missing ' + n for n in need\n"
         "        if 'repro_torch.' + n not in sys.modules]\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]), bad)\n")

@@ -14,7 +14,6 @@ and the card's name and power limit; exits non-zero if a check fails.
 """
 from __future__ import annotations
 
-import ctypes
 import json
 import math
 import os
@@ -27,17 +26,6 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import chip_smoke  # noqa: E402  (puts src/ on the path as well)
 
 
-def bind_wgs(lib):
-    """The library's ``flash_attention_fwd_wgs``: ``flash_attention_fwd``
-    with the consumer warpgroups per block as one more argument before the
-    stream."""
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = lib.flash_attention_fwd_wgs
-    fn.argtypes = [vp] * 6 + [ci] * 7 + [ctypes.c_float, ci, ci, vp]
-    fn.restype = ci
-    return fn
-
-
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -46,12 +34,13 @@ def main() -> int:
         return 1
     import repro_torch.configs as C
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ops
 
     device = torch.device("cuda", 0)
     print(chip_smoke.nvidia_smi_line(), flush=True)
     lib = _build.load("flash_attention_fwd")
-    launch = bind_wgs(lib)
+    launch = K.bind(lib)          # flash_attention_fwd_wgs
     cfg = C.get_config("llama2-paper")
     H, Kh, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     gen = torch.Generator(device=device).manual_seed(0)
