@@ -116,6 +116,23 @@ Phases, each printing JSON lines:
               more steps (device idle share, K1's shares); and one grad
               step with flash against one with chunked attention
               (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL).
+15b. distributed  (run after 15) the train phase's model on a one-rank NCCL
+              group and a (1, 1) ("data", "model") mesh: DIST_STEPS steps
+              of the sharded train step (``distributed.steps``: ZeRO 2
+              placements, the TP plan) against the unsharded step from the
+              same weights and batches (losses within TRAIN_LOSS_TOL, bit
+              equality printed, K1 launched DIST_STEPS x 8 times each way,
+              step ms and peak of both); the sharded step under the
+              executor's conservative policy (losses equal, policy_swap
+              D2H = H2D > 0); the int8 compressed gradient sync over a
+              one-rank pod dim on one grad step's f32 gradients (K2a / K2b
+              launches per leaf, an int8 payload on the wire, synced and
+              residuals bit-equal to the plain path's); apply_moe_auto
+              against apply_moe on one full-width granite-moe layer (bit
+              equal); and the dry run (``launch.dryrun``) of the unsharded
+              run's cell on fake cuda tensors: its peak within
+              CHAM_PEAK_TOL of the allocator's, its roofline terms and the
+              step's MFU against the measured p50.  Lines ``distributed_*``.
 16. train_cli ``repro_torch.launch.train.main`` on the card, reduced
               llama2-paper (f32: the f32 paths of both K1 kernels), 3 steps;
               then (``train_cli_store``) 30 steps under the async worker
@@ -340,6 +357,20 @@ TRAIN_LOSS_TOL = 2e-2
 TRAIN_GRAD_TOL = 5e-2
 TRAIN_CLI_ARGS = ["--arch", "llama2-paper", "--reduced", "--steps", "3",
                   "--no-chameleon", "--attn-impl", "flash"]
+
+# The distributed phase: the train phase's width (llama2-paper, TRAIN_LAYERS,
+# TRAIN_BATCH x TRAIN_SEQ, bf16, flash) on a one-rank NCCL group and a
+# (1, 1) ("data", "model") mesh: DIST_STEPS steps of the sharded train step
+# (ZeRO 2 placements, the TP plan) against the unsharded one from the same
+# weights and batches; the sharded step under the executor's conservative
+# policy; the int8 compressed gradient sync (K2a / K2b) over a one-rank pod
+# dim, bit for bit against its plain path; apply_moe_auto (expert
+# parallelism) against apply_moe on one full-width granite-moe layer
+# (DIST_MOE_TOKENS tokens); and the dry run of the unsharded run's cell on
+# fake cuda tensors, whose peak must lie within CHAM_PEAK_TOL of the
+# allocator's.
+DIST_STEPS = 3
+DIST_MOE_TOKENS = (2, 1024)
 
 # The chameleon phase: the train phase's configuration (TRAIN_LAYERS,
 # TRAIN_BATCH x TRAIN_SEQ, TRAIN_LR), with an eval every CHAM_EVAL_EVERY
@@ -2394,6 +2425,242 @@ def zoo_grad_check(device, cfg, phase: str, seeds=None, gate: bool = True
     return out
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_batches(cfg, device):
+    import torch
+    from repro_torch.data.synthetic import SyntheticTokens
+    data = SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    return [{k: torch.as_tensor(v, dtype=torch.int64).to(device)
+             for k, v in data.batch_at(i).items()} for i in range(DIST_STEPS)]
+
+
+def dist_run(device, cfg, batches, mesh=None, policy=None):
+    """DIST_STEPS fused steps from seed-0 weights: the sharded step when a
+    mesh is given (ZeRO 2, grads reduce-scattered to the state's layout),
+    else the unsharded one.  Returns (losses, step ms, peak bytes, K1
+    (forward, backward) launches); the peak is the allocator's over the
+    steps less what was allocated before the model was made."""
+    import torch
+    from repro_torch.distributed import steps as S
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+    base = release_device_memory(device)
+    tcfg = train_config()
+    model = T.init_model(cfg, seed=0, device=device)
+    opt = adamw_init(model)
+    if mesh is not None:
+        model, opt = S.shard_model(cfg, model, mesh, opt, zero_stage=2)
+        gsh = S.to_shardings({n: lay.opt for n, lay in model.layouts.items()},
+                             mesh)
+        step = S.make_train_step(cfg, tcfg, policy, grad_shardings=gsh)
+    else:
+        step = S.make_train_step(cfg, tcfg, policy)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.flash_attention.launches = 0                  # count the main path only
+    ops.flash_attention_bwd.launches = 0
+    losses, times = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, b, 1.0)
+        losses.append(float(m["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(device) - base
+    launches = (ops.flash_attention.launches,
+                ops.flash_attention_bwd.launches)
+    import shutil
+    shutil.rmtree(tcfg.checkpoint_dir, ignore_errors=True)
+    del model, opt, step
+    return losses, times, peak, launches
+
+
+def phase_distributed(device) -> dict:
+    """Phase distributed (module doc).  Every check raises.  Returns the
+    launches of K1 (forward, backward) in the sharded run and of K2a / K2b
+    in the compressed sync."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    import repro_torch.configs as C
+    from repro_torch.common.config import MeshConfig, ShapeConfig
+    from repro_torch.core.executor import Executor
+    from repro_torch.common.config import ChameleonConfig
+    from repro_torch.distributed import compression
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import steps as S
+    from repro_torch.hostmem import HostMemTier
+    from repro_torch.kernels.quant_offload import ops as qops
+    from repro_torch.launch import dryrun, roofline as R
+    from repro_torch import obs
+    from repro_torch.models import moe as moe_lib
+
+    for name in ("runtime", "hostmem"):      # the train phase's trainer
+        obs.metrics().unregister_provider(name)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    problems = []
+    try:
+        mesh = init_device_mesh(device.type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = C.get_config("llama2-paper").replace(num_layers=TRAIN_LAYERS,
+                                                   attn_impl="flash")
+        batches = dist_batches(cfg, device)
+        want = DIST_STEPS * TRAIN_LAYERS
+        # ---- sharded against unsharded
+        sl, st, sp, sk = dist_run(device, cfg, batches, mesh)
+        ul, ut, up, uk = dist_run(device, cfg, batches)
+        row = {"arch": cfg.name, "layers": cfg.num_layers,
+               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": DIST_STEPS,
+               "mesh": [1, 1], "zero_stage": 2,
+               "sharded": {"losses": sl, "step_ms": st,
+                           "step_ms_p50": p50(st),
+                           "max_memory_allocated": sp, "k1_launches": sk},
+               "unsharded": {"losses": ul, "step_ms": ut,
+                             "step_ms_p50": p50(ut),
+                             "max_memory_allocated": up, "k1_launches": uk},
+               "max_loss_diff": max(abs(a - b) for a, b in zip(sl, ul)),
+               "bit_equal": sl == ul, "k1_want": want}
+        emit("distributed_steps", **row)
+        if row["max_loss_diff"] > TRAIN_LOSS_TOL:
+            problems.append(f"sharded losses {sl} vs unsharded {ul}")
+        if sk != (want, want):
+            problems.append(f"K1 launches {sk} in the sharded run, want "
+                            f"{want} each way")
+        if not all(math.isfinite(x) for x in sl + ul):
+            problems.append("a loss is not finite")
+
+        # ---- the sharded step under the conservative policy
+        tier = HostMemTier(device=device)
+        eng = tier.engine
+        x = Executor(ChameleonConfig())
+        pol = x.execution(x.conservative(None), eng, None)
+        c0 = eng.by_class["policy_swap"].as_dict()
+        pl, pt, pp, pk = dist_run(device, cfg, batches, mesh, policy=pol)
+        c1 = eng.by_class["policy_swap"].as_dict()
+        d2h = c1["bytes_out"] - c0["bytes_out"]
+        h2d = c1["bytes_in"] - c0["bytes_in"]
+        emit("distributed_policy", losses=pl, losses_without=sl,
+             equal=pl == sl, step_ms=pt, step_ms_p50=p50(pt),
+             max_memory_allocated=pp, d2h_bytes=d2h, h2d_bytes=h2d,
+             k1_launches=pk, pool_bytes_in_use=eng.pool.bytes_in_use)
+        if pl != sl:
+            problems.append(f"losses under the conservative policy {pl} != "
+                            f"{sl} without it")
+        if not (d2h == h2d > 0):
+            problems.append(f"policy_swap D2H {d2h} != H2D {h2d} or 0")
+        del pol, x, eng, tier
+
+        # ---- the compressed sync over a one-rank pod dim
+        release_device_memory(device)
+        from repro_torch.models import transformer as T
+        model = T.init_model(cfg, seed=0, device=device)
+        grad_step = S.make_grad_step(cfg, train_config())
+        _, grads, _ = grad_step(model, batches[0], 1.0)
+        del model
+        pod = init_device_mesh(device.type, (1,), mesh_dim_names=("pod",))
+        sync = compression.make_compressed_grad_sync(pod, "pod")
+        plain = compression.make_compressed_grad_sync(pod, "pod", plain=True)
+        compression.reset_stats()
+        qops.quantize.launches = qops.dequantize.launches = 0
+        equal, n_leaves, elems = True, 0, 0
+        t_sync = 0.0
+        for k in list(grads):
+            g = grads.pop(k)
+            e = torch.zeros_like(g, dtype=torch.float32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s1, e1 = sync({k: g}, {k: e})
+            torch.cuda.synchronize()
+            t_sync += time.perf_counter() - t0
+            snap = dict(compression.stats)     # the kernels' path only
+            s2, e2 = plain({k: g}, {k: e})
+            compression.stats.update(snap)
+            equal &= (torch.equal(s1[k], s2[k]) and torch.equal(e1[k], e2[k]))
+            n_leaves += 1
+            elems += g.numel()
+            del g, e, s1, e1, s2, e2
+        k2 = (qops.quantize.launches, qops.dequantize.launches)
+        wire = {"payload_bytes": compression.stats["payload_bytes"],
+                "scale_bytes": compression.stats["scale_bytes"],
+                "payload_dtype": str(compression.stats["payload_dtype"]),
+                "f32_bytes": 4 * elems}
+        emit("distributed_compression", leaves=n_leaves, elements=elems,
+             bit_equal=equal, k2a_launches=k2[0], k2b_launches=k2[1],
+             k2_want=(n_leaves, 2 * n_leaves), sync_ms=t_sync * 1e3, **wire)
+        if not equal:
+            problems.append("compressed sync != its plain path")
+        if compression.stats["payload_dtype"] != torch.int8:
+            problems.append(f"gathered payload {wire['payload_dtype']}")
+        if k2 != (n_leaves, 2 * n_leaves):
+            problems.append(f"K2a/K2b launches {k2}, want {n_leaves} / "
+                            f"{2 * n_leaves}")
+        del grads
+
+        # ---- apply_moe_auto (expert parallelism) against apply_moe
+        mcfg = C.get_config("granite-moe-1b-a400m")
+        gen = torch.Generator(device=device).manual_seed(0)
+        layer = moe_lib.Moe(mcfg, generator=gen, device=device)
+        x = torch.randn(DIST_MOE_TOKENS + (mcfg.d_model,), generator=gen,
+                        device=device).to(layer.router.dtype)
+        with torch.no_grad():
+            out_p, aux_p = moe_lib.apply_moe(mcfg, layer, x)
+            with shd.use_mesh(mesh):
+                out_a, aux_a = moe_lib.apply_moe_auto(mcfg, layer, x)
+        moe_equal = torch.equal(out_a, out_p) and torch.equal(aux_a, aux_p)
+        emit("distributed_moe", arch=mcfg.name, tokens=list(DIST_MOE_TOKENS),
+             experts=mcfg.num_experts, bit_equal=moe_equal,
+             aux=float(aux_a))
+        if not moe_equal:
+            problems.append("apply_moe_auto != apply_moe on one rank")
+        del layer, x, out_a, out_p
+    finally:
+        shd.clear_groups()
+        dist.destroy_process_group()
+
+    # ---- the dry run of the unsharded run's cell, on fake cuda tensors
+    release_device_memory(device)
+    shape = ShapeConfig("train", "train", TRAIN_SEQ, TRAIN_BATCH)
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell("llama2_paper", "train", False, "none", None,
+                          verbose=False, cfg=cfg, shape=shape,
+                          mesh_shape=MeshConfig((1, 1), ("data", "model")),
+                          device=device.type, device_kind="h100_sxm")
+    wall = time.perf_counter() - t0
+    r = rec["roofline"]
+    peak = rec["memory"]["peak_per_chip"]
+    peak_err = abs(peak - up) / up
+    step_s = p50(ut) / 1e3
+    mfu = R.mfu(r["model_flops"], 1, step_s)
+    emit("distributed_dryrun", wall_s=wall, device=rec["device"],
+         peak_per_chip=peak, measured_peak=up, peak_err=peak_err,
+         static_bytes=rec["memory"]["static_bytes"],
+         compute_ms=r["compute_s"] * 1e3, memory_ms=r["memory_s"] * 1e3,
+         collective_ms=r["collective_s"] * 1e3,
+         bound_ms=r["step_time_bound_s"] * 1e3, bottleneck=r["bottleneck"],
+         measured_p50_ms=p50(ut), flops_per_chip=r["flops_per_chip"],
+         bytes_per_chip=r["bytes_per_chip"], model_flops=r["model_flops"],
+         mfu=mfu, bound_share=r["step_time_bound_s"] / step_s)
+    if peak_err > CHAM_PEAK_TOL:
+        problems.append(f"dry-run peak {peak} vs measured {up}: "
+                        f"{peak_err:.3f} > {CHAM_PEAK_TOL}")
+    emit("distributed", ok=not problems, problems=problems)
+    if problems:
+        raise AssertionError(f"distributed: {problems}")
+    return {"k1": sk, "k2": k2}
+
+
 def phase_train_zoo(device, phase: str) -> dict:
     """``Trainer`` on ZOO_TRAIN[phase] at full width and depth (see
     ZOO_TRAIN): K1's and K4's launch counts reset just before the steps and
@@ -4123,6 +4390,7 @@ def main(argv=None) -> int:
     gc.collect()                       # the serve phases' models are gone
     torch.cuda.empty_cache()
     train_launches, bwd_launches = phase_train(device)
+    dist_launches = phase_distributed(device)
     phase_train_cli(device)
     phase_chameleon(device, tier)
     exec_launches = phase_chameleon_exec(device)
@@ -4153,6 +4421,8 @@ def main(argv=None) -> int:
         # the train phase: steps x layers launches, and the cold time at
         # its shape
         "train_launches": train_launches,
+        # the distributed phase's sharded run: steps x layers
+        "distributed_launches": dist_launches["k1"][0],
         # chameleon_exec: the trainer under Chameleon's applied policies
         "chameleon_exec_launches": exec_launches[0],
         # chameleon_async: the async placement's run, (steps + replays) x 8
@@ -4176,6 +4446,7 @@ def main(argv=None) -> int:
                   "flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention/ops.py:54",
         "launches": bwd_launches,
+        "distributed_launches": dist_launches["k1"][1],
         "chameleon_exec_launches": exec_launches[1],
         "chameleon_async_launches": async_launches[1],
         # the largest bf16 error of dq, dk, dv at the training shape
@@ -4200,6 +4471,9 @@ def main(argv=None) -> int:
                   "quant_offload.cu",
         "replaces": f"src/repro/kernels/quant_offload/kernel.py:{line}",
         "launches": quant_launches[name],
+        # the distributed phase's compressed sync: per leaf, K2a once and
+        # K2b twice (the residual and the one gathered slab)
+        "distributed_launches": dist_launches["k2"][i],
         # over every quant case: int8 steps for K2a, output for K2b (0 = the
         # kernel is bit-identical to its plain version)
         "max_abs_err": err,
@@ -4212,8 +4486,9 @@ def main(argv=None) -> int:
         # the autotune phase: the tuned entry at the spill's row shape and
         # the auto serve run's launches under it
         "autotune": tuned[name]}
-        for name, line, err in (("quantize_rows", 43, quant_q_err),
-                                ("dequantize_rows", 61, quant_out_err))] + [{
+        for i, (name, line, err) in enumerate((
+            ("quantize_rows", 43, quant_q_err),
+            ("dequantize_rows", 61, quant_out_err)))] + [{
         "name": "flash_decode_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_decode_fwd.cu",

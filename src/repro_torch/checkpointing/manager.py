@@ -9,7 +9,8 @@ Port of ``repro/checkpointing/manager.py``, with the same on-disk format:
   * **async** — arrays are snapshotted to host memory when ``save()`` is
     called and written by a background thread;
   * **per-process shards** — each process writes ``<tree>.p<i>.npz`` (one
-    file per tree on one process) and ``manifest.p<i>.json``;
+    file per tree on one process) and ``manifest.p<i>.json``; a tree of
+    global arrays (DTensor leaves) is written by process 0 alone;
   * **emergency saves** — the trainer calls ``save(..., block=True)`` from
     its failure handler;
   * **host-memory tier integration** — with a ``repro_torch.hostmem``
@@ -19,9 +20,18 @@ Port of ``repro/checkpointing/manager.py``, with the same on-disk format:
     concurrent swaps and KV spills preempt the drain.
 
 Trees are nested dicts whose leaves are torch tensors, numpy arrays or
-scalars; ``None`` leaves are skipped.  Keys are the reference's: path
-components joined by ``/`` (``blocks/attn/wq``, ``m/embed/tok``), so a
-checkpoint written by either package restores in the other.  bf16 leaves are widened to f32 (exact), as numpy has no bf16;
+scalars; ``None`` leaves are skipped.  A DTensor leaf (a sharded train
+state, ``distributed.steps``) is saved whole: every rank gathers it
+(``full_tensor``, a collective, so every rank saves), and only process 0
+writes a tree that holds one, as the reference's single process writes
+its global arrays once; another process restores such a tree from process
+0's manifest.  So a sharded save restores on one device, in either
+package.  ``restore(..., shardings=)`` re-places every leaf on a new mesh
+(elastic restart after a lost node): each rank keeps its piece as a
+DTensor.  Keys are the
+reference's: path components joined by ``/`` (``blocks/attn/wq``,
+``m/embed/tok``), so a checkpoint written by either package restores in
+the other.  bf16 leaves are widened to f32 (exact), as numpy has no bf16;
 restore casts every leaf back to its template's dtype.
 """
 from __future__ import annotations
@@ -56,10 +66,18 @@ def _host(leaf) -> Any:
     tensor on the device when an engine stages it."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if hasattr(t, "full_tensor"):            # a DTensor: the whole array
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t
     return np.asarray(leaf)
+
+
+def _is_global(tree) -> bool:
+    """Whether ``tree`` holds a DTensor leaf (the same global arrays on
+    every process)."""
+    return any(hasattr(v, "full_tensor") for _, v in _leaves(tree))
 
 
 def _to_numpy(x) -> np.ndarray:
@@ -159,6 +177,11 @@ class CheckpointManager:
                                arg=step):
             snap = {name: {k: _host(v) for k, v in _leaves(tree)}
                     for name, tree in trees.items() if tree is not None}
+            if self.proc != 0:   # process 0 writes the global trees
+                snap = {name: flat for name, flat in snap.items()
+                        if not _is_global(trees[name])}
+                if not snap:
+                    return os.path.join(self.dir, f"step_{step:08d}")
             if self.engine is None:
                 snap = {name: {k: _to_numpy(v) for k, v in flat.items()}
                         for name, flat in snap.items()}
@@ -289,11 +312,14 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: int, templates: Dict[str, Any],
+                shardings: Optional[Dict[str, Any]] = None,
                 fallback: bool = True):
         """Rebuild trees shaped like ``templates``; returns (trees, extra).
         A template leaf that is a tensor gives a tensor of its dtype on its
         device (on the CPU for a ``meta`` template); any other leaf gives a
-        numpy array of its dtype.
+        numpy array of its dtype.  ``shardings`` (the same structure, leaves
+        ``sharding.NamedSharding``) re-places each leaf on a *new* mesh:
+        this rank's piece, a DTensor on the mesh's device.
 
         When the requested checkpoint is unreadable (corrupt shard,
         truncated manifest, missing file) and ``fallback`` is True, each
@@ -306,7 +332,7 @@ class CheckpointManager:
         first_err: Optional[BaseException] = None
         for s in candidates:
             try:
-                return self._restore_one(s, templates)
+                return self._restore_one(s, templates, shardings)
             except (OSError, KeyError, ValueError) as e:
                 if first_err is None:
                     first_err = e
@@ -318,17 +344,29 @@ class CheckpointManager:
                     obs.audit().event("ckpt.restore_fallback", frm=s)
         raise first_err
 
-    def _restore_one(self, step: int, templates: Dict[str, Any]):
+    def _restore_one(self, step: int, templates: Dict[str, Any],
+                     shardings: Optional[Dict[str, Any]] = None):
         d = os.path.join(self.dir, f"step_{step:08d}")
-        mpath = os.path.join(d, f"manifest.p{self.proc}.json")
-        with open(mpath) as f:
-            manifest = json.load(f)
+
+        def load(proc):
+            with open(os.path.join(d, f"manifest.p{proc}.json")) as f:
+                return json.load(f)
+
+        # a process that wrote nothing of its own (every tree global)
+        # restores from process 0's manifest
+        own = (self.proc == 0 or os.path.exists(
+            os.path.join(d, f"manifest.p{self.proc}.json")))
+        manifest = load(self.proc if own else 0)
         out = {}
         for name, template in templates.items():
             if template is None:
                 out[name] = None
                 continue
-            info = manifest["trees"][name]
+            info = manifest["trees"].get(name)
+            if info is None and self.proc != 0:     # a global tree
+                info = load(0)["trees"][name]
+            if info is None:
+                raise KeyError(name)
             path = os.path.join(d, info["file"])
             with open(path, "rb") as f:
                 digest = hashlib.sha256(f.read()).hexdigest()
@@ -339,11 +377,23 @@ class CheckpointManager:
                     f"{info['sha256'][:12]} ({path})")
             with np.load(path) as z:
                 flat = dict(z)
-            out[name] = _rebuild(template, flat, "")
+            out[name] = _rebuild(template, flat, "",
+                                 (shardings or {}).get(name))
         return out, manifest["extra"]
 
 
-def _rebuild(template, flat: Dict[str, np.ndarray], prefix: str):
+def _place(t: torch.Tensor, sh) -> torch.Tensor:
+    """This rank's piece of the whole tensor ``t`` under ``sh`` (a
+    ``sharding.NamedSharding``), as a DTensor on the mesh's device."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import sharding as shd
+    pl = sh.placements
+    piece = shd.local_chunk(t, sh.mesh, pl).contiguous()
+    return DTensor.from_local(piece.to(sh.mesh.device_type), sh.mesh, pl,
+                              run_check=False)
+
+
+def _rebuild(template, flat: Dict[str, np.ndarray], prefix: str, sh=None):
     if template is None:
         return None
     if not isinstance(template, Mapping):
@@ -351,9 +401,11 @@ def _rebuild(template, flat: Dict[str, np.ndarray], prefix: str):
         if isinstance(template, torch.Tensor):
             dev = (torch.device("cpu") if template.device.type == "meta"
                    else template.device)
-            return torch.from_numpy(np.ascontiguousarray(arr)).to(
+            t = torch.from_numpy(np.ascontiguousarray(arr)).to(
                 device=dev, dtype=template.dtype)
+            return t if sh is None else _place(t, sh)
         want = np.asarray(template).dtype
         return arr.astype(want) if arr.dtype != want else arr
-    return {k: _rebuild(c, flat, f"{prefix}/{k}" if prefix else str(k))
+    return {k: _rebuild(c, flat, f"{prefix}/{k}" if prefix else str(k),
+                        None if sh is None else sh.get(k))
             for k, c in template.items()}

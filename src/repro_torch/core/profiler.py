@@ -257,8 +257,11 @@ class _DetailedMode(CountingMode):
 
 
 def _live_tensor_bytes() -> int:
-    """Bytes of the distinct storages of every live CPU tensor."""
+    """Bytes of the distinct storages of every live CPU tensor.  Garbage
+    that only a cycle keeps (a finished trainer, say) is collected first,
+    so the base does not depend on when the collector last ran."""
     seen: Dict[int, int] = {}
+    gc.collect()
     with warnings.catch_warnings():
         # isinstance() on deprecated module-level aliases torch keeps warns
         warnings.simplefilter("ignore", FutureWarning)

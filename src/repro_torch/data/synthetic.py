@@ -2,9 +2,9 @@
 
 Port of ``repro/data/synthetic.py``, numpy as there: the same hash, the
 same Zipf marginal, the same prefetch thread and ``state()``/``restore()``,
-so both packages draw identical batches from one seed.  The reference's
-``make_batch_specs`` (JAX shapes for the dry run) comes with ROADMAP.md
-queue 1 item 11.
+so both packages draw identical batches from one seed.
+``make_batch_specs`` gives a batch's shapes and dtypes (``TensorSpec``,
+the reference's ``ShapeDtypeStruct``) for the dry run.
 
 Production-shaped: per-host sharding (each host materializes only its slice
 of the global batch), a background prefetch thread with a bounded queue, and
@@ -17,9 +17,12 @@ from __future__ import annotations
 import queue
 import threading
 from dataclasses import dataclass
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.common.config import ModelConfig, ShapeConfig
 
 
 def _hash_tokens(seed: int, start: int, count: int, vocab: int) -> np.ndarray:
@@ -117,3 +120,28 @@ class SyntheticTokens:
         self.cursor = int(state["cursor"])
         self.seed = int(state["seed"])
 
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a tensor not allocated (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+
+def make_batch_specs(cfg: ModelConfig, shape: ShapeConfig
+                     ) -> Dict[str, TensorSpec]:
+    """``TensorSpec``s of a training batch (used by ``launch.specs``)."""
+    B, S = shape.global_batch, shape.seq_len
+    specs = {"tokens": TensorSpec((B, S), torch.int32),
+             "labels": TensorSpec((B, S), torch.int32)}
+    act = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
+    if cfg.family == "vlm":
+        specs["memory"] = TensorSpec((B, cfg.image_tokens, cfg.d_model), act)
+    if cfg.family == "encdec":
+        specs["memory"] = TensorSpec((B, cfg.encoder_seq, cfg.d_model), act)
+    return specs

@@ -1,0 +1,424 @@
+"""Logical-axis sharding rules (MaxText-style) on a ``DeviceMesh``.
+
+Port of ``repro/distributed/sharding.py``.  Models annotate activations and
+parameters with *logical* axis names; a rules table maps each name to mesh
+dims.  Outside a mesh every helper is a no-op, so the same model code runs
+on one device, under the Chameleon runtime and in the dry run unchanged.
+
+A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with named dims.
+Where the reference speaks of a ``PartitionSpec`` (one entry per tensor
+dim: None, a mesh dim, or a tuple of mesh dims) the port keeps the same
+tuple (``partition_spec``); ``spec`` gives the DTensor placements it means,
+one per mesh dim (``Shard(d)`` or ``Replicate()``), and ``sharding`` pairs
+them with the mesh (``NamedSharding``).  Several mesh dims sharding one
+tensor dim must come in the mesh's order (pod before data), as DTensor
+splits them.
+
+The reference's ``shard_map`` helper becomes explicit local compute on the
+mesh's process groups.  ``local_tp`` installs a ``TpPlan``: the blocks whose
+parameters a rank holds only its slice of along the ``model`` dim.  Model
+code marks each such block with ``tp_enter`` (identity forward, a sum over
+the model group backward) on its inputs and ``tp_exit`` (a sum over the
+model group forward, identity backward) on its partial output, Megatron's
+pair; both are no-ops for a block the plan does not hold.  Where the model
+dim does not divide the KV heads, ``kv_slice`` picks the KV heads of the
+rank's local query heads out of the whole projections.  So attention,
+the executor's saved-tensor hooks and the recorder see plain local tensors.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Dict, FrozenSet, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+# logical axis -> mesh axis (or tuple of mesh axes, or None = replicate)
+DEFAULT_RULES = {
+    "batch": ("pod", "data"),       # DP across pods and the data axis
+    "seq": None,
+    "act_embed": None,
+    "act_heads": "model",           # activation head dim (TP)
+    "act_kv_heads": None,           # GQA: few kv heads -> replicated
+    "act_mlp": "model",
+    "act_vocab": "model",
+    "kv_seq": "model",              # decode-time sequence parallelism over KV
+    # --- parameters ---
+    "embed": None,                  # param d_model dim
+    "fsdp_embed": ("pod", "data"),  # ZeRO-3/FSDP shard dim for big params
+    "heads": "model",
+    "kv_heads": None,
+    "q_dim": "model",               # fused num_heads*head_dim
+    "kv_dim": None,
+    "mlp": "model",
+    "vocab": "model",
+    "experts": "model",             # expert parallelism
+    "expert_mlp": None,
+    "layers": None,                 # stacked scan dim
+    "conv": None,
+    "ssm_inner": "model",
+    "ssm_state": None,
+    "ssm_heads": "model",
+    "pos": None,
+    "scalar": None,
+}
+
+# Swap frees the memory that forced tensor parallelism, so the whole mesh
+# becomes a DP domain (paper Table 2's TP->DP substitution): parameters and
+# optimizer state shard over every axis (ZeRO-3 through the rules),
+# activations shard on batch only.
+DP_ONLY_RULES = {
+    "batch": ("pod", "data", "model"),
+    "embed": ("pod", "data", "model"),
+    "fsdp_embed": ("pod", "data", "model"),
+    "heads": None, "q_dim": None, "kv_dim": None, "mlp": None,
+    "vocab": None, "experts": None, "expert_mlp": None,
+    "ssm_inner": None, "ssm_heads": None,
+    "act_heads": None, "act_mlp": None, "act_vocab": None, "kv_seq": None,
+}
+
+
+class TpPlan(NamedTuple):
+    """The model dim as local compute: its process group and the blocks
+    (``attn``, ``mlp``, ``moe``) whose weights each rank holds a slice of.
+    ``kv`` (first KV head, count) is set when the model dim does not divide
+    the KV heads: every rank holds the KV projections whole and computes
+    only the heads its local query heads use (``kv_slice``)."""
+    group: object
+    size: int
+    rank: int
+    blocks: FrozenSet[str]
+    kv: Optional[Tuple[int, int]] = None
+
+
+class _Ctx(threading.local):
+    def __init__(self):
+        self.mesh = None
+        self.rules: dict = dict(DEFAULT_RULES)
+        self.tp: Optional[TpPlan] = None
+
+
+_CTX = _Ctx()
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, rules: Optional[dict] = None):
+    """Install mesh + logical rules for the sharding annotations.  Nested
+    calls inherit the enclosing context's rules (so a dp_only outer context
+    composes with the ZeRO overrides applied inside spec-building
+    helpers)."""
+    prev = (_CTX.mesh, _CTX.rules)
+    base = _CTX.rules if _CTX.mesh is not None else DEFAULT_RULES
+    _CTX.mesh = mesh
+    merged = dict(base)
+    if rules:
+        merged.update(rules)
+    _CTX.rules = merged
+    try:
+        yield
+    finally:
+        _CTX.mesh, _CTX.rules = prev
+
+
+def current_mesh():
+    return _CTX.mesh
+
+
+def current_rules() -> dict:
+    return dict(_CTX.rules)
+
+
+def mesh_names(mesh) -> Tuple[str, ...]:
+    return tuple(mesh.mesh_dim_names or ())
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """{dim name: size}, the reference's ``mesh.shape``."""
+    return dict(zip(mesh_names(mesh), mesh.mesh.shape))
+
+
+def _resolve(name: Optional[str], mesh):
+    if name is None:
+        return None
+    ax = _CTX.rules.get(name, None)
+    if ax is None:
+        return None
+    names = mesh_names(mesh)
+    if isinstance(ax, tuple):
+        present = tuple(a for a in ax if a in names)
+        return present if present else None
+    return ax if ax in names else None
+
+
+def resolve_axes(name: str, mesh) -> Tuple[str, ...]:
+    """The mesh dims logical axis ``name`` maps to, as a tuple."""
+    ax = _resolve(name, mesh)
+    if ax is None:
+        return ()
+    return ax if isinstance(ax, tuple) else (ax,)
+
+
+def partition_spec(logical: Sequence[Optional[str]], mesh=None) -> tuple:
+    """The reference's ``spec``: one entry per tensor dim; ``()`` with no
+    mesh."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    if mesh is None:
+        return ()
+    return tuple(_resolve(n, mesh) for n in logical)
+
+
+def to_placements(pspec: tuple, mesh) -> list:
+    """DTensor placements (one per mesh dim) of a partition spec."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = mesh_names(mesh)
+    out = [Replicate() for _ in names]
+    for d, entry in enumerate(pspec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"mesh dims {axes} shard tensor dim {d} out of "
+                             f"the mesh's order {names}")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"mesh dim {names[i]} shards two tensor "
+                                 f"dims in {pspec}")
+            out[i] = Shard(d)
+    return out
+
+
+def spec(logical: Sequence[Optional[str]]) -> list:
+    """DTensor placements of a tensor with these logical axes on the
+    active mesh; ``[]`` with no mesh."""
+    mesh = _CTX.mesh
+    if mesh is None:
+        return []
+    return to_placements(partition_spec(logical, mesh), mesh)
+
+
+class NamedSharding(NamedTuple):
+    """A mesh and a partition spec (the reference's ``NamedSharding``)."""
+    mesh: object
+    spec: tuple
+
+    @property
+    def placements(self) -> list:
+        return to_placements(self.spec, self.mesh)
+
+
+def sharding(logical: Sequence[Optional[str]]) -> Optional[NamedSharding]:
+    mesh = _CTX.mesh
+    if mesh is None:
+        return None
+    return NamedSharding(mesh, partition_spec(logical, mesh))
+
+
+def constrain(x, logical: Sequence[Optional[str]]):
+    """Re-lay a DTensor to the logical axes on the active mesh.  A no-op
+    with no mesh, and on a plain (local) tensor: local compute keeps its
+    own layout (``local_tp``)."""
+    mesh = _CTX.mesh
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    want = to_placements(partition_spec(logical, mesh), mesh)
+    if list(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in x)
+
+
+def _tree_map(fn, tree):
+    if _is_axes(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[None if v is None else _tree_map(fn, v)
+                            for v in tree])
+    raise TypeError(f"not an axes tree: {tree!r}")
+
+
+def tree_sharding(axes_tree, mesh=None):
+    """Map a tree (dicts / NamedTuples) of logical-axis tuples to
+    ``NamedSharding``s."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    if mesh is None:
+        return None
+    return _tree_map(
+        lambda axes: NamedSharding(mesh, partition_spec(axes, mesh)),
+        axes_tree)
+
+
+def tree_spec(axes_tree, mesh=None):
+    """Map a tree of logical-axis tuples to partition specs (``()`` for
+    every leaf with no mesh)."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    return _tree_map(
+        lambda axes: () if mesh is None else partition_spec(axes, mesh),
+        axes_tree)
+
+
+# ------------------------------------------------------ process groups
+_GROUPS: Dict[tuple, object] = {}
+
+
+def group_of(mesh, dims: Sequence[str]):
+    """The process group over mesh dims ``dims`` (in the mesh's order) that
+    holds this rank, or None when ``dims`` is empty.  One dim is the mesh's
+    own group; several are built once (every rank builds every slice, as
+    ``new_group`` asks)."""
+    import torch.distributed as dist
+    names = mesh_names(mesh)
+    dims = tuple(sorted(dims, key=names.index))
+    if not dims:
+        return None
+    if len(dims) == 1:
+        return mesh.get_group(dims[0])
+    key = (id(mesh), dims)
+    if key not in _GROUPS or _GROUPS[key][0] is not mesh:
+        from torch.utils._python_dispatch import _disable_current_modes
+        with _disable_current_modes():    # rank arithmetic, not traced
+            ranks = mesh.mesh
+            keep = [names.index(d) for d in dims]
+            other = [i for i in range(len(names)) if i not in keep]
+            n = 1
+            for i in keep:
+                n *= ranks.shape[i]
+            rows = ranks.permute(*other, *keep).reshape(-1, n).tolist()
+        me = dist.get_rank()
+        mine = None
+        for row in rows:
+            g = dist.new_group(row)
+            if me in row:
+                mine = g
+        _GROUPS[key] = (mesh, mine)
+    return _GROUPS[key][1]
+
+
+def clear_groups() -> None:
+    """Forget the groups ``group_of`` built (their process group is
+    gone)."""
+    _GROUPS.clear()
+
+
+def coordinate(mesh, dims: Sequence[str]) -> Tuple[int, int]:
+    """(this rank's index, count) along mesh dims ``dims`` taken together,
+    the first dim outermost."""
+    names = mesh_names(mesh)
+    coord = mesh.get_coordinate()
+    idx, n = 0, 1
+    for d in sorted(dims, key=names.index):
+        size = mesh.mesh.shape[names.index(d)]
+        idx = idx * size + coord[names.index(d)]
+        n *= size
+    return idx, n
+
+
+def local_chunk(full: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's piece of a full tensor under DTensor ``placements``
+    (``torch.chunk`` splits, mesh dims in order)."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    out = full
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            n = mesh.mesh.shape[i]
+            out = out.tensor_split(n, dim=pl.dim)[coord[i]]
+    return out
+
+
+# ------------------------------------------------------- local TP pairs
+@contextlib.contextmanager
+def local_tp(plan: Optional[TpPlan]):
+    """Install ``plan`` for the model code's ``tp_enter`` / ``tp_exit``."""
+    prev = _CTX.tp
+    _CTX.tp = plan
+    try:
+        yield
+    finally:
+        _CTX.tp = prev
+
+
+def all_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` (a new tensor; no autograd)."""
+    import torch.distributed as dist
+    x = x.contiguous().clone()
+    dist.all_reduce(x, group=group)
+    return x
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_sum(g, ctx.group), None
+
+
+class _Exit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def enter(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; backward, the sum over ``group`` of the ranks'
+    partial gradients (Megatron's ``f``).  No-op for ``group`` None."""
+    return x if group is None else _Enter.apply(x, group)
+
+
+def exit(x: torch.Tensor, group) -> torch.Tensor:  # noqa: A001
+    """The sum over ``group`` forward, identity backward (Megatron's
+    ``g``).  No-op for ``group`` None."""
+    return x if group is None else _Exit.apply(x, group)
+
+
+def mean(x: torch.Tensor, group) -> torch.Tensor:
+    """The mean of ``x`` over ``group`` (no autograd)."""
+    import torch.distributed as dist
+    return all_sum(x, group) / dist.get_world_size(group)
+
+
+def _plan_group(block: str):
+    plan = _CTX.tp
+    if plan is None or block not in plan.blocks or plan.size == 1:
+        return None
+    return plan.group
+
+
+def tp_enter(x: torch.Tensor, block: str) -> torch.Tensor:
+    """The input of a model-parallel block of the installed plan."""
+    return enter(x, _plan_group(block))
+
+
+def kv_slice(w: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """The columns of a whole KV projection (or bias) that this rank's
+    local query heads use, under a plan with ``kv`` set; ``w`` otherwise.
+    Its gradient is then partial on each rank and is summed over the model
+    group (``ParamLayout.tp_sum``)."""
+    plan = _CTX.tp
+    if plan is None or plan.kv is None:
+        return w
+    first, n = plan.kv
+    return w.narrow(-1, first * head_dim, n * head_dim)
+
+
+def tp_exit(x: torch.Tensor, block: str) -> torch.Tensor:
+    """The partial output of a model-parallel block of the installed plan,
+    summed over the model group."""
+    return exit(x, _plan_group(block))

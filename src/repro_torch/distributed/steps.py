@@ -1,6 +1,6 @@
-"""Train / eval step builders on one device.
+"""Train / serve step builders, on one device or sharded on a mesh.
 
-Port of the step builders of ``repro/distributed/steps.py``:
+Port of ``repro/distributed/steps.py``:
 
   * ``make_train_step`` — the fused iteration: scaled loss, backward,
     unscale, clip, schedule and AdamW (what the paper's profiler sees as one
@@ -8,7 +8,9 @@ Port of the step builders of ``repro/distributed/steps.py``:
   * ``make_grad_step`` / ``make_apply_step`` — the split pair the trainer
     dispatches, so a host-side loss-scale skip really drops the optimizer
     step from the iteration (§2.3);
-  * ``make_eval_step`` — the loss alone, under ``torch.no_grad``.
+  * ``make_eval_step`` — the loss alone, under ``torch.no_grad``;
+  * ``make_prefill_step`` / ``make_decode_step`` — serving;
+  * sharding-spec derivation for params / optimizer state (ZeRO stages).
 
 PyTorch idiom: the model is an ``nn.Module``, gradients come from
 ``loss.backward()`` into ``.grad`` and are handed on as tensors keyed by
@@ -17,31 +19,557 @@ state in place.  The grad step unscales each gradient as the reference's
 does, ``g / loss_scale`` with the scale an f32 scalar, so a bf16 gradient
 becomes f32 (JAX promotes bf16 / f32 to f32); the fused step divides in
 the gradient's own dtype, as the reference's ``make_train_step`` does.
-Sharding (``shd.constrain``, specs, ZeRO, ``grad_shardings``) and the
-serving steps come with ROADMAP.md queue 1 item 11.
 
 ``policy`` is what the reference's step builders take as a remat policy:
 here an ``Execution`` (``core.executor.Executor.execution``), the context
 the forward and backward run under to apply a swap policy, or None for
 plain autograd.  The unscale, the finiteness check and the optimizer run
 after it, unchanged.
+
+Sharded training (eager, so the reference's jit shardings become explicit
+collectives on the mesh's process groups).  ``shard_model`` turns a model
+and its AdamW state into a ``ShardedModel`` (this rank's share) and a state
+whose ``m`` / ``v`` / ``master`` are DTensors laid out as ``opt_specs``
+says; ``make_train_step`` takes either.  ZeRO mapping (DeepSpeed-analogue
+the paper builds on), "sharding specs, not different math":
+
+  * ZeRO 0: every rank keeps everything; gradients are averaged over the
+    batch dims (all-reduce);
+  * ZeRO 1/2: the optimizer state shards over the batch dims on the
+    ``embed`` dim (``ZERO_OPT_RULES``); the gradients are reduce-scattered
+    to that layout (``grad_shardings``, when given, must name it), AdamW
+    runs on the local shard and the parameters are all-gathered back;
+  * ZeRO 3 (``ZERO3_PARAM_RULES``, or rules that put ``embed`` on the
+    batch dims, as ``DP_ONLY_RULES`` do): the parameters shard the same
+    way at rest; a step all-gathers them once at its start and releases
+    them after the update;
+  * tensor parallelism over ``model``: each rank holds its slice of the
+    attention (heads), MLP (``mlp``) and MoE (``experts``) weights and runs
+    the model code on them with a local config (``TpPlan``,
+    ``sharding.tp_enter`` / ``tp_exit``), so K1, K4, the executor's hooks
+    and the recorder see plain local tensors.
+
+Layouts that differ from the rules (results equal): the KV projections
+shard with the query heads when the model dim divides the KV heads (the
+rules replicate them); when it does not, they stay whole on every rank
+and each rank computes the KV heads of its local query heads
+(``sharding.kv_slice``), their gradients summed over ``model``; an
+attention block whose query heads the model dim does not divide, or whose
+local query heads straddle KV heads, stays replicated (the rules shard
+the fused ``q_dim``, which a rank's local compute cannot split mid-head);
+the embedding, the unembedding, the router and the Mamba-2 block stay
+replicated over ``model`` (no vocab-parallel loss, no SSM tensor
+parallelism).  ZeRO 3 gathers the whole model at the start of a step,
+where the reference gathers each layer as it runs it, so its peak per
+chip is higher.  ``ShardedModel.layouts`` holds what each parameter got.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.common.config import ModelConfig, TrainConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.registry import get_api
-from repro_torch.optim.adamw import (AdamWState, adamw_update,
+from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
                                      clip_by_global_norm)
 from repro_torch.optim.loss_scale import check_finite
 from repro_torch.optim.schedules import warmup_cosine
 
 
+ZERO_OPT_RULES = {"embed": ("pod", "data"), "layers": None}
+ZERO3_PARAM_RULES = {"embed": ("pod", "data")}
+
+
+# --------------------------------------------------------- sharding specs
+def _axis_size(entry, mesh) -> int:
+    if entry is None:
+        return 1
+    sizes = shd.mesh_shape(mesh)
+    n = 1
+    for a in (entry if isinstance(entry, tuple) else (entry,)):
+        n *= sizes[a]
+    return n
+
+
+def _shape(x):
+    return tuple(getattr(x, "shape", ()))
+
+
+def sanitize_specs(spec_tree, sds_tree, mesh):
+    """Drop sharding on dims the mesh cannot divide evenly (e.g. vocab
+    49155 or 20 heads fall back to replication on that dim).  Trees are
+    dicts keyed alike; a leaf of ``sds_tree`` is anything with ``shape``."""
+    if mesh is None:
+        return spec_tree
+    if isinstance(spec_tree, dict):
+        return {k: sanitize_specs(v, sds_tree[k], mesh)
+                for k, v in spec_tree.items()}
+    shape = _shape(sds_tree)
+    entries = list(spec_tree) + [None] * (len(shape) - len(spec_tree))
+    return tuple(e if dim % _axis_size(e, mesh) == 0 else None
+                 for dim, e in zip(shape, entries[:len(shape)]))
+
+
+def param_specs(axes_tree, mesh, zero3: bool = False, sds_tree=None):
+    rules = ZERO3_PARAM_RULES if zero3 else None
+    with shd.use_mesh(mesh, rules):
+        spec = shd.tree_spec(axes_tree, mesh)
+    if sds_tree is not None:
+        spec = sanitize_specs(spec, sds_tree, mesh)
+    return spec
+
+
+def opt_specs(axes_tree, mesh, zero_stage: int,
+              opt_sds: Optional[AdamWState] = None) -> AdamWState:
+    rules = ZERO_OPT_RULES if zero_stage >= 1 else None
+    with shd.use_mesh(mesh, rules):
+        p_spec = shd.tree_spec(axes_tree, mesh)
+    out = AdamWState((), p_spec, p_spec, p_spec)
+    if opt_sds is not None:
+        out = AdamWState(
+            (), sanitize_specs(out.m, opt_sds.m, mesh),
+            sanitize_specs(out.v, opt_sds.v, mesh),
+            sanitize_specs(out.master, opt_sds.master, mesh)
+            if opt_sds.master is not None else None)
+    return out
+
+
+def batch_specs_sharding(batch_tree, mesh):
+    """Partition specs of a batch: the leading dim over the batch dims."""
+    if mesh is None:
+        return None
+    axes = tuple(a for a in ("pod", "data") if a in shd.mesh_names(mesh))
+    return {k: (axes,) + (None,) * (len(_shape(x)) - 1)
+            for k, x in batch_tree.items()}
+
+
+def to_shardings(spec_tree, mesh):
+    """Partition specs -> ``NamedSharding``s (dicts / AdamWState trees)."""
+    if mesh is None or spec_tree is None:
+        return None
+    if isinstance(spec_tree, dict):
+        return {k: to_shardings(v, mesh) for k, v in spec_tree.items()}
+    if isinstance(spec_tree, AdamWState):
+        return AdamWState(*[to_shardings(v, mesh) for v in spec_tree])
+    return shd.NamedSharding(mesh, tuple(spec_tree))
+
+
+# ------------------------------------------------------------- state init
+def _model_class(cfg: ModelConfig):
+    from repro_torch.models import transformer, whisper
+    return whisper.Model if cfg.family == "encdec" else transformer.Model
+
+
+def abstract_model(cfg: ModelConfig, *, device="cpu", mode=None
+                   ) -> nn.Module:
+    """The model with fake-tensor weights: no allocation (dry run safe).
+    ``mode``: the ``FakeTensorMode`` to make them in (a new one by
+    default)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    mode = mode or FakeTensorMode()
+    with mode:
+        return _model_class(cfg)(cfg, generator=None,
+                                 device=torch.device(device))
+
+
+def abstract_params(cfg: ModelConfig, *, device="cpu", mode=None
+                    ) -> Dict[str, torch.Tensor]:
+    """Fake tensors for the parameters, keyed by name."""
+    return dict(abstract_model(cfg, device=device,
+                               mode=mode).named_parameters())
+
+
+def abstract_train_state(cfg: ModelConfig, *, device="cpu", mode=None):
+    """(params, AdamW state), fake tensors in one ``FakeTensorMode``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    mode = mode or FakeTensorMode()
+    params = abstract_params(cfg, device=device, mode=mode)
+    with mode:
+        opt = adamw_init(params)
+    return params, opt
+
+
+@functools.lru_cache(maxsize=64)
+def param_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Logical axes of every parameter, keyed by the port's name, from each
+    module's own ``AXES`` declaration (the model built on ``meta``)."""
+    model = _model_class(cfg)(cfg, generator=None,
+                              device=torch.device("meta"))
+    out = {}
+    for name, _ in model.named_parameters():
+        path, attr = name.rpartition(".")[::2]
+        out[name] = type(model.get_submodule(path)).AXES[attr]
+    return out
+
+
+# ------------------------------------------------------ sharded training
+# tensor dim each block parameter splits over the model dim (local compute)
+_TP_DIMS = {
+    "attn": {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0, "bv": 0},
+    "mlp": {"wi_gate": 1, "wi_up": 1, "wo": 0},
+    "moe": {"wi_gate": 0, "wi_up": 0, "wo": 0},
+}
+_KV_PARAMS = ("wk", "wv", "bk", "bv")
+
+
+def _block_of(name: str) -> Optional[str]:
+    parts = name.split(".")
+    if "attn" in parts or "xattn" in parts:
+        return "attn"
+    if "mlp" in parts:
+        return "mlp"
+    if "moe" in parts:
+        return "moe"
+    return None
+
+
+class ParamLayout(NamedTuple):
+    """Where one parameter lives on the mesh: the partition specs of the
+    stored parameter and of its optimizer state (global), the tensor dim
+    it splits over the model dim (local compute), the dims it and its
+    state split over the batch dims, and whether each model rank's
+    gradient is partial (a whole KV projection of which each rank uses its
+    own heads, ``TpPlan.kv``) and is summed over the model dim."""
+    param: tuple
+    opt: tuple
+    tp_dim: Optional[int]
+    dp_param: Optional[int]
+    dp_opt: Optional[int]
+    tp_sum: bool = False
+
+
+def _kv_split(cfg: ModelConfig, tp: int, rank: int):
+    """How the model dim splits the attention: None when it does not (the
+    query heads do not divide, or a rank's query heads straddle KV heads),
+    ``"shard"`` when the KV heads divide too, else (first KV head, 1): the
+    one KV head this rank's query heads share."""
+    H, Kh = cfg.num_heads, cfg.num_kv_heads
+    if not H or H % tp:
+        return None
+    if Kh % tp == 0:
+        return "shard"
+    local, group = H // tp, H // Kh
+    return (rank * local // group, 1) if group % local == 0 else None
+
+
+def _tp_blocks(cfg: ModelConfig, tp: int) -> frozenset:
+    blocks = set()
+    if _kv_split(cfg, tp, 0) is not None:
+        blocks.add("attn")
+    if cfg.d_ff and cfg.d_ff % tp == 0:
+        blocks.add("mlp")
+    if (cfg.family == "moe" and cfg.num_experts % tp == 0
+            and shd.partition_spec(("experts",))[:1] == ("model",)):
+        blocks.add("moe")
+    return frozenset(blocks)
+
+
+def _local_cfg(cfg: ModelConfig, blocks, tp: int, kv) -> ModelConfig:
+    kw = {}
+    if "attn" in blocks:
+        kw.update(num_heads=cfg.num_heads // tp,
+                  num_kv_heads=cfg.num_kv_heads // tp if kv is None
+                  else kv[1])
+    if "mlp" in blocks:
+        kw["d_ff"] = cfg.d_ff // tp
+    return cfg.replace(**kw) if kw else cfg
+
+
+def _layout(pspec: tuple, ndim: int, tp_dim, tp_axis, batch: tuple,
+            what: str) -> Tuple[tuple, Optional[int]]:
+    """A rule-derived spec with the model dim where local compute puts it,
+    and the dim it splits over the batch dims."""
+    entries = list(pspec) + [None] * (ndim - len(pspec))
+    out, dp = [], None
+    for d, e in enumerate(entries):
+        axes = () if e is None else (e if isinstance(e, tuple) else (e,))
+        if tp_axis is not None:
+            axes = tuple(a for a in axes if a != tp_axis)
+        if axes:
+            if tuple(axes) != batch:
+                raise NotImplementedError(
+                    f"{what}: dim {d} on {axes}; the sharded step splits "
+                    f"a dim over all the batch dims {batch} or none")
+            dp = d
+        if d == tp_dim:
+            axes = axes + (tp_axis,)
+        out.append(None if not axes else
+                   axes[0] if len(axes) == 1 else axes)
+    return tuple(out), dp
+
+
+def _on(pspec: tuple, axis: str) -> bool:
+    """Whether partition spec ``pspec`` splits a dim over mesh dim
+    ``axis``."""
+    return any(e == axis or (isinstance(e, tuple) and axis in e)
+               for e in pspec)
+
+
+def _split(t: torch.Tensor, dim: Optional[int], idx: int, n: int):
+    return t if dim is None or n == 1 else t.tensor_split(n, dim)[idx]
+
+
+def _gather(shard: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """All-gather ``shard`` over ``group`` along ``dim``."""
+    import torch.distributed as dist
+    if n == 1:
+        return shard
+    x = shard.movedim(dim, 0).contiguous()
+    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out.movedim(0, dim)
+
+
+def _set_param(module: nn.Module, name: str, t: torch.Tensor) -> None:
+    path, attr = name.rpartition(".")[::2]
+    setattr(module.get_submodule(path), attr, nn.Parameter(t))
+
+
+class ShardedModel:
+    """This rank's share of a model on a mesh (``shard_model``): the local
+    module (its weights this rank's slices along the model dim), the local
+    config the model code runs with, the TP plan and every parameter's
+    ``ParamLayout``.  Under ZeRO 3 the module's weights are released
+    between steps and ``shards`` holds each parameter's piece.  ``unsplit``
+    names the parameters the rules split over the model dim that this
+    layout holds whole (the module doc's departures)."""
+
+    def __init__(self, cfg: ModelConfig, module: nn.Module, local_cfg,
+                 mesh, rules, plan: shd.TpPlan, layouts, batch_dims):
+        self.cfg, self.module, self.local_cfg = cfg, module, local_cfg
+        self.mesh, self.rules, self.plan = mesh, rules, plan
+        self.layouts: Dict[str, ParamLayout] = layouts
+        self.dp_rank, self.dp = (shd.coordinate(mesh, batch_dims)
+                                 if batch_dims else (0, 1))
+        self.dp_group = shd.group_of(mesh, batch_dims)
+        self.world_group = shd.group_of(mesh, shd.mesh_names(mesh))
+        self.shards: Dict[str, torch.Tensor] = {}
+        self.unsplit: Tuple[str, ...] = ()
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.module.parameters()).device
+
+    @contextlib.contextmanager
+    def context(self):
+        """The mesh, its rules and the TP plan, for the model code."""
+        with shd.use_mesh(self.mesh, self.rules), shd.local_tp(self.plan):
+            yield
+
+    # ---------------------------------------------------- ZeRO 3 storage
+    def _release(self) -> None:
+        for n, p in self.module.named_parameters():
+            d = self.layouts[n].dp_param
+            if d is not None and self.dp > 1:
+                self.shards[n] = _split(p.detach(), d, self.dp_rank,
+                                        self.dp).clone()
+                p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+
+    def gather(self) -> None:
+        """All-gather every parameter sharded at rest into the module."""
+        for n, p in self.module.named_parameters():
+            if n in self.shards:
+                p.data = _gather(self.shards.pop(n), self.layouts[n].dp_param,
+                                 self.dp_group, self.dp)
+
+    # ------------------------------------------------------- DTensor views
+    def params(self) -> Dict[str, Any]:
+        """Every parameter as a DTensor in its global layout (``shards``
+        or the module's weights as the local pieces); for checkpoints."""
+        from torch.distributed.tensor import DTensor
+        out = {}
+        for n, p in self.module.named_parameters():
+            local = self.shards.get(n, p.detach())
+            out[n] = DTensor.from_local(
+                local, self.mesh,
+                shd.to_placements(self.layouts[n].param, self.mesh),
+                run_check=False)
+        return out
+
+
+def shard_model(cfg: ModelConfig, model: nn.Module, mesh,
+                opt_state: Optional[AdamWState] = None, *,
+                zero_stage: int = 2, rules: Optional[dict] = None
+                ) -> Tuple[ShardedModel, Optional[AdamWState]]:
+    """This rank's ``ShardedModel`` of the full ``model`` (every rank holds
+    the same weights) and, given ``opt_state`` (the full AdamW state), its
+    share of it with DTensor ``m`` / ``v`` / ``master``.  Pieces share
+    storage with the full tensors where they can (a one-rank mesh copies
+    nothing)."""
+    from torch.distributed.tensor import DTensor
+    with shd.use_mesh(mesh, rules):
+        merged = shd.current_rules()
+        batch = shd.resolve_axes("batch", mesh)
+        names = shd.mesh_names(mesh)
+        tp_axis = "model" if "model" in names and "model" not in batch \
+            else None
+        tp_rank, tp = (shd.coordinate(mesh, (tp_axis,)) if tp_axis
+                       else (0, 1))
+        blocks = _tp_blocks(cfg, tp) if tp_axis else frozenset()
+        kv = _kv_split(cfg, tp, tp_rank) if "attn" in blocks else None
+        kv = kv if isinstance(kv, tuple) else None
+        plan = shd.TpPlan(shd.group_of(mesh, (tp_axis,)) if tp_axis
+                          else None, tp, tp_rank, blocks, kv)
+        full = dict(model.named_parameters())
+        axes = param_axes(cfg)
+        zero3 = zero_stage >= 3
+        p_spec = param_specs(axes, mesh, zero3=zero3, sds_tree=full)
+        o_spec = opt_specs(axes, mesh, zero_stage,
+                           opt_sds=AdamWState((), full, full, full)).m
+    layouts = {}
+    for n, t in full.items():
+        blk = _block_of(n)
+        attr = n.rpartition(".")[2]
+        tp_sum = blk == "attn" and kv is not None and attr in _KV_PARAMS
+        tp_dim = (_TP_DIMS[blk].get(attr)
+                  if blk in blocks and not tp_sum else None)
+        ps, dp_p = _layout(p_spec[n], t.dim(), tp_dim, tp_axis, batch, n)
+        os_, dp_o = _layout(o_spec[n], t.dim(), tp_dim, tp_axis, batch, n)
+        if dp_p is not None and dp_p != dp_o:
+            raise NotImplementedError(f"{n}: parameter and state split "
+                                      f"different dims over the batch")
+        layouts[n] = ParamLayout(ps, os_, tp_dim, dp_p, dp_o, tp_sum)
+    lcfg = _local_cfg(cfg, blocks, tp, kv)
+    module = _model_class(lcfg)(lcfg, generator=None,
+                                device=torch.device("meta"))
+    for n, t in full.items():
+        _set_param(module, n, _split(t.detach(), layouts[n].tp_dim,
+                                     tp_rank, tp).contiguous())
+    sm = ShardedModel(cfg, module, lcfg, mesh, merged, plan, layouts, batch)
+    if tp_axis is not None:
+        sm.unsplit = tuple(n for n in full
+                           if _on(p_spec[n], tp_axis)
+                           and not _on(layouts[n].param, tp_axis))
+    sm._release()
+    if opt_state is None:
+        return sm, None
+
+    def local(n, t):
+        lay = layouts[n]
+        piece = _split(_split(t, lay.tp_dim, tp_rank, tp), lay.dp_opt,
+                       sm.dp_rank, sm.dp).contiguous()
+        return DTensor.from_local(piece, mesh,
+                                  shd.to_placements(lay.opt, mesh),
+                                  run_check=False)
+
+    def tree(d):
+        return None if d is None else {n: local(n, t) for n, t in d.items()}
+
+    return sm, AdamWState(opt_state.step, tree(opt_state.m),
+                          tree(opt_state.v), tree(opt_state.master))
+
+
+def shard_batch(batch: Dict[str, torch.Tensor], mesh, rules=None
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global batch: the leading dim split over the
+    batch dims (``batch_specs_sharding``)."""
+    with shd.use_mesh(mesh, rules):
+        dims = shd.resolve_axes("batch", mesh)
+    if not dims:
+        return dict(batch)
+    i, n = shd.coordinate(mesh, dims)
+    B = next(iter(batch.values())).shape[0]
+    if B % n:
+        raise ValueError(f"a batch of {B} does not split over {n} ranks "
+                         f"of {dims}")
+    return {k: v.tensor_split(n, 0)[i] for k, v in batch.items()}
+
+
+def _local(t):
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _sharded_train_step(sm: ShardedModel, opt_state: AdamWState, batch,
+                        loss_scale, tcfg: TrainConfig, policy):
+    """One fused iteration on this rank's share (module doc)."""
+    import torch.distributed as dist
+    sm.gather()
+    with sm.context():
+        loss, params, _m = _backward(make_loss_fn(sm.local_cfg), sm.module,
+                                     batch, loss_scale, policy)
+    if sm.dp > 1:
+        loss = shd.mean(loss, sm.dp_group)
+    grads, views = {}, {}
+    for n, p in params.items():
+        lay = sm.layouts[n]
+        g = p.grad
+        p.grad = None
+        if lay.tp_sum and sm.plan.size > 1:
+            g = shd.all_sum(g, sm.plan.group)
+        if sm.dp > 1:
+            if lay.dp_opt is not None:
+                x = g.movedim(lay.dp_opt, 0).contiguous()
+                out = torch.empty((x.shape[0] // sm.dp,) + tuple(x.shape[1:]),
+                                  dtype=x.dtype, device=x.device)
+                dist.reduce_scatter_tensor(out, x, group=sm.dp_group)
+                g = out.movedim(0, lay.dp_opt)
+            else:
+                g = shd.all_sum(g, sm.dp_group)
+            g = g / sm.dp
+        grads[n] = g / torch.tensor(loss_scale, dtype=torch.float32
+                                    ).to(device=g.device, dtype=g.dtype)
+        views[n] = _split(p.detach(), lay.dp_opt, sm.dp_rank, sm.dp)
+    # the global norm: each piece counted once over the mesh
+    total = None
+    for n, g in grads.items():
+        lay = sm.layouts[n]
+        if ((lay.tp_dim is None and sm.plan.rank != 0)
+                or (lay.dp_opt is None and sm.dp_rank != 0)):
+            continue
+        s = torch.sum(torch.square(g.to(torch.float32)))
+        total = s if total is None else total + s
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32, device=sm.device)
+    if sm.mesh.size() > 1:
+        total = shd.all_sum(total, sm.world_group)
+    gnorm = torch.sqrt(total)
+    scale = torch.clamp(tcfg.grad_clip / torch.clamp(gnorm, min=1e-12),
+                        max=1.0)
+    for g in grads.values():
+        g.mul_(scale.to(g.dtype))
+    lr = warmup_cosine(opt_state.step, tcfg.learning_rate,
+                       tcfg.warmup_steps, tcfg.steps)
+
+    def loc(d):
+        return None if d is None else {n: _local(t) for n, t in d.items()}
+
+    local_state = AdamWState(opt_state.step, loc(opt_state.m),
+                             loc(opt_state.v), loc(opt_state.master))
+    new = adamw_update(views, grads, local_state, tcfg, lr)
+    for n, p in params.items():
+        lay = sm.layouts[n]
+        if lay.dp_opt is not None and lay.dp_param is None and sm.dp > 1:
+            with torch.no_grad():
+                p.copy_(_gather(views[n], lay.dp_opt, sm.dp_group, sm.dp))
+    sm._release()
+    opt_state = AdamWState(new.step, opt_state.m, opt_state.v,
+                           opt_state.master)
+    return sm, opt_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+
+
+def _check_grad_shardings(sm: ShardedModel, grad_shardings) -> None:
+    """``grad_shardings`` must give every parameter the layout of its
+    optimizer state on ``sm``'s mesh."""
+    if set(grad_shardings) != set(sm.layouts):
+        raise ValueError("grad_shardings names other parameters than the "
+                         "model's: " + ", ".join(sorted(
+                             set(grad_shardings) ^ set(sm.layouts))[:4]))
+    for n, lay in sm.layouts.items():
+        sh = grad_shardings[n]
+        if sh.mesh is not sm.mesh or tuple(sh.spec) != tuple(lay.opt):
+            raise ValueError(f"grad_shardings[{n!r}] is {tuple(sh.spec)}; "
+                             f"the optimizer state of {n} is laid out as "
+                             f"{tuple(lay.opt)} on the step's mesh")
+
+
+# ----------------------------------------------------------------- steps
 def make_loss_fn(cfg: ModelConfig):
     """(model, batch, loss_scale) -> (loss * loss_scale, (loss, metrics))."""
     api = get_api(cfg)
@@ -113,14 +641,26 @@ def make_apply_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     return apply_step
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
-                    policy=None) -> Callable:
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, policy=None,
+                    grad_shardings=None) -> Callable:
     """The fused iteration: (model, opt_state, batch, loss_scale) ->
-    (model, opt_state, {"loss", "grad_norm", "lr"})."""
+    (model, opt_state, {"loss", "grad_norm", "lr"}).  ``model`` may be a
+    ``ShardedModel`` (with ``shard_model``'s state and this rank's
+    ``shard_batch``); its gradients are reduce-scattered to the optimizer
+    state's layout.  ``grad_shardings``, the reference's pin of the
+    gradients to that layout, must then name it: a sharding per parameter
+    whose spec is its ``ParamLayout.opt`` (else ValueError)."""
     loss_fn = make_loss_fn(cfg)
 
     def train_step(model: nn.Module, opt_state: AdamWState, batch,
                    loss_scale):
+        if isinstance(model, ShardedModel):
+            if grad_shardings is not None:
+                _check_grad_shardings(model, grad_shardings)
+            return _sharded_train_step(model, opt_state, batch, loss_scale,
+                                       tcfg, policy)
+        if grad_shardings is not None:
+            raise TypeError("grad_shardings needs a ShardedModel")
         loss, params, _m = _backward(loss_fn, model, batch, loss_scale,
                                      policy)
         grads = {}
@@ -150,3 +690,36 @@ def make_eval_step(cfg: ModelConfig, policy=None) -> Callable:
         return loss
 
     return eval_step
+
+
+def make_prefill_step(cfg: ModelConfig, policy=None) -> Callable:
+    """(model, batch) -> logits of ``batch["tokens"]`` (and ``memory``)."""
+    api = get_api(cfg)
+
+    @torch.no_grad()
+    def prefill_step(model, batch):
+        c, m = cfg, model
+        ctx = contextlib.nullcontext()
+        if isinstance(model, ShardedModel):
+            c, m, ctx = model.local_cfg, model.module, model.context()
+        with ctx, _run(policy):
+            logits, _ = api.forward(c, m, batch["tokens"],
+                                    memory=batch.get("memory"))
+        return logits
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig) -> Callable:
+    """(model, tokens (B,1), state) -> (logits, new state)."""
+    api = get_api(cfg)
+
+    @torch.no_grad()
+    def decode_step(model, tokens, state):
+        if isinstance(model, ShardedModel):
+            with model.context():
+                return api.decode_step(model.local_cfg, model.module,
+                                       tokens, state)
+        return api.decode_step(cfg, model, tokens, state)
+
+    return decode_step

@@ -25,10 +25,12 @@ CPU alike.  Training: when grad is enabled and an input requires grad,
 calls the forward op with its ``lse`` output and saves q, k, v, o and lse,
 and whose backward calls the backward op (the port of the reference's
 ``_flash_bwd`` rule, with the forward's own masks: see
-``flash_attention_bwd_plain``).  The ops themselves register no autograd
-and no fake kernel: ``flash_attention`` is the differentiable entry, and
-a tensor on neither the CPU nor a CUDA device (``meta``) reaches the
-kernel path and raises.  Under
+``flash_attention_bwd_plain``).  The ops register no autograd:
+``flash_attention`` is the differentiable entry.  Their fake kernels are
+shape rules that only fake tensors take (the dry run, ``launch.dryrun``,
+traces the card's path on them): a real tensor on neither the CPU nor a
+CUDA device (``meta``) still raises.  ``flash_decode`` takes fake tensors
+the same way (an unwritten output), before its checks.  Under
 ``torch.no_grad`` it stays the served forward-only call.
 ``flash_decode`` is forward only.
 
@@ -54,6 +56,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels.autotune.table import tuned_config
 from repro_torch.kernels.flash_attention import kernel as K
@@ -254,6 +257,28 @@ def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def _check_fake(name: str, *ts) -> None:
+    """The fake kernels are shape rules for fake tensors (the dry run); a
+    real ``meta`` tensor still has no kernel and raises."""
+    if not all(t is None or isinstance(t, FakeTensor) for t in ts):
+        raise RuntimeError(f"{name} runs on one CUDA device or on the CPU; "
+                           f"got {[str(t.device) for t in ts if t is not None]}")
+
+
+@_fwd_op.register_fake
+def _fwd_fake(q, k, v, kv_lens, causal, sm_scale, with_lse):
+    _check_fake("flash_attention", q, k, v, kv_lens)
+    B, Sq, H, _ = q.shape
+    lse = q.new_empty((B, H, Sq) if with_lse else (0,), dtype=torch.float32)
+    return torch.empty_like(q), lse
+
+
+@_bwd_op.register_fake
+def _bwd_fake(q, k, v, o, lse, do, kv_lens, causal, sm_scale):
+    _check_fake("flash_attention_bwd", q, k, v, o, lse, do, kv_lens)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         *, causal: bool, sm_scale: Optional[float] = None,
@@ -345,6 +370,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sm_scale = 1.0 / math.sqrt(D)
     if all(t.device.type == "cpu" for t in (q, k, v, lens)):
         return flash_decode_plain(q, k, v, lens, sm_scale=sm_scale)
+    if isinstance(q, FakeTensor):   # the shape rule the dry run traces
+        return torch.empty_like(q)
     if (q.device.type != "cuda"
             or any(t.device != q.device for t in (k, v, lens))):
         raise RuntimeError(f"flash_decode runs on one CUDA device or on the "

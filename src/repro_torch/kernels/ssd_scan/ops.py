@@ -40,6 +40,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.core.sites import tag
 from repro_torch.kernels.autotune.table import tuned_config
@@ -334,6 +335,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ts = (x, dt, A, Bm, Cm)
     if all(t.device.type == "cpu" for t in ts):
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    if isinstance(x, FakeTensor):
+        return _FakeScan.apply(x, dt, A, Bm, Cm)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         out = _SSDScanFn.apply(x, dt.to(torch.float32), A.to(torch.float32),
                                Bm, Cm, chunk)
@@ -346,3 +349,23 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 ssd_scan.launches = 0
 ssd_scan.tuned_launches = 0
+
+
+class _FakeScan(torch.autograd.Function):
+    """The scan's shape rule, which only fake tensors take (the dry run
+    traces the card's path on them; the kernel reads raw pointers): y and
+    the final state, and in the backward the inputs' gradients, all
+    unwritten."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm):
+        ctx.metas = [(t.shape, t.dtype) for t in (x, dt, A, Bm, Cm)]
+        B, S, H, P = x.shape
+        N = Bm.shape[-1]
+        return (torch.empty_like(x),
+                x.new_empty((B, H, P, N), dtype=torch.float32))
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        return tuple(dy.new_empty(shape, dtype=dtype)
+                     for shape, dtype in ctx.metas)

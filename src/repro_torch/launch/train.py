@@ -1,9 +1,9 @@
-"""Training entry point, one device.
+"""Training entry point.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama2-paper \
         --reduced --device cpu --steps 18 --budget-gib 0.01
 
-Port of the single-device subset of ``repro/launch/train.py``.  Chameleon
+Port of ``repro/launch/train.py``.  Chameleon
 runs unless ``--no-chameleon``: ``--budget-gib`` is its HBM budget, and
 ``--stats-json`` dumps the runtime's ``stats()``, a metrics snapshot and
 the audit tail on exit.  ``--policy-store-dir D`` persists adaptation
@@ -16,8 +16,13 @@ what ``python -m repro_torch.obs.validate`` and ``python -m
 repro_torch.obs.report`` read.  ``--autotune`` tunes the host tier's
 kernels against the roofline at startup (``repro_torch.kernels.autotune``),
 keeping the cache in ``--autotune-cache-dir``, by default
-``<policy-store-dir>/autotune``.  Flags of a later slice raise, naming it:
-``--mesh`` / ``--multihost`` (item 11).  Besides the reference's flags it takes
+``<policy-store-dir>/autotune``.  ``--multihost`` joins the process group
+torchrun's environment describes (``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``; NCCL on the card, gloo on the CPU), and
+each host then draws its own slice of the global batch; ``--mesh
+single|multi`` builds the production mesh (256 or 512 ranks), which the
+trainer keeps and trains unsharded, as the reference's does.  Besides the
+reference's flags it takes
 ``--device`` (``cuda`` unless asked) and ``--attn-impl`` (``flash`` trains
 every attention through the flash-attention forward and backward
 kernels), as ``launch/serve.py`` does.  Weights are random, drawn on the
@@ -38,12 +43,6 @@ import argparse
 import os
 import tempfile
 from typing import List, Optional
-
-# flag -> (the value that means "not used", the ROADMAP.md slice it needs)
-_LATER = {
-    "mesh": ("none", "queue 1 item 11 (distributed)"),
-    "multihost": (False, "queue 1 item 11 (distributed)"),
-}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -111,11 +110,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> dict:
     args = _parser().parse_args(argv)
-    for flag, (unused, where) in _LATER.items():
-        if getattr(args, flag) != unused:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet: it comes "
-                f"with ROADMAP.md {where}")
 
     import repro_torch.configs as C
     from repro_torch import obs
@@ -127,6 +121,20 @@ def main(argv: Optional[List[str]] = None) -> dict:
     from repro_torch.runtime.trainer import Trainer
 
     device = resolve_device(args.device)
+    host_index, host_count = 0, 1
+    if args.multihost:
+        import torch.distributed as dist
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+        host_index, host_count = dist.get_rank(), dist.get_world_size()
+    mesh = None
+    if args.mesh != "none":
+        from repro_torch.launch.mesh import make_production_mesh
+        try:
+            mesh = make_production_mesh(multi_pod=(args.mesh == "multi"),
+                                        device=device)
+        except BaseException:
+            _leave(args)
+            raise
     cfg = C.get_reduced(args.arch) if args.reduced else C.get_config(args.arch)
     if args.attn_impl:
         cfg = cfg.replace(attn_impl=args.attn_impl)
@@ -147,14 +155,15 @@ def main(argv: Optional[List[str]] = None) -> dict:
                            adapt=AdaptConfig(mode=args.adapt_mode),
                            autotune=AutotuneConfig(
                                enabled=args.autotune, cache_dir=at_dir))
-    data = SyntheticTokens(cfg.vocab_size, seq, gb).start()
+    data = SyntheticTokens(cfg.vocab_size, seq, gb, host_index=host_index,
+                           host_count=host_count).start()
     if args.audit_out:
         # stream every audit event, not just the in-memory tail: the
         # evidence trail survives a crash
         obs.audit().attach_file(args.audit_out)
     tr = None
     try:
-        tr = Trainer(cfg, tcfg, cham, data=data,
+        tr = Trainer(cfg, tcfg, cham, mesh=mesh, data=data,
                      metrics_out=args.metrics_out or None,
                      metrics_every=args.metrics_every, device=device)
         if args.resume:
@@ -167,6 +176,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
               f"skipped={rep.skipped_steps}; "
               f"checkpoints={len(rep.checkpoints)}", flush=True)
         out = {"arch": cfg.name, "device": str(device),
+               "host": [host_index, host_count],
                "attn_impl": cfg.attn_impl, "steps": tr.step,
                "losses": rep.losses, "xent": rep.xent, "aux": rep.aux,
                "eval_losses": rep.eval_losses,
@@ -186,6 +196,15 @@ def main(argv: Optional[List[str]] = None) -> dict:
         if tr is not None and tr.rt is not None:
             tr.rt.close()
         _export_obs(args, tr.rt if tr is not None else None)
+        _leave(args)
+
+
+def _leave(args) -> None:
+    """Leave the process group ``--multihost`` joined."""
+    if args.multihost:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _print_chameleon(tr, rep) -> None:

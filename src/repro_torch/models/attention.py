@@ -34,6 +34,7 @@ from torch import nn
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.core.sites import tag
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.layers import (_const, apply_rope, dense_init,
                                        rope_frequencies, torch_dtype)
 
@@ -41,6 +42,10 @@ NEG_INF = -1e30
 
 
 class Attention(nn.Module):
+    AXES = {"wq": ("embed", "q_dim"), "wk": ("embed", "kv_dim"),
+            "wv": ("embed", "kv_dim"), "wo": ("q_dim", "embed"),
+            "bq": ("q_dim",), "bk": ("kv_dim",), "bv": ("kv_dim",)}
+
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator], device: torch.device):
         super().__init__()
@@ -56,7 +61,7 @@ class Attention(nn.Module):
 
 
 def _project_q(cfg: ModelConfig, p: Attention, x):
-    q = x @ p.wq
+    q = shd.tp_enter(x, "attn") @ p.wq
     if cfg.qkv_bias:
         q = q + p.bq.to(q.dtype)
     B, S = q.shape[:2]
@@ -64,11 +69,13 @@ def _project_q(cfg: ModelConfig, p: Attention, x):
 
 
 def _project_kv(cfg: ModelConfig, p: Attention, x):
-    k = x @ p.wk
-    v = x @ p.wv
+    x = shd.tp_enter(x, "attn")
+    D = cfg.head_dim
+    k = x @ shd.kv_slice(p.wk, D)
+    v = x @ shd.kv_slice(p.wv, D)
     if cfg.qkv_bias:
-        k = k + p.bk.to(k.dtype)
-        v = v + p.bv.to(v.dtype)
+        k = k + shd.kv_slice(p.bk, D).to(k.dtype)
+        v = v + shd.kv_slice(p.bv, D).to(v.dtype)
     B, S = k.shape[:2]
     k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
@@ -185,6 +192,7 @@ def self_attention(cfg: ModelConfig, p: Attention, x, positions, *,
         cos, sin = rope_frequencies(cfg, positions)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    q = shd.constrain(q, ("batch", "seq", "act_heads", None))
     q = tag(q, "qkv_proj")
     k = tag(k, "qkv_proj")
     v = tag(v, "qkv_proj")
@@ -196,7 +204,8 @@ def self_attention(cfg: ModelConfig, p: Attention, x, positions, *,
 
 def _out_proj(cfg: ModelConfig, p: Attention, ctx):
     B, S = ctx.shape[:2]
-    out = ctx.reshape(B, S, cfg.q_dim) @ p.wo
+    out = shd.tp_exit(ctx.reshape(B, S, cfg.q_dim) @ p.wo, "attn")
+    out = shd.constrain(out, ("batch", "seq", "act_embed"))
     return tag(out, "attn_out")
 
 
@@ -252,6 +261,8 @@ def decode_self_attention(cfg: ModelConfig, p: Attention, x, layer_cache,
     ``[b, positions[b]]`` gives identical values, and a position at or
     past ``Smax`` leaves the row unchanged, as the all-zero one-hot does."""
     ck, cv = layer_cache
+    ck = shd.constrain(ck, ("batch", "kv_seq", "act_kv_heads", None))
+    cv = shd.constrain(cv, ("batch", "kv_seq", "act_kv_heads", None))
     q = _project_q(cfg, p, x)
     k_new, v_new = _project_kv(cfg, p, x)
     if cfg.pos_embedding == "rope":

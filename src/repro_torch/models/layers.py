@@ -5,6 +5,9 @@ whose attribute names are the reference's dict keys (``scale``, ``wi_up``,
 ``tok`` ...), and weights keep the reference's ``(in, out)`` layout, so
 ``x @ w`` here is the reference's ``einsum("bsd,df->bsf", x, w)`` and
 ``models.convert`` copies a reference pytree leaf for leaf.  Each module
+declares its parameters' logical axes in ``AXES`` (what the reference's
+init returns beside the pytree; ``distributed.steps.param_axes``), and
+the activations carry the reference's ``sharding.constrain`` marks.  Each module
 draws its weights from the ``torch.Generator`` it is given, on the target
 device; with no generator it allocates them uninitialised, to be filled by
 ``models.convert.params_from_reference``.  The MLP is gated, with SiLU or
@@ -24,6 +27,7 @@ from torch import nn
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.core.sites import tag
+from repro_torch.distributed import sharding as shd
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -64,6 +68,8 @@ def _const(shape, value: float, cfg: ModelConfig,
 
 # ----------------------------------------------------------------- norms
 class Norm(nn.Module):
+    AXES = {"scale": ("embed",), "bias": ("embed",)}
+
     def __init__(self, cfg: ModelConfig, *, device: torch.device):
         super().__init__()
         self.scale = _const((cfg.d_model,), 1.0, cfg, device)
@@ -108,6 +114,9 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 # ------------------------------------------------------------------- MLP
 class Mlp(nn.Module):
+    AXES = {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"),
+            "wo": ("mlp", "embed")}
+
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator], device: torch.device):
         super().__init__()
@@ -139,18 +148,25 @@ def apply_mlp(cfg: ModelConfig, p: Mlp, x: torch.Tensor) -> torch.Tensor:
     x (B, S, d) -> (B, S, d).  ``ffn_act`` carries its recompute recipe: an
     applied policy that remats it rebuilds it from ``gate`` and ``up`` (or
     ``up`` alone) in the backward (``core.executor``)."""
+    x = shd.tp_enter(x, "mlp")
     up = tag(x @ p.wi_up, "ffn_pre")
     if cfg.glu:
         gate = tag(x @ p.wi_gate, "ffn_pre")
         fn, args = (_glu if cfg.act == "silu" else _gelu_glu), (gate, up)
     else:
         fn, args = (F.silu if cfg.act == "silu" else _gelu), (up,)
-    h = tag(fn(*args), "ffn_act", recompute=(fn, args))
-    return tag(h @ p.wo, "ffn_out")
+    h = shd.constrain(fn(*args), ("batch", "seq", "act_mlp"))
+    h = tag(h, "ffn_act", recompute=(fn, args))
+    out = shd.tp_exit(h @ p.wo, "mlp")
+    out = shd.constrain(out, ("batch", "seq", "act_embed"))
+    return tag(out, "ffn_out")
 
 
 # ------------------------------------------------------------- embedding
 class Embedding(nn.Module):
+    AXES = {"tok": ("vocab", "embed"), "unembed": ("embed", "vocab"),
+            "pos": ("pos", "embed")}
+
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator], device: torch.device):
         super().__init__()
@@ -173,12 +189,14 @@ def embed_tokens(cfg: ModelConfig, p: Embedding, tokens: torch.Tensor,
         if positions is None:
             raise ValueError("learned position embeddings need positions")
         x = x + p.pos[positions].to(x.dtype)
+    x = shd.constrain(x, ("batch", "seq", "act_embed"))
     return tag(x, "embed_out")
 
 
 def unembed(cfg: ModelConfig, p: Embedding, x: torch.Tensor) -> torch.Tensor:
     w = p.tok.T if cfg.tie_embeddings else p.unembed
     logits = x @ w.to(x.dtype)
+    logits = shd.constrain(logits, ("batch", "seq", "act_vocab"))
     if cfg.logits_softcap:
         logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
     return logits

@@ -12,9 +12,11 @@ map), where autograd's own backward of ``x[idx]`` is a scatter-add that
 serialises repeated indices (every empty slot reads token 0) and ran ~0.3
 s a layer at granite-moe's width.  The expert products ``ecd,edf->ecf``
 are plain batched matrix products (``torch.bmm``), as the reference leaves
-them to XLA outside any Pallas kernel.  ``apply_moe_auto`` takes
-``apply_moe`` on one device; the expert-parallel ``apply_moe_ep`` needs a
-mesh and comes with ROADMAP.md queue 1 item 11.
+them to XLA outside any Pallas kernel.  ``apply_moe_auto`` takes the
+expert-parallel ``apply_moe_ep`` where the active mesh's rules put experts
+on its model dim (explicit local compute on the mesh's groups, the
+reference's ``shard_map``), else ``apply_moe``; on a one-rank model dim
+the two run the same ops.
 """
 from __future__ import annotations
 
@@ -27,12 +29,17 @@ from torch import nn
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.core.sites import tag
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.layers import _act, _normal, dense_init
 
 
 class Moe(nn.Module):
     """Router (d, E) and the experts' stacked SiLU/GELU-GLU weights:
     ``wi_gate``/``wi_up`` (E, d, f), ``wo`` (E, f, d)."""
+    AXES = {"router": ("embed", "experts"),
+            "wi_gate": ("experts", "embed", "expert_mlp"),
+            "wi_up": ("experts", "embed", "expert_mlp"),
+            "wo": ("experts", "expert_mlp", "embed")}
 
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator], device: torch.device):
@@ -79,21 +86,22 @@ def route(probs: torch.Tensor, k: int
 
 def apply_moe_auto(cfg: ModelConfig, p: Moe, x: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One device: the gather implementation."""
+    """Expert parallelism when the active rules put experts on the model
+    dim of the mesh, else the gather implementation (one device, or
+    dp_only rules, where experts are data-local)."""
+    mesh = shd.current_mesh()
+    if mesh is not None and "model" in shd.mesh_names(mesh):
+        tp = shd.mesh_shape(mesh)["model"]
+        if (cfg.num_experts % tp == 0
+                and shd.partition_spec(("experts",))[:1] == ("model",)):
+            return apply_moe_ep(cfg, p, x)
     return apply_moe(cfg, p, x)
 
 
-def apply_moe(cfg: ModelConfig, p: Moe, x: torch.Tensor
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B,S,d) -> (out (B,S,d), the Switch-style load-balance loss, an f32
-    scalar)."""
-    B, S, d = x.shape
+def _route(cfg: ModelConfig, p: Moe, xf: torch.Tensor):
+    """Router, top-k and the load-balance loss over the tokens ``xf``
+    (T,d): (gate values (T,K), expert ids (T,K), aux)."""
     E, K = cfg.num_experts, cfg.experts_per_token
-    T = B * S
-    C = capacity(cfg, T)
-    dev = x.device
-    xf = x.reshape(T, d)
-
     logits = tag((xf @ p.router).float(), "router_logits")
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = route(probs, K)                     # (T,K)
@@ -102,16 +110,40 @@ def apply_moe(cfg: ModelConfig, p: Moe, x: torch.Tensor
     me = probs.mean(0)                                          # (E,)
     ce = F.one_hot(expert_idx, E).float().sum(1).mean(0)
     aux = cfg.router_aux_coef * E * torch.sum(me * ce)
+    return gate_vals, expert_idx, aux
+
+
+def _experts(cfg: ModelConfig, wi_gate, wi_up, wo, xf, gate_vals,
+             expert_idx, C: int, e_lo: int = 0) -> torch.Tensor:
+    """Dispatch the tokens ``xf`` (T,d) to the experts ``e_lo ..
+    e_lo + E_loc - 1`` whose weights are given (E_loc leads each), run
+    them and combine: (T,d), the sum over each token's choices of its gate
+    value times its expert's row, 0 where the choice is dropped or, under
+    expert parallelism, lives on another rank."""
+    T, d = xf.shape
+    K = cfg.experts_per_token
+    E = wi_gate.shape[0]                                        # local experts
+    dev = xf.device
+    local = E != cfg.num_experts or e_lo != 0
 
     # ---- sort-based dispatch
     N = T * K
     e_flat = expert_idx.reshape(N)
+    if local:                       # another rank's expert: id E, dropped
+        e_flat = e_flat - e_lo
+        e_flat = torch.where((e_flat >= 0) & (e_flat < E), e_flat,
+                             torch.full_like(e_flat, E))
     sort_idx = torch.argsort(e_flat, stable=True)               # (N,)
     sorted_e = e_flat[sort_idx]
     first = torch.searchsorted(sorted_e, torch.arange(E, device=dev),
                                side="left")
-    pos = torch.arange(N, device=dev) - first[sorted_e]
-    slot = torch.where(pos < C, sorted_e * C + pos,
+    if local:
+        pos = torch.arange(N, device=dev) - first[sorted_e.clamp(max=E - 1)]
+        keep = (sorted_e < E) & (pos < C)
+    else:
+        pos = torch.arange(N, device=dev) - first[sorted_e]
+        keep = pos < C
+    slot = torch.where(keep, sorted_e * C + pos,
                        torch.full_like(pos, E * C))             # E*C: dropped
     # each slot's assignment (token t, choice k) as t * K + k + 1, 0 = empty
     slot_a = torch.zeros(E * C + 1, dtype=torch.int64, device=dev)
@@ -125,18 +157,80 @@ def apply_moe(cfg: ModelConfig, p: Moe, x: torch.Tensor
     a_slot = a_slot.clamp(max=E * C - 1)
     expert_in = _RowGather.apply(xf, slot_a // K, filled,
                                  a_slot.reshape(T, K), a_keep.reshape(T, K))
-    expert_in = tag(expert_in.reshape(E, C, d), "moe_dispatch")
+    expert_in = shd.constrain(expert_in.reshape(E, C, d),
+                              ("experts", None, "act_embed"))
+    expert_in = tag(expert_in, "moe_dispatch")
 
     # ---- expert computation
-    gate = torch.bmm(expert_in, p.wi_gate)
-    up = torch.bmm(expert_in, p.wi_up)
-    h = tag(_act(cfg, gate) * up, "moe_act")
-    expert_out = torch.bmm(h, p.wo)
+    gate = torch.bmm(expert_in, wi_gate)
+    up = torch.bmm(expert_in, wi_up)
+    h = shd.constrain(_act(cfg, gate) * up, ("experts", None, "expert_mlp"))
+    h = tag(h, "moe_act")
+    expert_out = torch.bmm(h, wo)
+    expert_out = shd.constrain(expert_out, ("experts", None, "act_embed"))
 
     # ---- combine: each assignment's expert row (0 where dropped)
     y = _RowGather.apply(expert_out.reshape(E * C, d), a_slot, a_keep,
                          slot_a[:, None], filled[:, None])
     y = y.reshape(T, K, d)
-    out = torch.sum(y * gate_vals[..., None].to(y.dtype), dim=1)
+    return torch.sum(y * gate_vals[..., None].to(y.dtype), dim=1)
+
+
+def apply_moe(cfg: ModelConfig, p: Moe, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,S,d) -> (out (B,S,d), the Switch-style load-balance loss, an f32
+    scalar)."""
+    B, S, d = x.shape
+    T = B * S
+    xf = x.reshape(T, d)
+    gate_vals, expert_idx, aux = _route(cfg, p, xf)
+    out = _experts(cfg, p.wi_gate, p.wi_up, p.wo, xf, gate_vals, expert_idx,
+                   capacity(cfg, T))
     out = tag(out.reshape(B, S, d), "moe_out")
+    out = shd.constrain(out, ("batch", "seq", "act_embed"))
+    return out, aux.float()
+
+
+def apply_moe_ep(cfg: ModelConfig, p: Moe, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert parallelism on the active mesh: x (B_loc,S,d) is this rank's
+    share of the batch over the batch dims.  Routing and dispatch stay
+    local to the rank's tokens (capacity over the local tokens); each
+    ``model`` rank runs its E/tp experts (``p``'s expert weights hold
+    either those E/tp or all E, of which it takes its slice); one sum of
+    the combine over the model group; ``aux`` the mean over the batch
+    dims.  Gradients: the router and ``aux`` are replicated over the model
+    group, so the tokens and the gate values enter the local experts
+    through ``sharding.enter`` (their partial gradients summed), and
+    ``aux``'s mean carries the local loss's gradient, as a data-parallel
+    step averages its ranks' gradients."""
+    mesh = shd.current_mesh()
+    if mesh is None or "model" not in shd.mesh_names(mesh):
+        raise ValueError("apply_moe_ep needs a mesh with a model dim")
+    E = cfg.num_experts
+    r, tp = shd.coordinate(mesh, ("model",))
+    if E % tp:
+        raise ValueError(f"{E} experts do not split over {tp} model ranks")
+    E_loc = E // tp
+    e_lo = r * E_loc
+    wg, wu, wo = p.wi_gate, p.wi_up, p.wo
+    if wg.shape[0] == E and tp > 1:
+        wg, wu, wo = (w[e_lo:e_lo + E_loc] for w in (wg, wu, wo))
+    if wg.shape[0] != E_loc:
+        raise ValueError(f"expert weights lead with {wg.shape[0]}, not "
+                         f"{E_loc} (local) or {E}")
+    B, S, d = x.shape
+    T = B * S
+    xf = x.reshape(T, d)
+    gate_vals, expert_idx, aux = _route(cfg, p, xf)
+    group = shd.group_of(mesh, ("model",)) if tp > 1 else None
+    out = _experts(cfg, wg, wu, wo, shd.enter(xf, group),
+                   shd.enter(gate_vals, group), expert_idx,
+                   capacity(cfg, T), e_lo)
+    out = shd.exit(out, group)               # the combine over the experts
+    out = tag(out.reshape(B, S, d), "moe_out")
+    batch = shd.resolve_axes("batch", mesh)
+    if batch and shd.coordinate(mesh, batch)[1] > 1:
+        aux = aux + (shd.mean(aux.detach(), shd.group_of(mesh, batch))
+                     - aux.detach())
     return out, aux.float()

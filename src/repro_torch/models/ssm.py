@@ -19,6 +19,7 @@ from torch import nn
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.core.sites import tag
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.layers import _const, _normal, dense_init, torch_dtype
 
@@ -27,6 +28,11 @@ class Ssm(nn.Module):
     """Parameters of one Mamba-2 block, named as the reference's dict keys.
     The fused in-projection is [z (di), x (di), B (ds), C (ds), dt (nh)];
     ``A_log``, ``dt_bias`` and ``D`` stay f32 whatever the parameter dtype."""
+    AXES = {"in_proj": ("embed", "ssm_inner"),
+            "conv_w": ("conv", "ssm_inner"), "conv_b": ("ssm_inner",),
+            "A_log": ("ssm_heads",), "dt_bias": ("ssm_heads",),
+            "D": ("ssm_heads",), "norm_scale": ("ssm_inner",),
+            "out_proj": ("ssm_inner", "embed")}
 
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator], device: torch.device):
@@ -98,10 +104,12 @@ def apply_ssm(cfg: ModelConfig, p: Ssm, x, *, return_state: bool = False):
     Cm = xbc[..., di + ds:]
     dt = F.softplus(dt_raw.float() + p.dt_bias)
     A = -torch.exp(p.A_log)
+    xs = shd.constrain(xs, ("batch", "seq", "ssm_heads", None))
     y, ssd_state = ssd_ops.ssd_scan(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
     y = y.to(x.dtype) + xs * p.D.to(x.dtype)[None, None, :, None]
     y = _gated_norm(p, y.reshape(B, S, di), z, x.dtype)
-    out = tag(y @ p.out_proj, "ssm_out")
+    out = shd.constrain(y @ p.out_proj, ("batch", "seq", "act_embed"))
+    out = tag(out, "ssm_out")
     if not return_state:
         return out
     W = cfg.ssm_conv_width

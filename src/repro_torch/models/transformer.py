@@ -50,6 +50,7 @@ class DenseBlock(nn.Module):
     the moe family); a cross block adds ``lnx``, ``xattn`` and ``xgate``,
     an f32 scalar whatever the parameter dtype, zero at init as in the
     reference, so ``tanh(xgate)`` starts the cross-attention shut."""
+    AXES = {"xgate": ()}
 
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator], device: torch.device,

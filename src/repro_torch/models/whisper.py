@@ -40,6 +40,7 @@ class Model(nn.Module):
     """Parameters of the encoder-decoder; attribute names follow the
     reference's pytree (``embed`` with ``pos``, ``enc_pos``, ``enc_blocks``,
     ``dec_blocks``, ``ln_enc``, ``ln_f``)."""
+    AXES = {"enc_pos": ("pos", "embed")}
 
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator], device: torch.device):

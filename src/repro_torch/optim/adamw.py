@@ -11,8 +11,10 @@ State is tensors keyed by parameter name (``model.named_parameters()``):
 ``m``, ``v`` (f32) and ``master`` (f32, or None when every parameter is
 f32).  The update runs in place on the parameters and the state, one
 parameter at a time, so the f32 temporaries stay one parameter large.
-ZeRO sharding of the state (``opt_state_axes``) comes with ROADMAP.md
-queue 1 item 11.
+ZeRO stages map to sharding specs, not different math
+(``opt_state_axes``, ``distributed.steps.opt_specs``): a sharded step
+hands ``adamw_update`` each rank's shards of the parameters, gradients and
+state.
 """
 from __future__ import annotations
 
@@ -50,6 +52,13 @@ def adamw_init(params) -> AdamWState:
     if any(p.dtype != torch.float32 for p in ps.values()):
         master = {n: p.detach().float().clone() for n, p in ps.items()}
     return AdamWState(0, m, v, master)
+
+
+def opt_state_axes(param_axes, zero_stage: int) -> AdamWState:
+    """Mirror of the params' logical-axes tree for m/v/master.  For ZeRO>=1
+    the first shardable dim additionally maps to the data axis via the
+    caller's rules override (``distributed.steps.ZERO_OPT_RULES``)."""
+    return AdamWState(("scalar",), param_axes, param_axes, param_axes)
 
 
 @torch.no_grad()

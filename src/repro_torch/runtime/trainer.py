@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Union
 
@@ -80,6 +81,18 @@ class TrainReport:
         return sum(1 for s in self.stages if s == "GenPolicy")
 
 
+def _weakly(method: Callable[[], dict]) -> Callable[[], dict]:
+    """A bound method as a metrics provider that does not keep its object
+    alive: ``{}`` once the object is gone."""
+    ref = weakref.WeakMethod(method)
+
+    def provider() -> dict:
+        fn = ref()
+        return {} if fn is None else fn()
+
+    return provider
+
+
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig,
                  cham: Optional[ChameleonConfig] = None,
@@ -98,10 +111,9 @@ class Trainer:
             self.cham = dataclasses.replace(
                 self.cham,
                 adapt=dataclasses.replace(self.cham.adapt, mode=adapt_mode))
-        if mesh is not None:
-            raise NotImplementedError(
-                "meshes and sharded training come with ROADMAP.md queue 1 "
-                "item 11; the port trains on one device")
+        # kept, as the reference keeps it: the trainer trains unsharded;
+        # sharded training goes through distributed.steps' builders
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.api = get_api(cfg)
         self.data = data or SyntheticTokens(cfg.vocab_size, 128, 8,
@@ -140,10 +152,12 @@ class Trainer:
         self._prepared = False
         self.metrics_out = metrics_out
         self.metrics_every = max(1, int(metrics_every))
+        # weakly: the global registry must not keep a finished trainer (its
+        # model, optimizer state and host tier) alive
         reg = obs.metrics()
         if hostmem is not None:
-            reg.register_provider("hostmem", hostmem.stats)
-        reg.register_provider("runtime", self._runtime_provider)
+            reg.register_provider("hostmem", _weakly(hostmem.stats))
+        reg.register_provider("runtime", _weakly(self._runtime_provider))
         # via a lambda: set_ledger may swap the default between snapshots
         reg.register_provider("memory", lambda: obs.ledger().stats())
 

@@ -10,8 +10,8 @@ kernels' own knobs (K1 query rows per block, K4 chunk, one launch for K2a
 and K2b), so parity holds each port variant's output to the reference's at
 the same inputs (the reference in interpret mode, the port through its
 plain version), and the choice logic to the reference's on K4, whose
-chunks are the reference's.  ``test_roofline_uses_device_spec`` is not
-ported: it waits for ``launch/roofline.py`` (ROADMAP item 11).  The
+chunks are the reference's.  ``test_roofline_uses_device_spec`` is
+``tests/test_torch_roofline.py``'s.  The
 contention and backlog cases of ``tests/test_autotune.py`` are held by
 ``tests/test_torch_contention.py``.
 """

@@ -317,7 +317,9 @@ def test_port_imports_neither_jax_nor_reference():
         "        'obs.validate', 'obs.report', 'kernels.autotune.device',\n"
         "        'kernels.autotune.table', 'kernels.autotune.cache',\n"
         "        'kernels.autotune.space', 'kernels.autotune.tuner',\n"
-        "        'kernels.autotune.advisor']\n"
+        "        'kernels.autotune.advisor', 'distributed.sharding',\n"
+        "        'distributed.compression', 'launch.mesh', 'launch.specs',\n"
+        "        'launch.roofline', 'launch.dryrun']\n"
         "bad += ['missing ' + n for n in need\n"
         "        if 'repro_torch.' + n not in sys.modules]\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]), bad)\n")

@@ -375,9 +375,9 @@ def test_train_cli_on_cpu(tmpdir, impl):
 
 def test_chameleon_and_later_slices_raise(tmpdir):
     """Chameleon runs in the trainer and in the CLI (``--budget-gib``,
-    ``--stats-json``, the policy store's flags, ``--adapt-mode``); the
-    flags of later slices still raise, naming them; the vlm and encdec
-    families train a step through the CLI."""
+    ``--stats-json``, the policy store's flags, ``--adapt-mode``);
+    ``--mesh single`` raises without the mesh's 256 ranks; the vlm and
+    encdec families train a step through the CLI."""
     import json
     from repro_torch.launch import train
     cfg = PC.get_reduced("llama2_paper")
@@ -399,7 +399,8 @@ def test_chameleon_and_later_slices_raise(tmpdir):
         snap = json.load(f)
     assert snap["runtime"]["stage"] == "WarmUp"
     assert snap["runtime"]["hostmem"]["engine"]["bytes_out"] > 0
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # the production mesh needs its 256 ranks (one process here)
+    with pytest.raises(RuntimeError, match="256"):
         train.main(["--reduced", "--device", "cpu", "--no-chameleon",
                     "--mesh", "single"])
     # the policy store's flags and the background placements (once
