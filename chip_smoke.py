@@ -12,6 +12,15 @@ Phases, each printing JSON lines:
 2. build      every CUDA source of the port compiled with nvcc for sm_90a,
               all at once (``repro_torch.kernels._build``), with ptxas's
               registers, spills and C75xx notes per library.
+2b. examples the reference's examples as ported (``examples_torch/``), on
+              the card at their reduced sizes with attention through the
+              kernels (``flash``, as they take on a card), before any
+              other phase allocates (their Chameleon budget is 30 MiB):
+              quickstart (the loss falls, the stages go WarmUp ->
+              GenPolicy -> Stable), adaptive_swap_demo (a seq-change
+              transition, no failures) and serve_batched (every request
+              finishes), each making its own assertions; K1 (forward and
+              backward) and K3 launched.  Line ``examples``.
 3. kernel     the flash-attention kernel (K1) against its plain PyTorch
               version on the card, on inputs whose softmax is peaked: the
               reference kernel test sweep, a GQA case, kv_lens cases and
@@ -48,7 +57,11 @@ Phases, each printing JSON lines:
               serve phase's first tick, timed there beside its plain
               version, SDPA with a length mask, and the bound, warm (one
               layer's cache replayed) and cold (``decode_cold_ms``: one
-              launch per layer of a 32-layer cache).
+              launch per layer of a 32-layer cache).  Every case also with
+              the row's log-sum-exp (``return_lse``, the ``kv_seq`` cache's
+              merge): the output equal to the call without it and the lse
+              against the plain version's (BWD_LSE_TOL, -inf on the empty
+              rows); its time (``lse_ms``) at the timed shape.
 6. ssd_kernel the SSD-scan kernel (K4) against its plain version, y and the
               final state, at mamba2-780m's widths for prefill lengths 77,
               384 and 901 in both dtypes (SSD_TOL); bf16 timed beside its
@@ -120,9 +133,10 @@ Phases, each printing JSON lines:
               group and a (1, 1) ("data", "model") mesh: DIST_STEPS steps
               of the sharded train step (``distributed.steps``: ZeRO 2
               placements, the TP plan) against the unsharded step from the
-              same weights and batches (losses within TRAIN_LOSS_TOL, bit
-              equality printed, K1 launched DIST_STEPS x 8 times each way,
-              step ms and peak of both); the sharded step under the
+              same weights and batches (losses bit-equal, K1 launched
+              DIST_STEPS x 8 times each way, step ms, and the peak equal
+              both ways and to DIST_PEAK: on one rank nothing is gathered
+              at use or hooked); the sharded step under the
               executor's conservative policy (losses equal, policy_swap
               D2H = H2D > 0); the int8 compressed gradient sync over a
               one-rank pod dim on one grad step's f32 gradients (K2a / K2b
@@ -132,7 +146,11 @@ Phases, each printing JSON lines:
               equal); and the dry run (``launch.dryrun``) of the unsharded
               run's cell on fake cuda tensors: its peak within
               CHAM_PEAK_TOL of the allocator's, its roofline terms and the
-              step's MFU against the measured p50.  Lines ``distributed_*``.
+              step's MFU against the measured p50; then the production
+              dry-run cell llama2_paper x train_4k x single (16 x 16, the
+              default rules) on fake cuda tensors: its peak per chip and
+              departures printed, comparable to the reference's.  Lines
+              ``distributed_*``.
 16. train_cli ``repro_torch.launch.train.main`` on the card, reduced
               llama2-paper (f32: the f32 paths of both K1 kernels), 3 steps;
               then (``train_cli_store``) 30 steps under the async worker
@@ -371,6 +389,11 @@ TRAIN_CLI_ARGS = ["--arch", "llama2-paper", "--reduced", "--steps", "3",
 # allocator's.
 DIST_STEPS = 3
 DIST_MOE_TOKENS = (2, 1024)
+# The sharded and unsharded runs' allocator peak as first measured on the
+# H100 (PERF.md §6): the (1, 1) mesh hooks nothing, so both stay at it.
+DIST_PEAK = 35_858_673_152
+# The production dry-run cell the phase traces on fake cuda tensors.
+DIST_DRYRUN_CELL = ("llama2_paper", "train_4k", False)
 
 # The chameleon phase: the train phase's configuration (TRAIN_LAYERS,
 # TRAIN_BATCH x TRAIN_SEQ, TRAIN_LR), with an eval every CHAM_EVAL_EVERY
@@ -1174,13 +1197,18 @@ def decode_rows(device, cases):
             q, k, v = k1_inputs(gen, B, 1, Sk, H, Kh, D, dtype, device)
             lens_t = torch.tensor(lens, dtype=torch.int32, device=device)
             out = ops.flash_decode(q, k, v, lens_t)
+            out2, lse = ops.flash_decode(q, k, v, lens_t, return_lse=True)
             torch.cuda.synchronize()
-            ref = ops.flash_decode_plain(q, k, v, lens_t)
+            ref, ref_lse = ops.flash_decode_plain(q, k, v, lens_t,
+                                                  return_lse=True)
             row = {"shape": [B, Sk, H, Kh, D], "lens": list(lens),
-                   "dtype": dname, **k1_check(out, ref, dname)}
+                   "dtype": dname, **k1_check(out, ref, dname),
+                   **lse_check(lse, ref_lse),
+                   "lse_out_equal": bool(torch.equal(out, out2))}
             zero = [b for b, n in enumerate(lens) if n <= 0]
             row["zero_rows_zero"] = all(not out[b].any() for b in zero)
-            row["ok"] = row["ok"] and row["zero_rows_zero"]
+            row["ok"] = (row["ok"] and row["zero_rows_zero"]
+                         and row["lse_ok"] and row["lse_out_equal"])
             rows.append((row, (q, k, v, lens_t) if timed else None))
     return rows
 
@@ -1243,6 +1271,9 @@ def phase_decode_kernel(device, cases):
             B, Sk, H, Kh, D = row["shape"]
             row["ms"] = graph_ms(lambda: ops.flash_decode(q, k, v, lens))
             row["eager_ms"] = cuda_ms(lambda: ops.flash_decode(q, k, v, lens))
+            # the kv_seq cache's call: the same launch writing each row's lse
+            row["lse_ms"] = graph_ms(lambda: ops.flash_decode(
+                q, k, v, lens, return_lse=True))
             row["plain_ms"] = graph_ms(
                 lambda: ops.flash_decode_plain(q, k, v, lens), iters=5)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -2532,9 +2563,13 @@ def phase_distributed(device) -> dict:
                              "max_memory_allocated": up, "k1_launches": uk},
                "max_loss_diff": max(abs(a - b) for a, b in zip(sl, ul)),
                "bit_equal": sl == ul, "k1_want": want}
+        row["peak_equal"] = sp == up == DIST_PEAK
         emit("distributed_steps", **row)
-        if row["max_loss_diff"] > TRAIN_LOSS_TOL:
-            problems.append(f"sharded losses {sl} vs unsharded {ul}")
+        if sl != ul:
+            problems.append(f"sharded losses {sl} != unsharded {ul}")
+        if not row["peak_equal"]:
+            problems.append(f"peaks {sp} sharded, {up} unsharded; want "
+                            f"{DIST_PEAK} both")
         if sk != (want, want):
             problems.append(f"K1 launches {sk} in the sharded run, want "
                             f"{want} each way")
@@ -2655,10 +2690,65 @@ def phase_distributed(device) -> dict:
     if peak_err > CHAM_PEAK_TOL:
         problems.append(f"dry-run peak {peak} vs measured {up}: "
                         f"{peak_err:.3f} > {CHAM_PEAK_TOL}")
+
+    # ---- a production cell of the dry run, on fake cuda tensors
+    arch, shape_name, multi = DIST_DRYRUN_CELL
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(arch, shape_name, multi, "none", None,
+                          verbose=False, device=device.type,
+                          device_kind="h100_sxm")
+    dep = rec["departures"]
+    emit("distributed_dryrun_production", arch=arch, shape=shape_name,
+         mesh=rec["mesh_shape"], device=rec["device"],
+         wall_s=time.perf_counter() - t0, **rec["memory"], departures=dep,
+         bottleneck=rec["roofline"]["bottleneck"],
+         step_time_bound_ms=rec["roofline"]["step_time_bound_s"] * 1e3)
+    if not dep["comparable_to_reference"]:
+        problems.append(f"the {arch} x {shape_name} dry run departs from "
+                        f"the reference: {dep}")
     emit("distributed", ok=not problems, problems=problems)
     if problems:
         raise AssertionError(f"distributed: {problems}")
     return {"k1": sk, "k2": k2}
+
+
+def phase_examples(device) -> dict:
+    """Phase examples (module doc): the examples' own assertions raise.
+    Returns K1's (forward, backward) and K3's launches over the three."""
+    from examples_torch import adaptive_swap_demo, quickstart, serve_batched
+    from repro_torch.kernels.flash_attention import ops
+
+    argv = ["--device", device.type]
+    ops.flash_attention.launches = 0          # count the examples only
+    ops.flash_attention_bwd.launches = 0
+    ops.flash_decode.launches = 0
+    row = {}
+    for name, mod in (("quickstart", quickstart),
+                      ("adaptive_swap_demo", adaptive_swap_demo),
+                      ("serve_batched", serve_batched)):
+        t0 = time.perf_counter()
+        out = mod.main(argv)
+        row[name] = {"seconds": time.perf_counter() - t0}
+        if "losses" in out:
+            row[name].update(first_loss=out["losses"][0],
+                             last_loss=out["losses"][-1])
+        if "stages" in out:
+            row[name]["stages"] = sorted(set(out["stages"]),
+                                         key=out["stages"].index)
+        if "transitions" in out:
+            row[name]["transitions"] = [w for _, w, _ in out["transitions"]]
+        if "results" in out:
+            row[name].update(requests=len(out["results"]),
+                             ticks=out["ticks"])
+        gc.collect()
+        release_device_memory(device)
+    k = {"k1_fwd": ops.flash_attention.launches,
+         "k1_bwd": ops.flash_attention_bwd.launches,
+         "k3": ops.flash_decode.launches}
+    emit("examples", **row, launches=k)
+    if not (k["k1_fwd"] and k["k1_bwd"] and k["k3"]):
+        raise AssertionError(f"examples: a kernel was not launched: {k}")
+    return k
 
 
 def phase_train_zoo(device, phase: str) -> dict:
@@ -4345,6 +4435,7 @@ def main(argv=None) -> int:
     if argv[:1] == ["--zoo-grads"]:
         zoo_grad_readings(device, int(argv[1]))
         return 0
+    example_launches = phase_examples(device)
 
     import repro_torch.configs as C
     from repro_torch.models import transformer as T
@@ -4423,6 +4514,8 @@ def main(argv=None) -> int:
         "train_launches": train_launches,
         # the distributed phase's sharded run: steps x layers
         "distributed_launches": dist_launches["k1"][0],
+        # the examples phase (quickstart, adaptive_swap_demo, serve_batched)
+        "examples_launches": example_launches["k1_fwd"],
         # chameleon_exec: the trainer under Chameleon's applied policies
         "chameleon_exec_launches": exec_launches[0],
         # chameleon_async: the async placement's run, (steps + replays) x 8
@@ -4447,6 +4540,7 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/flash_attention/ops.py:54",
         "launches": bwd_launches,
         "distributed_launches": dist_launches["k1"][1],
+        "examples_launches": example_launches["k1_bwd"],
         "chameleon_exec_launches": exec_launches[1],
         "chameleon_async_launches": async_launches[1],
         # the largest bf16 error of dq, dk, dv at the training shape
@@ -4505,6 +4599,11 @@ def main(argv=None) -> int:
         "library_cold_ms": decode_row["library_cold_ms"],
         "zoo_launches": {"serve_moe": moe_launches[1],
                          **{p: n[1] for p, n in second.items()}},
+        "examples_launches": example_launches["k3"],
+        # the same call writing each row's log-sum-exp (the kv_seq cache's
+        # merge), at the timed shape
+        "lse_ms": decode_row["lse_ms"],
+        "lse_max_abs_err": decode_row["lse_max_abs_err"],
         "d64": d64_summary(d64["decode"]),
         # a whole memory as lens (DECODE_CROSS_CASES), bf16
         "cross": {k: cross_summary(r) for k, r in decode_cross.items()},

@@ -22,8 +22,14 @@ the model group backward) on its inputs and ``tp_exit`` (a sum over the
 model group forward, identity backward) on its partial output, Megatron's
 pair; both are no-ops for a block the plan does not hold.  Where the model
 dim does not divide the KV heads, ``kv_slice`` picks the KV heads of the
-rank's local query heads out of the whole projections.  So attention,
-the executor's saved-tensor hooks and the recorder see plain local tensors.
+rank's local query heads out of the whole projections.  The vocabulary
+(``vocab``: the embedding's rows, the unembedding's columns and the loss)
+and the Mamba-2 heads (``ssm``) are blocks of the plan too; their code
+reads the rank's share with ``tp_group`` / ``tp_rank`` / ``tp_size``, and
+``tp_sum`` (a sum over the model group both ways) joins a reduction over a
+split dim, such as Mamba-2's gated norm over all of ``d_inner``.  So
+attention, the executor's saved-tensor hooks and the recorder see plain
+local tensors.
 """
 from __future__ import annotations
 
@@ -80,15 +86,19 @@ DP_ONLY_RULES = {
 
 class TpPlan(NamedTuple):
     """The model dim as local compute: its process group and the blocks
-    (``attn``, ``mlp``, ``moe``) whose weights each rank holds a slice of.
-    ``kv`` (first KV head, count) is set when the model dim does not divide
-    the KV heads: every rank holds the KV projections whole and computes
-    only the heads its local query heads use (``kv_slice``)."""
+    (``attn``, ``mlp``, ``moe``, ``vocab``, ``ssm``) whose weights each rank
+    holds a slice of.  ``kv`` (first KV head, count) is set when the model
+    dim does not divide the KV heads: every rank holds the KV projections
+    whole and computes only the heads its local query heads use
+    (``kv_slice``).  ``kv_seq`` (the whole model's KV heads) is set when
+    the decode cache splits its positions over the model dim, every rank
+    holding all KV heads of its positions (``models.attention``)."""
     group: object
     size: int
     rank: int
     blocks: FrozenSet[str]
     kv: Optional[Tuple[int, int]] = None
+    kv_seq: Optional[int] = None
 
 
 class _Ctx(threading.local):
@@ -388,6 +398,40 @@ def exit(x: torch.Tensor, group) -> torch.Tensor:  # noqa: A001
     return x if group is None else _Exit.apply(x, group)
 
 
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` concatenated along ``dim``, in rank
+    order (no autograd)."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    y = x.detach().movedim(dim, 0).contiguous()
+    out = torch.empty((n * y.shape[0],) + tuple(y.shape[1:]),
+                      dtype=y.dtype, device=y.device)
+    dist.all_gather_into_tensor(out, y, group=group)
+    return out.movedim(0, dim)
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_sum(g, ctx.group), None
+
+
+def all_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``group`` (a new tensor; no
+    autograd)."""
+    import torch.distributed as dist
+    x = x.detach().contiguous().clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
+
+
 def mean(x: torch.Tensor, group) -> torch.Tensor:
     """The mean of ``x`` over ``group`` (no autograd)."""
     import torch.distributed as dist
@@ -399,6 +443,36 @@ def _plan_group(block: str):
     if plan is None or block not in plan.blocks or plan.size == 1:
         return None
     return plan.group
+
+
+def current_tp() -> Optional[TpPlan]:
+    """The installed plan, or None."""
+    return _CTX.tp
+
+
+def tp_group(block: str):
+    """The model group when the installed plan splits ``block`` over more
+    than one rank, else None."""
+    return _plan_group(block)
+
+
+def tp_size(block: str) -> int:
+    """Ranks ``block`` is split over (1 when the plan does not split it)."""
+    return 1 if _plan_group(block) is None else _CTX.tp.size
+
+
+def tp_rank(block: str) -> int:
+    """This rank's index among the ranks ``block`` is split over."""
+    return 0 if _plan_group(block) is None else _CTX.tp.rank
+
+
+def tp_sum(x: torch.Tensor, block: str) -> torch.Tensor:
+    """The sum over the model group of each rank's partial ``x``, both
+    ways: a reduction over a dim the plan splits (forward) whose result
+    each rank's own share then uses (backward: the partial gradients
+    summed).  ``x`` unchanged for a block the plan does not split."""
+    group = _plan_group(block)
+    return x if group is None else _Sum.apply(x, group)
 
 
 def tp_enter(x: torch.Tensor, block: str) -> torch.Tensor:

@@ -41,32 +41,50 @@ the paper builds on), "sharding specs, not different math":
     runs on the local shard and the parameters are all-gathered back;
   * ZeRO 3 (``ZERO3_PARAM_RULES``, or rules that put ``embed`` on the
     batch dims, as ``DP_ONLY_RULES`` do): the parameters shard the same
-    way at rest; a step all-gathers them once at its start and releases
-    them after the update;
+    way at rest and are gathered at use, one unit at a time (below);
   * tensor parallelism over ``model``: each rank holds its slice of the
-    attention (heads), MLP (``mlp``) and MoE (``experts``) weights and runs
+    attention (heads), MLP (``mlp``), MoE (``experts``), vocabulary
+    (``vocab``: the embedding's rows, the unembedding's columns, a
+    vocab-parallel loss) and Mamba-2 (``ssm``: its heads) weights and runs
     the model code on them with a local config (``TpPlan``,
-    ``sharding.tp_enter`` / ``tp_exit``), so K1, K4, the executor's hooks
-    and the recorder see plain local tensors.
+    ``sharding.tp_enter`` / ``tp_exit`` / ``tp_sum``), so K1, K4, the
+    executor's hooks and the recorder see plain local tensors.  A weight
+    the rules split over ``model`` that a rank cannot compute a slice of
+    (the router; the attention of a model whose query heads the model dim
+    does not divide, where the fused ``q_dim`` divides) is held split at
+    rest and gathered at use, its compute whole on every rank.  Under the
+    default rules the decode cache splits its positions over ``model``
+    (``kv_seq``, ``models.attention``); ``make_prefill_step`` and
+    ``make_decode_step`` all-gather the logits over the vocabulary.
+
+Gather at use: the model code runs each unit (a block, the embedding, a
+final norm, whisper's root) through ``nn.Module.__call__``
+(``models.layers.Unit``).  A forward pre-hook all-gathers the unit's
+weights split at rest into their parameters' own storage, a forward hook
+frees that storage, a hook on the unit's outputs gathers them again before
+its backward (a remat policy recomputes inside it), and when a parameter's
+gradient is accumulated it goes to its state's layout at once (sliced over
+``model`` where the rank computed it whole, summed where partial,
+reduce-scattered over the batch dims) and its weight is freed.  Nothing
+is hooked on a one-rank mesh.
 
 Layouts that differ from the rules (results equal): the KV projections
 shard with the query heads when the model dim divides the KV heads (the
 rules replicate them); when it does not, they stay whole on every rank
 and each rank computes the KV heads of its local query heads
-(``sharding.kv_slice``), their gradients summed over ``model``; an
-attention block whose query heads the model dim does not divide, or whose
-local query heads straddle KV heads, stays replicated (the rules shard
-the fused ``q_dim``, which a rank's local compute cannot split mid-head);
-the embedding, the unembedding, the router and the Mamba-2 block stay
-replicated over ``model`` (no vocab-parallel loss, no SSM tensor
-parallelism).  ZeRO 3 gathers the whole model at the start of a step,
-where the reference gathers each layer as it runs it, so its peak per
-chip is higher.  ``ShardedModel.layouts`` holds what each parameter got.
+(``sharding.kv_slice``), their gradients summed over ``model``.  Where
+the reference's per-chip work is not matched (``ShardedModel.departures``,
+the dry run's record): attention computed whole where the query heads do
+not divide the model dim (qwen2-7b's 28, whisper's 20), and Mamba-2's B
+and C columns of the in-projection and their conv channels, whole on
+every rank because every head reads them (``ParamLayout.runs``).
+``ShardedModel.layouts`` holds what each parameter got.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
+import weakref
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -213,34 +231,59 @@ _TP_DIMS = {
     "attn": {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0, "bv": 0},
     "mlp": {"wi_gate": 1, "wi_up": 1, "wo": 0},
     "moe": {"wi_gate": 0, "wi_up": 0, "wo": 0},
+    "vocab": {"tok": 0, "unembed": 1},
+    "ssm": {"in_proj": 1, "conv_w": 1, "conv_b": 0, "A_log": 0,
+            "dt_bias": 0, "D": 0, "norm_scale": 0, "out_proj": 0},
 }
 _KV_PARAMS = ("wk", "wv", "bk", "bv")
+_BLOCKS = (("attn", "attn"), ("xattn", "attn"), ("mlp", "mlp"),
+           ("moe", "moe"), ("ssm", "ssm"))
 
 
 def _block_of(name: str) -> Optional[str]:
     parts = name.split(".")
-    if "attn" in parts or "xattn" in parts:
-        return "attn"
-    if "mlp" in parts:
-        return "mlp"
-    if "moe" in parts:
-        return "moe"
+    for part, blk in _BLOCKS:
+        if part in parts:
+            return blk
+    return "vocab" if parts[0] == "embed" else None
+
+
+def _ssm_runs(cfg: ModelConfig, attr: str):
+    """(length, split) runs along the model dim of a Mamba-2 parameter
+    under an ``ssm`` plan: z / x / dt columns and x channels split by
+    heads, the B / C columns and channels whole (every head reads them)."""
+    di, ds = cfg.ssm_d_inner, cfg.ssm_state
+    if attr == "in_proj":
+        return ((di, True), (di, True), (2 * ds, False),
+                (cfg.ssm_heads, True))
+    if attr in ("conv_w", "conv_b"):
+        return ((di, True), (2 * ds, False))
     return None
 
 
 class ParamLayout(NamedTuple):
     """Where one parameter lives on the mesh: the partition specs of the
     stored parameter and of its optimizer state (global), the tensor dim
-    it splits over the model dim (local compute), the dims it and its
-    state split over the batch dims, and whether each model rank's
-    gradient is partial (a whole KV projection of which each rank uses its
-    own heads, ``TpPlan.kv``) and is summed over the model dim."""
+    it splits over the model dim, the dims it and its state split over the
+    batch dims, and whether each model rank's gradient is partial (a whole
+    KV projection of which each rank uses its own heads, ``TpPlan.kv``) and
+    is summed over the model dim.  ``gather_tp``: the rules split it over
+    the model dim on ``tp_dim`` but a rank computes it whole (the router;
+    attention whose query heads the model dim does not divide): held split
+    at rest and in its state, gathered at use, and the whole gradient each
+    model rank computes alike is sliced.  ``runs``: (length, split) runs
+    along ``tp_dim`` (Mamba-2's fused in-projection and conv): a split run
+    is divided over the model dim, a whole run is on every rank and its
+    partial gradients are summed over it; the specs then leave the model
+    dim out."""
     param: tuple
     opt: tuple
     tp_dim: Optional[int]
     dp_param: Optional[int]
     dp_opt: Optional[int]
     tp_sum: bool = False
+    gather_tp: bool = False
+    runs: Optional[tuple] = None
 
 
 def _kv_split(cfg: ModelConfig, tp: int, rank: int):
@@ -257,6 +300,10 @@ def _kv_split(cfg: ModelConfig, tp: int, rank: int):
     return (rank * local // group, 1) if group % local == 0 else None
 
 
+def _on_model(logical: str) -> bool:
+    return shd.partition_spec((logical,))[:1] == ("model",)
+
+
 def _tp_blocks(cfg: ModelConfig, tp: int) -> frozenset:
     blocks = set()
     if _kv_split(cfg, tp, 0) is not None:
@@ -264,8 +311,13 @@ def _tp_blocks(cfg: ModelConfig, tp: int) -> frozenset:
     if cfg.d_ff and cfg.d_ff % tp == 0:
         blocks.add("mlp")
     if (cfg.family == "moe" and cfg.num_experts % tp == 0
-            and shd.partition_spec(("experts",))[:1] == ("model",)):
+            and _on_model("experts")):
         blocks.add("moe")
+    if cfg.vocab_size % tp == 0 and _on_model("vocab"):
+        blocks.add("vocab")
+    if (cfg.family in ("ssm", "hybrid") and cfg.ssm_heads % tp == 0
+            and _on_model("ssm_heads") and _on_model("ssm_inner")):
+        blocks.add("ssm")
     return frozenset(blocks)
 
 
@@ -303,27 +355,54 @@ def _layout(pspec: tuple, ndim: int, tp_dim, tp_axis, batch: tuple,
     return tuple(out), dp
 
 
-def _on(pspec: tuple, axis: str) -> bool:
-    """Whether partition spec ``pspec`` splits a dim over mesh dim
-    ``axis``."""
-    return any(e == axis or (isinstance(e, tuple) and axis in e)
-               for e in pspec)
+def _model_dim(pspec: tuple, axis: str) -> Optional[int]:
+    """The tensor dim partition spec ``pspec`` splits over mesh dim
+    ``axis``, or None."""
+    for d, e in enumerate(pspec):
+        if e == axis or (isinstance(e, tuple) and axis in e):
+            return d
+    return None
 
 
 def _split(t: torch.Tensor, dim: Optional[int], idx: int, n: int):
     return t if dim is None or n == 1 else t.tensor_split(n, dim)[idx]
 
 
+def _tp_piece(t: torch.Tensor, lay: ParamLayout, rank: int, n: int):
+    """Model rank ``rank``'s piece of the whole ``t`` along ``lay.tp_dim``
+    (its runs' pieces, concatenated, where it has runs)."""
+    if lay.runs is None or n == 1:
+        return _split(t, lay.tp_dim, rank, n)
+    parts, off = [], 0
+    for length, split in lay.runs:
+        run = t.narrow(lay.tp_dim, off, length)
+        parts.append(_split(run, lay.tp_dim, rank, n) if split else run)
+        off += length
+    return torch.cat(parts, lay.tp_dim)
+
+
+def _whole_runs(lay: ParamLayout, n: int):
+    """(offset, length) of each whole run in a model rank's piece."""
+    out, off = [], 0
+    for length, split in lay.runs:
+        if not split:
+            out.append((off, length))
+        off += length // n if split else length
+    return out
+
+
 def _gather(shard: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
-    """All-gather ``shard`` over ``group`` along ``dim``."""
-    import torch.distributed as dist
-    if n == 1:
-        return shard
-    x = shard.movedim(dim, 0).contiguous()
-    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
-                      dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, x, group=group)
-    return out.movedim(0, dim)
+    """All-gather ``shard`` over ``group`` (``n`` ranks) along ``dim``."""
+    return shard if n == 1 else shd.all_gather(shard, dim, group)
+
+
+def _own(piece: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
+    """``piece`` contiguous, in a storage of its own when it is a part of
+    ``whole`` (a view would keep all of ``whole`` alive); ``whole``'s
+    storage when it is all of it."""
+    if piece.numel() == whole.numel():
+        return piece.contiguous()
+    return piece.clone(memory_format=torch.contiguous_format)
 
 
 def _set_param(module: nn.Module, name: str, t: torch.Tensor) -> None:
@@ -331,14 +410,64 @@ def _set_param(module: nn.Module, name: str, t: torch.Tensor) -> None:
     setattr(module.get_submodule(path), attr, nn.Parameter(t))
 
 
+def _units(root: nn.Module):
+    """(unit, its parameters): every ``Unit`` of the model's tree that no
+    other unit holds, and the root's own parameters when it is a unit."""
+    from repro_torch.models.layers import Unit
+    out = []
+
+    def walk(m):
+        for c in m.children():
+            if isinstance(c, Unit):
+                out.append((c, list(c.parameters())))
+            else:
+                walk(c)
+
+    walk(root)
+    if isinstance(root, Unit):
+        out.append((root, list(root.parameters(recurse=False))))
+    return out
+
+
+def _grad_ready(ref, n: str, p: torch.Tensor) -> None:
+    """A parameter's gradient is whole: to its state's layout, and its
+    gathered weight freed (``ShardedModel._gather_at_use``)."""
+    sm = ref()
+    if sm is None:
+        return
+    sm.grads[n] = sm.grad_to_state(n, p.grad)
+    p.grad = None
+    sm._done.add(n)
+    sm.release((n,))
+
+
+def _regather(ref, names, _grad) -> None:
+    """A unit's backward is next: its weights gathered again."""
+    sm = ref()
+    if sm is not None:
+        sm.gather(names, backward=True)
+
+
+def _tensors(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _tensors(o)]
+    return []
+
+
 class ShardedModel:
     """This rank's share of a model on a mesh (``shard_model``): the local
     module (its weights this rank's slices along the model dim), the local
     config the model code runs with, the TP plan and every parameter's
-    ``ParamLayout``.  Under ZeRO 3 the module's weights are released
-    between steps and ``shards`` holds each parameter's piece.  ``unsplit``
-    names the parameters the rules split over the model dim that this
-    layout holds whole (the module doc's departures)."""
+    ``ParamLayout``.  A parameter split at rest (over the batch dims under
+    ZeRO 3, over the model dim where ``gather_tp``) keeps its piece in
+    ``shards``; the module's parameter keeps its shape with its storage
+    freed, and is gathered into that same storage only while a unit that
+    uses it runs (``_gather_at_use``): saved references see it again in the
+    backward.  ``grads`` takes each gradient in its state's layout as the
+    backward produces it; ``gathered_bytes`` / ``peak_gathered_bytes`` count
+    the gathered weights."""
 
     def __init__(self, cfg: ModelConfig, module: nn.Module, local_cfg,
                  mesh, rules, plan: shd.TpPlan, layouts, batch_dims):
@@ -350,7 +479,12 @@ class ShardedModel:
         self.dp_group = shd.group_of(mesh, batch_dims)
         self.world_group = shd.group_of(mesh, shd.mesh_names(mesh))
         self.shards: Dict[str, torch.Tensor] = {}
-        self.unsplit: Tuple[str, ...] = ()
+        self.grads: Dict[str, torch.Tensor] = {}
+        self._params = dict(module.named_parameters())
+        self._gathered: Dict[str, int] = {}
+        self._done: set = set()
+        self.gathered_bytes = 0
+        self.peak_gathered_bytes = 0
 
     @property
     def device(self) -> torch.device:
@@ -362,35 +496,208 @@ class ShardedModel:
         with shd.use_mesh(self.mesh, self.rules), shd.local_tp(self.plan):
             yield
 
-    # ---------------------------------------------------- ZeRO 3 storage
-    def _release(self) -> None:
-        for n, p in self.module.named_parameters():
-            d = self.layouts[n].dp_param
-            if d is not None and self.dp > 1:
-                self.shards[n] = _split(p.detach(), d, self.dp_rank,
-                                        self.dp).clone()
-                p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+    # ------------------------------------------------ storage at rest
+    def split_at_rest(self, n: str) -> bool:
+        lay = self.layouts[n]
+        return ((lay.dp_param is not None and self.dp > 1)
+                or (lay.gather_tp and self.plan.size > 1))
 
-    def gather(self) -> None:
-        """All-gather every parameter sharded at rest into the module."""
-        for n, p in self.module.named_parameters():
-            if n in self.shards:
-                p.data = _gather(self.shards.pop(n), self.layouts[n].dp_param,
-                                 self.dp_group, self.dp)
+    def _assemble(self, n: str) -> torch.Tensor:
+        lay, t = self.layouts[n], self.shards[n]
+        if lay.dp_param is not None:
+            t = _gather(t, lay.dp_param, self.dp_group, self.dp)
+        if lay.gather_tp:
+            t = _gather(t, lay.tp_dim, self.plan.group, self.plan.size)
+        return t
+
+    def gather(self, names, backward: bool = False) -> None:
+        """All-gather the pieces of ``names`` into their parameters'
+        storage (in the backward, only those whose gradient is not in)."""
+        for n in names:
+            if (n in self._gathered or n not in self.shards
+                    or (backward and n in self._done)):
+                continue
+            p = self._params[n]
+            full = self._assemble(n)
+            nb = p.numel() * p.element_size()
+            p.untyped_storage().resize_(nb)
+            with torch.no_grad(), \
+                    torch.autograd._unsafe_preserve_version_counter(p):
+                p.copy_(full)
+            self._gathered[n] = nb
+            self.gathered_bytes += nb
+            self.peak_gathered_bytes = max(self.peak_gathered_bytes,
+                                           self.gathered_bytes)
+
+    def release(self, names) -> None:
+        """Free the storage of the gathered parameters among ``names``."""
+        for n in names:
+            nb = self._gathered.pop(n, None)
+            if nb is not None:
+                self._params[n].untyped_storage().resize_(0)
+                self.gathered_bytes -= nb
+
+    def rest(self, n: str) -> torch.Tensor:
+        """The tensor that holds ``n`` between steps."""
+        return self.shards[n] if n in self.shards else \
+            self._params[n].detach()
+
+    def state_view(self, n: str) -> torch.Tensor:
+        """``n``'s piece in its optimizer state's layout (a view of
+        ``rest(n)`` that AdamW updates in place)."""
+        lay = self.layouts[n]
+        return _split(self.rest(n), None if lay.dp_param is not None
+                      else lay.dp_opt, self.dp_rank, self.dp)
+
+    # ---------------------------------------------------- gradients
+    def grad_to_state(self, n: str, g: torch.Tensor) -> torch.Tensor:
+        """A rank's gradient of ``n`` -> its state's layout: sliced over the
+        model dim (``gather_tp``), partial parts summed over it, then
+        reduce-scattered (or averaged) over the batch dims."""
+        import torch.distributed as dist
+        lay, plan = self.layouts[n], self.plan
+        if plan.size > 1:
+            if lay.gather_tp:
+                g = _split(g, lay.tp_dim, plan.rank, plan.size).clone(
+                    memory_format=torch.contiguous_format)
+            elif lay.tp_sum:
+                g = shd.all_sum(g, plan.group)
+            elif lay.runs is not None:
+                g = g.clone()
+                for off, length in _whole_runs(lay, plan.size):
+                    run = g.narrow(lay.tp_dim, off, length)
+                    run.copy_(shd.all_sum(run, plan.group))
+        if self.dp > 1:
+            if lay.dp_opt is not None:
+                x = g.movedim(lay.dp_opt, 0).contiguous()
+                out = torch.empty((x.shape[0] // self.dp,)
+                                  + tuple(x.shape[1:]),
+                                  dtype=x.dtype, device=x.device)
+                dist.reduce_scatter_tensor(out, x, group=self.dp_group)
+                g = out.movedim(0, lay.dp_opt)
+            else:
+                g = shd.all_sum(g, self.dp_group)
+            g = g / self.dp
+        return g
+
+    def sq_norm(self, n: str, g: torch.Tensor) -> Optional[torch.Tensor]:
+        """The sum of squares of the part of ``n``'s gradient piece that
+        this rank counts toward the global norm (each element once over
+        the mesh), or None."""
+        lay, plan = self.layouts[n], self.plan
+        if ((lay.tp_dim is None and plan.rank != 0)
+                or (lay.dp_opt is None and self.dp_rank != 0)):
+            return None
+        if lay.runs is not None and plan.rank != 0 and plan.size > 1:
+            g = g.clone()
+            for off, length in _whole_runs(lay, plan.size):
+                g.narrow(lay.tp_dim, off, length).zero_()
+        return torch.sum(torch.square(g.to(torch.float32)))
+
+    # ---------------------------------------------------- the hooks
+    def _gather_at_use(self) -> None:
+        """Per unit of the model (``_units``): a forward pre-hook gathers
+        its weights split at rest, a forward hook frees them and, under
+        autograd, hooks the unit's output to gather them again before its
+        backward (a remat policy's recompute runs inside it); on a mesh of
+        more than one rank each parameter's gradient goes to its state's
+        layout as it is accumulated, and a gathered weight is freed then.
+        On one rank nothing is hooked."""
+        name_of = {id(p): n for n, p in self._params.items()}
+        owned = set()
+        for unit, params in _units(self.module):
+            names = tuple(name_of[id(p)] for p in params
+                          if name_of[id(p)] in self.shards)
+            owned.update(names)
+            if names:
+                unit.register_forward_pre_hook(
+                    functools.partial(self._pre, names))
+                unit.register_forward_hook(
+                    functools.partial(self._post, names))
+        if set(self.shards) - owned:
+            raise NotImplementedError(
+                "split at rest outside any unit of the model: "
+                + ", ".join(sorted(set(self.shards) - owned)))
+        if self.mesh.size() > 1:
+            # weakly (as in _post): the collector does not see a cycle
+            # through a tensor's hooks, which would keep this model alive
+            me = weakref.ref(self)
+            for n, p in self._params.items():
+                p.register_post_accumulate_grad_hook(
+                    functools.partial(_grad_ready, me, n))
+
+    def _pre(self, names, _module, _args) -> None:
+        self.gather(names)
+
+    def _post(self, names, _module, _args, out) -> None:
+        self.release(names)
+        if torch.is_grad_enabled():
+            # the unit's main output (a block's x, not a MoE block's aux,
+            # whose gradient comes first): its gradient is in just before
+            # the unit's backward starts
+            outs = [t for t in _tensors(out) if t.requires_grad]
+            if outs:
+                outs[0].register_hook(functools.partial(
+                    _regather, weakref.ref(self), names))
+
+    def begin_step(self) -> None:
+        self.grads.clear()
+        self._done.clear()
+
+    def end_backward(self) -> None:
+        self.release(tuple(self._gathered))
 
     # ------------------------------------------------------- DTensor views
+    def _whole_over_model(self, n: str, local: torch.Tensor) -> torch.Tensor:
+        """A parameter with runs, whole over the model dim: every rank's
+        piece gathered and each split run put back together."""
+        lay, tp = self.layouts[n], self.plan.size
+        pieces = _gather(local, lay.tp_dim, self.plan.group, tp).tensor_split(
+            tp, lay.tp_dim)
+        parts, off = [], 0
+        for length, split in lay.runs:
+            step = length // tp if split else length
+            if split:
+                parts += [q.narrow(lay.tp_dim, off, step) for q in pieces]
+            else:
+                parts.append(pieces[0].narrow(lay.tp_dim, off, step))
+            off += step
+        return torch.cat(parts, lay.tp_dim)
+
     def params(self) -> Dict[str, Any]:
         """Every parameter as a DTensor in its global layout (``shards``
-        or the module's weights as the local pieces); for checkpoints."""
+        or the module's weights as the local pieces; a parameter with runs
+        made whole over the model dim); for checkpoints."""
         from torch.distributed.tensor import DTensor
         out = {}
-        for n, p in self.module.named_parameters():
-            local = self.shards.get(n, p.detach())
+        for n in self._params:
+            lay, local = self.layouts[n], self.rest(n)
+            if lay.runs is not None and self.plan.size > 1:
+                local = self._whole_over_model(n, local)
             out[n] = DTensor.from_local(
-                local, self.mesh,
-                shd.to_placements(self.layouts[n].param, self.mesh),
+                local, self.mesh, shd.to_placements(lay.param, self.mesh),
                 run_check=False)
         return out
+
+    def departures(self) -> dict:
+        """What this layout computes or holds whole over the model dim
+        where the reference's rules split it (the module doc): {block:
+        bytes} of the weights gathered whole for compute (the router's
+        excepted: the reference's expert-parallel layer takes it whole
+        too), and the bytes of Mamba-2's whole B / C runs per chip."""
+        whole: Dict[str, int] = {}
+        bc = 0
+        for n, lay in self.layouts.items():
+            p = self._params[n]
+            if lay.gather_tp and self.plan.size > 1 \
+                    and not n.endswith(".router"):
+                blk = _block_of(n) or n.rpartition(".")[2]
+                whole[blk] = whole.get(blk, 0) + p.numel() * p.element_size()
+            elif lay.runs is not None and self.plan.size > 1:
+                per = p.numel() // p.shape[lay.tp_dim] * p.element_size()
+                bc += sum(length for length, split in lay.runs
+                          if not split) * per
+        return {"computed_whole": whole, "ssm_bc_bytes": int(bc)}
 
 
 def shard_model(cfg: ModelConfig, model: nn.Module, mesh,
@@ -399,9 +706,10 @@ def shard_model(cfg: ModelConfig, model: nn.Module, mesh,
                 ) -> Tuple[ShardedModel, Optional[AdamWState]]:
     """This rank's ``ShardedModel`` of the full ``model`` (every rank holds
     the same weights) and, given ``opt_state`` (the full AdamW state), its
-    share of it with DTensor ``m`` / ``v`` / ``master``.  Pieces share
-    storage with the full tensors where they can (a one-rank mesh copies
-    nothing)."""
+    share of it with DTensor ``m`` / ``v`` / ``master``.  A piece smaller
+    than its full tensor gets a storage of its own (a view would keep the
+    whole alive); a whole one shares the full tensor's (a one-rank mesh
+    copies nothing)."""
     from torch.distributed.tensor import DTensor
     with shd.use_mesh(mesh, rules):
         merged = shd.current_rules()
@@ -414,8 +722,10 @@ def shard_model(cfg: ModelConfig, model: nn.Module, mesh,
         blocks = _tp_blocks(cfg, tp) if tp_axis else frozenset()
         kv = _kv_split(cfg, tp, tp_rank) if "attn" in blocks else None
         kv = kv if isinstance(kv, tuple) else None
+        kv_seq = (cfg.num_kv_heads if tp_axis and cfg.num_kv_heads
+                  and _on_model("kv_seq") else None)
         plan = shd.TpPlan(shd.group_of(mesh, (tp_axis,)) if tp_axis
-                          else None, tp, tp_rank, blocks, kv)
+                          else None, tp, tp_rank, blocks, kv, kv_seq)
         full = dict(model.named_parameters())
         axes = param_axes(cfg)
         zero3 = zero_stage >= 3
@@ -429,31 +739,50 @@ def shard_model(cfg: ModelConfig, model: nn.Module, mesh,
         tp_sum = blk == "attn" and kv is not None and attr in _KV_PARAMS
         tp_dim = (_TP_DIMS[blk].get(attr)
                   if blk in blocks and not tp_sum else None)
-        ps, dp_p = _layout(p_spec[n], t.dim(), tp_dim, tp_axis, batch, n)
-        os_, dp_o = _layout(o_spec[n], t.dim(), tp_dim, tp_axis, batch, n)
+        runs = (_ssm_runs(cfg, attr) if blk == "ssm" and tp_dim is not None
+                else None)
+        gather_tp = False
+        if tp_dim is None and tp_axis is not None and not tp_sum:
+            tp_dim = _model_dim(p_spec[n], tp_axis)
+            gather_tp = tp_dim is not None
+        spec_dim = None if runs else tp_dim
+        ps, dp_p = _layout(p_spec[n], t.dim(), spec_dim, tp_axis, batch, n)
+        os_, dp_o = _layout(o_spec[n], t.dim(), spec_dim, tp_axis, batch, n)
         if dp_p is not None and dp_p != dp_o:
             raise NotImplementedError(f"{n}: parameter and state split "
                                       f"different dims over the batch")
-        layouts[n] = ParamLayout(ps, os_, tp_dim, dp_p, dp_o, tp_sum)
+        layouts[n] = ParamLayout(ps, os_, tp_dim, dp_p, dp_o, tp_sum,
+                                 gather_tp, runs)
     lcfg = _local_cfg(cfg, blocks, tp, kv)
     module = _model_class(lcfg)(lcfg, generator=None,
                                 device=torch.device("meta"))
-    for n, t in full.items():
-        _set_param(module, n, _split(t.detach(), layouts[n].tp_dim,
-                                     tp_rank, tp).contiguous())
     sm = ShardedModel(cfg, module, lcfg, mesh, merged, plan, layouts, batch)
-    if tp_axis is not None:
-        sm.unsplit = tuple(n for n in full
-                           if _on(p_spec[n], tp_axis)
-                           and not _on(layouts[n].param, tp_axis))
-    sm._release()
+    for n, t in full.items():
+        lay = layouts[n]
+        if not sm.split_at_rest(n):
+            piece = t if lay.gather_tp else _tp_piece(t.detach(), lay,
+                                                      tp_rank, tp)
+            _set_param(module, n, _own(piece.detach(), t))
+            continue
+        piece = _split(t.detach(), lay.tp_dim, tp_rank, tp) \
+            if lay.gather_tp else _tp_piece(t.detach(), lay, tp_rank, tp)
+        sm.shards[n] = _split(piece, lay.dp_param, sm.dp_rank,
+                              sm.dp).clone(
+                                  memory_format=torch.contiguous_format)
+        _set_param(module, n, torch.empty(
+            t.shape if lay.gather_tp else piece.shape, dtype=t.dtype,
+            device=t.device))
+    sm._params = dict(module.named_parameters())
+    for n in sm.shards:                 # at rest: the shape, no storage
+        sm._params[n].untyped_storage().resize_(0)
+    sm._gather_at_use()
     if opt_state is None:
         return sm, None
 
     def local(n, t):
         lay = layouts[n]
-        piece = _split(_split(t, lay.tp_dim, tp_rank, tp), lay.dp_opt,
-                       sm.dp_rank, sm.dp).contiguous()
+        piece = _own(_split(_tp_piece(t, lay, tp_rank, tp), lay.dp_opt,
+                            sm.dp_rank, sm.dp), t)
         return DTensor.from_local(piece, mesh,
                                   shd.to_placements(lay.opt, mesh),
                                   run_check=False)
@@ -489,42 +818,29 @@ def _local(t):
 def _sharded_train_step(sm: ShardedModel, opt_state: AdamWState, batch,
                         loss_scale, tcfg: TrainConfig, policy):
     """One fused iteration on this rank's share (module doc)."""
-    import torch.distributed as dist
-    sm.gather()
+    sm.begin_step()
     with sm.context():
         loss, params, _m = _backward(make_loss_fn(sm.local_cfg), sm.module,
-                                     batch, loss_scale, policy)
+                                     batch, loss_scale, policy, fill=False)
+    sm.end_backward()
     if sm.dp > 1:
         loss = shd.mean(loss, sm.dp_group)
     grads, views = {}, {}
     for n, p in params.items():
-        lay = sm.layouts[n]
-        g = p.grad
-        p.grad = None
-        if lay.tp_sum and sm.plan.size > 1:
-            g = shd.all_sum(g, sm.plan.group)
-        if sm.dp > 1:
-            if lay.dp_opt is not None:
-                x = g.movedim(lay.dp_opt, 0).contiguous()
-                out = torch.empty((x.shape[0] // sm.dp,) + tuple(x.shape[1:]),
-                                  dtype=x.dtype, device=x.device)
-                dist.reduce_scatter_tensor(out, x, group=sm.dp_group)
-                g = out.movedim(0, lay.dp_opt)
-            else:
-                g = shd.all_sum(g, sm.dp_group)
-            g = g / sm.dp
+        g = sm.grads.pop(n, None)
+        if g is None:                   # one rank, or unused by the loss
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            p.grad = None
+            g = sm.grad_to_state(n, g)
         grads[n] = g / torch.tensor(loss_scale, dtype=torch.float32
                                     ).to(device=g.device, dtype=g.dtype)
-        views[n] = _split(p.detach(), lay.dp_opt, sm.dp_rank, sm.dp)
+        views[n] = sm.state_view(n)
     # the global norm: each piece counted once over the mesh
     total = None
     for n, g in grads.items():
-        lay = sm.layouts[n]
-        if ((lay.tp_dim is None and sm.plan.rank != 0)
-                or (lay.dp_opt is None and sm.dp_rank != 0)):
-            continue
-        s = torch.sum(torch.square(g.to(torch.float32)))
-        total = s if total is None else total + s
+        s = sm.sq_norm(n, g)
+        if s is not None:
+            total = s if total is None else total + s
     if total is None:
         total = torch.zeros((), dtype=torch.float32, device=sm.device)
     if sm.mesh.size() > 1:
@@ -543,12 +859,12 @@ def _sharded_train_step(sm: ShardedModel, opt_state: AdamWState, batch,
     local_state = AdamWState(opt_state.step, loc(opt_state.m),
                              loc(opt_state.v), loc(opt_state.master))
     new = adamw_update(views, grads, local_state, tcfg, lr)
-    for n, p in params.items():
+    for n in params:
         lay = sm.layouts[n]
         if lay.dp_opt is not None and lay.dp_param is None and sm.dp > 1:
             with torch.no_grad():
-                p.copy_(_gather(views[n], lay.dp_opt, sm.dp_group, sm.dp))
-    sm._release()
+                sm.rest(n).copy_(_gather(views[n], lay.dp_opt, sm.dp_group,
+                                         sm.dp))
     opt_state = AdamWState(new.step, opt_state.m, opt_state.v,
                            opt_state.master)
     return sm, opt_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
@@ -585,11 +901,12 @@ def _run(policy):
     return policy.run() if policy is not None else contextlib.nullcontext()
 
 
-def _backward(loss_fn, model, batch, loss_scale, policy=None):
+def _backward(loss_fn, model, batch, loss_scale, policy=None,
+              fill: bool = True):
     """Scaled loss and its backward, under ``policy``; returns (loss,
-    {name: param}, metrics) with each parameter's ``.grad`` filled (zeros
-    where the loss does not reach it) and the loss's parts (``xent``,
-    ``aux``) detached."""
+    {name: param}, metrics) with each parameter's ``.grad`` filled (with
+    ``fill``, zeros where the loss does not reach it) and the loss's parts
+    (``xent``, ``aux``) detached."""
     params = dict(model.named_parameters())
     for p in params.values():
         p.grad = None
@@ -597,7 +914,7 @@ def _backward(loss_fn, model, batch, loss_scale, policy=None):
         scaled, (loss, m) = loss_fn(model, batch, loss_scale)
         scaled.backward()
     for p in params.values():
-        if p.grad is None:
+        if fill and p.grad is None:
             p.grad = torch.zeros_like(p)
     return loss.detach(), params, {k: v.detach() for k, v in m.items()}
 
@@ -705,7 +1022,7 @@ def make_prefill_step(cfg: ModelConfig, policy=None) -> Callable:
         with ctx, _run(policy):
             logits, _ = api.forward(c, m, batch["tokens"],
                                     memory=batch.get("memory"))
-        return logits
+        return _whole_logits(model, logits)
 
     return prefill_step
 
@@ -718,8 +1035,20 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
     def decode_step(model, tokens, state):
         if isinstance(model, ShardedModel):
             with model.context():
-                return api.decode_step(model.local_cfg, model.module,
-                                       tokens, state)
+                logits, state = api.decode_step(model.local_cfg, model.module,
+                                                tokens, state)
+            return _whole_logits(model, logits), state
         return api.decode_step(cfg, model, tokens, state)
 
     return decode_step
+
+
+def _whole_logits(model, logits: torch.Tensor) -> torch.Tensor:
+    """A ``ShardedModel``'s logits whole over the vocabulary (all-gathered
+    over the model dim where its plan splits the vocabulary), so a sampler
+    sees what the unsharded step gives."""
+    if (not isinstance(model, ShardedModel) or "vocab" not in model.plan.blocks
+            or model.plan.size == 1):
+        return logits
+    return _gather(logits, logits.dim() - 1, model.plan.group,
+                   model.plan.size)

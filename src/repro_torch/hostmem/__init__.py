@@ -2,7 +2,7 @@
 
 One shared substrate under both branches of the system:
 
-  * **training** (§5.4 policy execution, a later slice): the simulator
+  * **training** (§5.4 policy execution, ``core.executor``): the simulator
     prices swaps with the measured :class:`BandwidthModel`, the policy's
     free-times hand off to the :class:`TransferEngine`'s swap-out
     completion events, and every staged tensor recycles through the

@@ -842,7 +842,7 @@ class TransferEngine:
 
     def backlog_snapshot(self) -> Dict[str, dict]:
         """One consistent per-class view of the live link backlog —
-        what an adaptation snapshot (a later slice) freezes so the
+        what an adaptation snapshot (``adapt.snapshot``) freezes so the
         background variant search prices the contention that existed
         when drift settled, not whatever the engine is doing later.
         ``queued_delay`` here is the same estimate :meth:`queued_delay`

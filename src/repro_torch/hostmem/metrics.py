@@ -1,7 +1,7 @@
 """Aggregated host-memory tier counters: port of ``repro/hostmem/metrics.py``.
 
 One dict, stable keys, cheap to collect — surfaced through
-``Server.stats()["hostmem"]`` (and the runtime's stats in a later slice)
+``Server.stats()["hostmem"]`` and ``ChameleonRuntime.stats()["hostmem"]``
 so dashboards and benchmarks read the same numbers.
 """
 from __future__ import annotations

@@ -43,9 +43,11 @@
 // wrapper allocates; a second kernel (`flash_decode_combine`, same stream)
 // gives one block to each (batch row, query head), rescales the splits
 // below ceil(lens[b] / Tk) to their common max, sums them and writes o in
-// q's dtype (zeros where lens[b] <= 0).  TMA was not used: a tensor-map box
-// copies whole boxes, so the last box of a split would read rows past
-// lens[b].
+// q's dtype (zeros where lens[b] <= 0) and, when asked, each row's f32
+// log-sum-exp max + log(sum) (-inf where lens[b] <= 0), by which a caller
+// that splits the cache's positions over ranks merges the ranks' rows.
+// TMA was not used: a tensor-map box copies whole boxes, so the last box of
+// a split would read rows past lens[b].
 //
 // Scores use expf (not exp2f with the scale folded into q), as the plain
 // version does; the library is built without fast math.
@@ -319,7 +321,8 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // One block of D threads per (query head, batch row): merge the splits
-// that hold keys, each rescaled to their common max.  grid = (H, B).  The
+// that hold keys, each rescaled to their common max, and write the row's
+// log-sum-exp to lse[b * H + h] when lse is not null.  grid = (H, B).  The
 // splits are read CH at a time with every load issued before any use, so a
 // call costs two round trips to L2 for up to CH splits, not two per split.
 constexpr int CH = 8;
@@ -328,7 +331,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(D)
 flash_decode_combine(const float* __restrict__ ws_acc,
                      const float* __restrict__ ws_ml, T* __restrict__ o,
-                     const int* __restrict__ lens, int H, int Sk, int Tk,
+                     float* __restrict__ lse, const int* __restrict__ lens,
+                     int H, int Sk, int Tk,
                      int nsplit) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   const int n = valid_keys(lens, b, Sk);
@@ -361,6 +365,8 @@ flash_decode_combine(const float* __restrict__ ws_acc,
     }
   }
   store(o + ((int64_t)b * H + h) * D + d, ns > 0 ? num / fmaxf(den, 1e-30f) : 0.f);
+  if (lse != nullptr && d == 0)
+    lse[(int64_t)b * H + h] = ns > 0 ? mx + logf(den) : -INFINITY;
 }
 
 // Raise a kernel's dynamic shared-memory limit once per device, not on every
@@ -395,7 +401,7 @@ int launch_split(const T* q, const T* k, const T* v, float* ws_acc,
 
 template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, void* o,
-             float* ws, const int* lens, int B, int H, int Kh, int Sk, int Tk,
+             float* ws, float* lse, const int* lens, int B, int H, int Kh, int Sk, int Tk,
              float sm_scale, cudaStream_t stream) {
   if (Tk <= 0 || Tk % Cfg<T, D>::SK != 0) return (int)cudaErrorInvalidValue;
   const int nsplit = (Sk + Tk - 1) / Tk;
@@ -416,19 +422,19 @@ int launch_d(const void* q, const void* k, const void* v, void* o,
     err = launch_split<T, D, 4>(qp, kp, vp, ws_acc, ws_ml, lens, B, H, Kh, Sk, Tk, nsplit, sm_scale, stream);
   if (err) return err;
   flash_decode_combine<T, D><<<dim3(H, B), D, 0, stream>>>(
-      ws_acc, ws_ml, static_cast<T*>(o), lens, H, Sk, Tk, nsplit);
+      ws_acc, ws_ml, static_cast<T*>(o), lse, lens, H, Sk, Tk, nsplit);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
-               float* ws, const int* lens, int B, int H, int Kh, int Sk,
+               float* ws, float* lse, const int* lens, int B, int H, int Kh, int Sk,
                int Tk, float sm_scale, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_d<T, 16>(q, k, v, o, ws, lens, B, H, Kh, Sk, Tk, sm_scale, stream);
-    case 32: return launch_d<T, 32>(q, k, v, o, ws, lens, B, H, Kh, Sk, Tk, sm_scale, stream);
-    case 64: return launch_d<T, 64>(q, k, v, o, ws, lens, B, H, Kh, Sk, Tk, sm_scale, stream);
-    case 128: return launch_d<T, 128>(q, k, v, o, ws, lens, B, H, Kh, Sk, Tk, sm_scale, stream);
+    case 16: return launch_d<T, 16>(q, k, v, o, ws, lse, lens, B, H, Kh, Sk, Tk, sm_scale, stream);
+    case 32: return launch_d<T, 32>(q, k, v, o, ws, lse, lens, B, H, Kh, Sk, Tk, sm_scale, stream);
+    case 64: return launch_d<T, 64>(q, k, v, o, ws, lse, lens, B, H, Kh, Sk, Tk, sm_scale, stream);
+    case 128: return launch_d<T, 128>(q, k, v, o, ws, lse, lens, B, H, Kh, Sk, Tk, sm_scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -437,24 +443,27 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
 
 // C entry point.  dtype: 0 = float32, 1 = bfloat16.  ws: f32 device memory
 // of B * H * ceil(Sk / Tk) * (D + 2) floats (each split's acc, then the
-// (m, l) pairs); Tk: keys per split, a multiple of the kernel's keys per
-// stage (32, or 64 at D 16).
+// (m, l) pairs); lse: null, or B * H floats for each row's log-sum-exp;
+// Tk: keys per split, a multiple of the kernel's keys per stage (32, or 64
+// at D 16).
 // Launches the split kernel and the combine kernel on `stream`.  Returns a
 // cudaError_t (0 on success): the launch status from cudaGetLastError, or
 // cudaErrorInvalidValue for a shape, head dim, split or dtype it does not
 // take.
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
-                                void* o, void* ws, const int* lens, int B,
+                                void* o, void* ws, void* lse,
+                                const int* lens, int B,
                                 int H, int Kh, int Sk, int D, int dtype,
                                 float sm_scale, int Tk, void* stream) {
   if (B <= 0 || H <= 0 || Kh <= 0 || H % Kh != 0 || Sk <= 0 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, o, w, lens, B, H, Kh, Sk, Tk, sm_scale, st);
+    return dispatch_d<float>(D, q, k, v, o, w, l, lens, B, H, Kh, Sk, Tk, sm_scale, st);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, w, lens, B, H, Kh, Sk, Tk, sm_scale, st);
+    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, w, l, lens, B, H, Kh, Sk, Tk, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

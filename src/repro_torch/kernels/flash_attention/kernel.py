@@ -177,7 +177,7 @@ def bind_decode(lib: ctypes.CDLL):
     """The typed C entry point ``flash_decode_fwd`` of a loaded library."""
     fn = lib.flash_decode_fwd
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, vp,        # q k v o workspace lens
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp,    # q k v o workspace lse lens
                    ci, ci, ci, ci, ci, ci,        # B H Kh Sk D dtype
                    ctypes.c_float, ci, vp]        # sm_scale Tk stream
     fn.restype = ci
@@ -194,12 +194,14 @@ def _decode_entry():
 
 def flash_decode_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      out: torch.Tensor, lens: torch.Tensor, *,
-                     sm_scale: float, split: Optional[int] = None) -> None:
+                     sm_scale: float, split: Optional[int] = None,
+                     lse: Optional[torch.Tensor] = None) -> None:
     """Launch the split and combine kernels on the current stream of
     ``q``'s device and return without synchronising.  q/out (B,1,H,D), k/v
     (B,Sk,Kh,D), contiguous, one dtype, 16-byte aligned; lens (B,) int32 on
     the same device.  ``split`` keys per split (default ``split_keys``);
-    the f32 workspace is allocated here."""
+    the f32 workspace is allocated here.  ``lse``, if given, a contiguous
+    f32 (B,H,1) the combine writes each row's log-sum-exp into."""
     B, _, H, D = q.shape
     Sk, Kh = k.shape[1], k.shape[2]
     tk = split_keys(B, Kh, Sk) if split is None else split
@@ -209,6 +211,7 @@ def flash_decode_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 ws.data_ptr(), lens.data_ptr(), B, H, Kh, Sk, D,
+                 ws.data_ptr(), None if lse is None else lse.data_ptr(),
+                 lens.data_ptr(), B, H, Kh, Sk, D,
                  DTYPE_CODES[q.dtype], float(sm_scale), tk, stream)
     _build.check(lib, err, "flash_decode_fwd launch")

@@ -349,29 +349,38 @@ def _check_decode(q, k, v, lens):
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        lens: torch.Tensor, *,
-                       sm_scale: Optional[float] = None) -> torch.Tensor:
+                       sm_scale: Optional[float] = None,
+                       return_lse: bool = False):
     """Plain PyTorch version of the decode kernel: a masked softmax in f32
-    over the first ``lens[b]`` cache rows; zeros where ``lens[b] <= 0``."""
+    over the first ``lens[b]`` cache rows; zeros where ``lens[b] <= 0``.
+    With ``return_lse`` also each row's log-sum-exp (B,H,1) f32, -inf where
+    ``lens[b] <= 0``."""
     _check_decode(q, k, v, lens)
     return flash_attention_plain(q, k, v, causal=False, sm_scale=sm_scale,
-                                 kv_lens=lens)
+                                 kv_lens=lens, return_lse=return_lse)
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  lens: torch.Tensor, *,
-                 sm_scale: Optional[float] = None) -> torch.Tensor:
-    """q (B,1,H,D); k/v (B,Smax,Kh,D), contiguous; lens (B,) -> (B,1,H,D)."""
+                 sm_scale: Optional[float] = None, return_lse: bool = False):
+    """q (B,1,H,D); k/v (B,Smax,Kh,D), contiguous; lens (B,) -> (B,1,H,D),
+    or with ``return_lse`` (out, lse (B,H,1) f32): each row's log-sum-exp,
+    which merges attention over positions split between ranks
+    (``models.attention``, the ``kv_seq`` cache)."""
     _check_decode(q, k, v, lens)
     if any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_decode is forward only; call it under "
                            "torch.no_grad()")
-    D = q.shape[3]
+    B, _, H, D = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
     if all(t.device.type == "cpu" for t in (q, k, v, lens)):
-        return flash_decode_plain(q, k, v, lens, sm_scale=sm_scale)
+        return flash_decode_plain(q, k, v, lens, sm_scale=sm_scale,
+                                  return_lse=return_lse)
     if isinstance(q, FakeTensor):   # the shape rule the dry run traces
-        return torch.empty_like(q)
+        out = torch.empty_like(q)
+        return ((out, q.new_empty((B, H, 1), dtype=torch.float32))
+                if return_lse else out)
     if (q.device.type != "cuda"
             or any(t.device != q.device for t in (k, v, lens))):
         raise RuntimeError(f"flash_decode runs on one CUDA device or on the "
@@ -391,9 +400,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "must start 16-byte aligned")
     lens = lens.to(dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
-    K.flash_decode_fwd(q, k, v, out, lens, sm_scale=sm_scale)
+    lse = (torch.empty((B, H, 1), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    K.flash_decode_fwd(q, k, v, out, lens, sm_scale=sm_scale, lse=lse)
     flash_decode.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_decode.launches = 0

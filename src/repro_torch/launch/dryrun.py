@@ -18,16 +18,20 @@ allocated.
   * Memory: ``core.profiler.profile_step`` records the step's storages
     (their birth and their death by weakref, which fires for fake storages
     as for real ones) over a static base, this chip's resident state (its
-    parameters and optimizer state); ``peak_per_chip`` is the timeline's
-    peak.  One rank's local step is traced, so the profile is per chip as
-    it stands (``_per_chip_profile`` only sets the static base), where the
+    parameters as held at rest and its optimizer state); ``peak_per_chip``
+    is the timeline's peak plus the most weight bytes gathered at use at
+    once (``gathered_peak_bytes``: a gather refills a parameter's own
+    storage, which the profile does not see born).  One rank's local step
+    is traced, so the profile is per chip as it stands
+    (``_per_chip_profile`` only sets the static base), where the
     reference rescales a global-shape profile by each site's sharding.
   * Roofline: ``launch.roofline.step_cost`` over the same step.
   * ``departures``: where the cell's layout holds or runs more per chip
-    than the reference's (attention, embedding or Mamba-2 weights whole
-    over ``model``; ZeRO 3's whole-model gather); with any,
-    ``comparable_to_reference`` is false and the cell's memory and
-    roofline numbers are the port's own, not the reference's.
+    than the reference's: attention computed whole where the model dim
+    does not divide the query heads (its weights gathered at use, their
+    bytes), and Mamba-2's B / C columns whole on every rank (their bytes);
+    with any, ``comparable_to_reference`` is false and the cell's memory
+    and roofline numbers are the port's own, not the reference's.
   * ``fits_hbm`` (the reference's ``fits_16g``) compares the peak with the
     port's ``ChameleonConfig.hbm_budget_bytes``, recorded beside it;
     ``device_peak_est`` is the reference's ``device_peak_est_tpu``.
@@ -137,24 +141,18 @@ def _resident_bytes(*trees) -> int:
 
 
 def _departures(sm) -> dict:
-    """Where this cell's layout holds or runs more per chip than the
-    reference's (``distributed.steps``' module doc): the modules whose
-    parameters the rules split over ``model`` and the port holds whole,
-    their bytes, and whether ZeRO 3 gathers the whole model at once.  A
-    cell with any is not comparable to the reference's memory and roofline
-    numbers."""
-    named = dict(sm.module.named_parameters())
-    whole = sorted({n.split(".")[-2] for n in sm.unsplit})
-    nbytes = 0
-    for n in sm.unsplit:           # as gathered, under ZeRO 3 too
-        t = sm.shards.get(n, named[n])
-        nbytes += (t.numel() * t.element_size()
-                   * (sm.dp if n in sm.shards else 1))
-    gather = bool(sm.shards)
-    return {"held_whole_over_model": whole,
-            "held_whole_over_model_bytes": int(nbytes),
-            "zero3_whole_model_gather": gather,
-            "comparable_to_reference": not (whole or gather)}
+    """Where this cell's layout computes or holds more per chip than the
+    reference's (``distributed.steps``' module doc): the blocks whose
+    weights a rank gathers whole for compute (attention whose query heads
+    the model dim does not divide) with their bytes, and the bytes of
+    Mamba-2's B / C runs held whole on every rank.  A cell with any is not
+    comparable to the reference's memory and roofline numbers."""
+    dep = sm.departures()
+    whole = dep["computed_whole"]
+    return {"computed_whole_over_model": sorted(whole),
+            "computed_whole_over_model_bytes": int(sum(whole.values())),
+            "ssm_bc_whole_bytes": dep["ssm_bc_bytes"],
+            "comparable_to_reference": not (whole or dep["ssm_bc_bytes"])}
 
 
 def _per_chip_profile(prof, static_bytes: int):
@@ -337,13 +335,17 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     prof.t_iter = _estimate_t_iter(cfg, shape, chips)
     tl = build_timeline(prof)
     terms = R.analyze(cost, chips, model_flops=mf, device_kind=device_kind)
-    peak = int(tl.peak)
+    # weights gathered at use refill storages the profile does not see
+    # born: the most alive at once is added to the timeline's peak
+    gathered = int(sm.peak_gathered_bytes)
+    peak = int(tl.peak) + gathered
     rec.update(
         status="ok", cost_s=round(t_cost, 2), trace_s=round(t_trace, 2),
         departures=departures,
         memory={"static_bytes": int(static),
                 "temp_bytes": int(peak - static),
                 "peak_per_chip": peak,
+                "gathered_peak_bytes": gathered,
                 "hbm_budget_bytes": int(budget),
                 "fits_hbm": bool(peak <= budget)},
         roofline=terms.to_dict())

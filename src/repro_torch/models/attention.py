@@ -22,6 +22,16 @@ row, given ``mem_lens`` (every row the memory's length), to the
 flash-decode kernel, which computes exactly that attention.  The
 reference computes decode cross-attention on its chunked path, outside
 any kernel: the routing to the decode kernel is the port's.
+
+Under a plan whose decode cache splits positions over the model dim
+(``TpPlan.kv_seq``: the reference's cache spec ``("batch", "kv_seq",
+"act_kv_heads", None)``), rank r holds positions ``[r * S/tp, (r+1) *
+S/tp)`` of every KV head (``init_kv_cache``, ``fill_cache``).  A decode
+step gathers every query head and the new K/V row of every KV head over
+the model group (a few KB), writes the row on the rank that owns its
+position, attends its own positions for every head through the decode
+kernel with each row's log-sum-exp, merges the ranks' (o, lse) by weights
+exp(lse - max), and keeps its own heads for ``wo``.
 """
 from __future__ import annotations
 
@@ -242,10 +252,27 @@ class KVCache(NamedTuple):
     length: torch.Tensor  # (B,) int64 — tokens already in cache
 
 
+def _kv_seq_plan():
+    """The installed plan when its decode cache splits positions over more
+    than one model rank, else None."""
+    plan = shd.current_tp()
+    return plan if plan is not None and plan.kv_seq and plan.size > 1 \
+        else None
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                   device: torch.device) -> KVCache:
+    """Zeroed (L, B, Smax, Kh, D) caches; under a ``kv_seq`` plan this
+    rank's Smax / tp positions of every KV head of the model."""
     dtype = torch_dtype(cfg.dtype)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    S, Kh = max_len, cfg.num_kv_heads
+    plan = _kv_seq_plan()
+    if plan is not None:
+        if max_len % plan.size:
+            raise ValueError(f"a cache of {max_len} positions does not "
+                             f"split over {plan.size} model ranks")
+        S, Kh = max_len // plan.size, plan.kv_seq
+    shape = (cfg.num_layers, batch, S, Kh, cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros((batch,), dtype=torch.int64, device=device))
@@ -269,12 +296,75 @@ def decode_self_attention(cfg: ModelConfig, p: Attention, x, layer_cache,
         cos, sin = rope_frequencies(cfg, positions[:, None])
         q = apply_rope(q, cos, sin)
         k_new = apply_rope(k_new, cos, sin)
+    plan = _kv_seq_plan()
+    if plan is not None:
+        q, k_new, v_new = (_every_head(cfg, plan, q, False),
+                           _every_head(cfg, plan, k_new, True),
+                           _every_head(cfg, plan, v_new, True))
     B, Smax = ck.shape[:2]
     rows = torch.arange(B, device=ck.device)
-    idx = torch.clamp(positions, max=Smax - 1)
-    keep = (positions < Smax)[:, None, None]
+    if plan is None:
+        idx = torch.clamp(positions, max=Smax - 1)
+        keep = (positions < Smax)[:, None, None]
+    else:                               # this rank's positions only
+        local = positions - plan.rank * Smax
+        idx = torch.clamp(local, min=0, max=Smax - 1)
+        keep = ((local >= 0) & (local < Smax))[:, None, None]
     ck[rows, idx] = torch.where(keep, k_new[:, 0].to(ck.dtype), ck[rows, idx])
     cv[rows, idx] = torch.where(keep, v_new[:, 0].to(cv.dtype), cv[rows, idx])
-    ctx = _attend(cfg, q, ck, cv, causal=False, kv_len=positions + 1)
+    if plan is None:
+        ctx = _attend(cfg, q, ck, cv, causal=False, kv_len=positions + 1)
+    else:
+        ctx = _merged(cfg, plan, q, ck, cv,
+                      torch.clamp(local + 1, min=0, max=Smax))
     ctx = tag(ctx, "attn_ctx")
     return _out_proj(cfg, p, ctx), (ck, cv)
+
+
+def _every_head(cfg: ModelConfig, plan, t, kv: bool):
+    """q (B,1,H_local,D) or a new K/V row (B,1,Kh_local,D) with every head
+    of the model, gathered over the model group where the plan splits the
+    attention (a rank under ``TpPlan.kv`` holds one KV head, which several
+    ranks share: the first of them gives it)."""
+    if "attn" not in plan.blocks:
+        return t
+    t = shd.all_gather(t, 2, plan.group)
+    if not kv or plan.kv is None:
+        return t
+    group = cfg.num_heads * plan.size // plan.kv_seq   # query heads a KV head
+    return t[:, :, [h * group // cfg.num_heads for h in range(plan.kv_seq)]]
+
+
+def _merged(cfg: ModelConfig, plan, q, ck, cv, lens):
+    """Attention of every query head over all positions from each rank's
+    (o, lse) over its own: weights exp(lse - max) over the model group;
+    this rank's query heads of it (B,1,H_local,D)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    attend = (fa_ops.flash_decode if cfg.attn_impl == "flash"
+              else fa_ops.flash_decode_plain)
+    o, lse = attend(q, ck, cv, lens, return_lse=True)
+    B, _, H, D = q.shape
+    n = plan.size
+    os_ = shd.all_gather(o.float(), 0, plan.group).reshape(n, B, 1, H, D)
+    lses = shd.all_gather(lse, 0, plan.group).reshape(n, B, 1, H, 1)
+    w = torch.exp(lses - lses.amax(dim=0))
+    ctx = ((w * os_).sum(0) / w.sum(0)).to(q.dtype)
+    if "attn" in plan.blocks:
+        ctx = ctx.narrow(2, plan.rank * cfg.num_heads, cfg.num_heads)
+    return ctx
+
+
+def fill_cache(cfg: ModelConfig, ck: torch.Tensor, cv: torch.Tensor,
+               k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write a prompt's rope'd K/V (B,S,Kh,D) at positions 0..S-1 of one
+    layer's cache, in place; under a ``kv_seq`` plan the positions this
+    rank holds, of every KV head (gathered as a decode step gathers the
+    new row's)."""
+    plan = _kv_seq_plan()
+    if plan is not None:
+        k, v = _every_head(cfg, plan, k, True), _every_head(cfg, plan, v, True)
+        lo = plan.rank * ck.shape[1]
+        k, v = k[:, lo:lo + ck.shape[1]], v[:, lo:lo + ck.shape[1]]
+    S = k.shape[1]
+    ck[:, :S] = k.to(ck.dtype)
+    cv[:, :S] = v.to(cv.dtype)

@@ -15,6 +15,17 @@ GELU (``_act``: the reference's ``jax.nn.gelu`` is the tanh approximation
 by default, so ``F.gelu(approximate="tanh")``).  The non-gated MLP,
 learned positions and the logit soft-cap come with the encoder-decoder and
 VLM families (``transformer.check_family`` refuses them until then).
+
+The modules the model code runs as a whole (``Norm``, ``Embedding``, the
+blocks, whisper's root) are ``Unit``s: the code calls ``unit(fn, cfg,
+...)``, which runs ``fn(cfg, unit, ...)`` through ``nn.Module.__call__``,
+so hooks on the module bracket every use of its weights
+(``distributed.steps`` gathers weights sharded at rest that way).  Under a
+plan that splits the vocabulary over the model dim (``vocab``), each rank
+holds its rows of ``tok`` and the matching columns of ``unembed``: the
+embedding looks up its own rows and sums over the model group, the
+unembedding gives this rank's logits, and ``cross_entropy`` is the
+vocab-parallel loss over them.
 """
 from __future__ import annotations
 
@@ -66,8 +77,17 @@ def _const(shape, value: float, cfg: ModelConfig,
                                    device=device))
 
 
+class Unit(nn.Module):
+    """A module whose weights the model code uses through one call:
+    ``unit(fn, cfg, *args)`` is ``fn(cfg, unit, *args)`` run by
+    ``nn.Module.__call__`` (so its forward hooks fire around it)."""
+
+    def forward(self, fn, cfg, *args, **kw):
+        return fn(cfg, self, *args, **kw)
+
+
 # ----------------------------------------------------------------- norms
-class Norm(nn.Module):
+class Norm(Unit):
     AXES = {"scale": ("embed",), "bias": ("embed",)}
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device):
@@ -163,7 +183,7 @@ def apply_mlp(cfg: ModelConfig, p: Mlp, x: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------- embedding
-class Embedding(nn.Module):
+class Embedding(Unit):
     AXES = {"tok": ("vocab", "embed"), "unembed": ("embed", "vocab"),
             "pos": ("pos", "embed")}
 
@@ -184,7 +204,15 @@ def embed_tokens(cfg: ModelConfig, p: Embedding, tokens: torch.Tensor,
     """Token embeddings in the activation dtype, plus the learned position
     embeddings at ``positions`` (the shape of ``tokens``) when the config
     learns them."""
-    x = p.tok[tokens].to(torch_dtype(cfg.dtype))
+    group = shd.tp_group("vocab")
+    if group is None:
+        x = p.tok[tokens].to(torch_dtype(cfg.dtype))
+    else:                   # this rank's rows; the others' tokens give 0
+        V = p.tok.shape[0]
+        local = tokens - shd.tp_rank("vocab") * V
+        own = (local >= 0) & (local < V)
+        rows = p.tok[torch.where(own, local, 0)].to(torch_dtype(cfg.dtype))
+        x = shd.exit(torch.where(own[..., None], rows, 0), group)
     if cfg.pos_embedding == "learned":
         if positions is None:
             raise ValueError("learned position embeddings need positions")
@@ -194,6 +222,8 @@ def embed_tokens(cfg: ModelConfig, p: Embedding, tokens: torch.Tensor,
 
 
 def unembed(cfg: ModelConfig, p: Embedding, x: torch.Tensor) -> torch.Tensor:
+    """Logits (B,S,V), or this rank's (B,S,V/tp) under a ``vocab`` plan."""
+    x = shd.tp_enter(x, "vocab")
     w = p.tok.T if cfg.tie_embeddings else p.unembed
     logits = x @ w.to(x.dtype)
     logits = shd.constrain(logits, ("batch", "seq", "act_vocab"))
@@ -205,13 +235,35 @@ def unembed(cfg: ModelConfig, p: Embedding, x: torch.Tensor) -> torch.Tensor:
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stable softmax cross-entropy in f32; logits (B,S,V), labels (B,S);
-    the mean over tokens, or over the tokens where ``mask`` is 1."""
+    the mean over tokens, or over the tokens where ``mask`` is 1.  Under a
+    ``vocab`` plan ``logits`` are this rank's columns (``unembed``) and the
+    loss is vocab-parallel (``_vocab_parallel``)."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    picked = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    group = shd.tp_group("vocab")
+    if group is None:
+        lse = torch.logsumexp(lf, dim=-1)
+        picked = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    else:
+        lse, picked = _vocab_parallel(lf, labels.long(), group)
     nll = lse - picked
     if mask is not None:
         mask = mask.to(nll.dtype)
         nll = nll * mask
         return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+def _vocab_parallel(lf: torch.Tensor, labels: torch.Tensor, group):
+    """(log-sum-exp, the label's logit) over the whole vocabulary from this
+    rank's f32 logit columns: the row max over the model group (no
+    gradient), the sum of exp and the owner's label logit summed over it
+    (forward; the backward of both sums is the identity, so each rank's
+    gradient is its softmax columns less its part of the one-hot)."""
+    V = lf.shape[-1]
+    mx = shd.all_max(lf.amax(dim=-1), group)
+    lse = mx + torch.log(shd.exit(torch.exp(lf - mx[..., None]).sum(-1),
+                                  group))
+    local = labels - shd.tp_rank("vocab") * V
+    own = (local >= 0) & (local < V)
+    picked = torch.gather(lf, -1, torch.where(own, local, 0)[..., None])
+    return lse, shd.exit(torch.where(own, picked[..., 0], 0.0), group)

@@ -8,6 +8,16 @@ takes its decode state from the same pass (``apply_ssm(return_state=
 True)``); the reference runs the scan a second time for it.  Decode is the
 one-token recurrence over the persistent (conv, ssd) state, in plain
 PyTorch as in the reference, which has no kernel for it.
+
+Under a plan that splits the SSM heads over the model dim (``ssm``, the
+reference's ``ssm_heads`` / ``ssm_inner`` on ``model``), each rank holds
+its heads' z, x and dt columns of ``in_proj``, their conv channels,
+``A_log`` / ``dt_bias`` / ``D``, ``norm_scale`` and rows of ``out_proj``;
+the B and C columns and their conv channels are whole on every rank (every
+head reads them).  ``_dims`` gives the rank's sizes; the scan runs on its
+heads, the gated norm sums its squares over the model group (``tp_sum``)
+and the out-projection ends in ``tp_exit``.  The decode state holds the
+rank's x channels with the whole B / C, and its heads' SSD state.
 """
 from __future__ import annotations
 
@@ -51,8 +61,17 @@ class Ssm(nn.Module):
         self.out_proj = dense_init(di, d, cfg, **kw)
 
 
+def _dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
+    """(d_inner, state, heads, head dim) of this rank's share: the heads
+    and their channels divided over the model group under an ``ssm``
+    plan, whole otherwise."""
+    n = shd.tp_size("ssm")
+    return (cfg.ssm_d_inner // n, cfg.ssm_state, cfg.ssm_heads // n,
+            cfg.ssm_head_dim)
+
+
 def _split_proj(cfg: ModelConfig, proj):
-    di, ds = cfg.ssm_d_inner, cfg.ssm_state
+    di, ds = _dims(cfg)[:2]
     return proj[..., :di], proj[..., di:2 * di + 2 * ds], proj[..., 2 * di + 2 * ds:]
 
 
@@ -66,12 +85,17 @@ def _causal_conv(cfg: ModelConfig, p: Ssm, xbc):
     return F.silu(out + p.conv_b.to(out.dtype))
 
 
-def _gated_norm(p: Ssm, y, z, dtype):
-    """y * silu(z), then RMSNorm over d_inner scaled by ``norm_scale``."""
+def _gated_norm(cfg: ModelConfig, p: Ssm, y, z, dtype):
+    """y * silu(z), then RMSNorm over d_inner scaled by ``norm_scale``
+    (the squares of every rank's channels under an ``ssm`` plan)."""
     y = y * F.silu(tag(z, "ssm_gate"))
     yf = y.float()
-    y = (yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + 1e-6)
-         ).to(dtype)
+    if shd.tp_group("ssm") is None:
+        ms = torch.mean(yf * yf, dim=-1, keepdim=True)
+    else:
+        ms = shd.tp_sum(torch.sum(yf * yf, dim=-1, keepdim=True),
+                        "ssm") / cfg.ssm_d_inner
+    y = (yf * torch.rsqrt(ms + 1e-6)).to(dtype)
     return y * p.norm_scale.to(dtype)
 
 
@@ -82,11 +106,12 @@ class SSMState(NamedTuple):
 
 def init_ssm_state(cfg: ModelConfig, batch: int, *,
                    device: torch.device) -> SSMState:
-    di, ds, L = cfg.ssm_d_inner, cfg.ssm_state, cfg.num_layers
+    di, ds, nh, hp = _dims(cfg)
+    L = cfg.num_layers
     return SSMState(
         torch.zeros((L, batch, cfg.ssm_conv_width - 1, di + 2 * ds),
                     dtype=torch_dtype(cfg.dtype), device=device),
-        torch.zeros((L, batch, cfg.ssm_heads, cfg.ssm_head_dim, ds),
+        torch.zeros((L, batch, nh, hp, ds),
                     dtype=torch.float32, device=device))
 
 
@@ -95,8 +120,8 @@ def apply_ssm(cfg: ModelConfig, p: Ssm, x, *, return_state: bool = False):
     ``return_state`` also the (conv (B,W-1,ch), ssd (B,H,P,N) f32) state
     after the last token, which is what ``prefill`` stores."""
     B, S, _ = x.shape
-    di, ds, nh, hp = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    proj = tag(x @ p.in_proj, "ssm_in")
+    di, ds, nh, hp = _dims(cfg)
+    proj = tag(shd.tp_enter(x, "ssm") @ p.in_proj, "ssm_in")
     z, xbc_raw, dt_raw = _split_proj(cfg, proj)
     xbc = tag(_causal_conv(cfg, p, xbc_raw), "ssm_conv")
     xs = xbc[..., :di].reshape(B, S, nh, hp)       # views: the kernel takes strides
@@ -107,8 +132,9 @@ def apply_ssm(cfg: ModelConfig, p: Ssm, x, *, return_state: bool = False):
     xs = shd.constrain(xs, ("batch", "seq", "ssm_heads", None))
     y, ssd_state = ssd_ops.ssd_scan(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
     y = y.to(x.dtype) + xs * p.D.to(x.dtype)[None, None, :, None]
-    y = _gated_norm(p, y.reshape(B, S, di), z, x.dtype)
-    out = shd.constrain(y @ p.out_proj, ("batch", "seq", "act_embed"))
+    y = _gated_norm(cfg, p, y.reshape(B, S, di), z, x.dtype)
+    out = shd.tp_exit(y @ p.out_proj, "ssm")
+    out = shd.constrain(out, ("batch", "seq", "act_embed"))
     out = tag(out, "ssm_out")
     if not return_state:
         return out
@@ -123,9 +149,9 @@ def decode_ssm(cfg: ModelConfig, p: Ssm, x, state: Tuple[torch.Tensor,
     """One-token decode.  x (B,1,d); state (conv (B,W-1,ch), ssd (B,H,P,N)).
     Returns (out (B,1,d), (new conv, new ssd)); the state is not modified."""
     B = x.shape[0]
-    di, ds, nh, hp = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    di, ds, nh, hp = _dims(cfg)
     conv_state, ssd_state = state
-    proj = x @ p.in_proj
+    proj = shd.tp_enter(x, "ssm") @ p.in_proj
     z, xbc, dt_raw = _split_proj(cfg, proj)
     window = torch.cat([conv_state, xbc[:, 0][:, None].to(conv_state.dtype)],
                        dim=1)                                   # (B, W, ch)
@@ -141,5 +167,5 @@ def decode_ssm(cfg: ModelConfig, p: Ssm, x, state: Tuple[torch.Tensor,
                + torch.einsum("bhp,bn->bhpn", xs * dt[..., None], Bm))
     y = torch.einsum("bhpn,bn->bhp", new_ssd, Cm)
     y = y + xs * p.D[None, :, None]
-    y = _gated_norm(p, y.reshape(B, 1, di).to(x.dtype), z, x.dtype)
-    return y @ p.out_proj, (new_conv, new_ssd)
+    y = _gated_norm(cfg, p, y.reshape(B, 1, di).to(x.dtype), z, x.dtype)
+    return shd.tp_exit(y @ p.out_proj, "ssm"), (new_conv, new_ssd)

@@ -45,7 +45,7 @@ def check_family(cfg: ModelConfig) -> None:
 
 
 # ===================================================================== init
-class DenseBlock(nn.Module):
+class DenseBlock(L.Unit):
     """Pre-norm block: ``ln1``, ``attn``, ``ln2`` and ``mlp`` (``moe`` for
     the moe family); a cross block adds ``lnx``, ``xattn`` and ``xgate``,
     an f32 scalar whatever the parameter dtype, zero at init as in the
@@ -71,7 +71,7 @@ class DenseBlock(nn.Module):
             self.mlp = L.Mlp(cfg, **kw)
 
 
-class SsmBlock(nn.Module):
+class SsmBlock(L.Unit):
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator], device: torch.device):
         super().__init__()
@@ -151,10 +151,14 @@ def _cross(cfg: ModelConfig, p: DenseBlock, x, cross_kv, mem_lens=None):
 
 def dense_block(cfg: ModelConfig, p: DenseBlock, x, positions, *,
                 causal: bool = True, return_kv: bool = False,
-                cross_kv=None):
+                cross_kv=None, memory=None):
     """Pre-norm transformer block; returns (x, aux), or (x, aux, (k, v))
     with ``return_kv``.  ``cross_kv`` (k, v) of a cross block adds its
-    gated cross-attention after the self-attention."""
+    gated cross-attention after the self-attention; ``memory`` instead
+    has the block project them from the encoder output or the image
+    embeddings first."""
+    if memory is not None:
+        cross_kv = attn.project_cross_kv(cfg, p.xattn, memory)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = tag(x, "ln_in")
     h = L.apply_norm(cfg, p.ln1, x)
@@ -202,7 +206,7 @@ def _forward(cfg: ModelConfig, model: Model, tokens, positions, causal: bool,
     """The layer stack.  ``kv_sink`` collects each layer's decode state in
     execution order: (k, v) for dense blocks, (conv, ssd) for ssm blocks."""
     check_family(cfg)
-    x = L.embed_tokens(cfg, model.embed, tokens, positions)
+    x = model.embed(L.embed_tokens, cfg, tokens, positions)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in ("ssm", "hybrid"):
         every = cfg.hybrid_attn_every
@@ -213,32 +217,31 @@ def _forward(cfg: ModelConfig, model: Model, tokens, positions, causal: bool,
                         raise NotImplementedError(
                             "the hybrid family has no prefill: the "
                             "reference serves it by decode_step only")
-                    x = ssm_block(cfg, blk, x)
+                    x = blk(ssm_block, cfg, x)
                     if (i + 1) % every == 0:  # the shared block, after a segment
-                        x, a = dense_block(cfg, model.shared_attn, x,
-                                           positions, causal=causal)
+                        x, a = model.shared_attn(dense_block, cfg, x,
+                                                 positions, causal=causal)
                         aux_total = aux_total + a
                 elif kv_sink is None:
-                    x = ssm_block(cfg, blk, x)
+                    x = blk(ssm_block, cfg, x)
                 else:
-                    x, st = ssm_block(cfg, blk, x, return_state=True)
+                    x, st = blk(ssm_block, cfg, x, return_state=True)
                     kv_sink.append(st)
     else:
         if cfg.family == "vlm":
             memory = _memory(cfg, memory)
         for i, (blk, _, g) in enumerate(_stack(cfg, model)):
             with sites.layer(i):
-                kv = (None if g is None else
-                      attn.project_cross_kv(cfg, blk.xattn, memory))
-                out = dense_block(cfg, blk, x, positions, causal=causal,
-                                  return_kv=kv_sink is not None, cross_kv=kv)
+                out = blk(dense_block, cfg, x, positions, causal=causal,
+                          return_kv=kv_sink is not None,
+                          memory=None if g is None else memory)
             x, a = out[:2]
             if kv_sink is not None:
                 kv_sink.append(out[2])
             aux_total = aux_total + a
-    x = L.apply_norm(cfg, model.ln_f, x)
+    x = model.ln_f(L.apply_norm, cfg, x)
     x = tag(x, "final_norm")
-    return L.unembed(cfg, model.embed, x), aux_total
+    return model.embed(L.unembed, cfg, x), aux_total
 
 
 def forward(cfg: ModelConfig, model: Model, tokens, *, positions=None,
@@ -320,10 +323,14 @@ def project_cross_state(cfg: ModelConfig, blocks, memory
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every cross block's K/V over ``memory``, stacked: (L_cross, B,
     T_mem, Kh, D) each, in the activation dtype."""
-    kvs = [attn.project_cross_kv(cfg, blk.xattn, memory) for blk in blocks]
+    kvs = [blk(_cross_kv, cfg, memory) for blk in blocks]
     dt = L.torch_dtype(cfg.dtype)
     return (torch.stack([k for k, _ in kvs]).to(dt),
             torch.stack([v for _, v in kvs]).to(dt))
+
+
+def _cross_kv(cfg: ModelConfig, p: DenseBlock, memory):
+    return attn.project_cross_kv(cfg, p.xattn, memory)
 
 
 def cross_lens(cross_k: torch.Tensor) -> torch.Tensor:
@@ -361,29 +368,28 @@ def decode_step(cfg: ModelConfig, model: Model, tokens, state: DecodeState):
     them."""
     check_family(cfg)
     positions = state.pos
-    x = L.embed_tokens(cfg, model.embed, tokens, positions[:, None])
+    x = model.embed(L.embed_tokens, cfg, tokens, positions[:, None])
     if cfg.family in ("ssm", "hybrid"):
         every = cfg.hybrid_attn_every
         for i, blk in enumerate(model.blocks):
-            x, (conv, ssd) = _ssm_decode_block(
-                cfg, blk, x, (state.ssm_conv[i], state.ssm_ssd[i]))
+            x, (conv, ssd) = blk(_ssm_decode_block, cfg, x,
+                                 (state.ssm_conv[i], state.ssm_ssd[i]))
             state.ssm_conv[i] = conv
             state.ssm_ssd[i] = ssd
             if cfg.family == "hybrid" and (i + 1) % every == 0:
                 a = (i + 1) // every - 1      # this application's cache
-                x, _ = _dense_decode_block(cfg, model.shared_attn, x,
-                                           (state.attn_k[a], state.attn_v[a]),
-                                           positions)
+                x, _ = model.shared_attn(_dense_decode_block, cfg, x,
+                                         (state.attn_k[a], state.attn_v[a]),
+                                         positions)
     else:
         lens = None if state.cross_k is None else cross_lens(state.cross_k)
         for blk, c, g in _stack(cfg, model):
             cross = (None if g is None else
                      (state.cross_k[g], state.cross_v[g], lens))
-            x, _ = _dense_decode_block(cfg, blk, x,
-                                       (state.attn_k[c], state.attn_v[c]),
-                                       positions, cross)
-    x = L.apply_norm(cfg, model.ln_f, x)
-    logits = L.unembed(cfg, model.embed, x)
+            x, _ = blk(_dense_decode_block, cfg, x,
+                       (state.attn_k[c], state.attn_v[c]), positions, cross)
+    x = model.ln_f(L.apply_norm, cfg, x)
+    logits = model.embed(L.unembed, cfg, x)
     return logits, state._replace(pos=state.pos + 1)
 
 
@@ -412,6 +418,5 @@ def prefill(cfg: ModelConfig, model: Model, tokens, max_len: int, *,
             state.ssm_ssd[i] = ssd
         return logits, state._replace(pos=pos)
     for (_, c, _), (k, v) in zip(_stack(cfg, model), kvs):
-        state.attn_k[c, :, :S] = k.to(state.attn_k.dtype)
-        state.attn_v[c, :, :S] = v.to(state.attn_v.dtype)
+        attn.fill_cache(cfg, state.attn_k[c], state.attn_v[c], k, v)
     return logits, state._replace(pos=pos)

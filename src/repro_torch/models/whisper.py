@@ -6,7 +6,7 @@ embeddings (B, S_enc, d).  The encoder adds its learned positions
 (``enc_pos``) and runs non-causal self-attention blocks, then ``ln_enc``;
 the decoder embeds tokens with learned positions and runs causal
 self-attention blocks that each cross-attend into the encoder output
-through their own projection of it (``dense_block(cross_kv=)``), then
+through their own projection of it (``dense_block(memory=)``), then
 ``ln_f``.  No RoPE anywhere (``pos_embedding == "learned"``).  A detailed
 profile numbers the encoder's blocks 0..L_enc-1 and the decoder's
 0..L-1, as the reference's two scans slice their residuals.
@@ -36,7 +36,7 @@ from repro_torch.models.transformer import (DenseBlock, _dense_decode_block,
                                             dense_block, project_cross_state)
 
 
-class Model(nn.Module):
+class Model(L.Unit):
     """Parameters of the encoder-decoder; attribute names follow the
     reference's pytree (``embed`` with ``pos``, ``enc_pos``, ``enc_blocks``,
     ``dec_blocks``, ``ln_enc``, ``ln_f``)."""
@@ -76,14 +76,19 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
 def encode(cfg: ModelConfig, model: Model, frames) -> torch.Tensor:
     """frames (B, S_enc, d) stub embeddings -> encoder output (B, S_enc, d)."""
     B, S, _ = frames.shape
-    x = _memory(cfg, frames) + model.enc_pos[:S][None].to(
-        L.torch_dtype(cfg.dtype))
-    x = tag(x, "embed_out")
+    x = tag(model(_frames_in, cfg, frames), "embed_out")
     pos = _positions(B, S, x.device)
     for i, blk in enumerate(model.enc_blocks):
         with sites.layer(i):
-            x, _ = dense_block(cfg, blk, x, pos, causal=False)
-    return L.apply_norm(cfg, model.ln_enc, x)
+            x, _ = blk(dense_block, cfg, x, pos, causal=False)
+    return model.ln_enc(L.apply_norm, cfg, x)
+
+
+def _frames_in(cfg: ModelConfig, model: Model, frames) -> torch.Tensor:
+    """The stub frames plus the encoder's learned positions."""
+    S = frames.shape[1]
+    return _memory(cfg, frames) + model.enc_pos[:S][None].to(
+        L.torch_dtype(cfg.dtype))
 
 
 def forward(cfg: ModelConfig, model: Model, tokens, *, memory=None,
@@ -94,16 +99,15 @@ def forward(cfg: ModelConfig, model: Model, tokens, *, memory=None,
     B, S = tokens.shape
     if positions is None:
         positions = _positions(B, S, tokens.device)
-    x = L.embed_tokens(cfg, model.embed, tokens, positions)
+    x = model.embed(L.embed_tokens, cfg, tokens, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, blk in enumerate(model.dec_blocks):
         with sites.layer(i):
-            kv = attn.project_cross_kv(cfg, blk.xattn, enc)
-            x, a = dense_block(cfg, blk, x, positions, cross_kv=kv)
+            x, a = blk(dense_block, cfg, x, positions, memory=enc)
         aux = aux + a
-    x = L.apply_norm(cfg, model.ln_f, x)
+    x = model.ln_f(L.apply_norm, cfg, x)
     x = tag(x, "final_norm")
-    return L.unembed(cfg, model.embed, x), aux
+    return model.embed(L.unembed, cfg, x), aux
 
 
 def loss_fn(cfg: ModelConfig, model: Model, batch):
@@ -143,14 +147,14 @@ def decode_step(cfg: ModelConfig, model: Model, tokens, state: EncDecState):
     """tokens (B,1) -> (logits (B,1,V), new state); the self-attention
     caches are updated in place."""
     positions = state.pos
-    x = L.embed_tokens(cfg, model.embed, tokens, positions[:, None])
+    x = model.embed(L.embed_tokens, cfg, tokens, positions[:, None])
     lens = cross_lens(state.cross_k)
     for i, blk in enumerate(model.dec_blocks):
-        x, _ = _dense_decode_block(
-            cfg, blk, x, (state.attn_k[i], state.attn_v[i]), positions,
-            (state.cross_k[i], state.cross_v[i], lens))
-    x = L.apply_norm(cfg, model.ln_f, x)
-    logits = L.unembed(cfg, model.embed, x)
+        x, _ = blk(_dense_decode_block, cfg, x,
+                   (state.attn_k[i], state.attn_v[i]), positions,
+                   (state.cross_k[i], state.cross_v[i], lens))
+    x = model.ln_f(L.apply_norm, cfg, x)
+    logits = model.embed(L.unembed, cfg, x)
     return logits, state._replace(pos=state.pos + 1)
 
 

@@ -379,6 +379,28 @@ def test_flash_decode_kernel_matches_plain(card, B, Sk, H, Kh, D, lens, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,Sk,H,Kh,D,lens", DECODE_SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_lse_matches_plain(card, B, Sk, H, Kh, D, lens, dtype):
+    """K3's optional log-sum-exp (the ``kv_seq`` cache's merge) against
+    the plain version's: -inf exactly on the empty rows, else within 1e-4
+    (f32 arithmetic in both dtypes); the output is the one without it."""
+    q, k, v = _decode_inputs(card, B, Sk, H, Kh, D, dtype)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=card)
+    before = ops.flash_decode.launches
+    out, lse = ops.flash_decode(q, k, v, lens_t, return_lse=True)
+    torch.cuda.synchronize()
+    assert ops.flash_decode.launches == before + 1
+    assert lse.shape == (B, H, 1) and lse.dtype == torch.float32
+    assert torch.equal(out, ops.flash_decode(q, k, v, lens_t))
+    _, ref = ops.flash_decode_plain(q, k, v, lens_t, return_lse=True)
+    inf = torch.isinf(ref)
+    assert torch.equal(torch.isinf(lse), inf) and (lse[inf] < 0).all()
+    np.testing.assert_allclose(lse[~inf].cpu().numpy(),
+                               ref[~inf].cpu().numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_flash_decode_rejects_a_strided_cache(card):
     q, k, v = _decode_inputs(card, 2, 64, 4, 2, 32, "bfloat16")
     lens = torch.tensor([3, 4], dtype=torch.int32, device=card)

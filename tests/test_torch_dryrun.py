@@ -219,12 +219,12 @@ def test_dryrun_cell_reduced_mesh(shape):
     assert rec["memory"]["hbm_budget_bytes"] == 85_017_493_504
     assert rec["memory"]["fits_hbm"]
     # 2 KV heads under a model dim of 4: each rank computes the KV head of
-    # its query head, so attention is split as the rules split it
+    # its query head, so attention is split as the rules split it; the
+    # vocabulary splits too, so nothing is left whole
     dep = rec["departures"]
-    assert "attn" not in dep["held_whole_over_model"], dep
-    assert dep["comparable_to_reference"] == (
-        not dep["held_whole_over_model"] and not
-        dep["zero3_whole_model_gather"])
+    assert dep["computed_whole_over_model"] == [], dep
+    assert dep["ssm_bc_whole_bytes"] == 0
+    assert dep["comparable_to_reference"]
     if shape.kind == "train":
         # the grads' reduce-scatter and the MLP's sum over `model`
         assert rec["roofline"]["collectives"]["reduce-scatter"] > 0
@@ -276,12 +276,18 @@ def test_dryrun_policies_and_rules():
     dp = dryrun.run_cell("llama2_paper", "train_4k", True, "none",
                          rules_name="dp_only", **kw)
     assert dp["status"] == "ok" and dp["zero_stage"] == 0
-    # the rules shard the parameters at rest; the step gathers them whole
-    assert dp["departures"]["zero3_whole_model_gather"]
-    assert not dp["departures"]["comparable_to_reference"]
+    # the rules shard the parameters at rest; the step gathers each unit's
+    # as it runs it: comparable to the reference's, and never more alive
+    # than two blocks' weights
+    assert dp["departures"]["comparable_to_reference"]
+    block = sum(p.numel() for n, p in S.abstract_params(
+        C.get_reduced("llama2_paper")).items() if n.startswith("blocks.0."))
+    assert 0 < dp["memory"]["gathered_peak_bytes"] <= 2 * 4 * block
     assert dp["roofline"]["collectives"].get("all-reduce", 0) == 0 or (
         dp["roofline"]["collectives"]["all-gather"] > 0)
-    assert dp["roofline"]["flops_per_chip"] < none["roofline"][
+    # with the vocabulary split too, TP over 4 of 2 x 4 chips and DP over
+    # all 8 divide every product of the step alike
+    assert dp["roofline"]["flops_per_chip"] == none["roofline"][
         "flops_per_chip"]
 
 
@@ -341,3 +347,60 @@ def test_abstract_state_allocates_nothing():
     n = sum(p.numel() for p in params.values())
     assert n == C.get_config("llama2_paper").param_count()
     assert opt.master is not None and set(opt.m) == set(params)
+
+
+@pytest.mark.parametrize("arch,mesh,whole,bc", [
+    ("llama2_paper", (2, 4), [], False),
+    ("qwen2_7b", (1, 8), ["attn"], False),
+    ("mamba2_780m", (2, 4), [], True),
+])
+def test_dryrun_departures_name_what_remains(arch, mesh, whole, bc):
+    """Under the default rules only two departures remain, each with its
+    bytes: attention computed whole where the model dim does not divide
+    the query heads (reduced qwen2_7b's 4 over 8: wq, wo and bq of every
+    layer, gathered at use), and Mamba-2's B / C runs (reduced mamba2's 2
+    x 16 of each layer's in-projection columns and conv channels)."""
+    cfg = C.get_reduced(arch)
+    rec = dryrun.run_cell(arch, "train_4k", False, "none", None,
+                          verbose=False, cfg=cfg, shape=TRAIN,
+                          mesh_shape=MeshConfig(mesh, ("data", "model")),
+                          device="cpu")
+    dep = rec["departures"]
+    assert dep["computed_whole_over_model"] == whole
+    assert dep["comparable_to_reference"] == (not whole and not bc)
+    params = S.abstract_params(cfg)
+    if whole:
+        want = sum(p.numel() * p.element_size() for n, p in params.items()
+                   if ".attn." in n
+                   and n.rpartition(".")[2] in ("wq", "wo", "bq"))
+        assert dep["computed_whole_over_model_bytes"] == want
+        assert rec["memory"]["gathered_peak_bytes"] > 0
+    if bc:
+        per_layer = 2 * cfg.ssm_state * (cfg.d_model + cfg.ssm_conv_width
+                                         + 1) * 4
+        assert dep["ssm_bc_whole_bytes"] == cfg.num_layers * per_layer
+    else:
+        assert dep["ssm_bc_whole_bytes"] == 0
+
+
+@pytest.mark.parametrize("rules", ["default", "dp_only"])
+def test_dryrun_cell_leaves_no_tensor_alive(rules):
+    """A cell's sharded model, its hooks (gathering at use, gradients to
+    their layout) and its fake tensors are all freed once the cell
+    returns: a tensor kept alive would inflate a later CPU profile's
+    static base (``core.profiler``), as one did before the hooks held the
+    model weakly."""
+    import gc
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    def fakes():
+        gc.collect()
+        return sum(isinstance(o, FakeTensor) for o in gc.get_objects())
+
+    before = fakes()
+    rec = dryrun.run_cell("llama2_paper", "train_4k", False, "none", None,
+                          verbose=False, cfg=C.get_reduced("llama2_paper"),
+                          shape=TRAIN, mesh_shape=MESH, device="cpu",
+                          rules_name=rules)
+    assert rec["status"] == "ok"
+    assert fakes() == before

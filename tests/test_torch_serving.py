@@ -298,10 +298,17 @@ def test_chrome_trace_passes_reference_validator(tmp_path):
 
 
 def test_port_imports_neither_jax_nor_reference():
+    """Every module of ``repro_torch`` and ``examples_torch``, imported in a
+    fresh process, brings in neither JAX nor the reference."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        f"sys.path.insert(0, {str(SRC.parent)!r})\n"
+        "import examples_torch\n"
+        "for m in pkgutil.iter_modules(examples_torch.__path__,\n"
+        "                              'examples_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules\n"
         "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -322,6 +329,9 @@ def test_port_imports_neither_jax_nor_reference():
         "        'launch.roofline', 'launch.dryrun']\n"
         "bad += ['missing ' + n for n in need\n"
         "        if 'repro_torch.' + n not in sys.modules]\n"
+        "bad += ['missing ' + n for n in ('quickstart', 'train_e2e',\n"
+        "        'serve_batched', 'adaptive_swap_demo', 'elastic_restart')\n"
+        "        if 'examples_torch.' + n not in sys.modules]\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]), bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env={**os.environ, "PYTHONPATH": str(SRC)},
