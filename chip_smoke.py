@@ -213,6 +213,31 @@ Phases, each printing JSON lines:
               latency, ADAPTING p50 over Stable, first-visit spikes, P4's
               measured against projected stall, the worker's ms per job.
 
+18c. chaos  the robustness drill of ``benchmarks/chaos_bench.py`` on the
+              card (``repro_torch.faults``): the chameleon_exec phase's model
+              and its lowest policy budget + CHAM_EXEC_MARGIN, no eval, the
+              ladder shortened as tests/test_torch_faults.py shortens it
+              (CHAOS_RESILIENCE).  A fault-free twin of CHAOS_STEPS steps
+              must move the ladder never and keep every health class
+              (``memory`` too) healthy at every step.  The engine's two
+              terminal-failure paths on a fresh engine (chaos_fallbacks).
+              Then, from CHAOS_LEAD steps after the
+              twin's first Stable step for CHAOS_WINDOW steps:
+              ``engine_window`` (``engine.transfer_error`` every copy,
+              CHAOS_STEPS steps) and ``drop_and_stall`` (drops 0.3, 2 ms
+              stalls 0.2, CHAOS_DROP_STEPS steps).  Each prints one line and
+              is held as the reference's ``_compare`` holds it: no crash,
+              faults fired, every loss equal to the twin's, no live slab,
+              median step within CHAOS_INFLATION_CAP of the twin's, and
+              the allocator's peak within CHAM_PEAK_TOL of it;
+              engine_window also retries, descends and ascends, and ends
+              healthy; K1 (steps + replays) x 8 each way in it.  Then the
+              train CLI at the reduced size with a policy store, a
+              checkpoint cadence and CHAOS_CLI_PLAN (store and checkpoint
+              faults), and again with ``--resume``: both exit normally,
+              faults fire, and the second resumes from the first's newest
+              checkpoint.
+
 19-21. train_ssm, train_hybrid, train_moe  ``Trainer`` at full width and
               full depth on mamba2-780m (48 layers), zamba2-1.2b (38, the
               shared attention block 6 times) and granite-moe-1b-a400m (24),
@@ -273,6 +298,7 @@ printed.  The last lines are the kernels summary, the nvidia-smi line and
 """
 from __future__ import annotations
 
+import collections
 import gc
 import json
 import math
@@ -443,6 +469,33 @@ ASYNC_PERIOD, ASYNC_STEPS, ASYNC_SKIP = 12, 48, 24
 ASYNC_RATIO = 1.5
 ASYNC_MODES = ("inline", "async", "speculative")
 ASYNC_LANES = ("compute", "policy_swap", "adapt")
+# The chaos phase (benchmarks/chaos_bench.py's scenarios at the train
+# phase's width, the chameleon_exec budget): a fault-free twin, then each
+# scenario from the same seed, its fault window CHAOS_WINDOW steps long and
+# starting CHAOS_LEAD steps after the twin's first Stable step (the
+# reference's sits at steps // 4 of its own run).  CHAOS_RESILIENCE is
+# tests/test_torch_faults.py's: probes every 4 steps and a one-step hold,
+# so no_swap climbs back to full inside the run.  CHAOS_INFLATION_CAP is
+# chaos_bench.INFLATION_CAP.
+CHAOS_STEPS, CHAOS_DROP_STEPS = 48, 16
+CHAOS_WINDOW, CHAOS_LEAD = 10, 2
+CHAOS_RESILIENCE = {"probe_interval": 4, "ladder_hold_iterations": 1}
+CHAOS_INFLATION_CAP = 5.0
+# chaos_fallbacks' payload: one of the policy's entries' order of size
+CHAOS_FALLBACK_BYTES = 64 << 20
+# The chaos phase's CLI drill: the reduced config, so that a checkpoint of
+# the parameters and AdamW state is small (one of the full-width model is
+# ~26 GB); the chaos bench's storage scenario as a plan file.
+# The first run takes CHAOS_CLI_STEPS (evals every 10, so GenPolicy ends in
+# an install and a store record), the resumed one CHAOS_CLI_RESUME_STEPS.
+CHAOS_CLI_ARGS = ["--arch", "llama2-paper", "--reduced", "--seq", "64",
+                  "--global-batch", "4", "--attn-impl", "flash",
+                  "--budget-gib", "0.016"]
+CHAOS_CLI_STEPS, CHAOS_CLI_RESUME_STEPS = 30, 6
+CHAOS_CLI_PLAN = {"seed": 0, "specs": [
+    {"site": "store.put", "prob": 0.5},
+    {"site": "store.load", "prob": 0.5},
+    {"site": "ckpt.write", "prob": 0.5, "max_fires": 2}]}
 # The train_cli phase's async run: reduced llama2-paper under Chameleon
 # with the background worker, a policy store, and its trace, metrics and
 # audit; then the serve CLI on that store, long enough (> 256 ticks) for
@@ -3741,7 +3794,7 @@ def grad_turns(device, tr):
 def phase_chameleon_exec(device):
     """Chameleon in the trainer on the train phase's model (phase 18 of the
     module doc).  Every check raises.  Returns K1's launches in the
-    Chameleon-on run (forward, backward)."""
+    Chameleon-on run (forward, backward) and its budget."""
     import torch
     import repro_torch.configs as C
     from repro_torch import obs
@@ -3888,7 +3941,7 @@ def phase_chameleon_exec(device):
     emit("chameleon_exec", **summary)
     if problems:
         raise AssertionError(f"chameleon_exec: {problems}")
-    return fwd, bwd
+    return fwd, bwd, budget
 
 
 def async_bucket(step: int) -> int:
@@ -4169,6 +4222,285 @@ def phase_chameleon_async(device) -> dict:
     if problems:
         raise AssertionError(f"chameleon_async: {problems}")
     return runs["async"]["k1_launches"]
+
+
+def chaos_run(device, cfg, budget, steps, specs=None) -> dict:
+    """One run of the chaos phase: the chameleon_exec phase's trainer at
+    ``budget`` with no eval and CHAOS_RESILIENCE, ``steps`` steps of one
+    ``train(1)`` each (as the twin is driven), under a fault plan of
+    ``specs`` (seed 1, the reference test's) when given.  Returns what
+    chaos_bench's ``_train`` reads, and besides per step the ladder's rung
+    and the health classes, the allocator's peak, K1's launches, the
+    engine's health and its bandwidth curve."""
+    import torch
+    from repro_torch import faults, obs
+    from repro_torch.common.config import ChameleonConfig, ResilienceConfig
+    from repro_torch.faults.health import MEM_CLASS
+    from repro_torch.kernels.flash_attention import ops
+
+    cham = ChameleonConfig(enabled=True, hbm_budget_bytes=budget,
+                           resilience=ResilienceConfig(**CHAOS_RESILIENCE))
+    obs.ledger().clear()
+    tr = exec_train(device, cfg, cham, eval_every=0)
+    rt = tr.rt
+    eng, lad = rt.hostmem.engine, rt.ladder
+    plan = faults.FaultPlan(specs, seed=1) if specs else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.flash_attention.launches = 0
+    ops.flash_attention_bwd.launches = 0
+    per_step = []
+    if plan is not None:
+        faults.arm(plan)
+    try:
+        for _ in range(steps):
+            tr.train(1)
+            per_step.append({"rung": lad.name, "worst": eng.health.worst(),
+                             "memory": eng.health.state(MEM_CLASS)})
+    finally:
+        if plan is not None:
+            faults.disarm()
+    torch.cuda.synchronize()
+    rep = tr.report
+    eng.pool.check()
+    out = {
+        "steps": steps, "stages": rep.stages, "losses": list(rep.losses),
+        "wall_ms": [t * 1e3 for t in rep.wall_times],
+        "failures": list(rep.failures), "per_step": per_step,
+        "fired": plan.total_fired() if plan is not None else 0,
+        "fired_by_site": plan.stats()["fired"] if plan is not None else {},
+        "retries": eng.n_retries, "failed_out": eng.n_failed_out,
+        "hbm_fallback_in": eng.n_hbm_fallback_in,
+        "sync_fallback_in": eng.n_sync_fallback_in,
+        "timeouts": eng.n_timeouts,
+        "transitions": [(t["step"], t["to"], t["why"])
+                        for t in lad.transitions],
+        "descents": lad.n_descents, "ascents": lad.n_ascents,
+        "rung": lad.name, "worst_health": eng.health.worst(),
+        "health": eng.health.stats(), "live_blocks": eng.pool.live_blocks,
+        "peak": torch.cuda.max_memory_allocated(device),
+        "k1": (ops.flash_attention.launches,
+               ops.flash_attention_bwd.launches),
+        "replays": rt.replays,
+        "policy_swap": eng.by_class["policy_swap"].as_dict(),
+        "ledger": obs.ledger().scoreboard(),
+        "bw_curve": rt.hostmem.bwmodel.curve()}
+    drop_trainer(tr)
+    del tr, rt, eng, lad
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def chaos_compare(name: str, twin: dict, run: dict, ladder: bool) -> list:
+    """Print one chaos run's line beside its twin and return its problems,
+    the assertions of the reference's ``_compare``
+    (benchmarks/chaos_bench.py): no crash, the plan fired, every loss
+    equal to the twin's, no live slab, the median step within
+    CHAOS_INFLATION_CAP of the twin's over the same steps; besides, the
+    allocator's peak within CHAM_PEAK_TOL of the twin's (P10); with ``ladder``
+    also retries, a descent, an ascent and a healthy end."""
+    import statistics
+    n = run["steps"]
+    n_diff = sum(a != b for a, b in zip(twin["losses"][:n], run["losses"]))
+    ratio = (statistics.median(run["wall_ms"])
+             / statistics.median(twin["wall_ms"][:n]))
+    problems = []
+    if run["failures"]:
+        problems.append(f"{name}: crashed {run['failures']}")
+    if run["fired"] <= 0:
+        problems.append(f"{name}: the plan never fired")
+    if n_diff or len(run["losses"]) != n:
+        problems.append(f"{name}: {n_diff} losses differ from the twin's")
+    if run["live_blocks"]:
+        problems.append(f"{name}: {run['live_blocks']} live slabs")
+    if ratio > CHAOS_INFLATION_CAP:
+        problems.append(f"{name}: median step {ratio:.2f}x the twin's")
+    if run["peak"] > twin["peak"] * (1 + CHAM_PEAK_TOL):
+        problems.append(f"{name}: allocator peak {run['peak']} over the "
+                        f"twin's {twin['peak']} by more than CHAM_PEAK_TOL")
+    if ladder and (run["retries"] <= 0 or run["descents"] < 1
+                   or run["ascents"] < 1
+                   or run["worst_health"] != "healthy"):
+        problems.append(f"{name}: no retry, descent or ascent, or health "
+                        f"{run['worst_health']} at the end")
+    emit("chaos_run", scenario=name, ok=not problems, problems=problems,
+         n_diff=n_diff, step_ratio=ratio, twin_peak=twin["peak"],
+         peak_over_twin=run["peak"] - twin["peak"],
+         **{k: v for k, v in run.items() if k != "losses"})
+    return problems
+
+
+def chaos_cli(device) -> dict:
+    """The train CLI's drill (CHAOS_CLI_ARGS with a policy store, a
+    checkpoint directory, CHAOS_CLI_PLAN and an audit file): CHAOS_CLI_STEPS
+    steps, then CHAOS_CLI_RESUME_STEPS more with ``--resume``; both must
+    exit normally and print the plan's fired count, faults must fire, and
+    the second run must start from the first's newest checkpoint."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from repro_torch import obs
+    from repro_torch.launch import train
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_chaos_cli_")
+    plan, audit = os.path.join(d, "plan.json"), os.path.join(d, "audit.jsonl")
+    with open(plan, "w") as f:
+        json.dump(CHAOS_CLI_PLAN, f)
+    common = CHAOS_CLI_ARGS + [
+        "--device", str(device), "--policy-store-dir",
+        os.path.join(d, "store"), "--ckpt-dir", os.path.join(d, "ckpt"),
+        "--fault-plan", plan, "--audit-out", audit]
+    runs = []
+    try:
+        for extra in (["--steps", str(CHAOS_CLI_STEPS)],
+                      ["--steps", str(CHAOS_CLI_RESUME_STEPS), "--resume"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                stats = train.main(common + extra)
+            for name in ("runtime", "hostmem", "memory"):
+                obs.metrics().unregister_provider(name)
+            text = buf.getvalue()
+            sys.stdout.write(text)
+            runs.append({
+                "args": extra, "steps": stats["steps"],
+                "fault_fired": stats["fault_fired"],
+                "printed": [ln for ln in text.splitlines()
+                            if ln.startswith(("fault plan:", "ladder:",
+                                              "policystore:", "done:"))],
+                "checkpoints": [os.path.basename(p)
+                                for p in stats["checkpoints"]],
+                "losses": stats["losses"], "stages": stats["stages"],
+                "store": stats["policystore"]["store"],
+                "ladder": stats["ladder"]})
+        with open(audit) as f:
+            kinds = collections.Counter(json.loads(ln)["kind"] for ln in f)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    first, second = runs
+    resumed_from = int(first["checkpoints"][-1].split("_")[1])
+    problems = []
+    for r in runs:
+        if r["fault_fired"] <= 0 or not any(
+                ln == f"fault plan: fired={r['fault_fired']}"
+                for ln in r["printed"]):
+            problems.append(f"cli {r['args']}: no fault fired or printed")
+        if not all(math.isfinite(x) for x in r["losses"]):
+            problems.append(f"cli {r['args']}: a loss is not finite")
+    if second["steps"] != resumed_from + CHAOS_CLI_RESUME_STEPS:
+        problems.append(f"cli: resumed run ends at {second['steps']}, not "
+                        f"{resumed_from} + {CHAOS_CLI_RESUME_STEPS}")
+    out = {"ok": not problems, "problems": problems, "runs": runs,
+           "resumed_from": resumed_from, "audit": dict(kinds)}
+    emit("chaos_cli", **out)
+    return out
+
+
+def chaos_fallbacks(device) -> dict:
+    """The engine's two terminal-failure paths on the card, on a fresh
+    engine with ``max_retries`` 1 and a CHAOS_FALLBACK_BYTES payload (the
+    reference tests of them, tests/test_faults.py): a swap-out that fails
+    for good keeps its source on the device and its swap-in returns that
+    tensor; a swap-in whose copy is dropped every time is served by the
+    synchronous fallback, reached through ``fence`` (P9) and read on the
+    current stream.  Both bit for bit, and every slab released once."""
+    import torch
+    from repro_torch import faults
+    from repro_torch.common.config import ResilienceConfig
+    from repro_torch.hostmem import PinnedSlabPool, TransferEngine
+
+    eng = TransferEngine(PinnedSlabPool(pinned=device.type == "cuda"),
+                         device=device,
+                         resilience=ResilienceConfig(max_retries=1))
+    x = torch.randn(CHAOS_FALLBACK_BYTES // 4, device=device)
+    want = x.clone()
+    with faults.injected(faults.FaultPlan([faults.FaultSpec(
+            "engine.transfer_error", prob=1.0)])):
+        out = eng.wait(eng.submit_swap_out(x, "chaos/retained"))
+        back = eng.submit_swap_in(out, "chaos/retained")
+    retained = (out.failed and back.result is x
+                and torch.equal(back.result, want))
+    staged = eng.wait(eng.submit_swap_out(x, "chaos/sync"))
+    with faults.injected(faults.FaultPlan([faults.FaultSpec(
+            "engine.transfer_drop", prob=1.0)])):
+        ev = eng.submit_swap_in(staged, "chaos/sync")
+        eng.fence(ev)
+        got = ev.result * 1.0          # read on the current stream
+    torch.cuda.synchronize(device)
+    eng.pool.check()
+    row = {"retained_bit_equal": retained,
+           "sync_fallback_bit_equal": bool(torch.equal(got, want)),
+           "failed_out": eng.n_failed_out,
+           "hbm_fallback_in": eng.n_hbm_fallback_in,
+           "sync_fallback_in": eng.n_sync_fallback_in,
+           "retries": eng.n_retries, "live_blocks": eng.pool.live_blocks,
+           "nbytes": CHAOS_FALLBACK_BYTES}
+    row["ok"] = (retained and row["sync_fallback_bit_equal"]
+                 and (row["failed_out"], row["hbm_fallback_in"],
+                      row["sync_fallback_in"], row["live_blocks"])
+                 == (1, 1, 1, 0))
+    emit("chaos_fallbacks", **row)
+    return row
+
+
+def phase_chaos(device, budget: int) -> tuple:
+    """The robustness drill on the card (phase 18c of the module doc) at
+    the chameleon_exec phase's ``budget``.  Every check raises.  Returns
+    K1's launches in the engine_window run (forward, backward)."""
+    import torch
+    import repro_torch.configs as C
+    from repro_torch import obs
+    from repro_torch.faults import FaultSpec
+
+    t0 = time.perf_counter()
+    for name in ("runtime", "hostmem"):      # earlier phases' trainers
+        obs.metrics().unregister_provider(name)
+    release_device_memory(device)
+    cfg = C.get_config("llama2-paper").replace(num_layers=TRAIN_LAYERS,
+                                               attn_impl="flash")
+    twin = chaos_run(device, cfg, budget, CHAOS_STEPS)
+    # the ladder holds still and every class (memory too) stays healthy
+    clean = not twin["transitions"] and all(
+        s["worst"] == "healthy" for s in twin["per_step"])
+    emit("chaos_twin", budget=budget, clean=clean, **twin)
+    problems = [] if clean else ["twin: a ladder move or an unhealthy "
+                                 "class without faults"]
+    start = twin["stages"].index("Stable") + CHAOS_LEAD
+    win = {"start": start, "stop": start + CHAOS_WINDOW}
+    scenarios = {
+        "engine_window": (CHAOS_STEPS, [FaultSpec(
+            "engine.transfer_error", prob=1.0, **win)], True),
+        "drop_and_stall": (CHAOS_DROP_STEPS, [
+            FaultSpec("engine.transfer_drop", prob=0.3, **win),
+            FaultSpec("engine.transfer_stall", prob=0.2, seconds=0.002,
+                      **win)], False)}
+    runs = {}
+    if not chaos_fallbacks(device)["ok"]:
+        problems.append("fallbacks: a terminal-failure path on the card")
+    for name, (steps, specs, ladder) in scenarios.items():
+        runs[name] = chaos_run(device, cfg, budget, steps, specs)
+        problems += chaos_compare(name, twin, runs[name], ladder)
+    ew = runs["engine_window"]
+    want = (CHAOS_STEPS + ew["replays"]) * TRAIN_LAYERS
+    if ew["k1"] != (want, want):
+        problems.append(f"engine_window: K1 launches {ew['k1']} != {want}")
+    cli = chaos_cli(device)
+    problems += cli["problems"]
+    summary = {
+        "ok": not problems, "problems": problems, "budget": budget,
+        "window": win,
+        **{f"{k}_{name}": runs[name][k] for name in runs
+           for k in ("fired", "retries", "transitions")},
+        "k1_launches": ew["k1"], "k1_want": (want, want),
+        "cli_resumed_from": cli["resumed_from"],
+        "seconds": time.perf_counter() - t0}
+    emit("chaos", **summary)
+    if problems:
+        raise AssertionError(f"chaos: {problems}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ew["k1"]
 
 
 def autotune_check(kernel, args, config, out, dname) -> dict:
@@ -4486,6 +4818,7 @@ def main(argv=None) -> int:
     phase_chameleon(device, tier)
     exec_launches = phase_chameleon_exec(device)
     async_launches = phase_chameleon_async(device)
+    chaos_launches = phase_chaos(device, exec_launches[2])
     zoo = {phase: phase_train_zoo(device, phase) for phase in ZOO_TRAIN}
     second = {"decode_encdec": phase_decode_encdec(device),
               "decode_vlm": phase_decode_vlm(device)}
@@ -4520,6 +4853,8 @@ def main(argv=None) -> int:
         "chameleon_exec_launches": exec_launches[0],
         # chameleon_async: the async placement's run, (steps + replays) x 8
         "chameleon_async_launches": async_launches[0],
+        # chaos: the engine_window run, (steps + replays) x 8
+        "chaos_launches": chaos_launches[0],
         "train_cold_ms": k1_cold["train"]["cold_ms"],
         "train_library_cold_ms": k1_cold["train"]["library_cold_ms"],
         # the decoder zoo: serve_moe's prefills, the train phases' steps
@@ -4543,6 +4878,7 @@ def main(argv=None) -> int:
         "examples_launches": example_launches["k1_bwd"],
         "chameleon_exec_launches": exec_launches[1],
         "chameleon_async_launches": async_launches[1],
+        "chaos_launches": chaos_launches[1],
         # the largest bf16 error of dq, dk, dv at the training shape
         "max_abs_err": max(bwd_row[f"{g}_max_abs_err"]
                            for g in ("dq", "dk", "dv")),

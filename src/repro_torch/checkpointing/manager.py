@@ -80,9 +80,14 @@ def _is_global(tree) -> bool:
     return any(hasattr(v, "full_tensor") for _, v in _leaves(tree))
 
 
-def _to_numpy(x) -> np.ndarray:
+def _to_numpy(x, own: bool = False) -> np.ndarray:
+    """``x`` as a numpy array; with ``own``, a tensor's values as they are
+    now, never a view of its storage (a CPU tensor's ``numpy()`` is one)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        t = x.detach()
+        if t.device.type != "cpu":
+            return t.cpu().numpy()
+        return t.numpy().copy() if own else t.numpy()
     return np.asarray(x)
 
 
@@ -130,7 +135,13 @@ class CheckpointManager:
         the writer thread collects the staged bytes later.  On the card the
         copies read the live tensors after the work already queued on the
         current stream; the current stream then waits for them, so a later
-        in-place update cannot overwrite a tensor before it is staged."""
+        in-place update cannot overwrite a tensor before it is staged.
+
+        Each value is an array (nothing to stage) or ``(event, snapshot)``.
+        A copy that failed for good at issue leaves the engine holding the
+        live tensor, which the caller may update in place before the writer
+        runs: its snapshot is taken to the host here, synchronously, so the
+        checkpoint holds the values of ``save()`` (P8)."""
         from repro_torch.hostmem.engine import TC_CHECKPOINT
         staged = {}
         for key, arr in flat.items():
@@ -144,22 +155,24 @@ class CheckpointManager:
             if ev._cuda is not None:
                 torch.cuda.current_stream(self.engine.device).wait_event(
                     ev._cuda[1])
-            staged[key] = ev
+            staged[key] = (ev, _to_numpy(src, own=True)
+                           if ev.failed_at_issue else None)
         return staged
 
     def _collect(self, staged: Dict[str, Any]) -> Dict[str, np.ndarray]:
         """Drain the staged events back to plain arrays (writer side) and
         recycle their slabs."""
         out = {}
-        for key, ev in staged.items():
-            if isinstance(ev, np.ndarray):
-                out[key] = ev
+        for key, item in staged.items():
+            if isinstance(item, np.ndarray):
+                out[key] = item
                 continue
+            ev, snapshot = item
             self.engine.wait(ev)
             if ev.failed:
-                # staging failed terminally: the engine retained the
-                # source (ev.result) and freed the slab; copy it plainly
-                out[key] = _to_numpy(ev.result)
+                # staging failed terminally: the engine freed the slab, and
+                # _stage took the values to the host when save() was called
+                out[key] = snapshot
                 continue
             out[key] = _to_numpy(ev.block.read())
             self.engine.pool.free(ev.block)
@@ -183,7 +196,8 @@ class CheckpointManager:
                 if not snap:
                     return os.path.join(self.dir, f"step_{step:08d}")
             if self.engine is None:
-                snap = {name: {k: _to_numpy(v) for k, v in flat.items()}
+                snap = {name: {k: _to_numpy(v, own=True)
+                               for k, v in flat.items()}
                         for name, flat in snap.items()}
         if self.engine is not None:
             from repro_torch.hostmem.engine import TC_CHECKPOINT
@@ -210,9 +224,10 @@ class CheckpointManager:
                 if self.engine is not None:   # recycle any staged slabs
                     try:
                         for flat in snap.values():
-                            for ev in flat.values():
-                                if isinstance(ev, np.ndarray):
+                            for item in flat.values():
+                                if isinstance(item, np.ndarray):
                                     continue
+                                ev = item[0]
                                 self.engine.wait(ev)
                                 if ev.block is not None and not ev.block.freed:
                                     self.engine.pool.free(ev.block)

@@ -141,6 +141,12 @@ class TransferEvent:
     _t_issue: float = field(default=0.0, repr=False)  # host clock at issue
     _stall_s: float = field(default=0.0, repr=False)  # injected link stall
 
+    @property
+    def failed_at_issue(self) -> bool:
+        """The copy already failed for good when it was issued (retries
+        run at issue); ``failed`` is set only when the event retires."""
+        return self._error is not None
+
     def on_done(self, fn: Callable[["TransferEvent"], None]) -> None:
         if self.done:
             fn(self)
@@ -484,7 +490,13 @@ class TransferEngine:
                     raise                # legacy behavior: surface directly
                 attempts += 1
                 if attempts > rs.max_retries:
-                    ev._error = err
+                    # without its traceback: the traceback's frames reach
+                    # the caller's (an autograd pack hook's forward frames
+                    # and their activations), and through the saved
+                    # tensor's C++ graph node this event again, a cycle
+                    # the collector cannot see, so a failed copy kept a
+                    # whole step's activations alive (P10)
+                    ev._error = err.with_traceback(None)
                     if ev.kind == SWAP_OUT and not isinstance(ev._source,
                                                               torch.Tensor):
                         # chunks may be views of state the caller reuses
@@ -510,8 +522,12 @@ class TransferEngine:
         """Make work submitted from now on to the current stream wait until
         ``ev``'s copy is done, on the device and without a host sync: then
         a swap-out's source may be overwritten, or a swap-in's result read.
-        A no-op on the CPU, where copies are synchronous."""
-        if ev._cuda is not None and not ev.done:
+        A no-op on the CPU, where copies are synchronous.  A copy that failed
+        for good at issue has no result until it retires (a swap-in's is the
+        synchronous fallback copy): it is retired here, with a host wait."""
+        if ev.failed_at_issue and not ev.done:
+            self.wait(ev)
+        elif ev._cuda is not None and not ev.done:
             torch.cuda.current_stream(self.device).wait_event(ev._cuda[1])
 
     # ---------------------------------------------------------- retiring

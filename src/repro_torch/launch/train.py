@@ -13,7 +13,11 @@ background worker (``repro_torch.adapt``).  ``--trace-out`` writes the
 Chrome trace (with the overlap-efficiency and memory-ledger counter
 tracks) and ``--audit-out`` streams the audit log as JSONL; both are
 what ``python -m repro_torch.obs.validate`` and ``python -m
-repro_torch.obs.report`` read.  ``--autotune`` tunes the host tier's
+repro_torch.obs.report`` read.  ``--fault-plan plan.json`` arms a
+``repro_torch.faults.FaultPlan`` (a chaos drill) before the trainer is
+built and disarms it on exit, printing ``fault plan: fired=<n>`` and, when
+the degradation ladder moved, ``ladder: rung=<name> descents=<n>
+ascents=<n>``.  ``--autotune`` tunes the host tier's
 kernels against the roofline at startup (``repro_torch.kernels.autotune``),
 keeping the cache in ``--autotune-cache-dir``, by default
 ``<policy-store-dir>/autotune``.  ``--multihost`` joins the process group
@@ -99,6 +103,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--audit-out", default="",
                     help="stream the audit log (JSONL) here as it is "
                          "written")
+    ap.add_argument("--fault-plan", default="",
+                    help="arm a repro_torch.faults FaultPlan from this JSON "
+                         "file (chaos drills: seeded fault schedules keyed "
+                         "by site x iteration)")
     ap.add_argument("--multihost", action="store_true")
     ap.add_argument("--mesh", choices=["none", "single", "multi"],
                     default="none")
@@ -112,7 +120,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     args = _parser().parse_args(argv)
 
     import repro_torch.configs as C
-    from repro_torch import obs
+    from repro_torch import faults, obs
     from repro_torch.common.config import (AdaptConfig, AutotuneConfig,
                                            ChameleonConfig,
                                            PolicyStoreConfig, TrainConfig)
@@ -155,12 +163,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
                            adapt=AdaptConfig(mode=args.adapt_mode),
                            autotune=AutotuneConfig(
                                enabled=args.autotune, cache_dir=at_dir))
+    plan = (faults.FaultPlan.load(args.fault_plan) if args.fault_plan
+            else None)
     data = SyntheticTokens(cfg.vocab_size, seq, gb, host_index=host_index,
                            host_count=host_count).start()
     if args.audit_out:
         # stream every audit event, not just the in-memory tail: the
         # evidence trail survives a crash
         obs.audit().attach_file(args.audit_out)
+    if plan is not None:
+        faults.arm(plan)
     tr = None
     try:
         tr = Trainer(cfg, tcfg, cham, mesh=mesh, data=data,
@@ -190,10 +202,20 @@ def main(argv: Optional[List[str]] = None) -> dict:
             hm = tr.rt.hostmem
             out["autotune"] = (hm.autotuner.stats() if hm is not None
                                and hm.autotuner is not None else None)
+        out["fault_fired"] = plan.total_fired() if plan is not None else 0
+        lad = tr.rt.ladder if tr.rt is not None else None
+        out["ladder"] = list(lad.transitions) if lad is not None else []
         return out
     finally:
         data.stop()
+        if plan is not None:
+            print(f"fault plan: fired={plan.total_fired()}", flush=True)
+            faults.disarm()
         if tr is not None and tr.rt is not None:
+            lad = tr.rt.ladder
+            if lad is not None and lad.transitions:
+                print(f"ladder: rung={lad.name} descents={lad.n_descents} "
+                      f"ascents={lad.n_ascents}", flush=True)
             tr.rt.close()
         _export_obs(args, tr.rt if tr is not None else None)
         _leave(args)

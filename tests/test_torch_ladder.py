@@ -149,6 +149,34 @@ def test_runtime_real_swaps_score_zero_error(fresh_ledger):
     assert eng.released_at_op == 3 * len(pol.entries)
 
 
+def _exact_step(rt, args, want):
+    """One grad dispatch through the runtime, bit-equal to the plain grad
+    step's ``want``, then the iteration's bookkeeping (the ladder's move);
+    returns the rung it ends on."""
+    fn = rt.step_fn()
+    loss, grads, _ = fn(*args)
+    assert torch.equal(loss, want[0])
+    assert all(torch.equal(grads[k], want[1][k]) for k in grads)
+    rt.record_dispatch("train", fn, args)
+    rt.end_iteration(0.01)
+    return rt.ladder.rung
+
+
+def _failed_link_descent(rt, args, want):
+    """Six iterations with every copy failing for good; the rungs."""
+    rt._full_applied = rt.applied
+    rt.machine.force_stable(0, "test")       # the ladder skips GenPolicy
+    plan = faults.FaultPlan([faults.FaultSpec("engine.transfer_error",
+                                              prob=1.0)])
+    with faults.injected(plan):
+        return [_exact_step(rt, args, want) for _ in range(6)]
+
+
+def _want(args):
+    grad = S.make_grad_step(PC.get_reduced("llama2_paper"), TrainConfig())
+    return grad(*args)
+
+
 def test_runtime_ladder_descends_on_a_failed_link(fresh_ledger):
     """Every copy of the executed policy fails for good (an armed fault
     plan): the engine keeps each source on the device, so the step stays
@@ -156,25 +184,42 @@ def test_runtime_ladder_descends_on_a_failed_link(fresh_ledger):
     policy down its rungs — trimmed, the Algo-3 fit, the baseline — each
     rebinding the engine's release points."""
     rt, args, pol = _runtime()
-    rt._full_applied = rt.applied
-    rt.machine.force_stable(0, "test")       # the ladder skips GenPolicy
-    grad = S.make_grad_step(PC.get_reduced("llama2_paper"), TrainConfig())
-    want = grad(*args)
-    plan = faults.FaultPlan([faults.FaultSpec("engine.transfer_error",
-                                              prob=1.0)])
-    rungs = []
-    with faults.injected(plan):
-        for _ in range(6):
-            fn = rt.step_fn()
-            loss, grads, _ = fn(*args)
-            assert torch.equal(loss, want[0])
-            assert all(torch.equal(grads[k], want[1][k]) for k in grads)
-            rt.record_dispatch("train", fn, args)
-            rt.end_iteration(0.01)
-            rungs.append(rt.ladder.rung)
+    rungs = _failed_link_descent(rt, args, _want(args))
     assert rt.hostmem.engine.n_failed_out > 0
     assert rungs[-1] == RUNG_NO_SWAP
     assert [t["to"] for t in rt.ladder.transitions] == [
         "trimmed", "conservative", "no_swap"]
     assert rt.applied.fingerprint == rt.executor.baseline().fingerprint
     assert rt.hostmem.engine.planned_releases() == {}
+
+
+def test_runtime_ladder_probes_walk_back_to_full(fresh_ledger):
+    """The descent above, then the link heals (the plan disarmed): at the
+    baseline rung the policy moves nothing, so only the probe bursts, one
+    every ``probe_interval`` iterations, feed the health machine's recovery
+    streak; once healthy the ladder climbs one rung per hold window, back
+    to the full policy, and the step stays bit-exact at every rung."""
+    rt, args, pol = _runtime()
+    want = _want(args)
+    assert _failed_link_descent(rt, args, want)[-1] == RUNG_NO_SWAP
+    eng, lad = rt.hostmem.engine, rt.ladder
+    log = obs.set_audit(obs.AuditLog())
+    try:
+        rungs = []
+        for _ in range(4 * lad.probe_interval):
+            rungs.append(_exact_step(rt, args, want))
+            if rungs[-1] == RUNG_FULL:
+                break
+        probes = [e["step"] for e in obs.audit().tail(100, "ladder.probe")]
+    finally:
+        obs.set_audit(log)
+    assert rungs[-1] == RUNG_FULL, lad.transitions
+    assert eng.health.worst() == HEALTHY
+    up = lad.transitions[3:]
+    assert [t["to"] for t in up] == ["conservative", "trimmed", "full"]
+    assert all(t["why"] == "recovery-probe" for t in up)
+    assert lad.n_descents == lad.n_ascents == 3
+    assert probes and all(b - a >= lad.probe_interval
+                          for a, b in zip(probes, probes[1:]))
+    assert rt.applied is rt._full_applied
+    assert eng.planned_releases()              # the full policy's, rebound
