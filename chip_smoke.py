@@ -194,7 +194,15 @@ Phases, each printing JSON lines:
               grad dispatch's ``max_memory_allocated`` under the applied
               policy falls by at least half the projected reduction
               against the baseline policy (both through the runtime, in
-              turns, timed too).
+              turns, timed too); P4: the installed policy's projected
+              stall within max(P4_ABS_MS, P4_REL x measured) of the copy
+              stall its Stable steps measure on the card.  Printed per
+              step: dt, the grad dispatch's time less its copy stall
+              (``t_grad``, what the profile is priced at), the projected
+              and the measured copy stall with its worst P4_WORST entries,
+              recompute and hook ms, the recorder's ms; per installed
+              policy (``chameleon_exec_p4``) those medians and the on - off
+              step difference.
 
 18b. chameleon_async  adaptation off the training thread
               (``repro_torch.adapt``): the budget is the lowest a policy
@@ -209,9 +217,14 @@ Phases, each printing JSON lines:
               to Chameleon off's, K1 (steps + replays) x 8 each way; the
               async run's trace (lanes compute, policy_swap, adapt),
               metrics and audit through the validators and the report (at
-              least one scored iteration).  Printed: kickoff-to-install
-              latency, ADAPTING p50 over Stable, first-visit spikes, P4's
-              measured against projected stall, the worker's ms per job.
+              least one scored iteration); P4 in every placement's
+              every bucket: the installed policy's projected stall within
+              max(P4_ABS_MS, P4_REL x measured) of its measured copy
+              stall, as in chameleon_exec.  Printed: kickoff-to-install
+              latency, ADAPTING p50 over Stable, first-visit spikes, P4
+              per bucket (dt, t_grad, projected and measured copy stall,
+              the worst entries, recompute ms, the on - off step
+              difference), the worker's ms per job.
 
 18c. chaos  the robustness drill of ``benchmarks/chaos_bench.py`` on the
               card (``repro_torch.faults``): the chameleon_exec phase's model
@@ -455,6 +468,13 @@ P2_COPIES, P2_BYTES, P2_RATIO = 4, 256 << 20, 2.0
 CHAM_EXEC_STEPS, CHAM_EXEC_EVAL_EVERY = 18, 13
 CHAM_EXEC_MARGIN = 1.01
 CHAM_EXEC_TURNS = 3
+# P4: an installed policy's projected stall (the simulator's, from the
+# profile priced at the grad dispatch's time) is held to the copy stall its
+# executions measure on the card (the p50 over its Stable steps; each
+# fence's wait, ``core.executor``): |projected - measured| at most
+# P4_ABS_MS or P4_REL of the measured, whichever is larger, a step.  Rows
+# print the P4_WORST entries that stalled longest.
+P4_ABS_MS, P4_REL, P4_WORST = 15.0, 2.0 / 3.0, 5
 # The chameleon_async phase (the drift-stall suite of
 # benchmarks/adapt_bench.py at the train phase's width): two buckets of
 # TRAIN_BATCH x ASYNC_SEQS tokens (the reference's 64 : 96) alternate every
@@ -3338,6 +3358,60 @@ def p50(xs):
     return xs[len(xs) // 2] if xs else None
 
 
+def exec_row(last) -> dict:
+    """An execution's counters (``Execution.last``) for a printed row:
+    its measured copy stall, recompute and hook time in ms, and the
+    P4_WORST entries that stalled longest, each [tag, bytes, stall ms,
+    copy ms, lead ms] (the copy began ``lead`` ms before it was needed)."""
+    if last is None:
+        return None
+    row = {k: v for k, v in last.items() if k != "stall_entries"}
+    ents = sorted(last["stall_entries"], key=lambda e: -e[2])
+    row.update(fences=len(ents),
+               worst=[list(e) for e in ents[:P4_WORST]],
+               copy_stall_ms=last["copy_stall_s"] * 1e3,
+               recompute_ms=last["recompute_s"] * 1e3,
+               hook_ms=last["hook_s"] * 1e3)
+    return row
+
+
+def p4_check(projected_ms, measured_ms) -> bool:
+    """P4's gate: the projected stall against the measured copy stall."""
+    return abs(projected_ms - measured_ms) <= max(P4_ABS_MS,
+                                                  P4_REL * measured_ms)
+
+
+def p4_policy(rows, off_ms, off_grad_ms) -> dict:
+    """P4's readings of the steps one installed policy ran (``rows``: dicts
+    with ``step_ms``, ``t_grad_ms``, ``projected_stall_s`` and ``exec``),
+    against Chameleon off's step and grad ms on the same steps: the
+    medians of dt, t_grad, the measured copy stall, recompute and hook ms
+    (with its parts: the release ops, the prefetches, the pack hooks),
+    the projected stall, the worst entries of the step whose copy stall is
+    the median, and the on - off differences of the step and of the grad
+    dispatch."""
+    ex = [r["exec"] for r in rows if r["exec"] is not None]
+    stall = [e["copy_stall_ms"] for e in ex] or [0.0]
+    mid = p50(stall)
+    worst = next((e["worst"] for e in ex if e["copy_stall_ms"] == mid), [])
+    on, grad = p50([r["step_ms"] for r in rows]), p50(
+        [r["t_grad_ms"] for r in rows])
+    hook = {k: p50([e[k] * 1e3 for e in ex] or [0.0])
+            for k in ("release_s", "prefetch_s", "pack_s")}
+    return {"steps": len(rows), "dt_ms": on, "t_grad_ms": grad,
+            "projected_stall_ms": (rows[-1]["projected_stall_s"] or 0.0) * 1e3,
+            "copy_stall_ms": mid, "copy_stall_ms_range": [min(stall),
+                                                          max(stall)],
+            "worst": worst,
+            "recompute_ms": p50([e["recompute_ms"] for e in ex] or [0.0]),
+            "hook_ms": p50([e["hook_ms"] for e in ex] or [0.0]),
+            "release_ms": hook["release_s"], "prefetch_ms": hook["prefetch_s"],
+            "pack_ms": hook["pack_s"],
+            "on_minus_off_ms": on - p50(off_ms) if off_ms else None,
+            "grad_on_minus_off_ms": (grad - p50(off_grad_ms)
+                                     if off_grad_ms else None)}
+
+
 def timeline_floor(prof) -> int:
     """The profile's peak with every candidate absent for its whole life:
     no swap policy of these candidates can go below it."""
@@ -3732,8 +3806,10 @@ def exec_budget(device, cfg, seq=TRAIN_SEQ, phase="chameleon_exec"):
     """B for the chameleon_exec phase: after two steps of a Chameleon-on
     trainer with no budget to meet (the baseline policy runs), its
     runtime's detailed profile of the grad dispatch (``profile_step`` over
-    a replay, the profile its GenPolicy steps take), priced at the second
-    step's time and bisected between its floor and its peak.  Returns
+    a replay, the profile its GenPolicy steps take), priced as the runtime
+    prices it, at the second step's grad dispatch time
+    (``report.grad_times``), and bisected between its floor and its peak.
+    Returns
     (B, row).  The chameleon_async phase takes it at its longer bucket."""
     import torch
     from repro_torch.common.config import ChameleonConfig
@@ -3745,7 +3821,7 @@ def exec_budget(device, cfg, seq=TRAIN_SEQ, phase="chameleon_exec"):
     for _ in range(2):
         tr.train(1)
     prof = tr.rt._baseline_profile(tr.rt._last_train_args,
-                                   tr.report.times[-1])
+                                   tr.report.grad_times[-1])
     tl = build_timeline(prof)
     floor = timeline_floor(prof)
     pol, got, tried = tightest_plan(prof, None, floor, tl.peak)
@@ -3755,7 +3831,7 @@ def exec_budget(device, cfg, seq=TRAIN_SEQ, phase="chameleon_exec"):
     row = {"budget": budget, "floor": floor, "peak": tl.peak,
            "peak_op": tl.peak_op, "n_ops": prof.n_ops,
            "static_bytes": prof.static_bytes, "t_iter_s": prof.t_iter,
-           "tightest": got, "tried": tried}
+           "dt_s": tr.report.times[-1], "tightest": got, "tried": tried}
     drop_trainer(tr)
     del tr, prof, pol
     gc.collect()
@@ -3787,7 +3863,7 @@ def grad_turns(device, tr):
             out[name]["peak"].append(torch.cuda.max_memory_allocated(device))
             del res
     ex = fns["policy"].execution
-    out["policy_exec"] = dict(ex.last) if ex is not None else None
+    out["policy_exec"] = exec_row(ex.last) if ex is not None else None
     return out
 
 
@@ -3822,6 +3898,7 @@ def phase_chameleon_exec(device):
     rows = []
     for i in range(CHAM_EXEC_STEPS):
         c0 = eng.by_class["policy_swap"].as_dict()
+        r0 = rt.recorder.overhead_s
         tr.train(1)
         c1 = eng.by_class["policy_swap"].as_dict()
         ex = rt._last_dispatch.execution         # None: a plain policy ran
@@ -3830,6 +3907,8 @@ def phase_chameleon_exec(device):
         rows.append({
             "step": i, "stage": tr.report.stages[-1],
             "step_ms": tr.report.times[-1] * 1e3,
+            "t_grad_ms": tr.report.grad_times[-1] * 1e3,
+            "recorder_ms": (rt.recorder.overhead_s - r0) * 1e3,
             "loss": tr.report.losses[-1],
             "eval": i in tr.report.eval_losses,
             "policy": ran.fingerprint, "offload": sorted(ran.offload),
@@ -3844,7 +3923,7 @@ def phase_chameleon_exec(device):
             "h2d_ms": (c1["time_in_s"] - c0["time_in_s"]) * 1e3,
             "forced_retires": c1["forced_retires"] - c0["forced_retires"],
             "released_at_op": c1["released_at_op"] - c0["released_at_op"],
-            "exec": dict(ex.last) if ex is not None else None})
+            "exec": exec_row(ex.last) if ex is not None else None})
     fwd, bwd = ops.flash_attention.launches, ops.flash_attention_bwd.launches
     rep = tr.report
     stages = rep.stages
@@ -3886,7 +3965,7 @@ def phase_chameleon_exec(device):
            "realized_reduction": peak_base - peak_pol,
            "grad_ms_policy": turns["policy"]["ms"],
            "grad_ms_baseline": turns["baseline"]["ms"],
-           "measured_stall_ms": ms_pol - ms_base,
+           "policy_minus_baseline_ms": ms_pol - ms_base,
            "projected_stall_ms": (applied.swap.stall_time * 1e3
                                   if applied.swap else None),
            "policy_exec": turns["policy_exec"]}
@@ -3905,10 +3984,22 @@ def phase_chameleon_exec(device):
         off.train(1)
     losses_off = list(off.report.losses)
     off_ms = {i: off.report.times[i] * 1e3 for i in on_ms}
+    off_grad_ms = {i: off.report.grad_times[i] * 1e3 for i in on_ms}
     drop_trainer(off)
     del off
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- P4: each installed policy's projected stall against the copy
+    # stall its Stable steps measured
+    p4 = {}
+    for r in stable:
+        if not r["eval"]:
+            p4.setdefault(r["policy"], []).append(r)
+    p4 = {pol: p4_policy(rs, [off_ms[r["step"]] for r in rs],
+                         [off_grad_ms[r["step"]] for r in rs])
+          for pol, rs in p4.items()}
+    emit("chameleon_exec_p4", policies=p4)
 
     problems = []
     if not {"WarmUp", "GenPolicy", "Stable"} <= set(stages):
@@ -3927,6 +4018,11 @@ def phase_chameleon_exec(device):
     if mem["projected_reduction"] is None or (
             mem["realized_reduction"] < 0.5 * mem["projected_reduction"]):
         problems.append("realized peak reduction under half the projected")
+    for pol, q in p4.items():
+        if not p4_check(q["projected_stall_ms"], q["copy_stall_ms"]):
+            problems.append(f"P4: {pol[:40]} projects "
+                            f"{q['projected_stall_ms']:.1f} ms, measures "
+                            f"{q['copy_stall_ms']:.1f}")
     summary = {
         "ok": not problems, "problems": problems, "budget": budget,
         "losses_on": losses_on, "losses_off": losses_off,
@@ -3937,6 +4033,10 @@ def phase_chameleon_exec(device):
         "on_over_off": (p50(list(on_ms.values()))
                         / p50(list(off_ms.values())) if on_ms else None),
         "allocated_before": allocated_before,
+        "p4": {pol: {k: q[k] for k in ("projected_stall_ms",
+                                       "copy_stall_ms", "t_grad_ms",
+                                       "dt_ms")}
+               for pol, q in p4.items()},
         "k1_launches": (fwd, bwd)}
     emit("chameleon_exec", **summary)
     if problems:
@@ -3989,7 +4089,7 @@ def async_run(device, cfg, budget, mode, out_dir=None) -> dict:
                         "entries": len(pol.swap.entries) if pol.swap else 0,
                         "projected_stall_s": (pol.swap.stall_time
                                               if pol.swap else 0.0),
-                        "exec": (dict(d.execution.last)
+                        "exec": (exec_row(d.execution.last)
                                  if d.execution is not None else None),
                         "slab_allocs": rt.hostmem.pool.slab_allocs})
             now = rt.machine.stage.value
@@ -4031,7 +4131,7 @@ def async_run(device, cfg, budget, mode, out_dir=None) -> dict:
                                 meta={"phase": "chameleon_async"})
     out = {"mode": mode or "off", "losses": list(rep.losses),
            "wall_s": list(rep.wall_times), "step_s": list(rep.times),
-           "stages": list(rep.stages),
+           "grad_s": list(rep.grad_times), "stages": list(rep.stages),
            "gc": [g for g in gcs if g["gen"] == 2 or g["ms"] > 5],
            "allocator": allocator,
            "k1_launches": k1, "ran": ran, "installs": installs,
@@ -4061,8 +4161,8 @@ def async_window(run: dict, off: dict) -> dict:
     """The guard window's readings of one placement: each step against
     its own bucket's Stable median, the ADAPTING steps' p50 against it,
     the first-visit spikes, kickoff-to-install latency, and (P4) each
-    bucket's measured stall (Stable median on minus off) beside the
-    installed policy's projected stall."""
+    bucket's installed policy: its projected stall beside the copy stall
+    its Stable steps measured (``p4_policy``)."""
     wall, stages = run["wall_s"], run["stages"]
     window = range(ASYNC_SKIP, ASYNC_STEPS)
     med, adapting, p4 = {}, {}, {}
@@ -4073,12 +4173,20 @@ def async_window(run: dict, off: dict) -> dict:
         ad = [wall[i] for i in steps if stages[i] == "Adapting"]
         adapting[b] = {"p50_ms": p50(ad) * 1e3 if ad else None,
                        "over_stable": p50(ad) / med[b] if ad else None}
-        off_med = p50([off["wall_s"][i] for i in stable or steps])
         last = run["ran"][steps[-1]]
-        p4[ASYNC_SEQS[b]] = {
-            "policy": last["policy"], "entries": last["entries"],
-            "measured_stall_ms": (med[b] - off_med) * 1e3,
-            "projected_stall_ms": last["projected_stall_s"] * 1e3}
+        inst = [i for i in (stable or steps)
+                if run["ran"][i]["policy"] == last["policy"]] or steps[-1:]
+        p4[ASYNC_SEQS[b]] = dict(
+            p4_policy([{"step_ms": run["step_s"][i] * 1e3,
+                        "t_grad_ms": run["grad_s"][i] * 1e3,
+                        "projected_stall_s": run["ran"][i][
+                            "projected_stall_s"],
+                        "exec": run["ran"][i]["exec"]} for i in inst],
+                      [off["step_s"][i] * 1e3 for i in inst],
+                      [off["grad_s"][i] * 1e3 for i in inst]),
+            policy=last["policy"], entries=last["entries"],
+            wall_on_minus_off_ms=(med[b] - p50(
+                [off["wall_s"][i] for i in stable or steps])) * 1e3)
     ratios = {i: wall[i] / med[async_bucket(i)] for i in window}
     worst = max(ratios, key=ratios.get)
     spikes = {}
@@ -4188,6 +4296,12 @@ def phase_chameleon_async(device) -> dict:
                 problems.append(f"{m}: visit {v} ends in no install")
         if r["losses"] != off["losses"]:
             problems.append(f"{m}: losses differ from Chameleon off's")
+        for seq, q in rows[m]["p4"].items():
+            if not p4_check(q["projected_stall_ms"], q["copy_stall_ms"]):
+                problems.append(
+                    f"{m}: P4 at {seq} projects "
+                    f"{q['projected_stall_ms']:.1f} ms, measures "
+                    f"{q['copy_stall_ms']:.1f}")
         want = (ASYNC_STEPS + r["replays"]) * TRAIN_LAYERS
         if r["k1_launches"] != (want, want):
             problems.append(f"{m}: K1 launches {r['k1_launches']} != {want}")

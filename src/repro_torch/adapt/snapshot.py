@@ -5,8 +5,10 @@ everything the §5 adaptation cycle reads, at the moment drift settles, so
 the background worker never touches live runtime state:
 
   * the Detailed-mode :class:`~repro_torch.core.profiler.ProfileData` of
-    the grad dispatch, already materialized, priced at the measured
-    ``t_iter``.  The reference may carry a traced jaxpr here and let the
+    the grad dispatch, already materialized, priced at ``t_iter``: the
+    grad dispatch's own measured time where the trainer gives one (a
+    departure, ``core.runtime``'s module doc), else the iteration's, as in
+    the reference.  The reference may carry a traced jaxpr here and let the
     worker profile it; an eager step has none, and its profile is a replay
     of the dispatch on the device (``ChameleonRuntime._baseline_profile``),
     which only the training thread may run;
@@ -51,7 +53,9 @@ class FrozenBacklog:
 class AdaptSnapshot:
     """One adaptation's frozen inputs, immutable after construction."""
     profile: Optional[ProfileData] = None
-    t_iter: float = 1.0                  # measured iteration time to price at
+    # the time the profile is priced at: the grad dispatch's measured time
+    # less its copy stall where the trainer gave one, else the iteration's
+    t_iter: float = 1.0
     budget: int = 0                      # HBM budget (bytes)
     bwmodel: Any = None                  # frozen BandwidthModel copy (or None)
     contention_s: float = 0.0            # queued_delay at snapshot time

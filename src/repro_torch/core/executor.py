@@ -61,6 +61,24 @@ built from ``torch.autograd.graph.saved_tensors_hooks``, the host tier's
     then (no profile, or an op index that never came) is fetched on
     demand; such fetches are counted, and so is the host time the
     executor spends waiting on copies (``stats``).
+  * **The measured copy stall.**  Each fence records a timing event on the
+    current stream just before its wait; once the dispatch has synchronised,
+    ``need.elapsed_time(done)`` (0 when the copy was done first) is how long
+    the stream waited for that copy, on the device. ``last`` reads them when
+    it is read after the run (no host sync is added to the step: a completed
+    event's ``synchronize`` returns at once): ``stall_entries`` holds (tag,
+    bytes, ms) per fence, with the copy's own ms and its lead (how long
+    before the need it began) where the copy was timed, and ``copy_stall_s``
+    sums the fences' waits with the host's waits for on-demand swap-ins and
+    for the forced retires of the class window.  Two costs that are no copy
+    stall stand beside it: ``recompute_s``, the remat recipes' time (CUDA
+    events around each on a card, the host clock on the CPU), and
+    ``hook_s``, the host time inside the execution's hooks (its host waits
+    and, on the CPU, its recomputation included), of which ``release_s``
+    retired swap-outs at the release plan's ops, ``prefetch_s`` issued the
+    planned swap-ins and ``pack_s`` staged the swap-outs (the rest is the
+    unpack hooks).  On the CPU, where every copy is synchronous, the copy
+    stall is 0.
   * **Remat** (``applied.remat``).  A site whose ``tag`` carries a
     recompute recipe (``ffn_act``: ``silu(gate) * up``) is not held
     across the forward: the pack hook keeps the recipe, with its inputs
@@ -227,6 +245,13 @@ class Executor:
 
 
 # ------------------------------------------------------------- the plan
+def _stream_event():
+    """A timing event recorded on the current CUDA stream."""
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
 def _storage(t: torch.Tensor):
     try:
         return t.untyped_storage()
@@ -365,7 +390,9 @@ class Execution:
             self._uid_of, self._in_op, self._tags = _prefetch_ops(
                 profile, cfg, set(self.offload), applied.swap)
         self._lock = threading.RLock()
-        self.last: dict = self._zero()
+        self._last: dict = self._zero()
+        self._fences: List[tuple] = []       # (tag, bytes, ev, need, done)
+        self._recomputes: List[tuple] = []   # (start, end) CUDA events
         self._active = False
 
     @staticmethod
@@ -373,7 +400,49 @@ class Execution:
         return {"staged": 0, "staged_bytes": 0, "restored": 0,
                 "restored_bytes": 0, "prefetched": 0, "on_demand": 0,
                 "recomputed": 0, "views": 0, "never_restored": 0,
-                "wait_s": 0.0, "forced_retires": 0}
+                "wait_s": 0.0, "forced_retires": 0,
+                # the measured copy stall (module doc) and what it sums
+                "copy_stall_s": 0.0, "fence_stall_s": 0.0,
+                "on_demand_s": 0.0, "forced_wait_s": 0.0,
+                "stall_entries": [],
+                # costs beside it that are no copy stall, and three parts
+                # of hook_s: the release ops' retires, the swap-ins'
+                # issue, the pack hooks (staging the swap-outs)
+                "recompute_s": 0.0, "hook_s": 0.0, "release_s": 0.0,
+                "prefetch_s": 0.0, "pack_s": 0.0}
+
+    @property
+    def last(self) -> dict:
+        """The counters of the last run; read after the run has
+        synchronised, they hold its measured device times."""
+        if not self._active and (self._fences or self._recomputes):
+            self._settle()
+        return self._last
+
+    def _settle(self) -> None:
+        """Read the run's timing events (each has completed once the step
+        has synchronised: ``synchronize`` then returns at once)."""
+        st = self._last
+        fences, self._fences = self._fences, []
+        for tag, nbytes, ev, need, done in fences:
+            need.synchronize()
+            done.synchronize()
+            ms = max(0.0, float(need.elapsed_time(done)))
+            row = [tag, nbytes, ms]
+            if ev._cuda is not None:
+                # the copy's own time, and how long before the stream
+                # needed it the copy began (less than its time: a stall)
+                start = ev._cuda[0]
+                row += [float(start.elapsed_time(done)),
+                        float(start.elapsed_time(need))]
+            st["stall_entries"].append(tuple(row))
+            st["fence_stall_s"] += ms / 1e3
+        recs, self._recomputes = self._recomputes, []
+        for start, end in recs:
+            end.synchronize()
+            st["recompute_s"] += float(start.elapsed_time(end)) / 1e3
+        st["copy_stall_s"] = (st["fence_stall_s"] + st["on_demand_s"]
+                              + st["forced_wait_s"])
 
     # ------------------------------------------------------------ running
     @contextlib.contextmanager
@@ -383,8 +452,8 @@ class Execution:
         self._begin()
         try:
             with sites.executing(self), \
-                    torch.autograd.graph.saved_tensors_hooks(self._pack,
-                                                             self._unpack), \
+                    torch.autograd.graph.saved_tensors_hooks(
+                        self._pack_hook, self._unpack_hook), \
                     (self._own_mode or contextlib.nullcontext()):
                 yield self
         finally:
@@ -405,11 +474,15 @@ class Execution:
         self._release_ops = sorted(set(self.applied.release_plan.values()))
         self._pf_i = 0
         self._rel_i = 0
-        self.last = self._zero()
+        self._last = self._zero()
+        self._fences, self._recomputes = [], []
         eng = self.engine
+        # on a card: record timing events (the CPU's copies never wait)
+        self._timed = eng is not None and eng.device.type == "cuda"
         if eng is not None:
             eng.begin_iteration()
-            self._forced0 = eng.by_class[TC_POLICY_SWAP].forced_retires
+            cc = eng.by_class[TC_POLICY_SWAP]
+            self._forced0 = (cc.forced_retires, cc.forced_wait_s)
         # the counting mode that numbers this dispatch's ops
         modes = [m for m in _get_current_dispatch_mode_stack()
                  if isinstance(m, CountingMode)]
@@ -436,10 +509,14 @@ class Execution:
                         # staged and never needed back: its slab goes back
                         if s.out.block is not None and not s.out.block.freed:
                             eng.pool.free(s.out.block)
-                        self.last["never_restored"] += 1
-            self.last["wait_s"] += time.perf_counter() - t0
-            self.last["forced_retires"] = (
-                eng.by_class[TC_POLICY_SWAP].forced_retires - self._forced0)
+                        self._last["never_restored"] += 1
+            st = self._last
+            st["wait_s"] += time.perf_counter() - t0
+            cc = eng.by_class[TC_POLICY_SWAP]
+            st["forced_retires"] = cc.forced_retires - self._forced0[0]
+            if self._timed:
+                st["forced_wait_s"] = cc.forced_wait_s - self._forced0[1]
+            st["copy_stall_s"] = st["on_demand_s"] + st["forced_wait_s"]
         for s in self._all:
             s.dev = None
         self._labels.clear()
@@ -464,12 +541,15 @@ class Execution:
         whose op has come."""
         i = n - self._base
         t0 = time.perf_counter()
+        st = self._last
         with self._lock, _disable_current_modes():
             rel = self._release_ops
             if self._rel_i < len(rel) and rel[self._rel_i] <= i:
                 while self._rel_i < len(rel) and rel[self._rel_i] <= i:
                     self._rel_i += 1
                 self.engine.advance_op(i)
+                st["release_s"] += time.perf_counter() - t0
+            t1 = time.perf_counter()
             pf = self._pf
             while self._pf_i < len(pf) and pf[self._pf_i][0] <= i:
                 uid = pf[self._pf_i][1]
@@ -479,9 +559,12 @@ class Execution:
                     self._due.add(uid)   # back as soon as it is staged
                 elif s.into is None:
                     self._swap_in(s)
-                    self.last["prefetched"] += 1
+                    st["prefetched"] += 1
             self._arm()
-        self.last["wait_s"] += time.perf_counter() - t0
+        t2 = time.perf_counter()
+        st["prefetch_s"] += t2 - t1
+        st["wait_s"] += t2 - t0
+        st["hook_s"] += t2 - t0
 
     # ------------------------------------------------------------ labels
     def note_site(self, x, name: str, layer: int, recompute) -> None:
@@ -507,6 +590,20 @@ class Execution:
         self._staged.pop(key, None)
 
     # ------------------------------------------------------ pack / unpack
+    def _pack_hook(self, t: torch.Tensor):
+        t0 = time.perf_counter()
+        out = self._pack(t)
+        dt = time.perf_counter() - t0
+        self._last["hook_s"] += dt
+        self._last["pack_s"] += dt
+        return out
+
+    def _unpack_hook(self, h):
+        t0 = time.perf_counter()
+        out = self._unpack(h)
+        self._last["hook_s"] += time.perf_counter() - t0
+        return out
+
     def _pack(self, t: torch.Tensor):
         st = _storage(t)
         if st is None:
@@ -530,7 +627,7 @@ class Execution:
         with self._lock, _disable_current_modes():
             s = self._stage(t, st, lab)
             s.refs += 1
-            self.last["views"] += 1
+            self._last["views"] += 1
         return _Offloaded(s, t)
 
     def _stage(self, t: torch.Tensor, st, lab: _Label) -> _Staged:
@@ -551,15 +648,15 @@ class Execution:
         s = _Staged(ev, nb, tag)
         self._staged[key] = s
         self._all.append(s)
-        self.last["staged"] += 1
-        self.last["staged_bytes"] += nb
+        self._last["staged"] += 1
+        self._last["staged_bytes"] += nb
         if lab.uid >= 0:
             self._by_uid[lab.uid] = s
             if lab.uid in self._due:
                 # its swap-in op came before it was saved (a tensor of the
                 # last layers, needed right after the peak)
                 self._swap_in(s)
-                self.last["prefetched"] += 1
+                self._last["prefetched"] += 1
         return s
 
     def _swap_in(self, s: _Staged) -> None:
@@ -567,8 +664,8 @@ class Execution:
         eng.set_class_depth(TC_POLICY_SWAP,
                             eng.class_in_flight(TC_POLICY_SWAP) + 2)
         s.into = eng.submit_swap_in(s.out, s.tag)
-        self.last["restored"] += 1
-        self.last["restored_bytes"] += s.nbytes
+        self._last["restored"] += 1
+        self._last["restored_bytes"] += s.nbytes
 
     def _restore(self, s: _Staged) -> torch.Tensor:
         with self._lock, _disable_current_modes():
@@ -576,9 +673,14 @@ class Execution:
                 if s.into is None:
                     t0 = time.perf_counter()
                     self._swap_in(s)
-                    self.last["on_demand"] += 1
-                    self.last["wait_s"] += time.perf_counter() - t0
-                self.engine.fence(s.into)
+                    self._last["on_demand"] += 1
+                    dt = time.perf_counter() - t0
+                    self._last["wait_s"] += dt
+                    if self._timed:
+                        self._last["on_demand_s"] += dt
+                pair = self.engine.fence(s.into, timed=self._timed)
+                if pair is not None:
+                    self._fences.append((s.tag, s.nbytes, s.into) + pair)
                 # the event lets go of the restored bytes: the current
                 # stream is ordered after the H2D now, so their memory may
                 # be reused as soon as the backward is done with them
@@ -598,7 +700,14 @@ class Execution:
         if isinstance(h, _Recompute):
             args = [self._unpack(a) for a in h.args]
             with torch.no_grad(), _disable_current_modes():
-                out = h.fn(*args)
-                self.last["recomputed"] += 1
+                if args and args[0].is_cuda:
+                    start = _stream_event()
+                    out = h.fn(*args)
+                    self._recomputes.append((start, _stream_event()))
+                else:
+                    t0 = time.perf_counter()
+                    out = h.fn(*args)
+                    self._last["recompute_s"] += time.perf_counter() - t0
+                self._last["recomputed"] += 1
                 return out.as_strided(h.size, h.stride, h.offset)
         return h

@@ -7,11 +7,13 @@ by ``repro_torch.runtime.trainer.Trainer``):
     rt = ChameleonRuntime(cham_cfg, step_builder, device=...)
     rt.prepare(example_args)                  # WarmUp fit (Algo 3, proactive)
     for it in range(steps):
+        t0 = time()
         fn = rt.step_fn()                     # current applied policy
-        t0 = time(); out = fn(*args); sync(); dt = time() - t0
+        out = fn(*args); sync()               # the grad dispatch
+        t_grad = time() - t0 - copy_stall     # (fn.execution.last)
         rt.record_dispatch("train", fn, args) # Lightweight-mode op stream
         ... (any extra dispatches: eval, optimizer-skip, ... recorded too)
-        rt.end_iteration(dt)                  # Algo 1 stage machine
+        rt.end_iteration(time() - t0, t_grad) # Algo 1 stage machine
 
 During GenPolicy the runtime generates one policy variant per step (varying
 the logical-layer grouping knob) and, after n steps, keeps the variant with
@@ -49,12 +51,27 @@ What eager PyTorch changes:
     (``.grad`` is left None, no optimizer or loss-scale state is
     touched), memoized by arg-shape key like the reference's
     ``_baseprof_cache`` — so a GenPolicy episode pays one extra grad
-    dispatch, counted in ``adaptation_overhead_s``.  The profile is priced
-    at the reference's ``t_iter`` (the iteration's ``dt``), not at the
-    replay's own wall, which keeps the variant schedule iteration for
-    iteration the reference's.  Limit: under a budget the baseline cannot
-    physically fit (ROADMAP.md item 4c's Table 4) the replay itself would
-    not fit; it must then run under the conservative policy.
+    dispatch, counted in ``adaptation_overhead_s``.  Limit: under a
+    budget the baseline cannot physically fit (ROADMAP.md item 4c's Table
+    4) the replay itself would not fit; it must then run under the
+    conservative policy.
+  * **The profile is priced at the grad dispatch's own time** (a
+    departure).  The reference prices the grad step's profile at the
+    whole iteration's ``t_iter`` (its trainer times the grad step, the
+    optimizer step, the eval and the loss-scale update together), so Eq. 1
+    spreads the optimizer step's and the eval's time over the grad step's
+    ops and every logical layer's transfer budget is inflated by about
+    ``t_iter / t_grad`` (ROADMAP.md F7; on the card the grad dispatch of
+    ``llama2-paper`` takes 0.52-0.67 of its iteration, P4).
+    ``end_iteration(t_iter, t_grad)`` takes the trainer's
+    ``t_grad``, the grad dispatch from its start to its synchronised end
+    less that dispatch's measured copy stall (``core.executor``: a
+    stalling variant does not widen its own budgets), and the GenPolicy
+    step, the async snapshot and the kickoff price the replayed profile at
+    it; the variants' ``measured_t`` stays the iteration's ``t_iter``
+    (paper §7.1's selection by measured iteration time).  A caller that
+    gives no ``t_grad`` prices at ``t_iter``, as the reference does.  The
+    replay's own wall is not used: the Detailed mode inflates it.
   * **Swaps are real.**  The applied policy runs through the executor
     (``core.executor``): saved-tensor hooks offload its sites on the
     engine's ``policy_swap`` class and bring them back at the planned ops.
@@ -164,7 +181,8 @@ class ChameleonRuntime:
         self._owner_thread = threading.get_ident()
         # detailed profiles of streams adapted before, keyed by iteration
         # fingerprint: a recurring stream's snapshot carries the profile
-        # its last install used, at the t_iter it was measured at
+        # its last install used, at the price it was adapted at (the grad
+        # dispatch's time, or the iteration's where none was given)
         self._profile_lru: "collections.OrderedDict[str, ProfileData]" = \
             collections.OrderedDict()
         self._profile_lru_cap = 8
@@ -465,8 +483,13 @@ class ChameleonRuntime:
             self._train_shape = self._args_key(args)   # shapes/dtypes only
         self.profiling_overhead_s += time.perf_counter() - t0
 
-    def end_iteration(self, t_iter: float) -> Stage:
+    def end_iteration(self, t_iter: float,
+                      t_grad: Optional[float] = None) -> Stage:
+        """Close the iteration: ``t_iter`` is its measured time, ``t_grad``
+        the grad dispatch's own (module doc), which prices the detailed
+        profile; without it the profile is priced at ``t_iter``."""
         t0 = time.perf_counter()
+        t_price = t_iter if t_grad is None else t_grad
         # the policy that *this* iteration executed — _genpolicy_step /
         # _select_best may replace self.applied for the next one below
         ran = self.applied
@@ -498,14 +521,14 @@ class ChameleonRuntime:
         # from the steady-state Lightweight-mode bookkeeping
         t_adapt = time.perf_counter()
         if stage is Stage.GENPOLICY:
-            self._genpolicy_step(t_iter)
+            self._genpolicy_step(t_price)
         elif stage is Stage.STABLE and prev_stage is Stage.GENPOLICY:
             self._select_best()
         elif stage is Stage.ADAPTING and prev_stage is not Stage.ADAPTING:
             # async placement: the sequence settled — hand the background
             # worker an immutable snapshot (or install a parked
             # speculative result on the spot) and keep iterating
-            self._async_kickoff(t_iter)
+            self._async_kickoff(t_price)
         elif stage is Stage.WARMUP and (prev_stage is not Stage.WARMUP
                                         or shape_drift):
             # sequence (or dispatch shape) changed: back to the
@@ -559,7 +582,7 @@ class ChameleonRuntime:
             self.adaptation_overhead_s += time.perf_counter() - t_ladder
         self.history.append({"step": self.step_idx, "stage": stage.value,
                              "policy": self.applied.fingerprint,
-                             "t_iter": t_iter})
+                             "t_iter": t_iter, "t_grad": t_grad})
         self._close_obs_window(ran)
         self.profiling_overhead_s += (time.perf_counter() - t0) - adapt_dt
         return stage
@@ -706,17 +729,17 @@ class ChameleonRuntime:
             release_plan=len(applied.release_plan))
 
     # ----------------------------------------------------- GenPolicy path
-    def _genpolicy_step(self, t_iter: float) -> None:
+    def _genpolicy_step(self, t_price: float) -> None:
         args = self._last_train_args or self._example_args
         if args is None:
             return
         knob_next = self._gen_knobs[len(self.variants) % len(self._gen_knobs)]
         with obs.tracer().span(obs.LANE_ADAPT, "genpolicy_step",
                                arg=knob_next):
-            self._genpolicy_step_body(args, t_iter)
+            self._genpolicy_step_body(args, t_price)
 
-    def _genpolicy_step_body(self, args, t_iter: float) -> None:
-        prof = self._baseline_profile(args, t_iter)   # Detailed mode
+    def _genpolicy_step_body(self, args, t_price: float) -> None:
+        prof = self._baseline_profile(args, t_price)  # Detailed mode
         self.profile = prof
         knob = self._gen_knobs[len(self.variants) % len(self._gen_knobs)]
         hm = self.hostmem
@@ -764,10 +787,11 @@ class ChameleonRuntime:
         self.hostmem.engine.begin_iteration()
 
     # ------------------------------------ async placement (repro_torch.adapt)
-    def _snapshot(self, args, t_iter: float) -> AdaptSnapshot:
+    def _snapshot(self, args, t_price: float) -> AdaptSnapshot:
         """Freeze this adaptation's inputs.  The profile is materialized
         here, on the training thread: the ``_profile_lru`` entry of a
-        stream adapted before, else the replay (memoized by arg shapes)."""
+        stream adapted before, else the replay (memoized by arg shapes)
+        priced at ``t_price`` (``end_iteration``'s)."""
         hm = self.hostmem
         iter_fp = iter_exact = None
         if self._last_sig is not None and len(self._last_sig):
@@ -776,9 +800,9 @@ class ChameleonRuntime:
         prof = (self._profile_lru.get(iter_exact)
                 if iter_exact is not None else None)
         if prof is None:
-            prof = self._baseline_profile(args, t_iter)
+            prof = self._baseline_profile(args, t_price)
         return AdaptSnapshot(
-            profile=prof, t_iter=t_iter, budget=self.budget,
+            profile=prof, t_iter=t_price, budget=self.budget,
             bwmodel=hm.bwmodel.snapshot() if hm else None,
             contention_s=hm.engine.queued_delay() if hm else 0.0,
             backlog=hm.engine.backlog_snapshot() if hm else {},
@@ -794,14 +818,14 @@ class ChameleonRuntime:
         return hashlib.sha1(
             f"{fp_exact}|{self._train_shape}".encode()).hexdigest()
 
-    def _async_kickoff(self, t_iter: float) -> None:
+    def _async_kickoff(self, t_price: float) -> None:
         """ADAPTING entry: install a parked speculative result if the
         observed stream has one (zero GenPolicy steps, nothing in flight),
         otherwise enqueue the snapshot for the worker."""
         args = self._last_train_args or self._example_args
         if args is None:
             return
-        snap = self._snapshot(args, t_iter)
+        snap = self._snapshot(args, t_price)
         self.service.begin(self.step_idx)
         hit = self.service.take_speculative(snap.iter_exact)
         if hit is not None:

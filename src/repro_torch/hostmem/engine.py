@@ -164,6 +164,9 @@ class ClassCounters:
     time_out_s: float = 0.0
     time_in_s: float = 0.0
     forced_retires: int = 0      # completions forced by this class's window
+    # host seconds those forced retires waited (read by the executor; not
+    # in ``as_dict``, whose keys are the reference's)
+    forced_wait_s: float = 0.0
     stall_s: float = 0.0         # link time spent on other classes while
     stall_transfers: int = 0     # ... this class had a transfer waiting
                                  # (stall_s on the CPU only: module doc)
@@ -353,12 +356,15 @@ class TransferEngine:
         if qb > cc.hwm_queued_bytes:
             cc.hwm_queued_bytes = qb
         while len(q) > self._depths[ev.cls]:  # class window overflow
+            t0 = time.perf_counter()
             ran = self._step(ev.kind, waiting_cls=ev.cls)
             if ran is not None and ran.cls == ev.cls:
                 # count only this class's own retirement — higher-priority
                 # transfers jumping ahead are stall, not window pressure
                 self.forced_retires += 1
-                self.by_class[ev.cls].forced_retires += 1
+                cc = self.by_class[ev.cls]
+                cc.forced_retires += 1
+                cc.forced_wait_s += time.perf_counter() - t0
 
     # ---------------------------------------------------------- execution
     def _step(self, kind: str,
@@ -398,9 +404,12 @@ class TransferEngine:
             st = self._streams[(cls, kind)] = torch.cuda.Stream(self.device)
         return st
 
-    def _record_current(self):
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(self.device))
+    def _current_stream(self):
+        return torch.cuda.current_stream(self.device)
+
+    def _record_current(self, timing: bool = False):
+        ev = torch.cuda.Event(enable_timing=timing)
+        ev.record(self._current_stream())
         return ev
 
     def _d2h(self, ev: TransferEvent) -> None:
@@ -518,17 +527,28 @@ class TransferEngine:
         ev._t_issue = t0
         ev.seconds = time.perf_counter() - t0    # the CPU's synchronous copy
 
-    def fence(self, ev: TransferEvent) -> None:
+    def fence(self, ev: TransferEvent, timed: bool = False
+              ) -> Optional[Tuple[Any, Any]]:
         """Make work submitted from now on to the current stream wait until
         ``ev``'s copy is done, on the device and without a host sync: then
         a swap-out's source may be overwritten, or a swap-in's result read.
         A no-op on the CPU, where copies are synchronous.  A copy that failed
         for good at issue has no result until it retires (a swap-in's is the
-        synchronous fallback copy): it is retired here, with a host wait."""
+        synchronous fallback copy): it is retired here, with a host wait.
+
+        ``timed``: a timing event is recorded on the current stream just
+        before the wait, and ``(need, done)`` is returned, the two events
+        whose ``need.elapsed_time(done)``, once both have completed, is how
+        long the stream waited for the copy (a negative time: not at all).
+        None where the stream did not wait on the device."""
         if ev.failed_at_issue and not ev.done:
             self.wait(ev)
         elif ev._cuda is not None and not ev.done:
-            torch.cuda.current_stream(self.device).wait_event(ev._cuda[1])
+            done = ev._cuda[1]
+            need = self._record_current(timing=True) if timed else None
+            self._current_stream().wait_event(done)
+            return (need, done) if timed else None
+        return None
 
     # ---------------------------------------------------------- retiring
     def _fail_transfer(self, ev: TransferEvent, err: BaseException) -> None:

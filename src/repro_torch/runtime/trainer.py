@@ -7,7 +7,10 @@ iteration's operator sequence shortens); an eval step every
 ``eval_every`` iterations.  With Chameleon on, ``ChameleonRuntime``
 (``core.runtime``) records every dispatch's op stream, runs Algo 1 at the
 end of each iteration, generates and selects policies, and the grad step
-runs under the applied policy through the executor (``core.executor``):
+runs under the applied policy through the executor (``core.executor``).
+The runtime is handed the iteration's time and the grad dispatch's own,
+less that dispatch's measured copy stall (``report.grad_times``), at
+which it prices the detailed profile (``core.runtime``'s module doc):
 ``report.stages``, ``report.policystore`` and ``report.adapt`` are the
 reference's, and the ``runtime``, ``hostmem`` and ``memory`` metrics
 providers are registered.  With Chameleon off the trainer needs no
@@ -63,6 +66,9 @@ class TrainReport:
     # ``end_iteration`` bookkeeping/adaptation that runs before the next
     # dispatch (equal to ``times`` with Chameleon off)
     wall_times: List[float] = field(default_factory=list)
+    # the grad dispatch per step, from its start to its synchronised end,
+    # less its measured copy stall (Chameleon prices its profile at it)
+    grad_times: List[float] = field(default_factory=list)
     skipped_steps: List[int] = field(default_factory=list)
     eval_losses: Dict[int, float] = field(default_factory=dict)
     # Chameleon's stage per step (empty with Chameleon off)
@@ -274,9 +280,14 @@ class Trainer:
         fn = rt.step_fn(args) if rt is not None else self._grad
         with obs.tracer().span(obs.LANE_COMPUTE, "train_step",
                                arg=self.step):
+            tg = time.perf_counter()
             loss, grads, finite = fn(*args)
             parts = self._parts              # before any replay of fn
             finite_h = bool(finite)          # waits for the device
+            t_grad = time.perf_counter() - tg
+        ex = getattr(fn, "execution", None)
+        if ex is not None:                   # read after the sync above
+            t_grad = max(t_grad - ex.last["copy_stall_s"], 0.0)
         if rt is not None:
             rt.record_dispatch("train", fn, args)
         if finite_h:
@@ -306,7 +317,7 @@ class Trainer:
 
         dt = time.perf_counter() - t0
         if rt is not None:
-            self.report.stages.append(rt.end_iteration(dt).value)
+            self.report.stages.append(rt.end_iteration(dt, t_grad).value)
         # flag on the full critical-path latency (compute + end_iteration
         # bookkeeping): a degraded host link or a drift stall shows up in
         # the wall time even when the step itself is healthy
@@ -316,6 +327,7 @@ class Trainer:
         self.report.xent.append(float(parts["xent"]))
         self.report.aux.append(float(parts["aux"]))
         self.report.times.append(dt)
+        self.report.grad_times.append(t_grad)
         self.report.wall_times.append(wall)
         self.step += 1
         # step is incremented BEFORE any failure can be raised for this
