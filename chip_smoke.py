@@ -196,13 +196,20 @@ Phases, each printing JSON lines:
               against the baseline policy (both through the runtime, in
               turns, timed too); P4: the installed policy's projected
               stall within max(P4_ABS_MS, P4_REL x measured) of the copy
-              stall its Stable steps measure on the card.  Printed per
+              stall its Stable steps measure on the card; P4's remainder:
+              no host wait on a policy copy inside a Stable step's grad
+              dispatch, no more allocator retries than Chameleon off's on
+              the same steps, and the grad dispatch's reserved peak under
+              the installed policy below the baseline's, each from an
+              empty cache (``reserved_probe``).  Printed per
               step: dt, the grad dispatch's time less its copy stall
               (``t_grad``, what the profile is priced at), the projected
               and the measured copy stall with its worst P4_WORST entries,
               recompute and hook ms, the recorder's ms; per installed
-              policy (``chameleon_exec_p4``) those medians and the on - off
-              step difference.
+              policy (``chameleon_exec_p4``) those medians, the on - off
+              step difference, the host waits, the release ops that found
+              their copy running, the books' ms after the step, the pinned
+              slabs allocated, the retries and the reserved peaks.
 
 18b. chameleon_async  adaptation off the training thread
               (``repro_torch.adapt``): the budget is the lowest a policy
@@ -220,7 +227,8 @@ Phases, each printing JSON lines:
               least one scored iteration); P4 in every placement's
               every bucket: the installed policy's projected stall within
               max(P4_ABS_MS, P4_REL x measured) of its measured copy
-              stall, as in chameleon_exec.  Printed: kickoff-to-install
+              stall, and P4's remainder where the bucket's last policy
+              moves bytes, as in chameleon_exec.  Printed: kickoff-to-install
               latency, ADAPTING p50 over Stable, first-visit spikes, P4
               per bucket (dt, t_grad, projected and measured copy stall,
               the worst entries, recompute ms, the on - off step
@@ -475,6 +483,14 @@ CHAM_EXEC_TURNS = 3
 # P4_ABS_MS or P4_REL of the measured, whichever is larger, a step.  Rows
 # print the P4_WORST entries that stalled longest.
 P4_ABS_MS, P4_REL, P4_WORST = 15.0, 2.0 / 3.0, 5
+# P4's remainder: on the card no Stable step's grad dispatch blocks the host
+# on a policy copy (``Execution.last["host_waits"]``: release ops retire
+# only copies already done, swap-ins chain on the device, the books close
+# after the step's sync in ``Execution.settle``), its steps
+# take no more caching-allocator retries than Chameleon off's on the same
+# steps, and the grad dispatch's reserved peak under an installed policy
+# that moves bytes is below off's (``reserved_probe``: each from an empty
+# cache, since the caching allocator keeps every step's high-water mark).
 # The chameleon_async phase (the drift-stall suite of
 # benchmarks/adapt_bench.py at the train phase's width): two buckets of
 # TRAIN_BATCH x ASYNC_SEQS tokens (the reference's 64 : 96) alternate every
@@ -2575,6 +2591,8 @@ def dist_run(device, cfg, batches, mesh=None, policy=None):
         t0 = time.perf_counter()
         model, opt, m = step(model, opt, b, 1.0)
         losses.append(float(m["loss"]))
+        if policy is not None:
+            policy.settle()              # after the sync, as the trainer
         times.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated(device) - base
     launches = (ops.flash_attention.launches,
@@ -3360,9 +3378,10 @@ def p50(xs):
 
 def exec_row(last) -> dict:
     """An execution's counters (``Execution.last``) for a printed row:
-    its measured copy stall, recompute and hook time in ms, and the
-    P4_WORST entries that stalled longest, each [tag, bytes, stall ms,
-    copy ms, lead ms] (the copy began ``lead`` ms before it was needed)."""
+    its measured copy stall, recompute, hook, host-wait and settle time in
+    ms, and the P4_WORST entries that stalled longest, each [tag, bytes,
+    stall ms, copy ms, lead ms] (the copy began ``lead`` ms before it was
+    needed)."""
     if last is None:
         return None
     row = {k: v for k, v in last.items() if k != "stall_entries"}
@@ -3371,8 +3390,44 @@ def exec_row(last) -> dict:
                worst=[list(e) for e in ents[:P4_WORST]],
                copy_stall_ms=last["copy_stall_s"] * 1e3,
                recompute_ms=last["recompute_s"] * 1e3,
-               hook_ms=last["hook_s"] * 1e3)
+               hook_ms=last["hook_s"] * 1e3,
+               host_wait_ms=last["host_wait_s"] * 1e3,
+               settle_ms=last["settle_s"] * 1e3)
     return row
+
+
+def alloc_retries(device) -> int:
+    """The caching allocator's retries so far (each frees the cache and
+    synchronises the device)."""
+    import torch
+    return torch.cuda.memory_stats(device).get("num_alloc_retries", 0)
+
+
+def step_retries(readings) -> list:
+    """Per step, from a reading before the first and one after each step:
+    the allocator retries the step took."""
+    return [{"alloc_retries": b - a} for a, b in zip(readings, readings[1:])]
+
+
+def reserved_probe(device, fns, args) -> dict:
+    """The caching allocator's reserved peak of each grad dispatch in
+    ``fns`` (name -> callable) on ``args``, each from an empty cache; an
+    execution's books are closed after its run."""
+    import torch
+    out = {}
+    for name, fn in fns.items():
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        res = fn(*args)
+        torch.cuda.synchronize()
+        out[name] = torch.cuda.max_memory_reserved(device)
+        del res
+        ex = getattr(fn, "execution", None)
+        if ex is not None:
+            ex.settle()
+    return out
 
 
 def p4_check(projected_ms, measured_ms) -> bool:
@@ -3381,35 +3436,71 @@ def p4_check(projected_ms, measured_ms) -> bool:
                                                   P4_REL * measured_ms)
 
 
-def p4_policy(rows, off_ms, off_grad_ms) -> dict:
+def p4_policy(rows, off_ms, off_grad_ms, off_alloc=None,
+              reserved=None) -> dict:
     """P4's readings of the steps one installed policy ran (``rows``: dicts
-    with ``step_ms``, ``t_grad_ms``, ``projected_stall_s`` and ``exec``),
-    against Chameleon off's step and grad ms on the same steps: the
-    medians of dt, t_grad, the measured copy stall, recompute and hook ms
-    (with its parts: the release ops, the prefetches, the pack hooks),
-    the projected stall, the worst entries of the step whose copy stall is
-    the median, and the on - off differences of the step and of the grad
-    dispatch."""
+    with ``step_ms``, ``t_grad_ms``, ``projected_stall_s`` and ``exec``,
+    on the card also ``slab_allocs`` and ``alloc_retries``), against
+    Chameleon off's step and grad ms (and ``off_alloc``, its allocator
+    readings) on the same steps, and ``reserved``, the grad dispatch's
+    reserved peak under the policy and off (``reserved_probe``): the medians
+    of dt, t_grad, the measured copy stall, recompute and hook ms (with its parts: the release ops, the
+    prefetches, the pack hooks), the books after the step and the release
+    ops that found their copy running; the projected stall, the worst
+    entries of the step whose copy stall is the median, the on - off
+    differences of the step and of the grad dispatch; the host's waits on
+    the policy's copies inside the grad dispatch (count and ms over the
+    steps), the pinned slabs allocated, the allocator's retries on and off
+    and the reserved peaks."""
     ex = [r["exec"] for r in rows if r["exec"] is not None]
     stall = [e["copy_stall_ms"] for e in ex] or [0.0]
     mid = p50(stall)
     worst = next((e["worst"] for e in ex if e["copy_stall_ms"] == mid), [])
     on, grad = p50([r["step_ms"] for r in rows]), p50(
         [r["t_grad_ms"] for r in rows])
+    med = {k: p50([e[k] for e in ex] or [0.0])
+           for k in ("recompute_ms", "hook_ms", "settle_ms",
+                     "released_late")}
     hook = {k: p50([e[k] * 1e3 for e in ex] or [0.0])
             for k in ("release_s", "prefetch_s", "pack_s")}
-    return {"steps": len(rows), "dt_ms": on, "t_grad_ms": grad,
-            "projected_stall_ms": (rows[-1]["projected_stall_s"] or 0.0) * 1e3,
-            "copy_stall_ms": mid, "copy_stall_ms_range": [min(stall),
-                                                          max(stall)],
-            "worst": worst,
-            "recompute_ms": p50([e["recompute_ms"] for e in ex] or [0.0]),
-            "hook_ms": p50([e["hook_ms"] for e in ex] or [0.0]),
-            "release_ms": hook["release_s"], "prefetch_ms": hook["prefetch_s"],
-            "pack_ms": hook["pack_s"],
-            "on_minus_off_ms": on - p50(off_ms) if off_ms else None,
-            "grad_on_minus_off_ms": (grad - p50(off_grad_ms)
-                                     if off_grad_ms else None)}
+    out = {"steps": len(rows), "dt_ms": on, "t_grad_ms": grad,
+           "projected_stall_ms": (rows[-1]["projected_stall_s"] or 0.0) * 1e3,
+           "copy_stall_ms": mid, "copy_stall_ms_range": [min(stall),
+                                                         max(stall)],
+           "worst": worst, **med,
+           "release_ms": hook["release_s"], "prefetch_ms": hook["prefetch_s"],
+           "pack_ms": hook["pack_s"],
+           "on_minus_off_ms": on - p50(off_ms) if off_ms else None,
+           "grad_on_minus_off_ms": (grad - p50(off_grad_ms)
+                                    if off_grad_ms else None),
+           "host_waits": sum(e["host_waits"] for e in ex),
+           "host_wait_ms": sum(e["host_wait_ms"] for e in ex)}
+    if rows and "alloc_retries" in rows[0]:
+        out.update(
+            slab_allocs=sum(r["slab_allocs"] for r in rows),
+            alloc_retries=sum(r["alloc_retries"] for r in rows),
+            alloc_retries_off=sum(a["alloc_retries"] for a in off_alloc))
+    if reserved is not None:
+        out.update(reserved_peak=reserved["policy"],
+                   reserved_peak_off=reserved["baseline"])
+    return out
+
+
+def p4_host_checks(label, rows, q) -> list:
+    """P4's remainder (above) over a policy's Stable ``rows`` and its
+    readings ``q`` (``p4_policy``): the problems found."""
+    problems = []
+    waits = [r["exec"]["host_waits"] for r in rows if r["exec"] is not None]
+    if any(waits):
+        problems.append(f"{label}: {sum(waits)} host waits on policy "
+                        "copies inside Stable grad dispatches")
+    if "alloc_retries" in q and q["alloc_retries"] > q["alloc_retries_off"]:
+        problems.append(f"{label}: {q['alloc_retries']} allocator retries "
+                        f"against off's {q['alloc_retries_off']}")
+    if "reserved_peak" in q and q["reserved_peak"] >= q["reserved_peak_off"]:
+        problems.append(f"{label}: reserved peak {q['reserved_peak']} not "
+                        f"below off's {q['reserved_peak_off']}")
+    return problems
 
 
 def timeline_floor(prof) -> int:
@@ -3862,8 +3953,12 @@ def grad_turns(device, tr):
             out[name]["ms"].append((time.perf_counter() - t0) * 1e3)
             out[name]["peak"].append(torch.cuda.max_memory_allocated(device))
             del res
+            ex = getattr(fns[name], "execution", None)
+            if ex is not None:
+                ex.settle()              # after the sync, untimed
     ex = fns["policy"].execution
     out["policy_exec"] = exec_row(ex.last) if ex is not None else None
+    out["reserved"] = reserved_probe(device, fns, args)
     return out
 
 
@@ -3895,11 +3990,13 @@ def phase_chameleon_exec(device):
     torch.cuda.synchronize()
     ops.flash_attention.launches = 0                # count the main path only
     ops.flash_attention_bwd.launches = 0
-    rows = []
+    rows, alloc = [], [alloc_retries(device)]
     for i in range(CHAM_EXEC_STEPS):
         c0 = eng.by_class["policy_swap"].as_dict()
         r0 = rt.recorder.overhead_s
+        s0 = rt.hostmem.pool.slab_allocs
         tr.train(1)
+        alloc.append(alloc_retries(device))
         c1 = eng.by_class["policy_swap"].as_dict()
         ex = rt._last_dispatch.execution         # None: a plain policy ran
         ran = ex.applied if ex is not None else rt.executor.baseline()
@@ -3923,6 +4020,8 @@ def phase_chameleon_exec(device):
             "h2d_ms": (c1["time_in_s"] - c0["time_in_s"]) * 1e3,
             "forced_retires": c1["forced_retires"] - c0["forced_retires"],
             "released_at_op": c1["released_at_op"] - c0["released_at_op"],
+            "slab_allocs": rt.hostmem.pool.slab_allocs - s0,
+            **step_retries(alloc[-2:])[0],
             "exec": exec_row(ex.last) if ex is not None else None})
     fwd, bwd = ops.flash_attention.launches, ops.flash_attention_bwd.launches
     rep = tr.report
@@ -3963,6 +4062,8 @@ def phase_chameleon_exec(device):
            "realized_peak_policy": peak_pol,
            "realized_peak_baseline": peak_base,
            "realized_reduction": peak_base - peak_pol,
+           "reserved_peak_policy": turns["reserved"]["policy"],
+           "reserved_peak_baseline": turns["reserved"]["baseline"],
            "grad_ms_policy": turns["policy"]["ms"],
            "grad_ms_baseline": turns["baseline"]["ms"],
            "policy_minus_baseline_ms": ms_pol - ms_base,
@@ -3972,6 +4073,7 @@ def phase_chameleon_exec(device):
     emit("chameleon_exec_memory", **mem)
     losses_on = list(rep.losses)
     on_ms = {r["step"]: r["step_ms"] for r in stable if not r["eval"]}
+    installed = applied.fingerprint
     drop_trainer(tr)
     del tr, rt, eng, applied, turns
     gc.collect()
@@ -3980,8 +4082,11 @@ def phase_chameleon_exec(device):
     # ---- the same trainer with Chameleon off, driven the same way (each
     # train() call draws its first batch afresh)
     off = exec_train(device, cfg, ChameleonConfig(enabled=False))
+    alloc = [alloc_retries(device)]
     for _ in range(CHAM_EXEC_STEPS):
         off.train(1)
+        alloc.append(alloc_retries(device))
+    off_alloc = step_retries(alloc)
     losses_off = list(off.report.losses)
     off_ms = {i: off.report.times[i] * 1e3 for i in on_ms}
     off_grad_ms = {i: off.report.grad_times[i] * 1e3 for i in on_ms}
@@ -3996,8 +4101,15 @@ def phase_chameleon_exec(device):
     for r in stable:
         if not r["eval"]:
             p4.setdefault(r["policy"], []).append(r)
+    p4_rows = p4
     p4 = {pol: p4_policy(rs, [off_ms[r["step"]] for r in rs],
-                         [off_grad_ms[r["step"]] for r in rs])
+                         [off_grad_ms[r["step"]] for r in rs],
+                         [off_alloc[r["step"]] for r in rs],
+                         {"policy": mem["reserved_peak_policy"],
+                          "baseline": mem["reserved_peak_baseline"]}
+                         if pol == installed and (rs[0]["offload"]
+                                                  or rs[0]["entries"])
+                         else None)
           for pol, rs in p4.items()}
     emit("chameleon_exec_p4", policies=p4)
 
@@ -4023,6 +4135,7 @@ def phase_chameleon_exec(device):
             problems.append(f"P4: {pol[:40]} projects "
                             f"{q['projected_stall_ms']:.1f} ms, measures "
                             f"{q['copy_stall_ms']:.1f}")
+        problems += p4_host_checks(f"P4: {pol[:40]}", p4_rows[pol], q)
     summary = {
         "ok": not problems, "problems": problems, "budget": budget,
         "losses_on": losses_on, "losses_off": losses_off,
@@ -4033,9 +4146,10 @@ def phase_chameleon_exec(device):
         "on_over_off": (p50(list(on_ms.values()))
                         / p50(list(off_ms.values())) if on_ms else None),
         "allocated_before": allocated_before,
-        "p4": {pol: {k: q[k] for k in ("projected_stall_ms",
-                                       "copy_stall_ms", "t_grad_ms",
-                                       "dt_ms")}
+        "p4": {pol: {k: q.get(k) for k in (
+            "projected_stall_ms", "copy_stall_ms", "t_grad_ms", "dt_ms",
+            "host_waits", "alloc_retries", "alloc_retries_off",
+            "reserved_peak", "reserved_peak_off")}
                for pol, q in p4.items()},
         "k1_launches": (fwd, bwd)}
     emit("chameleon_exec", **summary)
@@ -4072,6 +4186,7 @@ def async_run(device, cfg, budget, mode, out_dir=None) -> dict:
     rt = tr.rt
     ran, hook_t, installs, machine = [], [], [], ["WarmUp"]
     gcs, gc_t0, allocator = [], [], []
+    last_disp = {}                       # bucket -> its last grad dispatch
 
     def on_gc(phase, info):              # the collector's pauses, by step
         if phase == "start":
@@ -4084,6 +4199,7 @@ def async_run(device, cfg, budget, mode, out_dir=None) -> dict:
         hook_t.append(time.perf_counter())
         if rt is not None:
             d = rt._last_dispatch                # the policy this step ran
+            last_disp[async_bucket(step)] = d
             pol = d.applied
             ran.append({"policy": pol.fingerprint[:60],
                         "entries": len(pol.swap.entries) if pol.swap else 0,
@@ -4112,6 +4228,7 @@ def async_run(device, cfg, budget, mode, out_dir=None) -> dict:
     torch.cuda.synchronize()
     ops.flash_attention.launches = 0             # count the main path only
     ops.flash_attention_bwd.launches = 0
+    retries0 = alloc_retries(device)
     gc.callbacks.append(on_gc)
     try:
         rep = tr.train(ASYNC_STEPS, fault_hook=hook)
@@ -4133,7 +4250,7 @@ def async_run(device, cfg, budget, mode, out_dir=None) -> dict:
            "wall_s": list(rep.wall_times), "step_s": list(rep.times),
            "grad_s": list(rep.grad_times), "stages": list(rep.stages),
            "gc": [g for g in gcs if g["gen"] == 2 or g["ms"] > 5],
-           "allocator": allocator,
+           "allocator": allocator, "alloc_retries0": retries0,
            "k1_launches": k1, "ran": ran, "installs": installs,
            "hook_t": hook_t, "paths": paths}
     if rt is not None:
@@ -4150,6 +4267,10 @@ def async_run(device, cfg, budget, mode, out_dir=None) -> dict:
                    transitions=[tuple(t) for t in rt.machine.transitions],
                    adaptation_overhead_s=rt.adaptation_overhead_s,
                    ledger=obs.ledger().scoreboard())
+        # each bucket's last policy against the baseline: the grad
+        # dispatch's reserved peak (P4's remainder, module doc)
+        out["reserved"] = bucket_reserved(device, tr, buckets, last_disp)
+    last_disp.clear()                    # its dispatches hold the trainer
     drop_trainer(tr)
     del tr, rt
     gc.collect()
@@ -4157,15 +4278,51 @@ def async_run(device, cfg, budget, mode, out_dir=None) -> dict:
     return out
 
 
+def bucket_reserved(device, tr, buckets, last_disp) -> dict:
+    """Per bucket whose last step ran a policy that moves bytes: the grad
+    dispatch's reserved peak under it and under the baseline on the
+    bucket's first batch (``reserved_probe``), with its fingerprint."""
+    rt, out = tr.rt, {}
+    if device.type != "cuda":
+        return out
+    for b, d in last_disp.items():
+        if d.execution is None:
+            continue
+        args = (tr.model, tr._device_batch(buckets[b].batch_at(0)),
+                tr.loss_scale.scale)
+        out[b] = dict(reserved_probe(device, {
+            "policy": d, "baseline": rt._get_step(rt.executor.baseline())},
+            args), fingerprint=d.applied.fingerprint[:60])
+    return out
+
+
+def async_steps(run: dict) -> list:
+    """Per step of an async run: the allocator's retries and the pinned
+    slabs the host tier allocated."""
+    alloc = run["allocator"]
+    if not alloc:                        # not on a card
+        return [{} for _ in run["step_s"]]
+    per = step_retries([run["alloc_retries0"]] + [
+        a["num_alloc_retries"] or 0 for a in alloc])
+    slabs = [0] + [r["slab_allocs"] for r in run.get("ran", [])]
+    for i, row in enumerate(per):
+        row["slab_allocs"] = (slabs[i + 1] - slabs[i] if i + 1 < len(slabs)
+                              else 0)
+    return per
+
+
 def async_window(run: dict, off: dict) -> dict:
     """The guard window's readings of one placement: each step against
     its own bucket's Stable median, the ADAPTING steps' p50 against it,
     the first-visit spikes, kickoff-to-install latency, and (P4) each
     bucket's installed policy: its projected stall beside the copy stall
-    its Stable steps measured (``p4_policy``)."""
+    its Stable steps measured, its host waits and allocator readings
+    against off's (``p4_policy``, ``p4_host_checks``)."""
     wall, stages = run["wall_s"], run["stages"]
     window = range(ASYNC_SKIP, ASYNC_STEPS)
     med, adapting, p4 = {}, {}, {}
+    on_alloc, off_alloc = async_steps(run), async_steps(off)
+    problems = []
     for b in (0, 1):
         steps = [i for i in window if async_bucket(i) == b]
         stable = [i for i in steps if stages[i] == "Stable"]
@@ -4176,17 +4333,23 @@ def async_window(run: dict, off: dict) -> dict:
         last = run["ran"][steps[-1]]
         inst = [i for i in (stable or steps)
                 if run["ran"][i]["policy"] == last["policy"]] or steps[-1:]
-        p4[ASYNC_SEQS[b]] = dict(
-            p4_policy([{"step_ms": run["step_s"][i] * 1e3,
-                        "t_grad_ms": run["grad_s"][i] * 1e3,
-                        "projected_stall_s": run["ran"][i][
-                            "projected_stall_s"],
-                        "exec": run["ran"][i]["exec"]} for i in inst],
-                      [off["step_s"][i] * 1e3 for i in inst],
-                      [off["grad_s"][i] * 1e3 for i in inst]),
+        rows = [dict(on_alloc[i], step_ms=run["step_s"][i] * 1e3,
+                     t_grad_ms=run["grad_s"][i] * 1e3,
+                     projected_stall_s=run["ran"][i]["projected_stall_s"],
+                     exec=run["ran"][i]["exec"]) for i in inst]
+        res = run.get("reserved", {}).get(b)
+        if res is not None and res["fingerprint"] != last["policy"]:
+            res = None
+        q = p4[ASYNC_SEQS[b]] = dict(
+            p4_policy(rows, [off["step_s"][i] * 1e3 for i in inst],
+                      [off["grad_s"][i] * 1e3 for i in inst],
+                      [off_alloc[i] for i in inst], res),
             policy=last["policy"], entries=last["entries"],
             wall_on_minus_off_ms=(med[b] - p50(
                 [off["wall_s"][i] for i in stable or steps])) * 1e3)
+        problems += p4_host_checks(
+            f"{run['mode']} at {ASYNC_SEQS[b]}",
+            [{"exec": run["ran"][i]["exec"]} for i in stable], q)
     ratios = {i: wall[i] / med[async_bucket(i)] for i in window}
     worst = max(ratios, key=ratios.get)
     spikes = {}
@@ -4210,7 +4373,8 @@ def async_window(run: dict, off: dict) -> dict:
             "worst": {"step": worst, "stage": stages[worst],
                       "ms": wall[worst] * 1e3, "ratio": ratios[worst]},
             "adapting": {ASYNC_SEQS[b]: a for b, a in adapting.items()},
-            "first_visit": spikes, "latency": latency, "p4": p4}
+            "first_visit": spikes, "latency": latency, "p4": p4,
+            "problems": problems}
 
 
 def async_artifacts(run: dict) -> dict:
@@ -4302,6 +4466,7 @@ def phase_chameleon_async(device) -> dict:
                     f"{m}: P4 at {seq} projects "
                     f"{q['projected_stall_ms']:.1f} ms, measures "
                     f"{q['copy_stall_ms']:.1f}")
+        problems += rows[m]["problems"]
         want = (ASYNC_STEPS + r["replays"]) * TRAIN_LAYERS
         if r["k1_launches"] != (want, want):
             problems.append(f"{m}: K1 launches {r['k1_launches']} != {want}")

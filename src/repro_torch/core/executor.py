@@ -38,7 +38,8 @@ built from ``torch.autograd.graph.saved_tensors_hooks``, the host tier's
     returns a handle that holds no device reference.  On a CUDA device
     the engine copies on the class's D2H stream, marks the source with
     ``record_stream`` and drops it at issue, so the memory is released
-    when the copy is done and the forward's own references are gone.
+    when the copy is done and the forward's own references are gone
+    (``hostmem.engine``'s module doc says why not at the release op).
   * **Release and prefetch by op index.**  The op index is the one the
     profile numbers ops with: the executor hooks into the counting
     dispatch mode that records the step (the Lightweight recorder of
@@ -52,9 +53,15 @@ built from ``torch.autograd.graph.saved_tensors_hooks``, the host tier's
     start of the logical layer before the one holding its
     death (its last use in the backward) — where the simulator places a
     swap it could not hide (``Simulator.place_stalled``), so it is back
-    one logical layer before it is needed; a storage whose swap-in op
+    one logical layer before it is needed.  A storage whose swap-in op
     comes before it is saved (the last layers', needed right after the
-    peak) goes back as soon as it is staged.
+    peak) goes back as soon as it is staged.  On a card, one that is not
+    an entry stays on the device instead (``kept``): it would come back at
+    once, so staging it frees nothing, while its H2D waits behind every
+    D2H queued before it and its copies take link time the simulator never
+    planned (the policy's projected stall counts its entries).  On the
+    CPU it is staged, as the reference moves every tensor of an offloaded
+    site.
   * **Unpack.**  The current stream waits on the H2D's done event
     (``engine.fence``) before the restored bytes are used: the H2D fills
     on the class's stream.  A staged storage whose H2D was not issued by
@@ -64,21 +71,26 @@ built from ``torch.autograd.graph.saved_tensors_hooks``, the host tier's
   * **The measured copy stall.**  Each fence records a timing event on the
     current stream just before its wait; once the dispatch has synchronised,
     ``need.elapsed_time(done)`` (0 when the copy was done first) is how long
-    the stream waited for that copy, on the device. ``last`` reads them when
-    it is read after the run (no host sync is added to the step: a completed
-    event's ``synchronize`` returns at once): ``stall_entries`` holds (tag,
-    bytes, ms) per fence, with the copy's own ms and its lead (how long
-    before the need it began) where the copy was timed, and ``copy_stall_s``
-    sums the fences' waits with the host's waits for on-demand swap-ins and
-    for the forced retires of the class window.  Two costs that are no copy
-    stall stand beside it: ``recompute_s``, the remat recipes' time (CUDA
-    events around each on a card, the host clock on the CPU), and
-    ``hook_s``, the host time inside the execution's hooks (its host waits
-    and, on the CPU, its recomputation included), of which ``release_s``
-    retired swap-outs at the release plan's ops, ``prefetch_s`` issued the
-    planned swap-ins and ``pack_s`` staged the swap-outs (the rest is the
-    unpack hooks).  On the CPU, where every copy is synchronous, the copy
-    stall is 0.
+    the stream waited for that copy, on the device. ``settle`` reads them
+    into ``last`` after the run (no host sync is added to the step: a
+    completed event's ``synchronize`` returns at once): ``stall_entries``
+    holds (tag, bytes, ms) per fence, with the copy's own ms and its lead
+    (how long before the need it began) where the copy was timed, and
+    ``copy_stall_s`` sums the fences' waits with the host's time issuing
+    on-demand swap-ins and waiting for the forced retires of the class
+    window.  Two costs that are no copy stall stand beside it:
+    ``recompute_s``, the remat recipes' time (CUDA events around each on a
+    card, the host clock on the CPU), and ``hook_s``, the host time inside
+    the execution's hooks (its host waits and, on the CPU, its
+    recomputation included), of which ``release_s`` released swap-outs at
+    the release plan's ops, ``prefetch_s`` issued the planned swap-ins and
+    ``pack_s`` staged the swap-outs (the rest is the unpack hooks).
+    ``host_waits`` / ``host_wait_s`` count the retires inside the dispatch
+    that blocked the host on a copy not yet done (on a card; expected 0),
+    ``released_late`` the swap-outs not retired at their release op (still
+    copying, or queued behind one that is), and
+    ``settle_s`` the host time of the books after the step (below).  On
+    the CPU, where every copy is synchronous, the copy stall is 0.
   * **Remat** (``applied.remat``).  A site whose ``tag`` carries a
     recompute recipe (``ffn_act``: ``silu(gate) * up``) is not held
     across the forward: the pack hook keeps the recipe, with its inputs
@@ -106,8 +118,16 @@ Class window: the engine force-retires a ``policy_swap`` copy (a host
 wait on its event) once more than ``depth`` are queued.  The execution
 widens the class's depth to the copies in flight before each submit, so
 the forward never waits on a D2H for window room (``forced_retires``
-stays 0); copies retire at their release ops, at the H2D that needs them,
-or when the step ends.
+stays 0).  On the CPU copies retire at their release ops, at the H2D
+that needs them, or when the step ends, as the reference's do.  On a card
+nothing inside the dispatch waits on the host for a copy, as the
+reference's compiled step never does: a release op retires only copies
+already done, and a swap-in is chained after its swap-out on the device.
+The class is
+drained, and the ledger, trace, counters and health books closed, by
+``Execution.settle`` after the step has synchronised (the trainer calls it
+after its finiteness check); an execution on the engine that begins first
+settles it.
 
 A copy that fails for good raises out of the step unless the engine's
 resilience retains it (``ResilienceConfig.enabled``): then the source
@@ -391,9 +411,12 @@ class Execution:
                 profile, cfg, set(self.offload), applied.swap)
         self._lock = threading.RLock()
         self._last: dict = self._zero()
-        self._fences: List[tuple] = []       # (tag, bytes, ev, need, done)
+        self._fences: List[tuple] = []       # (ev, need, done)
         self._recomputes: List[tuple] = []   # (start, end) CUDA events
+        self._all: List[_Staged] = []
         self._active = False
+        self._card = False                   # the last run's engine is
+        self._unsettled = False              # ... on a card; books open
 
     @staticmethod
     def _zero() -> dict:
@@ -406,29 +429,49 @@ class Execution:
                 "on_demand_s": 0.0, "forced_wait_s": 0.0,
                 "stall_entries": [],
                 # costs beside it that are no copy stall, and three parts
-                # of hook_s: the release ops' retires, the swap-ins'
-                # issue, the pack hooks (staging the swap-outs)
+                # of hook_s: the release ops, the swap-ins' issue, the pack
+                # hooks (staging the swap-outs)
                 "recompute_s": 0.0, "hook_s": 0.0, "release_s": 0.0,
-                "prefetch_s": 0.0, "pack_s": 0.0}
+                "prefetch_s": 0.0, "pack_s": 0.0,
+                # the host's waits on copies inside the dispatch, the
+                # release ops that found their copy running, the books
+                "host_waits": 0, "host_wait_s": 0.0, "released_late": 0,
+                "settle_s": 0.0,
+                # storages of offloaded sites left on the device (module
+                # doc: their swap-in op came before they were saved)
+                "kept": 0, "kept_bytes": 0}
 
     @property
     def last(self) -> dict:
-        """The counters of the last run; read after the run has
-        synchronised, they hold its measured device times."""
-        if not self._active and (self._fences or self._recomputes):
-            self._settle()
+        """The counters of the last run.  On a card they are whole once
+        :meth:`settle` has run."""
         return self._last
 
-    def _settle(self) -> None:
-        """Read the run's timing events (each has completed once the step
-        has synchronised: ``synchronize`` then returns at once)."""
+    def settle(self) -> None:
+        """Close the last run's books, once the step has synchronised.  On
+        a card: retire its copies (each done-event has completed, so
+        ``synchronize`` returns at once), then read its timing events into
+        ``last``.  On the CPU the run closed them itself; a second call,
+        or a call while the run is active, does nothing."""
+        if self._active or not self._unsettled:
+            return
+        self._unsettled = False
+        eng = self.engine
+        if eng is not None and eng.open_execution is self:
+            eng.open_execution = None
         st = self._last
+        if self._card:
+            t0 = time.perf_counter()
+            with self._lock, _disable_current_modes():
+                self.engine.drain_class(TC_POLICY_SWAP)
+                self._free_never_restored()
+            st["settle_s"] = time.perf_counter() - t0
         fences, self._fences = self._fences, []
-        for tag, nbytes, ev, need, done in fences:
+        for ev, need, done in fences:
             need.synchronize()
             done.synchronize()
             ms = max(0.0, float(need.elapsed_time(done)))
-            row = [tag, nbytes, ms]
+            row = [ev.tag, ev.nbytes, ms]
             if ev._cuda is not None:
                 # the copy's own time, and how long before the stream
                 # needed it the copy began (less than its time: a stall)
@@ -444,11 +487,22 @@ class Execution:
         st["copy_stall_s"] = (st["fence_stall_s"] + st["on_demand_s"]
                               + st["forced_wait_s"])
 
+    def _free_never_restored(self) -> None:
+        """Return the slabs of storages staged and never needed back (the
+        class is drained: their copies are done)."""
+        for s in self._all:
+            if s.into is None and not s.out.failed:
+                if s.out.block is not None and not s.out.block.freed:
+                    self.engine.pool.free(s.out.block)
+                self._last["never_restored"] += 1
+        self._all = []
+
     # ------------------------------------------------------------ running
     @contextlib.contextmanager
     def run(self):
         """Label, pack, release and prefetch while the dispatch runs; drain
-        the ``policy_swap`` copies at the end."""
+        the ``policy_swap`` copies at the end (on a card, in
+        :meth:`settle`)."""
         self._begin()
         try:
             with sites.executing(self), \
@@ -462,12 +516,18 @@ class Execution:
     def _begin(self) -> None:
         if self._active:
             raise RuntimeError("this execution is already running a step")
+        eng = self.engine
+        if eng is not None and eng.open_execution is not None:
+            # an unsettled run (this one's or another's) closes its books
+            # before this run's copies share the class
+            eng.open_execution.settle()
         self._active = True
         self._labels: Dict[int, _Label] = {}
         self._seq: Dict[Tuple[str, int], int] = {}
         self._staged: Dict[int, _Staged] = {}        # storage -> staged
         self._by_uid: Dict[int, _Staged] = {}
         self._due: Set[int] = set()
+        self._kept: Set[int] = set()                 # storages kept
         self._all: List[_Staged] = []
         # (op, uid) swap-ins in op order, and the release ops
         self._pf = sorted((op, uid) for uid, op in self._in_op.items())
@@ -476,13 +536,12 @@ class Execution:
         self._rel_i = 0
         self._last = self._zero()
         self._fences, self._recomputes = [], []
-        eng = self.engine
-        # on a card: record timing events (the CPU's copies never wait)
-        self._timed = eng is not None and eng.device.type == "cuda"
+        # on a card: record timing events and keep the host off the copies
+        # (the CPU's copies never wait)
+        self._card = eng is not None and eng.device.type == "cuda"
         if eng is not None:
             eng.begin_iteration()
-            cc = eng.by_class[TC_POLICY_SWAP]
-            self._forced0 = (cc.forced_retires, cc.forced_wait_s)
+            self._cc0 = self._class_counters()
         # the counting mode that numbers this dispatch's ops
         modes = [m for m in _get_current_dispatch_mode_stack()
                  if isinstance(m, CountingMode)]
@@ -496,35 +555,42 @@ class Execution:
         self._mode.hook = self._on_op
         self._arm()
 
+    def _class_counters(self) -> tuple:
+        cc = self.engine.by_class[TC_POLICY_SWAP]
+        return (cc.forced_retires, cc.forced_wait_s, cc.host_waits,
+                cc.host_wait_s, cc.released_late)
+
     def _end(self) -> None:
         mode = self._mode
         mode.hook, mode.hook_at = self._saved_hook
-        eng = self.engine
-        if eng is not None:
-            t0 = time.perf_counter()
-            with self._lock, _disable_current_modes():
-                eng.drain_class(TC_POLICY_SWAP)
-                for s in self._all:
-                    if s.into is None and not s.out.failed:
-                        # staged and never needed back: its slab goes back
-                        if s.out.block is not None and not s.out.block.freed:
-                            eng.pool.free(s.out.block)
-                        self._last["never_restored"] += 1
-            st = self._last
-            st["wait_s"] += time.perf_counter() - t0
-            cc = eng.by_class[TC_POLICY_SWAP]
-            st["forced_retires"] = cc.forced_retires - self._forced0[0]
-            if self._timed:
-                st["forced_wait_s"] = cc.forced_wait_s - self._forced0[1]
-            st["copy_stall_s"] = st["on_demand_s"] + st["forced_wait_s"]
         for s in self._all:
             s.dev = None
+        eng = self.engine
+        if eng is not None:
+            st = self._last
+            if not self._card:               # a card's books wait (above)
+                t0 = time.perf_counter()
+                with self._lock, _disable_current_modes():
+                    eng.drain_class(TC_POLICY_SWAP)
+                    self._free_never_restored()
+                st["wait_s"] += time.perf_counter() - t0
+            got = [a - b for a, b in zip(self._class_counters(), self._cc0)]
+            st["forced_retires"] = got[0]
+            if self._card:
+                (st["forced_wait_s"], st["host_waits"], st["host_wait_s"],
+                 st["released_late"]) = got[1:]
+            st["copy_stall_s"] = st["on_demand_s"] + st["forced_wait_s"]
         self._labels.clear()
         self._staged.clear()
         self._by_uid.clear()
         self._due.clear()
-        self._all = []
+        self._kept.clear()
         self._active = False
+        self._unsettled = True
+        if eng is not None and self._card:
+            eng.open_execution = self
+        else:
+            self.settle()
 
     # --------------------------------------------------------- op index
     def _arm(self) -> None:
@@ -556,7 +622,7 @@ class Execution:
                 s = self._by_uid.get(uid)
                 self._pf_i += 1
                 if s is None:
-                    self._due.add(uid)   # back as soon as it is staged
+                    self._due.add(uid)   # not staged yet (module doc)
                 elif s.into is None:
                     self._swap_in(s)
                     st["prefetched"] += 1
@@ -588,6 +654,7 @@ class Execution:
         """A labelled storage was freed: its address may be reused."""
         self._labels.pop(key, None)
         self._staged.pop(key, None)
+        self._kept.discard(key)
 
     # ------------------------------------------------------ pack / unpack
     def _pack_hook(self, t: torch.Tensor):
@@ -612,6 +679,9 @@ class Execution:
         if lab is None:
             return t
         if lab.site in self.offload:
+            if (self._card and lab.uid in self._due
+                    and lab.uid not in self.entries):
+                return self._keep(t, st)
             return self._offload(t, st, lab)
         if lab.recompute is not None:
             fn, args = lab.recompute
@@ -621,6 +691,13 @@ class Execution:
             return _Recompute(fn, packed, t)
         if lab.uid in self.entries:
             return self._offload(t, st, lab)
+        return t
+
+    def _keep(self, t: torch.Tensor, st) -> torch.Tensor:
+        if st._cdata not in self._kept:
+            self._kept.add(st._cdata)
+            self._last["kept"] += 1
+            self._last["kept_bytes"] += st.nbytes()
         return t
 
     def _offload(self, t: torch.Tensor, st, lab: _Label) -> _Offloaded:
@@ -653,8 +730,7 @@ class Execution:
         if lab.uid >= 0:
             self._by_uid[lab.uid] = s
             if lab.uid in self._due:
-                # its swap-in op came before it was saved (a tensor of the
-                # last layers, needed right after the peak)
+                # its swap-in op came before it was saved (module doc)
                 self._swap_in(s)
                 self._last["prefetched"] += 1
         return s
@@ -676,11 +752,11 @@ class Execution:
                     self._last["on_demand"] += 1
                     dt = time.perf_counter() - t0
                     self._last["wait_s"] += dt
-                    if self._timed:
+                    if self._card:
                         self._last["on_demand_s"] += dt
-                pair = self.engine.fence(s.into, timed=self._timed)
+                pair = self.engine.fence(s.into, timed=self._card)
                 if pair is not None:
-                    self._fences.append((s.tag, s.nbytes, s.into) + pair)
+                    self._fences.append((s.into,) + pair)
                 # the event lets go of the restored bytes: the current
                 # stream is ordered after the H2D now, so their memory may
                 # be reused as soon as the backward is done with them

@@ -24,7 +24,9 @@ the gradient's own dtype, as the reference's ``make_train_step`` does.
 here an ``Execution`` (``core.executor.Executor.execution``), the context
 the forward and backward run under to apply a swap policy, or None for
 plain autograd.  The unscale, the finiteness check and the optimizer run
-after it, unchanged.
+after it, unchanged; on a card the execution's copies are retired, and
+its books closed, by its ``settle`` after the finiteness check
+(``runtime.trainer``).
 
 Sharded training (eager, so the reference's jit shardings become explicit
 collectives on the mesh's process groups).  ``shard_model`` turns a model

@@ -27,14 +27,21 @@ what a hardware copy stream guarantees.
 
 On a CUDA device the copies of every class are already on their streams
 when the scheduler runs, and share the link as the hardware schedules
-them: strict priority orders only the host's retirements (its
-``done.synchronize()`` calls).  There ``stall_transfers``,
-``preemptions`` and ``forced_retires`` count that host-side order, not an
-order on the link, and ``stall_s`` (link seconds spent on other classes)
-is not accrued: the engine does not measure how long another class's copy
+them: strict priority orders only the host's retirements, the engine's
+books on a copy (its ledger note, trace span, counters and health), which
+read the copy's done-event.  There ``stall_transfers``, ``preemptions``
+and ``forced_retires`` count that host-side order, not an order on the
+link, and ``stall_s`` (link seconds spent on other classes) is not
+accrued: the engine does not measure how long another class's copy
 overlapped a waiting class's copy on the link (each copy's own time is
-measured; their overlap on the shared link is not).  On the CPU, where
-each copy runs at issue, all of them are the reference's.
+measured; their overlap on the shared link is not).  A retire whose copy
+has not completed blocks the host on its done-event; ``host_waits`` and
+``host_wait_s`` count those.  The policy's copies take none inside a grad
+dispatch: a release op retires only copies already done (below), a
+swap-in of an unretired swap-out is chained on the device (its H2D stream
+waits on the D2H's done-event), and the executor retires the rest after
+the step has synchronised (``core.executor``).  On the CPU, where each copy runs
+at issue, all of them are the reference's.
 
 The contention signals the simulator prices are measured on a CUDA
 device.  ``queued_delay`` counts only copies whose done-event has not
@@ -48,17 +55,30 @@ the CUDA-event time of the copies it has retired), else with
 
 Retiring a copy synchronises its done-event and only then lets go of what
 the copy used: a swap-in returns its pinned slab to the pool there, and on
-the CPU a swap-out drops its source there.  On a CUDA device a swap-out's
-source tensors are marked with ``record_stream`` on the class's D2H stream
-and dropped at issue (the ``recordStream`` release point of paper §5.4.2):
-the caching allocator does not hand out a device temporary such as an
-int8 payload until the copy that reads it is done, and frees it as soon as
-it is, not at a later retirement.  The policy's
-free-times map onto these events via :meth:`plan_release`, and the
-execution path drives them via :meth:`advance_op`.  A caller that will
-overwrite a swap-out's source in place (the KV spill overwrites the slot
-row) calls :meth:`fence` first: the current stream then waits on the
-copy's done-event, on the device, without a host synchronisation.
+the CPU a swap-out drops its source there.  The policy's free-times map
+onto swap-outs via :meth:`plan_release` (``release_op``), and the
+execution path drives them via :meth:`advance_op`.  On a CUDA device:
+
+  * a swap-out's source tensors are marked with ``record_stream`` on the
+    class's D2H stream and dropped at issue (the ``recordStream`` release
+    point of paper §5.4.2): the allocator does not hand out a device
+    temporary such as an int8 payload until the copy that reads it is
+    done, and frees it as soon as it is, not at a later retirement;
+  * at a swap-out's release op a copy already done retires, and one still
+    running retires later, at a release op that finds it done or when the
+    class is drained (``released_late``): neither the host nor the device
+    waits for it there.  The reference's drop point in stream order (hold
+    the source until the release op, where the current stream waits on
+    the copy and the source drops) was measured and left: on an NVIDIA
+    H100 at 2 x 3072 tokens it stalled the compute stream 17-25 ms a step
+    (the D2H queue runs behind the simulator's promised ops) and raised
+    the step's allocated peak by 136 MB, while ``record_stream`` with no
+    host wait took no allocator retry (PERF.md, §6; tools/p4_host.py).
+
+A caller that will overwrite a swap-out's source in place (the KV spill
+overwrites the slot row) calls :meth:`fence` first: the current stream
+then waits on the copy's done-event, on the device, without a host
+synchronisation.
 
 ``ev.seconds`` is the copy's own time from the CUDA events around it on
 its stream (on the CPU, the host clock around the synchronous copy), and
@@ -140,6 +160,10 @@ class TransferEvent:
     _cuda: Optional[Tuple[Any, Any]] = field(default=None, repr=False)
     _t_issue: float = field(default=0.0, repr=False)  # host clock at issue
     _stall_s: float = field(default=0.0, repr=False)  # injected link stall
+    _released: bool = field(default=False, repr=False)  # its release op came
+    # swap-in: the swap-out it was chained after on the device, retired
+    # first so the books see the bytes leave before they come back
+    _after: Optional["TransferEvent"] = field(default=None, repr=False)
 
     @property
     def failed_at_issue(self) -> bool:
@@ -164,14 +188,22 @@ class ClassCounters:
     time_out_s: float = 0.0
     time_in_s: float = 0.0
     forced_retires: int = 0      # completions forced by this class's window
-    # host seconds those forced retires waited (read by the executor; not
-    # in ``as_dict``, whose keys are the reference's)
+    # host seconds those forced retires waited; on a CUDA device, retires
+    # that blocked the host on a copy not yet done, and their seconds; and
+    # swap-outs not retired at their release op (still copying, or queued
+    # behind one that is) (read by the executor; not in ``as_dict``, whose
+    # keys are the reference's)
     forced_wait_s: float = 0.0
+    host_waits: int = 0
+    host_wait_s: float = 0.0
+    released_late: int = 0
     stall_s: float = 0.0         # link time spent on other classes while
     stall_transfers: int = 0     # ... this class had a transfer waiting
                                  # (stall_s on the CPU only: module doc)
     preemptions: int = 0         # times this class jumped a lower-class head
-    released_at_op: int = 0      # swap-outs retired by advance_op (§5.4.2)
+    # swap-outs released by advance_op at their release op (§5.4.2):
+    # retired there, or on a CUDA device retired later (``released_late``)
+    released_at_op: int = 0
     retries: int = 0             # copy attempts re-issued after an error
     timeouts: int = 0            # copies slower than the health limit
     failures: int = 0            # terminal failures after retries exhausted
@@ -224,6 +256,9 @@ class TransferEngine:
             (c, k): collections.deque()
             for c in TRAFFIC_CLASSES for k in (SWAP_OUT, SWAP_IN)}
         self._eid = 0
+        # an execution (``core.executor``) whose books on its policy copies
+        # are open after its step; settled before the next one begins
+        self.open_execution = None
         # per-class arrival-rate EWMA (bytes/s enqueued): exponential
         # decay over ARRIVAL_TAU_S, updated at every submit — the input
         # to sustained_contention(), which prices steady other-class
@@ -290,16 +325,25 @@ class TransferEngine:
         """Queue an H2D copy restoring a staged block to the device.
 
         Accepts a still-queued swap-out event: the dependency is
-        auto-chained by retiring the swap-out first (it must have staged
-        its bytes before they can come back).
+        auto-chained (it must have staged its bytes before they can come
+        back).  On a CUDA device a swap-out whose copy was issued is
+        chained on the device: the class's H2D stream waits on its
+        done-event, and neither copy blocks the host.  Otherwise the
+        swap-out is retired first.
         """
         with self._lock:
+            after = None
             if isinstance(block_or_event, TransferEvent):
-                if not block_or_event.done:
-                    self.wait(block_or_event)     # auto-chain the dependency
-                if cls is None:
-                    cls = block_or_event.cls
                 src = block_or_event
+                if cls is None:
+                    cls = src.cls
+                if not src.done:
+                    if self._on_device(src):
+                        self._stream(self._check_class(cls),
+                                     SWAP_IN).wait_event(src._cuda[1])
+                        after = src
+                    else:
+                        self.wait(src)            # auto-chain the dependency
                 if src.failed and src.result is not None:
                     # the swap-out never left HBM (terminal D2H failure →
                     # source retained): the swap-in short-circuits to the
@@ -327,7 +371,7 @@ class TransferEngine:
             ev = TransferEvent(self._eid, SWAP_IN, tag or blk.tag, blk.nbytes,
                                cls=cls, block=blk,
                                t_submit=time.perf_counter(),
-                               _free_block=free_block)
+                               _free_block=free_block, _after=after)
             self._issue(ev)
             self._enqueue(ev)
         return ev
@@ -411,6 +455,15 @@ class TransferEngine:
         ev = torch.cuda.Event(enable_timing=timing)
         ev.record(self._current_stream())
         return ev
+
+    def _on_device(self, ev: TransferEvent) -> bool:
+        """``ev``'s copy was issued on a CUDA stream (its result, if any,
+        is there once its done-event is)."""
+        return self.device.type == "cuda" and ev._cuda is not None
+
+    def _on_link(self, ev: TransferEvent) -> bool:
+        """``ev``'s copy is still running on its CUDA stream."""
+        return self._on_device(ev) and not ev._cuda[1].query()
 
     def _d2h(self, ev: TransferEvent) -> None:
         """Stage ``ev._source`` into its slab.  On a CUDA device the copy is
@@ -635,12 +688,22 @@ class TransferEngine:
     def _execute(self, ev: TransferEvent) -> None:
         """Retire ``ev``: wait for its copy, release what the copy used,
         and account for it."""
+        src, ev._after = ev._after, None
+        if src is not None:              # its swap-out first, FIFO
+            q = self._pending[(src.cls, SWAP_OUT)]
+            while not src.done and q:
+                self._execute(q.popleft())
         if ev._error is not None:
             self._fail_transfer(ev, ev._error)
             return
         if ev._cuda is not None:
             start, done = ev._cuda
-            done.synchronize()
+            if not done.query():         # the host blocks on the copy
+                t0 = time.perf_counter()
+                done.synchronize()
+                cc = self.by_class[ev.cls]
+                cc.host_waits += 1
+                cc.host_wait_s += time.perf_counter() - t0
             link_s = start.elapsed_time(done) / 1e3
             ev.seconds = link_s + ev._stall_s
             r = self._retired_link[ev.kind]
@@ -763,24 +826,40 @@ class TransferEngine:
             self.current_op = -1
 
     def advance_op(self, op_index: int) -> int:
-        """The execution path reached ``op_index``: retire every queued
+        """The execution path reached ``op_index``: release every queued
         swap-out whose simulator-promised ``release_op`` has arrived, so
         its HBM reference drops at the promised op instead of lingering
         until first reuse (on a CUDA device the reference was dropped at
-        issue, and the memory is free once the copy is done).  Returns the
+        issue, and the memory is free once the copy is done).  Queues are
+        walked in FIFO order from the head, as far as the release ops have
+        come.  A copy that is done retires; on a CUDA device one still
+        running retires at a later call that finds it done, or when the
+        class is drained, with no wait (the module doc).  Returns the
         number of transfers released."""
         n = 0
         with self._lock:
             self.current_op = max(self.current_op, op_index)
             for c in TRAFFIC_CLASSES:
                 q = self._pending[(c, SWAP_OUT)]
-                while q and 0 <= q[0].release_op <= self.current_op:
-                    ev = q.popleft()
-                    self._execute(ev)
-                    self.by_class[c].released_at_op += 1
+                cc = self.by_class[c]
+                i = 0
+                while i < len(q) and 0 <= q[i].release_op <= self.current_op:
+                    ev = q[i]
+                    retire = i == 0 and not self._on_link(ev)
+                    if retire:
+                        q.popleft()
+                        self._execute(ev)
+                    else:
+                        i += 1
+                    if ev._released:
+                        continue
+                    ev._released = True
+                    cc.released_at_op += 1
                     obs.tracer().instant(c, "release@op",
                                          arg=(ev.release_op, ev.tag))
                     n += 1
+                    if not retire:
+                        cc.released_late += 1
         return n
 
     # ------------------------------------------- contention introspection

@@ -286,7 +286,9 @@ class Trainer:
             finite_h = bool(finite)          # waits for the device
             t_grad = time.perf_counter() - tg
         ex = getattr(fn, "execution", None)
-        if ex is not None:                   # read after the sync above
+        if ex is not None:
+            ex.settle()                      # after the sync above: on a
+            # card the grad dispatch left the policy's books open
             t_grad = max(t_grad - ex.last["copy_stall_s"], 0.0)
         if rt is not None:
             rt.record_dispatch("train", fn, args)

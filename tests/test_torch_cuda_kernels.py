@@ -797,8 +797,11 @@ def test_conservative_grad_step_on_the_card(card):
     assert torch.equal(loss, loss0)
     for k in grads0:
         assert torch.equal(grads[k], grads0[k]), k
+    ex.settle()                      # after the sync: closes the books
+    last = ex.last
     c = tier.engine.by_class["policy_swap"]
-    assert c.bytes_out == c.bytes_in == ex.last["staged_bytes"] > 0
+    assert c.bytes_out == c.bytes_in == last["staged_bytes"] > 0
+    assert last["host_waits"] == 0
     assert ex.last["on_demand"] == 0 and ex.last["forced_retires"] == 0
     assert ex.last["prefetched"] == ex.last["staged"]
     np.testing.assert_array_equal(it.stream.tokens, prof.op_tokens)
