@@ -121,6 +121,19 @@ Phases, each printing JSON lines:
 14b. serve_moe ``serve.main`` on full-width granite-moe-1b-a400m (flash),
               the serve phase's traffic; K1 launches = prefills x 24, K3 =
               ticks x 24.
+14c. serve_zoo  (run after 18c) ``serve.main`` on each of the five
+              configurations no other phase serves, at full width and depth
+              (SERVE_ZOO: llama3.2-1b through the CLI's default, with no
+              ``--arch``; qwen1.5-0.5b, stablelm-1.6b, qwen2-7b, then
+              qwen3-moe-30b-a3b, 61.1 GB of bf16 weights, on a card emptied
+              first), the serve phase's traffic: every request completes
+              with 32 tokens, K1 = prefills x layers, K3 = ticks x layers;
+              then flash against chunked logits on the same weights at two
+              prefills and CROSSCHECK_TICKS decode ticks
+              (``phase_crosscheck``, CROSSCHECK_TOL).  Lines ``serve_zoo``
+              (tokens/s, tick and prefill ms, peak memory),
+              ``crosscheck`` / ``crosscheck_decode`` (with ``arch``),
+              ``serve_zoo_seconds``.
 15. train     ``Trainer`` on full-width llama2-paper cut to 8 layers (bf16,
               AdamW with f32 master, flash attention, Chameleon off), 2 x
               2048 synthetic tokens, 6 steps: finite losses that fall, K1's
@@ -259,6 +272,16 @@ Phases, each printing JSON lines:
               faults fire, and the second resumes from the first's newest
               checkpoint.
 
+21b. train_qwen2, train_qwen3_moe  (run after 22) the zoo's train phase
+              on qwen2-7b cut to 8 layers and qwen3-moe-30b-a3b cut to 4
+              (ZOO_LAYERS: full depth's AdamW state is 122 and 489 GB), at
+              full width, with its gates and its gradient check (the group
+              of 7 and H x D != d_model through K1 both ways).  Then
+              (``phase_zoo_grads``) the gradient check alone at full width
+              and ZOO_GRAD_LAYERS for llama3.2-1b (tied embeddings),
+              qwen1.5-0.5b (QKV bias) and stablelm-1.6b (LayerNorm):
+              ZOO_GRADS, lines ``<name>_grads``.  A ``seconds`` line
+              follows each of the phases 6e, 14c, 19-22 and 21b.
 19-21. train_ssm, train_hybrid, train_moe  ``Trainer`` at full width and
               full depth on mamba2-780m (48 layers), zamba2-1.2b (38, the
               shared attention block 6 times) and granite-moe-1b-a400m (24),
@@ -270,6 +293,20 @@ Phases, each printing JSON lines:
               plain SSD scan, chunked attention; moe routes replayed), on
               ZOO_GRAD_SEEDS, beside a bf16 control through the plain
               versions (ZOO_LOSS_TOL, ZOO_GRAD_TOL).
+6e. kernel_configs  (run after 6d) K1's forward and backward and K3 at the
+              attention shapes of the five configurations serve_zoo runs
+              that no other case launches (CONFIG_K1_CASES,
+              CONFIG_K3_CASES; bf16): qwen2-7b's GQA group of 7 (28 over 4
+              heads of 128) at the train shape (2 x 2048, both ways) and a
+              901-token prefill, K3 at its decode shape with ragged lens
+              (a partial last block of query heads); qwen3-moe-30b-a3b's 32
+              over 4 heads of 128 (both ways; K3); llama3.2-1b's 32 over 8
+              of 64 (a 901-token prefill; K3).  Each launched twice (bit-
+              equal; phases kernel, kernel_bwd and decode_kernel launch
+              every case twice) and held to K1's limits, timed warm and
+              cold beside SDPA (its backward for the backward) and the
+              bound.  Lines ``kernel``, ``kernel_cold``, ``kernel_bwd``,
+              ``decode_kernel``.
 6d. kernel_cross  (run after 6c) K1's forward and backward at the second
               input path's shapes (CROSS_CASES: whisper's encoder and
               cross-attention, the vision model's cross- and
@@ -663,7 +700,8 @@ SSD_BWD_CASES = [
 SSD_BWD_TOL = {"bfloat16": (1e-2, 2.0 ** -5), "float32": (1e-3, 2.0 ** -8)}
 SSD_BWD_COLD_LAYERS = 8
 # The decoder zoo's train phases: phase -> arch, each at full width and full
-# depth (AdamW state at 16 B a parameter: 12.5, 18.7 and 21.4 GB), Trainer
+# depth (AdamW state at 16 B a parameter: 12.5, 18.7 and 21.4 GB) but for
+# the two whose depth ZOO_LAYERS cuts (qwen2-7b, qwen3-moe), Trainer
 # with Chameleon off, TRAIN_BATCH x TRAIN_SEQ synthetic tokens, bf16, flash
 # attention, ZOO_STEPS steps (the first pays the kernels' first launches
 # and is left out of the p50).  Each checks finite losses and the launch
@@ -690,7 +728,8 @@ SSD_BWD_COLD_LAYERS = 8
 # size) still exceeds by an order of magnitude.
 ZOO_TRAIN = {"train_ssm": "mamba2-780m", "train_hybrid": "zamba2-1.2b",
              "train_moe": "granite-moe-1b-a400m",
-             "train_encdec": "whisper-large-v3"}
+             "train_encdec": "whisper-large-v3",
+             "train_qwen2": "qwen2-7b", "train_qwen3_moe": "qwen3-moe-30b-a3b"}
 ZOO_STEPS = 4
 ZOO_GRAD_LAYERS = 2
 ZOO_GRAD_SEEDS = (1, 2, 3)
@@ -759,6 +798,44 @@ DECODE_REQUESTS, DECODE_PROMPT, DECODE_NEW = 4, 4, 32
 ENCDEC_MAX_LEN = 448
 VLM_LAYERS, VLM_PROMPT, VLM_MAX_LEN = 10, 512, 1024
 CROSSCHECK_TICKS = 4
+# The five shipped configurations no earlier phase ran, in serve_zoo's
+# order: the serve CLI's default (llama3.2-1b, tied embeddings, 32 over 8
+# heads of 64), qwen1.5-0.5b (MHA, QKV bias), stablelm-1.6b (LayerNorm),
+# qwen2-7b (28 over 4 heads of 128: a GQA group of 7) and, last, on a card
+# emptied first, qwen3-moe-30b-a3b (61.1 GB of bf16 weights; 32 over 4
+# heads of 128, so heads x head dim 4096 against d_model 2048; 128 experts
+# top-8).  Each serves SERVE_ARGS' traffic at full width and depth (the
+# default through no --arch at all), then holds flash against chunked
+# attention on the same weights (``phase_crosscheck``).
+SERVE_ZOO = ("llama3.2-1b", "qwen1.5-0.5b", "stablelm-1.6b", "qwen2-7b",
+             "qwen3-moe-30b-a3b")
+# K1 both ways and K3 at those configurations' attention shapes that no
+# earlier case launched (heads and head dim from each config), bf16, each
+# launched twice (bit-equal) and held to K1's limits, timed warm and cold
+# beside SDPA and the bound.  K1: (arch, B, S, backward too), causal: the
+# train shapes (2 x 2048) cold over TRAIN_LAYERS layers' own tensors, the
+# 901-token prefills over K1_COLD_LAYERS.  K3: (arch, lens) on serve_zoo's
+# (4, 1024) cache: qwen2-7b's group of 7 splits into blocks of 4 and 3
+# query heads, at ragged lens with one inside the first 256-key split;
+# None takes the lens of serve_zoo's first decode tick (``decode_cases``'s
+# rule).
+CONFIG_K1_CASES = [("qwen2-7b", TRAIN_BATCH, TRAIN_SEQ, True),
+                   ("qwen2-7b", 1, 901, False),
+                   ("qwen3-moe-30b-a3b", TRAIN_BATCH, TRAIN_SEQ, True),
+                   ("llama3.2-1b", 1, 901, False)]
+CONFIG_K3_CASES = [("qwen2-7b", (900, 101, 1024, 513)),
+                   ("qwen3-moe-30b-a3b", None), ("llama3.2-1b", None)]
+# The config train phases: ZOO_TRAIN entries whose depth is cut (their
+# AdamW state at 16 B a parameter does not fit the card at full depth:
+# qwen2-7b's 7.6 B parameters would need 122 GB, qwen3-moe's 30.5 B 489
+# GB).  qwen2-7b runs 8 layers as train runs llama2-paper (2.96 B, 47 GB
+# of state); qwen3-moe 4 (3.11 B, 50 GB).
+ZOO_LAYERS = {"train_qwen2": 8, "train_qwen3_moe": 4}
+# The gradient check alone (``zoo_grad_check`` at full width and
+# ZOO_GRAD_LAYERS) for the dense configurations whose train step adds
+# nothing the check does not: tied embeddings, QKV bias, LayerNorm.
+ZOO_GRADS = {"llama3_2_1b": "llama3.2-1b", "qwen1_5": "qwen1.5-0.5b",
+             "stablelm": "stablelm-1.6b"}
 
 
 def decode_cases(cfg):
@@ -1095,9 +1172,10 @@ def bwd_cold_ms(q, k, v, o, lse, do, causal, layers) -> dict:
 
 
 def phase_kernel(device, cases):
-    """K1 against its plain version on every case; the timed cases also get
-    device times (CUDA graphs) of the kernel, the plain version and SDPA,
-    the kernel's back-to-back eager time, and the bound."""
+    """K1 against its plain version on every case, launched twice (the two
+    outputs must be bit-equal: the kernel uses no atomics); the timed cases
+    also get device times (CUDA graphs) of the kernel, the plain version
+    and SDPA, the kernel's back-to-back eager time, and the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -1112,12 +1190,17 @@ def phase_kernel(device, cases):
             lens = (None if kv_lens is None else
                     torch.tensor(kv_lens, dtype=torch.int32, device=device))
             out = ops.flash_attention(q, k, v, causal=causal, kv_lens=lens)
+            again = ops.flash_attention(q, k, v, causal=causal, kv_lens=lens)
             torch.cuda.synchronize()
+            bit_repeat = torch.equal(out, again)
+            del again
             ref = ops.flash_attention_plain(q, k, v, causal=causal,
                                             kv_lens=lens)
             row = {"shape": [B, Sq, Sk, H, Kh, D], "causal": causal,
                    "kv_lens": kv_lens, "dtype": dname,
-                   **k1_check(out, ref, dname)}
+                   "bit_repeat": bit_repeat, **k1_check(out, ref, dname)}
+            row["ok"] = row["ok"] and bit_repeat
+            del out, ref
             if timed:
                 sm = 1.0 / math.sqrt(D)
                 row["ms"] = graph_ms(lambda: ops.flash_attention(
@@ -1273,8 +1356,9 @@ def phase_quant(device):
 
 def decode_rows(device, cases):
     """K3 against its plain version on every case in both dtypes, with no
-    timing; returns the rows (``ok`` says whether a row is inside every
-    limit).  The K3 check of this script and of the mutation tool."""
+    timing, launched twice (bit-equal) and once more writing the lse;
+    returns the rows (``ok`` says whether a row is inside every limit).
+    The K3 check of this script and of the mutation tool."""
     import torch
     from repro_torch.kernels.flash_attention import ops
 
@@ -1286,6 +1370,7 @@ def decode_rows(device, cases):
             q, k, v = k1_inputs(gen, B, 1, Sk, H, Kh, D, dtype, device)
             lens_t = torch.tensor(lens, dtype=torch.int32, device=device)
             out = ops.flash_decode(q, k, v, lens_t)
+            again = ops.flash_decode(q, k, v, lens_t)
             out2, lse = ops.flash_decode(q, k, v, lens_t, return_lse=True)
             torch.cuda.synchronize()
             ref, ref_lse = ops.flash_decode_plain(q, k, v, lens_t,
@@ -1293,11 +1378,13 @@ def decode_rows(device, cases):
             row = {"shape": [B, Sk, H, Kh, D], "lens": list(lens),
                    "dtype": dname, **k1_check(out, ref, dname),
                    **lse_check(lse, ref_lse),
+                   "bit_repeat": bool(torch.equal(out, again)),
                    "lse_out_equal": bool(torch.equal(out, out2))}
             zero = [b for b, n in enumerate(lens) if n <= 0]
             row["zero_rows_zero"] = all(not out[b].any() for b in zero)
             row["ok"] = (row["ok"] and row["zero_rows_zero"]
-                         and row["lse_ok"] and row["lse_out_equal"])
+                         and row["lse_ok"] and row["lse_out_equal"]
+                         and row["bit_repeat"])
             rows.append((row, (q, k, v, lens_t) if timed else None))
     return rows
 
@@ -1984,16 +2071,40 @@ def serve_prompts(n: int, vocab: int):
     return out
 
 
+def same_routes(first, second):
+    """``first()``, then ``second()`` routing every moe token to the
+    experts ``first`` chose (``RouteReplay``; nothing to replay for the
+    other families).  Top-k routing is discontinuous: where the two
+    attention paths' bf16 roundings move a token's router logits across a
+    top-k boundary, it reaches other experts, and the logits differ by an
+    expert's output, which says nothing of the attention.  Returns (the
+    two results, routes whose own top-k differed, routes replayed)."""
+    replay = RouteReplay()
+    try:
+        replay.record()
+        a = first()
+        replay.replay()
+        b = second()
+    finally:
+        replay.restore()
+    return a, b, replay.flips, replay.routed
+
+
 def phase_crosscheck(device, cfg, model):
+    """Flash (K1) against chunked prefill logits of two serve prompts on
+    the same weights, moe routes replayed (``same_routes``), within
+    CROSSCHECK_TOL; then ``crosscheck_decode``."""
     import torch
     from repro_torch.models import transformer as T
 
     for prompt in serve_prompts(2, cfg.vocab_size):
         toks = torch.as_tensor(prompt[None], dtype=torch.int64, device=device)
         with torch.no_grad():
-            lf, _ = T.prefill(cfg.replace(attn_impl="flash"), model, toks, 1024)
-            lc, _ = T.prefill(cfg.replace(attn_impl="chunked"), model, toks,
-                              1024)
+            (lf, _), (lc, _), flips, routed = same_routes(
+                lambda: T.prefill(cfg.replace(attn_impl="flash"), model,
+                                  toks, 1024),
+                lambda: T.prefill(cfg.replace(attn_impl="chunked"), model,
+                                  toks, 1024))
         lf, lc = lf[0].float(), lc[0].float()
         dmax = float((lf - lc).abs().max())
         rel = dmax / float(lc.abs().max())
@@ -2005,8 +2116,9 @@ def phase_crosscheck(device, cfg, model):
                "argmax_agree_last": bool(agree[-1]),
                "argmax_agree_frac": float(agree.float().mean()),
                "decided_positions": int(decided.sum()),
-               "decided_agree": bool(agree[decided].all())}
-        emit("crosscheck", **row)
+               "decided_agree": bool(agree[decided].all()),
+               "route_flips": flips, "routes": routed}
+        emit("crosscheck", arch=cfg.name, **row)
         if rel > CROSSCHECK_TOL or not row["decided_agree"]:
             raise AssertionError(f"flash and chunked prefill disagree: {row}")
     crosscheck_decode(device, cfg, model)
@@ -2014,9 +2126,9 @@ def phase_crosscheck(device, cfg, model):
 
 def crosscheck_decode(device, cfg, model, ticks: int = 4):
     """Decode under ``flash`` (K3) and ``chunked`` from one prefill state
-    (cloned), feeding both the chunked path's greedy tokens: the logits of
-    each tick must agree within CROSSCHECK_TOL of their largest
-    magnitude."""
+    (cloned), feeding both the chunked path's greedy tokens, moe routes
+    replayed each tick (``same_routes``): the logits of each tick must
+    agree within CROSSCHECK_TOL of their largest magnitude."""
     import torch
     from repro_torch.models import transformer as T
 
@@ -2029,16 +2141,18 @@ def crosscheck_decode(device, cfg, model, ticks: int = 4):
                          pos=sf.pos.clone())
         nxt = logits[:, -1].argmax(-1, keepdim=True)
         for t in range(ticks):
-            lf, sf = T.decode_step(fcfg, model, nxt, sf)
-            lc, sc = T.decode_step(ccfg, model, nxt, sc)
+            (lf, sf), (lc, sc), flips, routed = same_routes(
+                lambda: T.decode_step(fcfg, model, nxt, sf),
+                lambda: T.decode_step(ccfg, model, nxt, sc))
             lf, lc = lf[0, 0].float(), lc[0, 0].float()
             dmax = float((lf - lc).abs().max())
             rel = dmax / float(lc.abs().max())
             row = {"decode_tick": t, "pos": int(sc.pos[0]) - 1,
                    "max_abs_dlogit": dmax, "rel_dlogit": rel,
                    "tol": CROSSCHECK_TOL,
-                   "argmax_agree": bool(lf.argmax() == lc.argmax())}
-            emit("crosscheck_decode", **row)
+                   "argmax_agree": bool(lf.argmax() == lc.argmax()),
+                   "route_flips": flips, "routes": routed}
+            emit("crosscheck_decode", arch=cfg.name, **row)
             if rel > CROSSCHECK_TOL:
                 raise AssertionError(f"flash and chunked decode disagree: "
                                      f"{row}")
@@ -2377,6 +2491,8 @@ class RouteReplay:
     def __init__(self):
         from repro_torch.models import moe
         self.moe, self.route, self.seen, self.at = moe, moe.route, [], 0
+        # replayed (token, layer) routes whose own top-k chose another set
+        self.flips = self.routed = 0
 
     def record(self):
         def route(probs, k):
@@ -2391,6 +2507,10 @@ class RouteReplay:
         def route(probs, k):
             idx = self.seen[self.at]
             self.at += 1
+            own = self.route(probs, k)[1]
+            self.flips += int((own.sort(-1).values != idx.sort(-1).values)
+                              .any(-1).sum())
+            self.routed += idx.shape[0]
             gates = probs.gather(-1, idx)
             return gates / gates.sum(-1, keepdim=True), idx
         self.moe.route = route
@@ -2843,9 +2963,10 @@ def phase_examples(device) -> dict:
 
 
 def phase_train_zoo(device, phase: str) -> dict:
-    """``Trainer`` on ZOO_TRAIN[phase] at full width and depth (see
-    ZOO_TRAIN): K1's and K4's launch counts reset just before the steps and
-    equal to steps x their per-step launches just after; finite losses;
+    """``Trainer`` on ZOO_TRAIN[phase] at full width and depth, or the
+    depth ZOO_LAYERS gives (see ZOO_TRAIN): K1's and K4's launch counts
+    reset just before the steps and equal to steps x their per-step
+    launches just after; finite losses;
     step ms p50, tokens/s, peak memory; a profile of 2 more steps; then the
     gradient check.  Returns the launches."""
     import torch
@@ -2856,6 +2977,8 @@ def phase_train_zoo(device, phase: str) -> dict:
 
     allocated_before = release_device_memory(device)
     cfg = C.get_config(ZOO_TRAIN[phase]).replace(attn_impl="flash")
+    if phase in ZOO_LAYERS:
+        cfg = cfg.replace(num_layers=ZOO_LAYERS[phase])
     tcfg = train_config()
     B, seq = ZOO_TRAFFIC.get(phase, (TRAIN_BATCH, TRAIN_SEQ))
     data = SyntheticTokens(cfg.vocab_size, seq, B, seed=0)
@@ -3125,6 +3248,117 @@ def phase_serve_moe(device):
                              f"tick x {n_layers} layers: {lengths}, "
                              f"{launches}, {decode_launches}")
     return launches, decode_launches
+
+
+def phase_serve_zoo(device) -> dict:
+    """``serve.main`` on each of SERVE_ZOO at full width and depth (bf16,
+    random weights from seed 0, flash attention), SERVE_ARGS' traffic: 8
+    requests over 4 slots, 32 new tokens each; the CLI's default
+    configuration with no ``--arch``.  Each on a card emptied first
+    (``release_device_memory``), so its ``max_memory_allocated`` is its
+    own.  Gates: every request completes with 32 tokens, K1's launches
+    equal prefills x layers and K3's decode ticks x layers (counts reset
+    just before); then ``phase_crosscheck`` on the same weights (drawn
+    again from seed 0): flash against chunked logits at two prefills and
+    CROSSCHECK_TICKS decode ticks.  Returns {arch: {"k1", "k3"}}."""
+    import repro_torch.configs as C
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import get_api
+
+    at = SERVE_ARGS.index("--arch")
+    traffic = SERVE_ARGS[:at] + SERVE_ARGS[at + 2:]
+    default = serve._parser().get_default("arch")
+    out = {}
+    for arch in SERVE_ZOO:
+        t0 = time.perf_counter()
+        cfg = C.get_config(arch)
+        allocated_before = release_device_memory(device)
+        ops.flash_attention.launches = 0              # count the main path only
+        ops.flash_decode.launches = 0
+        stats = serve.main(traffic if arch == default
+                           else ["--arch", arch] + traffic)
+        launches, decode_launches = (ops.flash_attention.launches,
+                                     ops.flash_decode.launches)
+        n_req, n_new, n_layers = 8, 32, cfg.num_layers
+        lengths = {rid: len(toks) for rid, toks in stats["results"].items()}
+        prefills = stats["latency"]["prefill_ms"]["n"]
+        ok = (stats["arch"] == cfg.name and stats["attn_impl"] == "flash"
+              and stats["completed"] == n_req
+              and set(lengths.values()) == {n_new} and prefills == n_req
+              and launches == prefills * n_layers
+              and decode_launches == stats["ticks"] * n_layers)
+        emit("serve_zoo", ok=ok, arch=stats["arch"],
+             default_arch=arch == default, layers=n_layers,
+             launches=launches, decode_launches=decode_launches,
+             prefills=prefills, prompt_lens=stats["prompt_lens"],
+             tokens=stats["tokens"], wall_s=stats["wall_s"],
+             tokens_per_s=stats["tokens_per_s"], ticks=stats["ticks"],
+             tick_ms=stats["latency"]["tick_ms"],
+             prefill_ms=stats["latency"]["prefill_ms"],
+             max_memory_allocated=stats["max_memory_allocated"],
+             allocated_before=allocated_before)
+        if not ok:
+            raise AssertionError(
+                f"serve_zoo {arch}: want {n_req} requests of {n_new} tokens "
+                f"and K1 / K3 launched per prefill / tick x {n_layers} "
+                f"layers: {lengths}, {launches}, {decode_launches}, "
+                f"{stats['ticks']} ticks")
+        del stats
+        release_device_memory(device)                 # the served model
+        model = get_api(cfg).init(cfg, seed=0, device=device)
+        phase_crosscheck(device, cfg, model)
+        del model
+        out[arch] = {"k1": launches, "k3": decode_launches}
+        emit("serve_zoo_seconds", arch=arch, seconds=time.perf_counter() - t0)
+    return out
+
+
+def phase_kernel_configs(device) -> dict:
+    """K1 forward and backward and K3 at CONFIG_K1_CASES / CONFIG_K3_CASES,
+    bf16: the forward through ``phase_kernel`` (two bit-equal launches,
+    its plain version, timed warm beside the plain version, SDPA and the
+    bound) and cold (``k1_cold_ms``); the backward of the train shapes
+    through ``phase_kernel_bwd`` (two bit-equal launches, timed warm and
+    cold beside SDPA's backward and the bound); K3 through
+    ``phase_decode_kernel`` (both dtypes, two bit-equal launches, bf16
+    timed warm and cold).  Returns {"fwd" | "bwd" | "decode": {name: bf16
+    row}}."""
+    import torch
+    import repro_torch.configs as C
+
+    out = {"fwd": {}, "bwd": {}, "decode": {}}
+    for arch, B, S, bwd in CONFIG_K1_CASES:
+        cfg = C.get_config(arch)
+        H, Kh, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        name = f"{arch} {B}x{S}"
+        case = (B, S, S, H, Kh, D, True, None, ("bfloat16",), True)
+        row = phase_kernel(device, [case])[(case, "bfloat16")]
+        cold = k1_cold_ms(B, S, H, Kh, D,
+                          TRAIN_LAYERS if bwd else K1_COLD_LAYERS, device)
+        emit("kernel_cold", name="flash_attention_fwd", at=name, **cold)
+        out["fwd"][name] = dict(row, **cold)
+        torch.cuda.empty_cache()
+        if bwd:
+            out["bwd"][name] = phase_kernel_bwd(device, [case])
+            torch.cuda.empty_cache()
+    for arch, lens in CONFIG_K3_CASES:
+        cfg = C.get_config(arch)
+        if lens is None:                # serve_zoo's first decode tick
+            lens = tuple(len(p) + 1 for p in serve_prompts(4, cfg.vocab_size))
+        out["decode"][arch], _ = phase_decode_kernel(device, [(
+            len(lens), 1024, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            lens, True)])
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo_grads(device, phase: str) -> dict:
+    """``zoo_grad_check`` alone for ZOO_GRADS[phase], at full width and
+    ZOO_GRAD_LAYERS, on a card emptied first."""
+    import repro_torch.configs as C
+    release_device_memory(device)
+    return zoo_grad_check(device, C.get_config(ZOO_GRADS[phase]), phase)
 
 
 def phase_kernel_d64(device) -> dict:
@@ -5008,12 +5242,21 @@ def phase_autotune(device, cal_tier, spill_runs) -> dict:
 
 
 def zoo_grad_readings(device, n_seeds: int) -> None:
-    """``--zoo-grads N``: the gradient check of every ZOO_TRAIN phase on
-    seeds 1..N with no gate (the readings that set ZOO_GRAD_TOL)."""
+    """``--zoo-grads N``: the gradient check of every ZOO_TRAIN and
+    ZOO_GRADS phase on seeds 1..N with no gate (the readings that set
+    ZOO_GRAD_TOL)."""
     import repro_torch.configs as C
-    for phase, arch in ZOO_TRAIN.items():
+    for phase, arch in {**ZOO_TRAIN, **ZOO_GRADS}.items():
         zoo_grad_check(device, C.get_config(arch), phase,
                        seeds=range(1, n_seeds + 1), gate=False)
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, then a ``seconds`` line with its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit("seconds", of=name, seconds=time.perf_counter() - t0)
+    return out
 
 
 def main(argv=None) -> int:
@@ -5071,6 +5314,7 @@ def main(argv=None) -> int:
     d64 = phase_kernel_d64(device)
     cross = phase_kernel_cross(device)
     decode_cross = phase_decode_cross(device)
+    configs = timed("kernel_configs", phase_kernel_configs, device)
     launches, decode_launches, resident = phase_serve(device)
     quant_launches, spill_runs = phase_serve_spill(device, resident)
     gc.collect()                       # the serve phases' models are gone
@@ -5098,7 +5342,11 @@ def main(argv=None) -> int:
     exec_launches = phase_chameleon_exec(device)
     async_launches = phase_chameleon_async(device)
     chaos_launches = phase_chaos(device, exec_launches[2])
-    zoo = {phase: phase_train_zoo(device, phase) for phase in ZOO_TRAIN}
+    serve_zoo = timed("serve_zoo", phase_serve_zoo, device)
+    zoo = {phase: timed(phase, phase_train_zoo, device, phase)
+           for phase in ZOO_TRAIN}
+    for phase in ZOO_GRADS:
+        timed(phase, phase_zoo_grads, device, phase)
     second = {"decode_encdec": phase_decode_encdec(device),
               "decode_vlm": phase_decode_vlm(device)}
     tuned = phase_autotune(device, tier, spill_runs)
@@ -5139,7 +5387,11 @@ def main(argv=None) -> int:
         # the decoder zoo: serve_moe's prefills, the train phases' steps
         "zoo_launches": {"serve_moe": moe_launches[0],
                          **{p: zoo[p]["k1_fwd"] for p in zoo},
-                         **{p: n[0] for p, n in second.items()}},
+                         **{p: n[0] for p, n in second.items()},
+                         **{f"serve_zoo:{a}": n["k1"]
+                            for a, n in serve_zoo.items()}},
+        # the configurations' own shapes (CONFIG_K1_CASES), bf16
+        "configs": {k: cross_summary(r) for k, r in configs["fwd"].items()},
         # head dim 64 (zamba2 32 x 32 heads, granite 16 over 8), bf16
         "d64": {k: d64_summary(r) for k, r in d64["fwd"].items()},
         "d64_max_abs_err": d64["fwd_max_abs_err"],
@@ -5170,6 +5422,9 @@ def main(argv=None) -> int:
         "cold_ms": bwd_row["cold_ms"],
         "zoo_launches": {p: zoo[p]["k1_bwd"] for p in zoo},
         "d64": {k: d64_summary(r) for k, r in d64["bwd"].items()},
+        "configs": {k: dict(cross_summary(r), max_abs_err=max(
+            r[f"{g}_max_abs_err"] for g in ("dq", "dk", "dv")))
+            for k, r in configs["bwd"].items()},
         "cross": {k: dict(cross_summary(r["bwd"]), max_abs_err=max(
             r["bwd"][f"{g}_max_abs_err"] for g in ("dq", "dk", "dv")))
             for k, r in cross.items()},
@@ -5213,7 +5468,11 @@ def main(argv=None) -> int:
         "cold_ms": decode_row["cold_ms"],
         "library_cold_ms": decode_row["library_cold_ms"],
         "zoo_launches": {"serve_moe": moe_launches[1],
-                         **{p: n[1] for p, n in second.items()}},
+                         **{p: n[1] for p, n in second.items()},
+                         **{f"serve_zoo:{a}": n["k3"]
+                            for a, n in serve_zoo.items()}},
+        "configs": {k: cross_summary(r)
+                    for k, r in configs["decode"].items()},
         "examples_launches": example_launches["k3"],
         # the same call writing each row's log-sum-exp (the kv_seq cache's
         # merge), at the timed shape

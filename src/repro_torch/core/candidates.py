@@ -13,6 +13,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Set
 
+import numpy as np
+
 from repro_torch.common.config import ChameleonConfig
 from repro_torch.core.mrl import MRL
 from repro_torch.core.profiler import ProfileData, TensorInstance
@@ -30,14 +32,13 @@ class Candidate:
 def build_candidate_list(prof: ProfileData, mrl: MRL, cfg: ChameleonConfig,
                          exclude: Set[int] = frozenset(),
                          min_bytes: int = MIN_SWAP_BYTES) -> List[Candidate]:
-    raw = []
-    for t in prof.candidates:
-        if t.uid in exclude or t.nbytes < min_bytes:
-            continue
-        n_mre = mrl.covered_count(t.birth, t.death)
-        if n_mre == 0:   # lifetime doesn't overlap the peak region (§5.3)
-            continue
-        raw.append((t, n_mre))
+    pool = [t for t in prof.candidates
+            if t.uid not in exclude and t.nbytes >= min_bytes]
+    counts = mrl.covered_counts(
+        np.fromiter((t.birth for t in pool), np.int64, len(pool)),
+        np.fromiter((t.death for t in pool), np.int64, len(pool)))
+    # a lifetime that doesn't overlap the peak region is no candidate (§5.3)
+    raw = [(t, n) for t, n in zip(pool, counts.tolist()) if n]
     if not raw:
         return []
     max_mre = max(n for _, n in raw) or 1

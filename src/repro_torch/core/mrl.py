@@ -36,9 +36,8 @@ class MRL:
         return self.ops[self.required > 0]
 
     # ops is sorted, so the [birth, death) window is one searchsorted
-    # slice instead of two O(n) boolean masks — covered_count/decrement
-    # run per candidate inside Algo 2's inner loop, making this the last
-    # per-candidate O(n_mre) cost in Simulator.simulate
+    # slice instead of two O(n) boolean masks; Algo 2's inner loop reads
+    # every candidate's count at once through covered_counts
     def _window(self, birth: int, death: int) -> slice:
         lo = int(np.searchsorted(self.ops, birth, side="left"))
         hi = int(np.searchsorted(self.ops, death, side="left"))
@@ -48,6 +47,15 @@ class MRL:
         """Number of outstanding MREs inside [birth, death)."""
         w = self._window(birth, death)
         return int(np.count_nonzero(self.required[w] > 0))
+
+    def covered_counts(self, births: np.ndarray, deaths: np.ndarray
+                       ) -> np.ndarray:
+        """:meth:`covered_count` of many [birth, death) windows at once:
+        one prefix count of the outstanding MREs, two searchsorted calls."""
+        lo = np.searchsorted(self.ops, births, side="left")
+        hi = np.maximum(np.searchsorted(self.ops, deaths, side="left"), lo)
+        c = np.concatenate(([0], np.cumsum(self.required > 0)))
+        return c[hi] - c[lo]
 
     def decrement(self, birth: int, death: int, nbytes: int) -> None:
         """Tensor of `nbytes` leaves the device for ops in [birth, death)."""

@@ -235,19 +235,37 @@ class Simulator:
     def simulate(self, cl: List[Candidate], mrl: MRL) -> List[PolicyEntry]:
         entries: List[PolicyEntry] = []
         placed_any = False
-        for cand in cl:
-            if mrl.is_empty():
+        # The MRL and the layer budgets change only where a candidate is
+        # placed, so each candidate's covered count and whether any layer
+        # of its backward search fits are read from arrays refreshed after
+        # a placement; place_swap_in then runs only for a candidate that
+        # fits.  Most candidates of a tight budget fit nowhere.
+        n = len(cl)
+        births = np.fromiter((c.tensor.birth for c in cl), np.int64, n)
+        deaths = np.fromiter((c.tensor.death for c in cl), np.int64, n)
+        t_swaps = [self.t_swap(c.tensor.nbytes) for c in cl]
+        lo = self._peak_layer + 1
+        spans = (self.layers_of(deaths) - lo).tolist()
+        empty, covered, fits = mrl.is_empty(), None, None
+        for i, cand in enumerate(cl):
+            if empty:
                 break
-            t = cand.tensor
-            if mrl.covered_count(t.birth, t.death) == 0:
+            if covered is None:
+                covered = mrl.covered_counts(births, deaths).tolist()
+                # fits[k]: the largest budget of layers lo .. lo + k
+                fits = np.maximum.accumulate(self._remaining[lo:]).tolist()
+            if covered[i] == 0:
+                continue
+            k = spans[i]
+            if k <= 0 or not fits[k - 1] > t_swaps[i]:
                 continue
             e = self.place_swap_in(cand)
-            if e is None:
-                continue
+            t = cand.tensor
             # §5.4.1: decrement tensor size from MREs across its lifecycle
             mrl.decrement(t.birth, e.swap_in_op, t.nbytes)
             entries.append(e)
             placed_any = True
+            empty, covered = mrl.is_empty(), None
         if not placed_any and cl and not mrl.is_empty():
             # nobody fits without stalls: paper picks the top-score candidate
             cand = cl[0]

@@ -425,9 +425,10 @@ def test_service_modes_and_inline_bookkeeping():
 @settings(max_examples=60, deadline=None)
 @given(st.integers(0, 2 ** 31 - 1))
 def test_mrl_window_parity_vs_masked_reference(seed):
-    """covered_count / decrement through the sorted-ops window match the
-    O(n) boolean-mask version and the reference's MRL on arbitrary [birth,
-    death) queries, empty, inverted and out-of-range windows included."""
+    """covered_count / covered_counts / decrement through the sorted-ops
+    window match the O(n) boolean-mask version and the reference's MRL on
+    arbitrary [birth, death) queries, empty, inverted and out-of-range
+    windows included."""
     r = np.random.RandomState(seed)
     ops = np.unique(r.randint(0, 200, size=r.randint(1, 64)))
     req = r.randint(-5, 1 << 20, size=ops.size).astype(np.int64)
@@ -440,6 +441,10 @@ def test_mrl_window_parity_vs_masked_reference(seed):
         n = mrl.covered_count(birth, death)
         assert n == int(np.count_nonzero(ref[mask] > 0))
         assert n == rmrl.covered_count(birth, death)
+        births = r.randint(-10, 220, size=5)
+        deaths = r.randint(-10, 220, size=5)
+        assert mrl.covered_counts(births, deaths).tolist() == [
+            mrl.covered_count(int(b), int(d)) for b, d in zip(births, deaths)]
         nbytes = int(r.randint(0, 1 << 16))
         mrl.decrement(birth, death, nbytes)
         rmrl.decrement(birth, death, nbytes)

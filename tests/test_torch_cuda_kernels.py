@@ -30,6 +30,10 @@ SWEEP = [                      # tests/test_kernels.py::test_flash_attention_swe
     (1, 193, 257, 4, 2, 64, True, (250,)),
     (2, 160, 160, 32, 8, 128, True, None),
     (2, 77, 300, 32, 8, 128, False, (300, 129)),
+    # a GQA group of 7 (qwen2-7b: 28 query heads over 4 KV heads of 128),
+    # then 7 over 1 at head dim 64 with a partly valid key tile
+    (2, 200, 200, 28, 4, 128, True, None),
+    (1, 150, 260, 7, 1, 64, False, (201,)),
 ]
 # q and k at 2 x randn give scores q.k/sqrt(D) with a std of 4, so each
 # row's softmax is peaked and a lost KV tile or a missing rescale moves the
@@ -87,6 +91,10 @@ BWD_SWEEP = [                  # K1 backward: GQA, causal, Sq != Sk, kv_lens
     (2, 131, 131, 4, 1, 16, True, None),
     (1, 250, 70, 8, 2, 32, False, (70,)),
     (2, 150, 150, 16, 2, 64, True, (150, 0)),
+    # a GQA group of 7: dK / dV summed over 7 query heads (qwen2-7b's 28
+    # over 4 at head dim 128, and 7 over 1 at 64)
+    (2, 160, 160, 28, 4, 128, True, (160, 77)),
+    (1, 130, 130, 7, 1, 64, True, None),
 ]
 # dq, dk, dv against flash_attention_bwd_plain on the same inputs (o and lse
 # from the forward kernel), as chip_smoke.py holds them: relative Frobenius
@@ -133,6 +141,7 @@ def test_flash_attention_bwd_kernel_matches_plain(card, B, Sq, Sk, H, Kh, D,
     (2, 256, 256, 8, 8, 128, True, (256, 100)),
     (1, 333, 333, 8, 4, 128, True, None),
     (2, 150, 150, 16, 2, 64, True, (150, 0)),
+    (2, 160, 160, 28, 4, 128, True, (160, 77)),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_bwd_kernel_repeats_bit_for_bit(card, B, Sq, Sk, H, Kh,
@@ -344,6 +353,11 @@ DECODE_SWEEP = [
     (8, 1024, 32, 8, 128, (1000, 1, 2, 3, 5, 9, 17, 33)),
     (2, 200, 8, 2, 16, (129, 65)),
     (2, 160, 4, 2, 32, (300, 37)),              # lens past Smax: all rows
+    # a GQA group of 7 splits into blocks of 4 and 3 query heads (the last
+    # block partial): qwen2-7b's decode shape with ragged lens, one under a
+    # split, and 7 over 1 at head dim 64
+    (4, 1024, 28, 4, 128, (1, 100, 700, 1024)),
+    (2, 300, 7, 1, 64, (299, 130)),
 ]
 
 

@@ -127,6 +127,21 @@ def test_llama_profile_policy_parity(llama_profile, frac):
         assert got[1] <= budget
 
 
+@pytest.mark.parametrize("groups", [2, 8, 32])
+@pytest.mark.parametrize("frac", [0.6, 0.2])
+def test_llama_profile_policy_parity_over_groups(llama_profile, frac,
+                                                 groups):
+    """The grouping knobs of the GenPolicy variants, a few groups (most
+    candidates fit no layer, the stalled fallback runs) to many: the
+    simulator's placement equals the reference's candidate by candidate."""
+    ref = llama_profile[0]
+    port = to_port(ref)
+    tl = rmem.build_timeline(ref)
+    budget = int(ref.static_bytes + frac * (tl.peak - ref.static_bytes))
+    rcfg, pcfg = cfgs(groups_per_phase=groups)
+    _same_planning(ref, port, rcfg, pcfg, budget)
+
+
 def test_llama_profile_calibrated_link_parity(llama_profile):
     """A measured link curve (the same points in both bandwidth models)
     prices every transfer in both simulators alike."""
