@@ -20,7 +20,21 @@ Phases, each printing JSON lines:
               GenPolicy -> Stable), adaptive_swap_demo (a seq-change
               transition, no failures) and serve_batched (every request
               finishes), each making its own assertions; K1 (forward and
-              backward) and K3 launched.  Line ``examples``.
+              backward) and K3 launched.  Line ``examples``.  Then (12d,
+              each on an emptied card) train_e2e at its full deliverable
+              preset (E2E_ARGS: 100m, 12 layers, d 768, f32, 8 x 256
+              tokens) under the lowest budget a policy meets for its grad
+              dispatch + CHAM_EXEC_MARGIN: E2E_STEPS steps with an eval
+              and a checkpoint every E2E_EVERY, the over-subscribed
+              serving burst, ``--trace-out`` / ``--metrics-out`` through
+              the validators; then ``--resume`` for E2E_RESUME_STEPS more
+              (it must print "resumed at step 12" and end at 18), held to
+              what tests/test_torch_examples.py holds on the CPU, with a
+              policy of entries run under the budget; then
+              elastic_restart (its own rtol 1e-5, and the largest
+              relative difference it leaves).  Line ``examples_12d`` with
+              each run's seconds and K1 / K3 / K2a / K2b launches, then
+              a ``seconds`` line.
 3. kernel     the flash-attention kernel (K1) against its plain PyTorch
               version on the card, on inputs whose softmax is peaked: the
               reference kernel test sweep, a GQA case, kv_lens cases and
@@ -270,7 +284,43 @@ Phases, each printing JSON lines:
               checkpoint cadence and CHAOS_CLI_PLAN (store and checkpoint
               faults), and again with ``--resume``: both exit normally,
               faults fire, and the second resumes from the first's newest
-              checkpoint.
+              checkpoint.  Then (12d; line ``chaos_12d``)
+              ``swap_in_terminal``: every swap-in of the window's first
+              (Stable) step fails for good after its swap-out staged
+              (``terminal_swap_ins``, max_retries 1), each must be served
+              by the synchronous fallback through ``fence``; that step's
+              ms and peak beside the twin's and the ladder's answer;
+              ``copy_timeout``: copies stalled CHAOS_STALL_S (twice the
+              timeout floor) at 0.3 over CHAOS_TIMEOUT_WINDOW steps, the
+              engine must count timeouts, each a stalled copy, and end
+              healthy on the full rung; both held as the runs above
+              (no crash, losses equal to the twin's, no live slab, the
+              peak); ``adapt_hang``: chameleon_async's drift run for
+              HANG_STEPS steps with its first job hung HANG_S past a
+              HANG_TIMEOUT_S watchdog (the pacing off): the watchdog
+              fires once, the next visit installs, losses equal
+              Chameleon off's.  A ``seconds`` line follows.
+18d. ckpt_full  (run after 18c) checkpoints at full width (12d):
+              llama2-paper at full width cut to CKPT_LAYERS, 2 x 2048
+              tokens, Chameleon on with a policy store at the lowest
+              budget a policy meets at that depth + CHAM_EXEC_MARGIN, the
+              host's free disk and available memory printed first
+              (``ckpt_full_host``).  A: CKPT_STEPS + 1 steps, no
+              checkpoint (the twin); B: CKPT_STEPS with a checkpoint every
+              CKPT_EVERY (two saves through the host tier's checkpoint
+              class); C: a fresh trainer resumed from B's step-CKPT_EVERY
+              checkpoint for the rest; D: as B under CHAOS_CLI_PLAN with
+              its own store, then a fresh trainer resumed from D's newest
+              checkpoint for one step.  Gates: C's, D's and the resume's
+              losses equal A's at the same steps, C's state B's and the
+              resumed state D's, bit for bit; D never crashes and its
+              plan fires; every run's pinned pool ends with no live slab.
+              Per save: the training thread's seconds in the reference-
+              layout snapshot (``_numpy``, ``np.stack``) and in the submit
+              (``_stage``), the writer's (``ckpt.write``, ``ckpt.collect``
+              spans), the bytes on disk; per run the overlapped steps' p50
+              against A's, ``max_memory_allocated`` against A's, the
+              restore's seconds.  Line ``ckpt_full``, then ``seconds``.
 
 21b. train_qwen2, train_qwen3_moe  (run after 22) the zoo's train phase
               on qwen2-7b cut to 8 layers and qwen3-moe-30b-a3b cut to 4
@@ -357,6 +407,7 @@ printed.  The last lines are the kernels summary, the nvidia-smi line and
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import json
 import math
@@ -556,6 +607,21 @@ CHAOS_RESILIENCE = {"probe_interval": 4, "ladder_hold_iterations": 1}
 CHAOS_INFLATION_CAP = 5.0
 # chaos_fallbacks' payload: one of the policy's entries' order of size
 CHAOS_FALLBACK_BYTES = 64 << 20
+# The drill's 12d scenarios, cut to the script's time.  swap_in_terminal:
+# every swap-in of the window's first step fails for good (max_retries
+# 1), CHAOS_TERMINAL_STEPS steps so the ladder's answer shows (down the
+# next step, back at the next probe).  copy_timeout: copies stalled
+# CHAOS_STALL_S (twice ResilienceConfig.timeout_floor_s) at 0.3 over the
+# window's first CHAOS_TIMEOUT_WINDOW steps (a stall sleeps on the
+# thread that issues the copy, the training thread), CHAOS_TIMEOUT_STEPS
+# steps.
+# adapt_hang: chameleon_async's drift run, HANG_STEPS steps (the first
+# visit and most of the second, whose job installs by step 17), the first
+# job hung HANG_S past a watchdog of HANG_TIMEOUT_S (the default's 30 s
+# would outlast the run).
+CHAOS_TERMINAL_STEPS, CHAOS_TIMEOUT_STEPS = 16, 16
+CHAOS_TIMEOUT_WINDOW, CHAOS_STALL_S = 4, 0.1
+HANG_STEPS, HANG_S, HANG_TIMEOUT_S = 20, 2.0, 1.0
 # The chaos phase's CLI drill: the reduced config, so that a checkpoint of
 # the parameters and AdamW state is small (one of the full-width model is
 # ~26 GB); the chaos bench's storage scenario as a plan file.
@@ -569,6 +635,27 @@ CHAOS_CLI_PLAN = {"seed": 0, "specs": [
     {"site": "store.put", "prob": 0.5},
     {"site": "store.load", "prob": 0.5},
     {"site": "ckpt.write", "prob": 0.5, "max_fires": 2}]}
+# The ckpt_full phase (12d): llama2-paper at full width cut to
+# CKPT_LAYERS, a checkpoint every CKPT_EVERY of CKPT_STEPS steps.  A save
+# writes CKPT_BYTES_PER_PARAM bytes a parameter (the parameters widened to
+# f32, AdamW's m, v and f32 master): 7.43 GB at one layer (464.5 M
+# parameters, two thirds of them the embeddings).  Two layers (10.67 GB a
+# save) took 229 s for the phase's four saves and two restores on an
+# NVIDIA H100 80GB HBM3 at 700 W, past what the whole script may take.
+# The temporary directory's disk must hold CKPT_DISK_SAVES saves and the
+# host's available memory CKPT_HOST_SAVES (the snapshot, the pinned
+# staging and the writer's copy of one save).
+CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY = 1, 12, 6
+CKPT_BYTES_PER_PARAM, CKPT_DISK_SAVES, CKPT_HOST_SAVES = 16, 3, 4
+# The examples phase's 12d runs: train_e2e at the preset its doc calls the
+# full deliverable configuration (12 layers, d 768, 12 over 4 heads of 64,
+# vocab 32000, f32), E2E_STEPS steps with an eval and a checkpoint every
+# E2E_EVERY and the serving burst, then E2E_RESUME_STEPS more with
+# --resume; then elastic_restart.
+E2E_STEPS, E2E_RESUME_STEPS, E2E_EVERY = 12, 6, 6
+E2E_ARGS = ["--preset", "100m", "--seq", "256", "--batch", "8",
+            "--eval-every", str(E2E_EVERY),
+            "--checkpoint-every", str(E2E_EVERY)]
 # The train_cli phase's async run: reduced llama2-paper under Chameleon
 # with the background worker, a policy store, and its trace, metrics and
 # audit; then the serve CLI on that store, long enough (> 256 ticks) for
@@ -2923,16 +3010,167 @@ def phase_distributed(device) -> dict:
     return {"k1": sk, "k2": k2}
 
 
+def kernel_launches() -> dict:
+    """The launch counters of K1 (forward, backward), K3 and K2a / K2b."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.quant_offload import ops as Q
+    return {"k1_fwd": ops.flash_attention.launches,
+            "k1_bwd": ops.flash_attention_bwd.launches,
+            "k3": ops.flash_decode.launches,
+            "k2a": Q.quantize.launches, "k2b": Q.dequantize.launches}
+
+
+def zero_kernel_launches() -> None:
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.quant_offload import ops as Q
+    ops.flash_attention.launches = ops.flash_attention_bwd.launches = 0
+    ops.flash_decode.launches = 0
+    Q.quantize.launches = Q.dequantize.launches = 0
+
+
+def recording_trainer(base, made: list):
+    """``base`` (the Trainer class) with each instance appended to
+    ``made`` and, per step, its stage and the entries of the policy its
+    grad dispatch ran (``ran``)."""
+    class Recorded(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.ran = []
+            made.append(self)
+
+        def _one_step(self, *a, **k):
+            out = super()._one_step(*a, **k)
+            self.ran.append((self.report.stages[-1] if self.report.stages
+                             else None,
+                             policy_entries(self.rt) if self.rt else 0))
+            return out
+    return Recorded
+
+
+def example_e2e(device, budget: int, workdir: str) -> dict:
+    """``examples_torch/train_e2e.py`` at its full deliverable preset
+    (E2E_ARGS, E2E_STEPS with ``--with-serve``, ``--trace-out`` and
+    ``--metrics-out``), then ``--resume`` for E2E_RESUME_STEPS more, under
+    ``budget``; each held to what tests/test_torch_examples.py holds on the
+    CPU.  The example keeps its checkpoints under the temporary directory,
+    here ``workdir``.  Returns each run's row with its launches."""
+    import contextlib
+    import io
+    import tempfile
+    from examples_torch import train_e2e
+    from repro_torch import obs
+    from repro_torch.obs.validate import (validate_chrome_trace,
+                                          validate_metrics_jsonl)
+
+    trace = os.path.join(workdir, "trace.json")
+    metrics = os.path.join(workdir, "metrics.jsonl")
+    common = E2E_ARGS + ["--device", device.type,
+                         "--budget-gib", repr(budget / 2 ** 30)]
+    rows, problems = {}, []
+    made, base, old_tmp = [], train_e2e.Trainer, tempfile.tempdir
+    train_e2e.Trainer = recording_trainer(base, made)
+    tempfile.tempdir = workdir
+    try:
+        for name, extra in (
+                ("train_e2e", ["--steps", str(E2E_STEPS), "--with-serve",
+                               "--trace-out", trace,
+                               "--metrics-out", metrics]),
+                ("train_e2e_resume", ["--steps", str(E2E_RESUME_STEPS),
+                                      "--resume"])):
+            zero_kernel_launches()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                out = train_e2e.main(common + extra)
+            seconds = time.perf_counter() - t0
+            sys.stdout.write(buf.getvalue())
+            tr = made.pop()
+            rows[name] = {
+                "seconds": seconds, "launches": kernel_launches(),
+                "start_step": out["start_step"], "step": out["step"],
+                "first_loss": out["losses"][0],
+                "last_loss": out["losses"][-1],
+                "evals": sorted(out["evals"]),
+                "checkpoints": [os.path.basename(c)
+                                for c in out["checkpoints"]],
+                "stages": tr.report.stages,
+                "entries": [n for _, n in tr.ran],
+                "max_entries": max(n for _, n in tr.ran),
+                "serve": out.get("serve"),
+                "printed": [ln for ln in buf.getvalue().splitlines()
+                            if ln.startswith(("resumed at", "serve burst",
+                                              "loss:"))]}
+            for pname in ("runtime", "hostmem", "memory"):
+                obs.metrics().unregister_provider(pname)
+            if not all(math.isfinite(x) for x in out["losses"]):
+                problems.append(f"{name}: a loss is not finite")
+            del tr, out
+            gc.collect()
+            release_device_memory(device)
+        with open(trace) as f:
+            n_spans = validate_chrome_trace(json.load(f))["n_spans"]
+        validate_metrics_jsonl(metrics)
+    finally:
+        train_e2e.Trainer = base
+        tempfile.tempdir = old_tmp
+    first, again = rows["train_e2e"], rows["train_e2e_resume"]
+    first["trace_spans"] = n_spans
+    end = E2E_STEPS + E2E_RESUME_STEPS
+    if (first["start_step"], first["step"]) != (0, E2E_STEPS):
+        problems.append(f"train_e2e: steps {first['start_step']} .. "
+                        f"{first['step']}, not 0 .. {E2E_STEPS}")
+    if len(first["checkpoints"]) != E2E_STEPS // E2E_EVERY:
+        problems.append(f"train_e2e: checkpoints {first['checkpoints']}")
+    if first["evals"] != list(range(E2E_EVERY, E2E_STEPS, E2E_EVERY)):
+        problems.append(f"train_e2e: evals at {first['evals']}")
+    srv = first["serve"] or {}
+    if srv.get("requests") != 4 or not srv.get("spills"):
+        problems.append(f"train_e2e: serve burst {srv}")
+    if not n_spans:
+        problems.append("train_e2e: the trace holds no span")
+    if first["max_entries"] < 1:
+        problems.append("train_e2e: no policy with entries ran under the "
+                        "budget")
+    if (f"resumed at step {E2E_STEPS}" not in again["printed"]
+            or (again["start_step"], again["step"]) != (E2E_STEPS, end)):
+        problems.append(f"train_e2e --resume: {again['printed']}, steps "
+                        f"{again['start_step']} .. {again['step']}")
+    for name, r in rows.items():
+        if not (r["launches"]["k1_fwd"] and r["launches"]["k1_bwd"]):
+            problems.append(f"{name}: K1 was not launched both ways")
+    if not first["launches"]["k3"]:
+        problems.append("train_e2e: the serve burst launched no K3")
+    return {"rows": rows, "budget": budget, "problems": problems}
+
+
+def example_elastic(device) -> dict:
+    """``examples_torch/elastic_restart.py`` (its own assertion: rtol 1e-5
+    between the resumed and the uninterrupted losses), with the largest
+    relative difference it leaves and its launches."""
+    from examples_torch import elastic_restart
+    zero_kernel_launches()
+    t0 = time.perf_counter()
+    out = elastic_restart.main(["--device", device.type])
+    seconds = time.perf_counter() - t0
+    n = len(out["resumed"])
+    ref = out["reference"][-n:]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(ref, out["resumed"]))
+    return {"seconds": seconds, "launches": kernel_launches(),
+            "resumed_at": out["resumed_at"], "steps_after": n,
+            "max_rel_diff": rel}
+
+
 def phase_examples(device) -> dict:
     """Phase examples (module doc): the examples' own assertions raise.
-    Returns K1's (forward, backward) and K3's launches over the three."""
+    Returns K1's (forward, backward) and K3's launches over the three, and
+    each later run's launches (``runs``)."""
+    import shutil
+    import tempfile
     from examples_torch import adaptive_swap_demo, quickstart, serve_batched
-    from repro_torch.kernels.flash_attention import ops
+    from examples_torch.train_e2e import PRESETS
 
     argv = ["--device", device.type]
-    ops.flash_attention.launches = 0          # count the examples only
-    ops.flash_attention_bwd.launches = 0
-    ops.flash_decode.launches = 0
+    zero_kernel_launches()                    # count the examples only
     row = {}
     for name, mod in (("quickstart", quickstart),
                       ("adaptive_swap_demo", adaptive_swap_demo),
@@ -2953,12 +3191,42 @@ def phase_examples(device) -> dict:
                              ticks=out["ticks"])
         gc.collect()
         release_device_memory(device)
-    k = {"k1_fwd": ops.flash_attention.launches,
-         "k1_bwd": ops.flash_attention_bwd.launches,
-         "k3": ops.flash_decode.launches}
+    k = kernel_launches()
     emit("examples", **row, launches=k)
     if not (k["k1_fwd"] and k["k1_bwd"] and k["k3"]):
         raise AssertionError(f"examples: a kernel was not launched: {k}")
+    # 12d: train_e2e at its full deliverable preset, under the lowest
+    # budget a policy meets for its grad dispatch, then its resume; then
+    # elastic_restart, each on an emptied card
+    t0 = time.perf_counter()
+    cfg = PRESETS[E2E_ARGS[E2E_ARGS.index("--preset") + 1]]
+    if device.type == "cuda":
+        cfg = cfg.replace(attn_impl="flash")
+    budget, brow = exec_budget(
+        device, cfg, seq=int(E2E_ARGS[E2E_ARGS.index("--seq") + 1]),
+        batch=int(E2E_ARGS[E2E_ARGS.index("--batch") + 1]),
+        phase="examples_e2e")
+    release_device_memory(device)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_e2e_")
+    try:
+        e2e = example_e2e(device, budget, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    elastic = example_elastic(device)
+    release_device_memory(device)
+    problems = e2e["problems"]
+    if elastic["max_rel_diff"] > 1e-5:     # the example asserts it too
+        problems.append(f"elastic_restart: {elastic['max_rel_diff']}")
+    runs = {**{n: r["launches"] for n, r in e2e["rows"].items()},
+            "elastic_restart": elastic["launches"]}
+    emit("examples_12d", ok=not problems, problems=problems,
+         budget=budget, budget_row={kk: brow[kk] for kk in (
+             "floor", "peak", "static_bytes", "t_iter_s", "dt_s")},
+         **e2e["rows"], elastic_restart=elastic)
+    emit("seconds", of="examples_12d", seconds=time.perf_counter() - t0)
+    if problems:
+        raise AssertionError(f"examples: {problems}")
+    k["runs"] = runs
     return k
 
 
@@ -4096,7 +4364,8 @@ def phase_chameleon(device, tier):
 
 
 def exec_train(device, cfg, cham, seq=TRAIN_SEQ,
-               eval_every=CHAM_EXEC_EVAL_EVERY, data=None, adapt_mode=None):
+               eval_every=CHAM_EXEC_EVAL_EVERY, data=None, adapt_mode=None,
+               batch=TRAIN_BATCH):
     """A trainer of the chameleon_exec phase (a fresh checkpoint dir); the
     chameleon_async phase's with its own sequence length, no eval, its
     bucket's data and a placement."""
@@ -4109,25 +4378,28 @@ def exec_train(device, cfg, cham, seq=TRAIN_SEQ,
                        eval_every=eval_every, checkpoint_every=0,
                        checkpoint_dir=tempfile.mkdtemp(prefix="chip_smoke_"))
     if data is None:
-        data = SyntheticTokens(cfg.vocab_size, seq, TRAIN_BATCH, seed=0)
+        data = SyntheticTokens(cfg.vocab_size, seq, batch, seed=0)
     return Trainer(cfg, tcfg, cham, data=data, device=device,
                    adapt_mode=adapt_mode)
 
 
-def drop_trainer(tr) -> None:
+def drop_trainer(tr, keep_dir: bool = False) -> None:
     """Let a trainer go: the metrics registry's providers hold it (and its
     parameters and optimizer state on the card) until they are
-    unregistered; then its runtime's service and checkpoint directory."""
+    unregistered; then its runtime's service and, unless ``keep_dir``,
+    its checkpoint directory."""
     import shutil
     from repro_torch import obs
     for name in ("runtime", "hostmem"):
         obs.metrics().unregister_provider(name)
     if getattr(tr, "rt", None) is not None:
         tr.rt.close()
-    shutil.rmtree(tr.tcfg.checkpoint_dir, ignore_errors=True)
+    if not keep_dir:
+        shutil.rmtree(tr.tcfg.checkpoint_dir, ignore_errors=True)
 
 
-def exec_budget(device, cfg, seq=TRAIN_SEQ, phase="chameleon_exec"):
+def exec_budget(device, cfg, seq=TRAIN_SEQ, phase="chameleon_exec",
+                batch=TRAIN_BATCH):
     """B for the chameleon_exec phase: after two steps of a Chameleon-on
     trainer with no budget to meet (the baseline policy runs), its
     runtime's detailed profile of the grad dispatch (``profile_step`` over
@@ -4135,14 +4407,16 @@ def exec_budget(device, cfg, seq=TRAIN_SEQ, phase="chameleon_exec"):
     prices it, at the second step's grad dispatch time
     (``report.grad_times``), and bisected between its floor and its peak.
     Returns
-    (B, row).  The chameleon_async phase takes it at its longer bucket."""
+    (B, row).  The chameleon_async phase takes it at its longer bucket,
+    the examples phase at train_e2e's preset and traffic, ckpt_full at
+    its depth."""
     import torch
     from repro_torch.common.config import ChameleonConfig
     from repro_torch.core.memtrace import build_timeline
 
     tr = exec_train(device, cfg, ChameleonConfig(enabled=True,
                                                  hbm_budget_bytes=1 << 62),
-                    seq=seq)
+                    seq=seq, batch=batch)
     for _ in range(2):
         tr.train(1)
     prof = tr.rt._baseline_profile(tr.rt._last_train_args,
@@ -4397,15 +4671,21 @@ def async_bucket(step: int) -> int:
     return (step // ASYNC_PERIOD) % 2
 
 
-def async_run(device, cfg, budget, mode, out_dir=None) -> dict:
+def async_run(device, cfg, budget, mode, out_dir=None, steps=ASYNC_STEPS,
+              resilience=None, adapt=None, specs=None) -> dict:
     """One run of the chameleon_async phase: the placement ``mode``, or
     Chameleon off (None), on the same batches (the step hook switches the
-    bucket every ASYNC_PERIOD steps).  ``out_dir``: export the run's
-    Chrome trace, metrics JSONL and audit JSONL there.  Counts K1's
-    launches over the run alone."""
+    bucket every ASYNC_PERIOD steps), ``steps`` steps.  ``out_dir``:
+    export the run's Chrome trace, metrics JSONL and audit JSONL there.
+    ``resilience`` / ``adapt``: ResilienceConfig / AdaptConfig fields
+    (the placement is ``mode``); ``specs``: a fault plan (seed
+    1) armed over the run (then the grad dispatch's reserved peaks are not
+    probed).  Counts K1's launches over the run alone."""
     import torch
-    from repro_torch import obs
-    from repro_torch.common.config import ChameleonConfig, PolicyStoreConfig
+    from repro_torch import faults, obs
+    from repro_torch.common.config import (AdaptConfig, ChameleonConfig,
+                                           PolicyStoreConfig,
+                                           ResilienceConfig)
     from repro_torch.data.synthetic import SyntheticTokens
     from repro_torch.kernels.flash_attention import ops
 
@@ -4414,13 +4694,24 @@ def async_run(device, cfg, budget, mode, out_dir=None) -> dict:
     buckets = [SyntheticTokens(cfg.vocab_size, seq, TRAIN_BATCH, seed=i)
                for i, seq in enumerate(ASYNC_SEQS)]
     cham = ChameleonConfig(enabled=mode is not None, hbm_budget_bytes=budget,
-                           policystore=PolicyStoreConfig(enabled=False))
+                           policystore=PolicyStoreConfig(enabled=False),
+                           resilience=ResilienceConfig(**(resilience or {})),
+                           adapt=AdaptConfig(**(adapt or {})))
     tr = exec_train(device, cfg, cham, eval_every=0, data=buckets[0],
                     adapt_mode=mode)
     rt = tr.rt
     ran, hook_t, installs, machine = [], [], [], ["WarmUp"]
-    gcs, gc_t0, allocator = [], [], []
+    gcs, gc_t0, allocator, paces = [], [], [], []
     last_disp = {}                       # bucket -> its last grad dispatch
+    if rt is not None:                   # the worker's pace between variants
+        pipe_run = rt.service.pipeline.run
+
+        def paced(snap, **kw):
+            paces.append({"step": snap.step, "t_iter_s": snap.t_iter,
+                          "t_price_s": snap.profile.t_iter,
+                          "pace_s": kw.get("pace_s", 0.0)})
+            return pipe_run(snap, **kw)
+        rt.service.pipeline.run = paced
 
     def on_gc(phase, info):              # the collector's pauses, by step
         if phase == "start":
@@ -4464,10 +4755,13 @@ def async_run(device, cfg, budget, mode, out_dir=None) -> dict:
     ops.flash_attention_bwd.launches = 0
     retries0 = alloc_retries(device)
     gc.callbacks.append(on_gc)
+    plan = faults.arm(faults.FaultPlan(specs, seed=1)) if specs else None
     try:
-        rep = tr.train(ASYNC_STEPS, fault_hook=hook)
+        rep = tr.train(steps, fault_hook=hook)
     finally:
         gc.callbacks.remove(on_gc)
+        if plan is not None:
+            faults.disarm()
         if paths:
             obs.audit().detach_file()
     k1 = (ops.flash_attention.launches, ops.flash_attention_bwd.launches)
@@ -4496,6 +4790,7 @@ def async_run(device, cfg, budget, mode, out_dir=None) -> dict:
                 adapt_ms.setdefault(sp["name"], []).append(
                     (sp["t1"] - sp["t0"]) * 1e3)
         out.update(replays=rt.replays, adapt=rep.adapt, adapt_ms=adapt_ms,
+                   paces=paces,
                    adaptations=list(rt.adaptations),
                    genpolicy_steps=rep.genpolicy_steps,
                    transitions=[tuple(t) for t in rt.machine.transitions],
@@ -4503,7 +4798,11 @@ def async_run(device, cfg, budget, mode, out_dir=None) -> dict:
                    ledger=obs.ledger().scoreboard())
         # each bucket's last policy against the baseline: the grad
         # dispatch's reserved peak (P4's remainder, module doc)
-        out["reserved"] = bucket_reserved(device, tr, buckets, last_disp)
+        if plan is None:
+            out["reserved"] = bucket_reserved(device, tr, buckets,
+                                              last_disp)
+        else:
+            out["fired"] = plan.stats()["fired"]
     last_disp.clear()                    # its dispatches hold the trainer
     drop_trainer(tr)
     del tr, rt
@@ -4682,7 +4981,7 @@ def phase_chameleon_async(device) -> dict:
                        genpolicy_steps=r["genpolicy_steps"],
                        transitions=r["transitions"], ran=r["ran"],
                        k1_launches=r["k1_launches"], ledger=r["ledger"],
-                       adapt_ms=r["adapt_ms"],
+                       adapt_ms=r["adapt_ms"], paces=r["paces"],
                        adaptation_overhead_s=r["adaptation_overhead_s"])
         emit("chameleon_async_run", mode=m, **rows[m])
         if ad["failed"] or ad["watchdog_fired"]:
@@ -4734,16 +5033,57 @@ def phase_chameleon_async(device) -> dict:
     emit("chameleon_async", **summary)
     if problems:
         raise AssertionError(f"chameleon_async: {problems}")
-    return runs["async"]["k1_launches"]
+    return runs["async"]["k1_launches"], {"budget": budget, "off": off}
 
 
-def chaos_run(device, cfg, budget, steps, specs=None) -> dict:
+def policy_entries(rt) -> int:
+    """The entries of the policy the runtime's last grad dispatch ran (a
+    function, so that no caller keeps the execution, which holds the
+    trainer, past its run)."""
+    ex = rt._last_dispatch.execution
+    swap = ex.applied.swap if ex is not None else None
+    return len(swap.entries) if swap else 0
+
+
+def terminal_swap_ins(tr, step: int) -> dict:
+    """Make every swap-in the trainer submits in ``step`` fail for good
+    after its swap-out has staged: the engine's ``submit_swap_in`` is
+    wrapped to arm, for that call alone, a plan that drops the copy
+    (``transfer_drop`` at 1.0; the fault plan has no direction filter, as
+    the reference's has none, so the swap-outs are left out by arming
+    around the swap-ins only).  ``fence`` must then serve each through the
+    synchronous fallback (P9).  Returns the record it fills (the plan, the
+    swap-ins submitted in the step)."""
+    from repro_torch import faults
+    eng = tr.rt.hostmem.engine
+    inner = eng.submit_swap_in
+    rec = {"step": step, "swap_ins": 0, "plan": faults.FaultPlan(
+        [faults.FaultSpec("engine.transfer_drop", prob=1.0)], seed=1)}
+
+    def submit_swap_in(*a, **k):
+        if tr.step != step:
+            return inner(*a, **k)
+        rec["swap_ins"] += 1
+        faults.arm(rec["plan"]).set_iteration(step)
+        try:
+            return inner(*a, **k)
+        finally:
+            faults.disarm()
+    eng.submit_swap_in = submit_swap_in
+    return rec
+
+
+def chaos_run(device, cfg, budget, steps, specs=None, resilience=None,
+              terminal_at=None) -> dict:
     """One run of the chaos phase: the chameleon_exec phase's trainer at
-    ``budget`` with no eval and CHAOS_RESILIENCE, ``steps`` steps of one
-    ``train(1)`` each (as the twin is driven), under a fault plan of
-    ``specs`` (seed 1, the reference test's) when given.  Returns what
-    chaos_bench's ``_train`` reads, and besides per step the ladder's rung
-    and the health classes, the allocator's peak, K1's launches, the
+    ``budget`` with no eval and CHAOS_RESILIENCE (updated by
+    ``resilience``), ``steps`` steps of one ``train(1)`` each (as the twin
+    is driven), under a fault plan of ``specs`` (seed 1, the reference
+    test's) when given, and with every swap-in of step ``terminal_at``
+    failing for good (``terminal_swap_ins``) when given.  Returns what
+    chaos_bench's ``_train`` reads, and besides per step the ladder's rung,
+    the health classes, the engine's fallback, timeout and retry counts,
+    the policy's entries and the allocator's peak; K1's launches, the
     engine's health and its bandwidth curve."""
     import torch
     from repro_torch import faults, obs
@@ -4752,30 +5092,43 @@ def chaos_run(device, cfg, budget, steps, specs=None) -> dict:
     from repro_torch.kernels.flash_attention import ops
 
     cham = ChameleonConfig(enabled=True, hbm_budget_bytes=budget,
-                           resilience=ResilienceConfig(**CHAOS_RESILIENCE))
+                           resilience=ResilienceConfig(
+                               **{**CHAOS_RESILIENCE, **(resilience or {})}))
     obs.ledger().clear()
     tr = exec_train(device, cfg, cham, eval_every=0)
     rt = tr.rt
     eng, lad = rt.hostmem.engine, rt.ladder
     plan = faults.FaultPlan(specs, seed=1) if specs else None
+    terminal = (terminal_swap_ins(tr, terminal_at)
+                if terminal_at is not None else None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     ops.flash_attention.launches = 0
     ops.flash_attention_bwd.launches = 0
-    per_step = []
+    per_step, peak = [], 0
     if plan is not None:
         faults.arm(plan)
     try:
         for _ in range(steps):
+            torch.cuda.reset_peak_memory_stats(device)
             tr.train(1)
             per_step.append({"rung": lad.name, "worst": eng.health.worst(),
-                             "memory": eng.health.state(MEM_CLASS)})
+                             "memory": eng.health.state(MEM_CLASS),
+                             "sync_fallback_in": eng.n_sync_fallback_in,
+                             "hbm_fallback_in": eng.n_hbm_fallback_in,
+                             "timeouts": eng.n_timeouts,
+                             "retries": eng.n_retries,
+                             "entries": policy_entries(rt),
+                             "peak": torch.cuda.max_memory_allocated(device)})
+            peak = max(peak, per_step[-1]["peak"])
     finally:
         if plan is not None:
             faults.disarm()
     torch.cuda.synchronize()
     rep = tr.report
     eng.pool.check()
+    if terminal is not None:
+        plan = terminal.pop("plan")
     out = {
         "steps": steps, "stages": rep.stages, "losses": list(rep.losses),
         "wall_ms": [t * 1e3 for t in rep.wall_times],
@@ -4791,7 +5144,7 @@ def chaos_run(device, cfg, budget, steps, specs=None) -> dict:
         "descents": lad.n_descents, "ascents": lad.n_ascents,
         "rung": lad.name, "worst_health": eng.health.worst(),
         "health": eng.health.stats(), "live_blocks": eng.pool.live_blocks,
-        "peak": torch.cuda.max_memory_allocated(device),
+        "peak": peak, "terminal": terminal,
         "k1": (ops.flash_attention.launches,
                ops.flash_attention_bwd.launches),
         "replays": rt.replays,
@@ -4957,10 +5310,128 @@ def chaos_fallbacks(device) -> dict:
     return row
 
 
-def phase_chaos(device, budget: int) -> tuple:
+def terminal_checks(run: dict, twin: dict) -> tuple:
+    """swap_in_terminal's row and problems: its terminal step is a Stable
+    one with a policy of entries, completes, and serves every swap-in it
+    submitted through the synchronous fallback, none from a retained
+    source; that step's ms and allocator peak beside the twin's.  The
+    swap-ins are counted, not the entries: a transfer may carry several
+    entries' storages staged back to back (3-4 swap-ins for 4-5 entries on
+    an NVIDIA H100 80GB HBM3), and on the CPU the non-entry storages of an
+    offloaded site are staged too."""
+    t, ps = run["terminal"], run["per_step"]
+    k = t["step"]
+
+    def delta(key):
+        return ps[k][key] - (ps[k - 1][key] if k else 0)
+    row = {"step": k, "stage": run["stages"][k], "swap_ins": t["swap_ins"],
+           "entries": ps[k]["entries"],
+           "sync_fallback_in": delta("sync_fallback_in"),
+           "hbm_fallback_in": delta("hbm_fallback_in"),
+           "retries": delta("retries"),
+           "step_ms": run["wall_ms"][k], "twin_step_ms": twin["wall_ms"][k],
+           "peak": ps[k]["peak"], "twin_peak": twin["per_step"][k]["peak"],
+           "transitions": run["transitions"]}
+    problems = []
+    if row["stage"] != "Stable":
+        problems.append(f"swap_in_terminal: step {k} is {row['stage']}")
+    if not (row["sync_fallback_in"] == row["swap_ins"] >= 1
+            and row["entries"] >= 1) or row["hbm_fallback_in"]:
+        problems.append(f"swap_in_terminal: {row['sync_fallback_in']} "
+                        f"synchronous fallbacks for {row['swap_ins']} "
+                        f"swap-ins and {row['entries']} entries, "
+                        f"{row['hbm_fallback_in']} from retained sources")
+    return row, problems
+
+
+def timeout_checks(run: dict) -> tuple:
+    """copy_timeout's row and problems: stalls (CHAOS_STALL_S, twice the
+    health monitor's timeout floor) fired on copies and counted as
+    timeouts, each timeout a stalled copy; the run ends on a healthy full
+    rung.  Not every stall is a timeout: a copy's limit is the larger of
+    the floor and ``timeout_factor`` times the bandwidth model's
+    prediction, and the model's curve takes in each stalled copy's time,
+    as the reference's does (tests/test_torch_faults.py holds the counts
+    and the ladder's moves to the reference's engine and ladder)."""
+    stalls = run["fired_by_site"].get("engine.transfer_stall", 0)
+    row = {"stalls": stalls, "timeouts": run["timeouts"],
+           "descents": run["descents"], "ascents": run["ascents"],
+           "transitions": run["transitions"], "rung": run["rung"],
+           "worst_health": run["worst_health"],
+           "per_step_timeouts": [p["timeouts"] for p in run["per_step"]],
+           "per_step_health": [p["worst"] for p in run["per_step"]]}
+    problems = []
+    if not 0 < run["timeouts"] <= stalls:
+        problems.append(f"copy_timeout: {run['timeouts']} timeouts for "
+                        f"{stalls} stalls")
+    if run["rung"] != "full" or run["worst_health"] != "healthy":
+        problems.append(f"copy_timeout: ladder {run['transitions']}, "
+                        f"health {run['worst_health']} at the end")
+    return row, problems
+
+
+def adapt_hang(device, cfg, ctx: dict) -> tuple:
+    """chameleon_async's drift run (async, HANG_STEPS steps, its budget)
+    with the first adaptation job hung for HANG_S, past the watchdog's
+    HANG_TIMEOUT_S (``adapt_timeout_s``, set through the ResilienceConfig
+    the reference has too), and the worker's pacing off (``pace_s``, the
+    AdaptConfig's): a paced job at 3072 takes 1.0-1.7 s on an NVIDIA H100
+    80GB HBM3 since P11, past that watchdog, which must time the hang
+    alone.  As
+    tests/test_faults.py requires of the
+    reference: the watchdog fires once, the hung job's late result never
+    installs, and the run goes on: the next visit installs; no job fails;
+    losses equal Chameleon off's on the same batches.  Returns (row,
+    problems)."""
+    from repro_torch.faults import FaultSpec
+    off = ctx["off"]
+    run = async_run(device, cfg, ctx["budget"], "async", steps=HANG_STEPS,
+                    resilience={"adapt_timeout_s": HANG_TIMEOUT_S},
+                    adapt={"pace_s": 0.0},
+                    specs=[FaultSpec("adapt.hang", prob=1.0, seconds=HANG_S,
+                                     max_fires=1)])
+    wall = run["wall_s"]
+    med = {b: p50([off["wall_s"][i] for i in range(HANG_STEPS)
+                   if async_bucket(i) == b]) for b in (0, 1)}
+    ratios = [w / med[async_bucket(i)] for i, w in enumerate(wall)]
+    worst = max(range(len(ratios)), key=ratios.__getitem__)
+    ad = run["adapt"]
+    row = {"fired": run["fired"], "watchdog_fired": ad["watchdog_fired"],
+           "failed": ad["failed"], "discarded": ad["discarded"],
+           "installs": run["installs"], "transitions": run["transitions"],
+           "adaptations": [(a["trigger_step"], a["end_step"], a["tier"])
+                           for a in run["adaptations"]],
+           "stages": run["stages"], "wall_ms": [w * 1e3 for w in wall],
+           "worst": {"step": worst, "stage": run["stages"][worst],
+                     "ms": wall[worst] * 1e3, "ratio_over_off": ratios[worst]},
+           "k1_launches": run["k1_launches"], "replays": run["replays"]}
+    problems = []
+    if run["fired"].get("adapt.hang") != 1 or ad["watchdog_fired"] != 1:
+        problems.append(f"adapt_hang: hang fired {run['fired']}, watchdog "
+                        f"{ad['watchdog_fired']}")
+    if not any(why == "adapt-timeout" for _, why, _s in
+               run["transitions"]):
+        problems.append("adapt_hang: no adapt-timeout transition")
+    if ad["failed"] or not any(
+            ASYNC_PERIOD <= a["trigger_step"] and a["tier"] != "timeout"
+            for a in run["adaptations"]):
+        problems.append(f"adapt_hang: a failed job, or no install after "
+                        f"the timeout: {row['adaptations']}")
+    if run["losses"] != off["losses"][:HANG_STEPS]:
+        problems.append("adapt_hang: losses differ from Chameleon off's")
+    want = (HANG_STEPS + run["replays"]) * TRAIN_LAYERS
+    if run["k1_launches"] != (want, want):
+        problems.append(f"adapt_hang: K1 launches {run['k1_launches']} != "
+                        f"{want}")
+    return row, problems
+
+
+def phase_chaos(device, budget: int, hang_ctx: dict) -> tuple:
     """The robustness drill on the card (phase 18c of the module doc) at
-    the chameleon_exec phase's ``budget``.  Every check raises.  Returns
-    K1's launches in the engine_window run (forward, backward)."""
+    the chameleon_exec phase's ``budget``; its adapt_hang run on the
+    chameleon_async phase's drift run (``hang_ctx``: its budget and its
+    Chameleon-off run).  Every check raises.  Returns K1's launches in the
+    engine_window run (forward, backward) and in the 12d runs."""
     import torch
     import repro_torch.configs as C
     from repro_torch import obs
@@ -5000,6 +5471,28 @@ def phase_chaos(device, budget: int) -> tuple:
         problems.append(f"engine_window: K1 launches {ew['k1']} != {want}")
     cli = chaos_cli(device)
     problems += cli["problems"]
+    # 12d: every swap-in of one Stable step failing for good, copies
+    # stalled past the timeout floor, a hung adaptation job
+    t1 = time.perf_counter()
+    runs["swap_in_terminal"] = chaos_run(
+        device, cfg, budget, CHAOS_TERMINAL_STEPS,
+        resilience={"max_retries": 1}, terminal_at=start)
+    problems += chaos_compare("swap_in_terminal", twin,
+                              runs["swap_in_terminal"], False)
+    terminal, more = terminal_checks(runs["swap_in_terminal"], twin)
+    problems += more
+    runs["copy_timeout"] = chaos_run(
+        device, cfg, budget, CHAOS_TIMEOUT_STEPS, [FaultSpec(
+            "engine.transfer_stall", prob=0.3, seconds=CHAOS_STALL_S,
+            start=start, stop=start + CHAOS_TIMEOUT_WINDOW)])
+    problems += chaos_compare("copy_timeout", twin, runs["copy_timeout"],
+                              False)
+    timeouts, more = timeout_checks(runs["copy_timeout"])
+    problems += more
+    hang, more = adapt_hang(device, cfg, hang_ctx)
+    problems += more
+    emit("chaos_12d", swap_in_terminal=terminal, copy_timeout=timeouts,
+         adapt_hang=hang, seconds=time.perf_counter() - t1)
     summary = {
         "ok": not problems, "problems": problems, "budget": budget,
         "window": win,
@@ -5013,7 +5506,359 @@ def phase_chaos(device, budget: int) -> tuple:
         raise AssertionError(f"chaos: {problems}")
     gc.collect()
     torch.cuda.empty_cache()
-    return ew["k1"]
+    return ew["k1"], {
+        "swap_in_terminal": runs["swap_in_terminal"]["k1"],
+        "copy_timeout": runs["copy_timeout"]["k1"],
+        "adapt_hang": hang["k1_launches"]}
+
+
+@contextlib.contextmanager
+def timed_checkpoints():
+    """Time the checkpoint path on the training thread while the block
+    runs: convert's ``_numpy`` (bf16 widened on the device, a pageable
+    ``.cpu()``), the whole reference-layout conversion (``_numpy`` and the
+    host's ``np.stack``), ``CheckpointManager.save`` with its ``_stage``
+    (the submit to the host tier's checkpoint class) and its ``wait`` for
+    the previous write.  Yields the running sums (seconds)."""
+    from repro_torch.checkpointing import manager as M
+    from repro_torch.models import convert
+    acc = collections.Counter()
+    saved = []
+
+    def wrap(owner, name, key):
+        fn = getattr(owner, name)
+        saved.append((owner, name, fn))
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                acc[key] += time.perf_counter() - t0
+        setattr(owner, name, timed)
+    wrap(convert, "_numpy", "numpy_s")
+    wrap(convert, "params_to_reference", "convert_s")
+    wrap(convert, "opt_state_to_reference", "convert_s")
+    wrap(M.CheckpointManager, "_stage", "stage_s")
+    wrap(M.CheckpointManager, "save", "save_s")
+    wrap(M.CheckpointManager, "wait", "wait_s")
+    try:
+        yield acc
+    finally:
+        for owner, name, fn in reversed(saved):
+            setattr(owner, name, fn)
+
+
+def state_clone(tr) -> dict:
+    """The trainer's parameters and AdamW master, cloned on the device."""
+    out = {f"p/{n}": p.detach().clone()
+           for n, p in tr.model.named_parameters()}
+    for n, t in (tr.opt_state.master or {}).items():
+        out[f"master/{n}"] = t.detach().clone()
+    return out
+
+
+def state_differs(tr, want: dict) -> list:
+    """The names of ``want``'s tensors the trainer's state does not equal
+    bit for bit."""
+    import torch
+    got = state_clone(tr)
+    return [k for k, v in want.items()
+            if k not in got or not torch.equal(got[k], v)]
+
+
+def link_checkpoint(src_dir: str, step: int, dst_dir: str) -> None:
+    """``src_dir``'s checkpoint of ``step`` into ``dst_dir`` (hard links:
+    the same files, no copy)."""
+    import shutil
+    name = f"step_{step:08d}"
+    os.makedirs(os.path.join(dst_dir, name))
+    for f in os.listdir(os.path.join(src_dir, name)):
+        a, b = (os.path.join(src_dir, name, f),
+                os.path.join(dst_dir, name, f))
+        try:
+            os.link(a, b)
+        except OSError:
+            shutil.copy2(a, b)
+
+
+def ckpt_run(device, cfg, budget, store_dir, steps, every=0, specs=None,
+             resume_from=None, resumed_state=None, final_state=None,
+             keep_state=False) -> tuple:
+    """One run of the ckpt_full phase: a fresh trainer (a fresh checkpoint
+    directory, holding ``resume_from``'s (dir, step) checkpoint, which
+    ``resume()`` then restores, timed, and whose state is held to
+    ``resumed_state`` when given), ``steps`` steps in one
+    ``train()`` call (so a write overlaps the steps after its save) under
+    a fault plan of ``specs`` (seed 0, CHAOS_CLI_PLAN's) when given; its
+    state at the end held to ``final_state`` when given.  Returns (row,
+    the state cloned at the end with ``keep_state``), the trainer let go:
+    per save the training thread's seconds (``timed_checkpoints``) and
+    the writer's (the ``ckpt.write`` and ``ckpt.collect`` spans) with the
+    bytes on disk; per step its wall time and whether it overlapped a
+    write; the allocator's peak; K1's launches; the plan's fires, failed
+    writes and the store's counters; the checkpoint directory (``dir``),
+    which stays."""
+    import tempfile
+    import torch
+    from repro_torch import faults, obs
+    from repro_torch.common.config import (ChameleonConfig,
+                                           PolicyStoreConfig, TrainConfig)
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.runtime.trainer import Trainer
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    if resume_from is not None:
+        link_checkpoint(resume_from[0], resume_from[1], d)
+    obs.tracer().clear()
+    obs.ledger().clear()
+    # armed before the trainer opens its policy store (store.load)
+    plan = faults.arm(faults.FaultPlan(specs, seed=0)) if specs else None
+    try:                         # the train phase's traffic and rate, no eval
+        tr = Trainer(cfg, TrainConfig(
+            steps=100, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+            eval_every=0, checkpoint_every=every, checkpoint_dir=d),
+            ChameleonConfig(enabled=True, hbm_budget_bytes=budget,
+                            policystore=PolicyStoreConfig(enabled=True,
+                                                          dir=store_dir)),
+            data=SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                 seed=0), device=device)
+    except BaseException:
+        if plan is not None:
+            faults.disarm()
+        raise
+    spans, saves, restore_s = [], [], None
+    with timed_checkpoints() as acc:
+        inner_ck, inner_step = tr._checkpoint, tr._one_step
+
+        def checkpoint(block=False):
+            a0, t0 = dict(acc), time.perf_counter()
+            inner_ck(block=block)
+            row = {k: acc[k] - a0.get(k, 0.0) for k in acc}
+            row.update(step=tr.step, total_s=time.perf_counter() - t0)
+            saves.append(row)
+
+        def one_step(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return inner_step(*a, **k)
+            finally:
+                spans.append((t0, time.perf_counter()))
+        tr._checkpoint, tr._one_step = checkpoint, one_step
+        if resume_from is not None:
+            t0 = time.perf_counter()
+            if not tr.resume():
+                if plan is not None:
+                    faults.disarm()
+                raise AssertionError(f"ckpt_full: no checkpoint in {d}")
+            restore_s = time.perf_counter() - t0
+        differs = (state_differs(tr, resumed_state)
+                   if resumed_state is not None else None)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats(device)
+        ops.flash_attention.launches = 0
+        ops.flash_attention_bwd.launches = 0
+        try:
+            rep = tr.train(steps)
+        finally:
+            if plan is not None:
+                faults.disarm()
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device)
+    pool = tr.rt.hostmem.pool
+    pool.check()
+    writes = {}
+    recs = [r for r in obs.tracer().records()
+            if r["lane"] == obs.LANE_CHECKPOINT and r["kind"] == "span"]
+    for r in recs:
+        if r["name"] == "ckpt.write":
+            writes[int(r["arg"])] = {"t0": r["t0"], "t1": r["t1"],
+                                     "write_s": r["t1"] - r["t0"]}
+    for step, w in writes.items():
+        w["collect_s"] = sum(r["t1"] - r["t0"] for r in recs
+                             if r["name"] == "ckpt.collect"
+                             and w["t0"] <= r["t0"] <= w["t1"])
+        sd = os.path.join(d, f"step_{step:08d}")
+        w["bytes"] = (sum(os.path.getsize(os.path.join(sd, f))
+                          for f in os.listdir(sd))
+                      if os.path.isdir(sd) else None)
+    for row in saves:
+        row.update(writes.get(row["step"], {}))
+        row["stack_s"] = row.get("convert_s", 0.0) - row.get("numpy_s", 0.0)
+    # a step's own wall time (its checkpoint, after it, is not in it)
+    walls = rep.wall_times[-len(spans):]
+    overlapped = [i for i, ((a, _), t) in enumerate(zip(spans, walls))
+                  if any(w["t0"] < a + t and a < w["t1"]
+                         for w in writes.values())]
+    start = tr.step - len(spans)
+    row = {"dir": d, "start": start, "steps": steps,
+           "resumed_state_differs": differs,
+           "losses": list(rep.losses)[-len(spans):],
+           "wall_ms": [t * 1e3 for t in rep.wall_times[-len(spans):]],
+           "overlapped": [start + i for i in overlapped],
+           "failures": list(rep.failures), "saves": saves,
+           "restore_s": restore_s, "peak": peak,
+           "live_blocks": pool.live_blocks,
+           "write_failures": tr.ckpt.n_write_failures,
+           "restore_fallbacks": tr.ckpt.n_restore_fallbacks,
+           "checkpoints": tr.ckpt.all_steps(),
+           "fired": plan.stats()["fired"] if plan is not None else {},
+           "store": (rep.policystore or {}).get("store"),
+           "stages": rep.stages[-len(spans):],
+           "k1": (ops.flash_attention.launches,
+                  ops.flash_attention_bwd.launches),
+           "final_state_differs": (state_differs(tr, final_state)
+                                   if final_state is not None else None),
+           "newest": tr.ckpt.latest_step()}
+    state = state_clone(tr) if keep_state else None
+    drop_trainer(tr, keep_dir=True)
+    del tr, rep, pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, state
+
+
+def ckpt_host(cfg, tmp: str) -> dict:
+    """The temporary directory's free disk, the host's available memory
+    and a save's bytes at ``cfg``'s depth; ``fits`` when they hold
+    CKPT_DISK_SAVES and CKPT_HOST_SAVES saves."""
+    import shutil
+    with open("/proc/meminfo") as f:
+        mem = {ln.split(":")[0]: int(ln.split()[1]) * 1024 for ln in f}
+    free = shutil.disk_usage(tmp).free
+    n = cfg.param_count()
+    save = n * CKPT_BYTES_PER_PARAM
+    return {"tmp": tmp, "disk_free": free,
+            "mem_available": mem["MemAvailable"], "params": n,
+            "save_bytes": save,
+            "fits": (free >= CKPT_DISK_SAVES * save
+                     and mem["MemAvailable"] >= CKPT_HOST_SAVES * save)}
+
+
+def phase_ckpt_full(device) -> dict:
+    """Checkpoints at full width (12d; module doc): runs A-D and D's
+    resume.  Every check raises.  Returns each run's K1 launches."""
+    import shutil
+    import tempfile
+    import torch
+    import repro_torch.configs as C
+    from repro_torch import faults, obs
+
+    for name in ("runtime", "hostmem"):      # earlier phases' trainers
+        obs.metrics().unregister_provider(name)
+    release_device_memory(device)
+    cfg = C.get_config("llama2-paper").replace(num_layers=CKPT_LAYERS,
+                                               attn_impl="flash")
+    host = ckpt_host(cfg, tempfile.gettempdir())
+    emit("ckpt_full_host", layers=CKPT_LAYERS, **host)
+    if not host["fits"]:
+        raise AssertionError(f"ckpt_full: the host cannot hold the saves "
+                             f"{host}")
+    budget, brow = exec_budget(device, cfg, phase="ckpt_full")
+    # A-C share one store (B and C reuse A's policy); D adapts into its
+    # own (store.put faults) and its resume opens it (store.load faults),
+    # as chaos_cli's two runs do
+    stores = [tempfile.mkdtemp(prefix="chip_smoke_ckpt_store_")
+              for _ in range(2)]
+    specs = [faults.FaultSpec.from_json(x) for x in CHAOS_CLI_PLAN["specs"]]
+    runs, dirs, problems = {}, [], []
+
+    def run(name, *a, **k):
+        """One run; its checkpoint directory stays in ``dirs`` until
+        ``drop_dirs``, so at most two saves are on the disk at once."""
+        row, state = ckpt_run(device, cfg, budget, *a, **k)
+        dirs.append(row.pop("dir"))
+        runs[name] = row
+        return state
+
+    def drop_dirs():
+        while dirs:
+            shutil.rmtree(dirs.pop(), ignore_errors=True)
+
+    try:
+        run("A", stores[0], CKPT_STEPS + 1)
+        b_state = run("B", stores[0], CKPT_STEPS, every=CKPT_EVERY,
+                      keep_state=True)
+        run("C", stores[0], CKPT_STEPS - CKPT_EVERY,
+            resume_from=(dirs[-1], CKPT_EVERY), final_state=b_state)
+        del b_state
+        drop_dirs()
+        d_state = run("D", stores[1], CKPT_STEPS, every=CKPT_EVERY,
+                      specs=specs, keep_state=True)
+        newest = runs["D"]["newest"]
+        if newest is None:
+            problems.append("D: no checkpoint that restore accepts")
+        else:
+            # one step from D's newest checkpoint; where that is D's last
+            # save, the restored state must be D's at its end
+            run("D_resume", stores[1], 1, specs=specs,
+                resume_from=(dirs[-1], newest),
+                resumed_state=d_state if newest == CKPT_STEPS else None)
+        del d_state
+    finally:
+        drop_dirs()
+        for d in stores:
+            shutil.rmtree(d, ignore_errors=True)
+    a = runs["A"]
+    problems += ckpt_checks(runs, a)
+    summary = {"ok": not problems, "problems": problems,
+               "layers": CKPT_LAYERS,
+               "budget": budget, "budget_row": {k: brow[k] for k in (
+                   "floor", "peak", "static_bytes", "t_iter_s", "dt_s")},
+               **{f"run_{k}": ckpt_summary(r, a) for k, r in runs.items()}}
+    emit("ckpt_full", **summary)
+    if problems:
+        raise AssertionError(f"ckpt_full: {problems}")
+    return {k: r["k1"] for k, r in runs.items()}
+
+
+def ckpt_summary(run: dict, a: dict) -> dict:
+    """A ckpt_full run's printed row: its saves, the overlapped steps' p50
+    against A's same steps, the peak against A's."""
+    over = run["overlapped"]
+    row = {k: v for k, v in run.items() if k not in ("losses", "wall_ms")}
+    row["step_p50_ms"] = p50(run["wall_ms"])
+    if over:
+        row["overlapped_p50_ms"] = p50([run["wall_ms"][i - run["start"]]
+                                        for i in over])
+        row["twin_overlapped_p50_ms"] = p50([a["wall_ms"][i] for i in over])
+    row["peak_over_A"] = run["peak"] - a["peak"]
+    return row
+
+
+def ckpt_checks(runs: dict, a: dict) -> list:
+    """ckpt_full's gates: B writes its saves; C's and D's losses (and
+    D_resume's one step) equal A's at the same steps, bit for bit, and C's
+    state B's; D survives its plan; no run crashes or leaves a live
+    slab."""
+    problems = []
+    for name, r in runs.items():
+        if r["failures"]:
+            problems.append(f"{name}: crashed {r['failures']}")
+        if r["live_blocks"]:
+            problems.append(f"{name}: {r['live_blocks']} live slabs")
+        want = a["losses"][r["start"]:r["start"] + len(r["losses"])]
+        if name != "A" and r["losses"] != want:
+            problems.append(f"{name}: losses differ from A's at steps "
+                            f"{r['start']}..")
+    b = runs["B"]
+    if len([s for s in b["saves"] if s.get("bytes")]) != (
+            CKPT_STEPS // CKPT_EVERY):
+        problems.append(f"B: saves {b['checkpoints']}")
+    if runs["C"]["start"] != CKPT_EVERY:
+        problems.append(f"C: resumed at {runs['C']['start']}")
+    if runs["C"]["final_state_differs"]:
+        problems.append(f"C: state differs from B's "
+                        f"{runs['C']['final_state_differs'][:4]}")
+    if not sum(runs["D"]["fired"].values()):
+        problems.append("D: the plan never fired")
+    dr = runs.get("D_resume")
+    if dr is not None and dr["resumed_state_differs"]:
+        problems.append(f"D_resume: restored state differs from D's "
+                        f"{dr['resumed_state_differs'][:4]}")
+    return problems
 
 
 def autotune_check(kernel, args, config, out, dname) -> dict:
@@ -5340,8 +6185,11 @@ def main(argv=None) -> int:
     phase_train_cli(device)
     phase_chameleon(device, tier)
     exec_launches = phase_chameleon_exec(device)
-    async_launches = phase_chameleon_async(device)
-    chaos_launches = phase_chaos(device, exec_launches[2])
+    async_launches, hang_ctx = phase_chameleon_async(device)
+    chaos_launches, chaos_12d = timed("chaos", phase_chaos, device,
+                                      exec_launches[2], hang_ctx)
+    del hang_ctx
+    ckpt_launches = timed("ckpt_full", phase_ckpt_full, device)
     serve_zoo = timed("serve_zoo", phase_serve_zoo, device)
     zoo = {phase: timed(phase, phase_train_zoo, device, phase)
            for phase in ZOO_TRAIN}
@@ -5382,6 +6230,12 @@ def main(argv=None) -> int:
         "chameleon_async_launches": async_launches[0],
         # chaos: the engine_window run, (steps + replays) x 8
         "chaos_launches": chaos_launches[0],
+        # 12d: the examples phase's train_e2e runs and elastic_restart,
+        # the drill's new scenarios, ckpt_full's runs
+        "examples_runs": {n: r["k1_fwd"]
+                          for n, r in example_launches["runs"].items()},
+        "chaos_12d_launches": {n: k[0] for n, k in chaos_12d.items()},
+        "ckpt_full_launches": {n: k[0] for n, k in ckpt_launches.items()},
         "train_cold_ms": k1_cold["train"]["cold_ms"],
         "train_library_cold_ms": k1_cold["train"]["library_cold_ms"],
         # the decoder zoo: serve_moe's prefills, the train phases' steps
@@ -5410,6 +6264,10 @@ def main(argv=None) -> int:
         "chameleon_exec_launches": exec_launches[1],
         "chameleon_async_launches": async_launches[1],
         "chaos_launches": chaos_launches[1],
+        "examples_runs": {n: r["k1_bwd"]
+                          for n, r in example_launches["runs"].items()},
+        "chaos_12d_launches": {n: k[1] for n, k in chaos_12d.items()},
+        "ckpt_full_launches": {n: k[1] for n, k in ckpt_launches.items()},
         # the largest bf16 error of dq, dk, dv at the training shape
         "max_abs_err": max(bwd_row[f"{g}_max_abs_err"]
                            for g in ("dq", "dk", "dv")),
@@ -5438,6 +6296,9 @@ def main(argv=None) -> int:
         # the distributed phase's compressed sync: per leaf, K2a once and
         # K2b twice (the residual and the one gathered slab)
         "distributed_launches": dist_launches["k2"][i],
+        # the examples phase's 12d runs (train_e2e's burst spills raw)
+        "examples_runs": {n: r[("k2a", "k2b")[i]]
+                          for n, r in example_launches["runs"].items()},
         # over every quant case: int8 steps for K2a, output for K2b (0 = the
         # kernel is bit-identical to its plain version)
         "max_abs_err": err,
@@ -5474,6 +6335,8 @@ def main(argv=None) -> int:
         "configs": {k: cross_summary(r)
                     for k, r in configs["decode"].items()},
         "examples_launches": example_launches["k3"],
+        "examples_runs": {n: r["k3"]
+                          for n, r in example_launches["runs"].items()},
         # the same call writing each row's log-sum-exp (the kv_seq cache's
         # merge), at the timed shape
         "lse_ms": decode_row["lse_ms"],

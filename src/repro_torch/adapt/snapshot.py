@@ -5,13 +5,16 @@ everything the §5 adaptation cycle reads, at the moment drift settles, so
 the background worker never touches live runtime state:
 
   * the Detailed-mode :class:`~repro_torch.core.profiler.ProfileData` of
-    the grad dispatch, already materialized, priced at ``t_iter``: the
-    grad dispatch's own measured time where the trainer gives one (a
-    departure, ``core.runtime``'s module doc), else the iteration's, as in
-    the reference.  The reference may carry a traced jaxpr here and let the
-    worker profile it; an eager step has none, and its profile is a replay
-    of the dispatch on the device (``ChameleonRuntime._baseline_profile``),
-    which only the training thread may run;
+    the grad dispatch, already materialized, priced at its own
+    ``t_iter``: the grad dispatch's measured time where the trainer gives
+    one (a departure, ``core.runtime``'s module doc), else the
+    iteration's, as in the reference.  The reference may carry a traced
+    jaxpr here and let the worker profile it; an eager step has none, and
+    its profile is a replay of the dispatch on the device
+    (``ChameleonRuntime._baseline_profile``), which only the training
+    thread may run;
+  * the iteration's measured time (``t_iter``), as in the reference: the
+    worker paces its variants by it;
   * a *copy* of the bandwidth-model curve
     (:meth:`~repro_torch.hostmem.bwmodel.BandwidthModel.snapshot`);
   * the transfer engine's per-class backlog at snapshot time
@@ -53,8 +56,9 @@ class FrozenBacklog:
 class AdaptSnapshot:
     """One adaptation's frozen inputs, immutable after construction."""
     profile: Optional[ProfileData] = None
-    # the time the profile is priced at: the grad dispatch's measured time
-    # less its copy stall where the trainer gave one, else the iteration's
+    # the iteration's measured time, which paces the worker's variants;
+    # the profile carries its own price (``profile.t_iter``: the grad
+    # dispatch's time less its copy stall where the trainer gave one)
     t_iter: float = 1.0
     budget: int = 0                      # HBM budget (bytes)
     bwmodel: Any = None                  # frozen BandwidthModel copy (or None)

@@ -68,7 +68,8 @@ What eager PyTorch changes:
     less that dispatch's measured copy stall (``core.executor``: a
     stalling variant does not widen its own budgets), and the GenPolicy
     step, the async snapshot and the kickoff price the replayed profile at
-    it; the variants' ``measured_t`` stays the iteration's ``t_iter``
+    it; the variants' ``measured_t`` and the async snapshot's own
+    ``t_iter``, which paces the worker's variants, stay the iteration's
     (paper §7.1's selection by measured iteration time).  A caller that
     gives no ``t_grad`` prices at ``t_iter``, as the reference does.  The
     replay's own wall is not used: the Detailed mode inflates it.
@@ -528,7 +529,7 @@ class ChameleonRuntime:
             # async placement: the sequence settled — hand the background
             # worker an immutable snapshot (or install a parked
             # speculative result on the spot) and keep iterating
-            self._async_kickoff(t_price)
+            self._async_kickoff(t_iter, t_price)
         elif stage is Stage.WARMUP and (prev_stage is not Stage.WARMUP
                                         or shape_drift):
             # sequence (or dispatch shape) changed: back to the
@@ -787,11 +788,14 @@ class ChameleonRuntime:
         self.hostmem.engine.begin_iteration()
 
     # ------------------------------------ async placement (repro_torch.adapt)
-    def _snapshot(self, args, t_price: float) -> AdaptSnapshot:
+    def _snapshot(self, args, t_iter: float,
+                  t_price: float) -> AdaptSnapshot:
         """Freeze this adaptation's inputs.  The profile is materialized
         here, on the training thread: the ``_profile_lru`` entry of a
         stream adapted before, else the replay (memoized by arg shapes)
-        priced at ``t_price`` (``end_iteration``'s)."""
+        priced at ``t_price`` (``end_iteration``'s).  The snapshot's own
+        ``t_iter`` is the iteration's measured time, as the reference's:
+        the worker paces its variants by it."""
         hm = self.hostmem
         iter_fp = iter_exact = None
         if self._last_sig is not None and len(self._last_sig):
@@ -802,7 +806,7 @@ class ChameleonRuntime:
         if prof is None:
             prof = self._baseline_profile(args, t_price)
         return AdaptSnapshot(
-            profile=prof, t_iter=t_price, budget=self.budget,
+            profile=prof, t_iter=t_iter, budget=self.budget,
             bwmodel=hm.bwmodel.snapshot() if hm else None,
             contention_s=hm.engine.queued_delay() if hm else 0.0,
             backlog=hm.engine.backlog_snapshot() if hm else {},
@@ -818,14 +822,14 @@ class ChameleonRuntime:
         return hashlib.sha1(
             f"{fp_exact}|{self._train_shape}".encode()).hexdigest()
 
-    def _async_kickoff(self, t_price: float) -> None:
+    def _async_kickoff(self, t_iter: float, t_price: float) -> None:
         """ADAPTING entry: install a parked speculative result if the
         observed stream has one (zero GenPolicy steps, nothing in flight),
         otherwise enqueue the snapshot for the worker."""
         args = self._last_train_args or self._example_args
         if args is None:
             return
-        snap = self._snapshot(args, t_price)
+        snap = self._snapshot(args, t_iter, t_price)
         self.service.begin(self.step_idx)
         hit = self.service.take_speculative(snap.iter_exact)
         if hit is not None:

@@ -25,6 +25,7 @@ ratio (the chip smoke's ``chameleon_async`` phase holds it on the card).
 import dataclasses
 import shutil
 import tempfile
+import threading
 
 import numpy as np
 import pytest
@@ -34,15 +35,18 @@ import repro.configs as RC
 import repro_torch.configs as PC
 from repro.adapt import AdaptSnapshot as RSnapshot
 from repro.adapt import AdaptationPipeline as RPipeline
+from repro.common.config import AdaptConfig as RAdaptCfg
 from repro.common.config import ChameleonConfig as RCfg
 from repro.common.config import PolicyStoreConfig as RPSCfg
+from repro.common.config import ResilienceConfig as RResCfg
 from repro.common.config import TrainConfig as RTrainConfig
 from repro.core.executor import Executor as RExecutor
 from repro.core.profiler import ProfileData as RProfile
 from repro.core.profiler import TensorInstance as RTensor
 from repro.data.synthetic import SyntheticTokens as RTokens
 from repro.runtime.trainer import Trainer as RTrainer
-from repro_torch.common.config import (ChameleonConfig, PolicyStoreConfig,
+from repro_torch.common.config import (AdaptConfig, ChameleonConfig,
+                                       PolicyStoreConfig, ResilienceConfig,
                                        TrainConfig)
 from repro_torch.core.profiler import ProfileData
 from repro_torch.data.synthetic import SyntheticTokens
@@ -52,6 +56,8 @@ from tests.test_torch_planning import _entry
 torch.set_num_threads(1)      # tier-1 runs several xdist workers
 
 STEPS, PERIOD, SEQS, BATCH = 48, 12, (64, 96), 4
+# the hook's drain deadline: far past any job's time, loaded or not
+DRAIN_S = 600.0
 MODES = ("inline", "async", "speculative")
 
 
@@ -62,14 +68,29 @@ def _tcfg(mod, d):
 
 def _drift(pkg: str, mode: str, budget: int) -> dict:
     """One drift run in ``pkg`` ("port" or "ref"); the hook drains the
-    worker, then switches the bucket every PERIOD steps."""
+    worker, then switches the bucket every PERIOD steps.
+
+    Wall time decides nothing: the worker starts a job only inside the
+    hook (``gate``), so a job submitted at a step's kickoff can never
+    publish before that step's own poll, however the threads are
+    scheduled; the hook's drain must finish (a timeout fails the test
+    instead of shifting an install); and both packages run with the
+    watchdog and the pacing off, which the drained hook makes moot, and
+    without the link-health layer, through their own configs.  No fault
+    is injected here, so that layer's only input would be the host
+    clock: on a loaded host a CPU copy over its 50 ms timeout floor
+    moves the degradation ladder, whose new policy changes the op stream
+    and so the stages."""
     d = tempfile.mkdtemp()
     try:
         if pkg == "port":
             cfg = PC.get_reduced("llama2_paper")
             cham = ChameleonConfig(enabled=True, hbm_budget_bytes=budget,
                                    policystore=PolicyStoreConfig(
-                                       enabled=False))
+                                       enabled=False),
+                                   adapt=AdaptConfig(pace_s=0.0),
+                                   resilience=ResilienceConfig(
+                                       enabled=False, adapt_timeout_s=0.0))
             mk = lambda seq, seed: SyntheticTokens(cfg.vocab_size, seq,
                                                    BATCH, seed=seed)
             tr = Trainer(cfg, _tcfg(TrainConfig, d), cham, data=mk(64, 0),
@@ -77,28 +98,35 @@ def _drift(pkg: str, mode: str, budget: int) -> dict:
         else:
             cfg = RC.get_reduced("llama2_paper")
             cham = RCfg(enabled=True, hbm_budget_bytes=budget,
-                        policystore=RPSCfg(enabled=False))
+                        policystore=RPSCfg(enabled=False),
+                        adapt=RAdaptCfg(pace_s=0.0),
+                        resilience=RResCfg(enabled=False,
+                                           adapt_timeout_s=0.0))
             mk = lambda seq, seed: RTokens(cfg.vocab_size, seq, BATCH,
                                            seed=seed)
             tr = RTrainer(cfg, _tcfg(RTrainConfig, d), cham, data=mk(64, 0),
                           adapt_mode=mode)
         buckets = [mk(s, i) for i, s in enumerate(SEQS)]
         runs = []
-        if pkg == "port":                  # every worker run, in order
-            pipe_run = tr.rt.pipeline.run
+        gate = threading.Event()
+        pipe_run = tr.rt.pipeline.run
 
-            def recorded(snap, **kw):
-                res = pipe_run(snap, **kw)
+        def gated(snap, **kw):
+            assert gate.wait(DRAIN_S)
+            res = pipe_run(snap, **kw)
+            if pkg == "port":              # every worker run, in order
                 runs.append((snap, res))
-                return res
-            tr.rt.pipeline.run = recorded
+            return res
+        tr.rt.pipeline.run = gated
 
         ran = []                           # the policy each step ran
 
         def hook(step):
             if pkg == "port":
                 ran.append(tr.rt._last_dispatch.applied)
-            tr.rt.service.drain()
+            gate.set()
+            assert tr.rt.service.drain(timeout=DRAIN_S)
+            gate.clear()
             if (step + 1) % PERIOD == 0:
                 tr.data = buckets[((step + 1) // PERIOD) % 2]
 

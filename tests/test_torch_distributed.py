@@ -42,9 +42,14 @@ from conftest import run_child
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 CHILD_TIMEOUT = 240
+# the ranks' own limit on the group's rendezvous (and each collective),
+# inside the parent's CHILD_TIMEOUT: a rank that cannot meet the others
+# under a loaded host fails with gloo's own timeout and message instead of
+# being killed from outside with the rest
+RENDEZVOUS_TIMEOUT = 180
 
 _PRELUDE = '''
-import json, os, sys
+import datetime, json, os, sys
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -53,8 +58,17 @@ RANK = int(os.environ["RANK"])
 WORLD = int(os.environ["WORLD_SIZE"])
 OUT = os.environ["OUT"]
 dist.init_process_group("gloo", init_method="file://" + os.environ["STORE"],
-                        rank=RANK, world_size=WORLD)
+                        rank=RANK, world_size=WORLD,
+                        timeout=datetime.timedelta(
+                            seconds=float(os.environ["RENDEZVOUS_TIMEOUT"])))
 '''
+# every rank leaves the group together: a rank that closes its sockets
+# while a slower peer is still inside the last collective makes gloo
+# reset that peer's connection, which aborts the peer's process
+_EPILOGUE = """
+dist.barrier()
+dist.destroy_process_group()
+"""
 
 
 def run_ranks(code: str, world: int, tmp_path, timeout: int = CHILD_TIMEOUT
@@ -66,13 +80,13 @@ def run_ranks(code: str, world: int, tmp_path, timeout: int = CHILD_TIMEOUT
     store = os.path.join(str(tmp_path), "store")
     if os.path.exists(store):
         os.remove(store)
-    body = (_PRELUDE + textwrap.dedent(code)
-            + "\ndist.destroy_process_group()\n")
+    body = _PRELUDE + textwrap.dedent(code) + _EPILOGUE
     procs = []
     for r in range(world):
         env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
                    STORE=store, OUT=str(tmp_path), PYTHONPATH=SRC,
-                   OMP_NUM_THREADS="1")
+                   OMP_NUM_THREADS="1",
+                   RENDEZVOUS_TIMEOUT=str(RENDEZVOUS_TIMEOUT))
         procs.append(subprocess.Popen(
             [sys.executable, "-c", body], env=env, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True))

@@ -56,7 +56,7 @@ from repro_torch.common.config import (ChameleonConfig, PolicyStoreConfig,
                                        ResilienceConfig, TrainConfig)
 from repro_torch.data.synthetic import SyntheticTokens
 from repro_torch.faults import HEALTHY
-from repro_torch.hostmem.engine import TransferEvent
+from repro_torch.hostmem.engine import SWAP_IN, SWAP_OUT, TransferEvent
 from repro_torch.launch import train as train_cli
 from repro_torch.runtime.straggler import StragglerDetector
 from repro_torch.runtime.trainer import Trainer
@@ -531,3 +531,387 @@ def test_train_cli_fault_plan(tmp_path, capsys):
     kinds = [json.loads(ln)["kind"] for ln in audit.read_text().splitlines()]
     assert kinds[0] == "fault.armed" and "fault.injected" in kinds
     assert "fault.disarmed" in kinds
+
+
+# ------------------------------- 12d: a terminal swap-in failure, timeouts
+TERMINAL_STEPS = 24           # the terminal step, then the ladder's answer
+STALL_S = 0.1                 # twice ResilienceConfig.timeout_floor_s
+HEALTH_WHY = ("health-failed", "health-degraded", "recovery-probe")
+
+
+class _Clock:
+    """A module's ``time``: ``perf_counter`` advances ``tick`` a call and
+    ``sleep`` advances it instead of sleeping.  In an engine module a
+    copy's measured time is then its injected stall (and its backoffs);
+    in a trainer module an iteration's time, which prices the detailed
+    profile and ranks the inline variants, is the same in every run: the
+    policies do not depend on the host's load."""
+
+    def __init__(self, tick=1e-6):
+        self.t, self.tick = 0.0, tick
+
+    def perf_counter(self):
+        self.t += self.tick
+        return self.t
+
+    def sleep(self, s):
+        self.t += max(float(s), 0.0)
+
+
+def _terminal_swap_ins(side, eng, method, in_step):
+    """Every swap-in of the step ``in_step()`` says is the terminal one
+    fails for good after its swap-out staged: the engine's ``method`` (the
+    port issues a copy at ``submit_swap_in``, the reference at
+    ``_execute``) runs with a drop-everything plan armed for that call
+    alone (the plan has no direction filter, in either package).  Returns
+    the count of such swap-ins."""
+    inner, plan, n = getattr(eng, method), side.faults.FaultPlan(
+        [side.faults.FaultSpec("engine.transfer_drop", prob=1.0)],
+        seed=1), [0]
+
+    def call(ev_or_src, *a, **k):
+        if not in_step() or (method == "_execute"
+                             and ev_or_src.kind != SWAP_IN):
+            return inner(ev_or_src, *a, **k)
+        n[0] += 1
+        side.faults.arm(plan)
+        try:
+            return inner(ev_or_src, *a, **k)
+        finally:
+            side.faults.disarm()
+    setattr(eng, method, call)
+    return n
+
+
+def _scenario(name, window):
+    """(steps, ResilienceConfig fields, fault specs, terminal step)."""
+    if name == "swap_in_terminal":
+        return TERMINAL_STEPS, {"max_retries": 1}, None, window["start"]
+    return CHAOS_STEPS, {}, [dict(site="engine.transfer_stall", prob=0.3,
+                                  seconds=STALL_S, **window)], None
+
+
+def _counters(eng):
+    return (eng.n_sync_fallback_in, eng.n_hbm_fallback_in, eng.n_timeouts,
+            eng.n_retries, eng.n_failed_out, eng.n_failed_in)
+
+
+def _port_scenario(name, window, rtr, monkeypatch):
+    """The port's chaos trainer under the scenario, from the reference
+    trainer's initial state, its engine and trainer modules on ``_Clock``.
+    Returns (report, the stream of what fed its engine's health and
+    ladder, per-step counters, ladder transitions, terminal swap-ins)."""
+    from repro_torch.hostmem import engine as PE
+    from repro_torch.runtime import trainer as PT
+    from tests.test_torch_training import _start_from_reference
+    steps, res, specs, term = _scenario(name, window)
+    monkeypatch.setattr(PE, "time", _Clock())
+    monkeypatch.setattr(PT, "time", _Clock(1e-3))
+    d = tempfile.mkdtemp()
+    try:
+        cfg = PC.get_reduced("llama2_paper")
+        tr = Trainer(cfg, TrainConfig(
+            steps=steps, checkpoint_every=0, checkpoint_dir=d,
+            eval_every=0, warmup_steps=2, learning_rate=1e-3),
+            ChameleonConfig(enabled=True, hbm_budget_bytes=CHAOS_BUDGET,
+                            resilience=ResilienceConfig(
+                                **CHAOS_RESILIENCE, **res)),
+            data=SyntheticTokens(cfg.vocab_size, 64, 4, seed=0),
+            device="cpu")
+        _start_from_reference(tr, rtr)
+        rt, eng = tr.rt, tr.rt.hostmem.engine
+        lad, stream, ids = rt.ladder, [], {}
+        # what the engine's copies did, in the order they retired: each
+        # attempt's stall and failure, and the copy itself
+        attempts = {}
+        copy_once, execute = eng._copy_once, eng._execute
+
+        def rec_copy_once(ev):
+            ev._stall_s = 0.0
+            try:
+                copy_once(ev)
+            except Exception:
+                attempts.setdefault(ev.eid, []).append((ev._stall_s, True))
+                raise
+            attempts.setdefault(ev.eid, []).append((ev._stall_s, False))
+
+        def rec_execute(ev):
+            execute(ev)
+            stream.append(("copy", ev.eid, ev.kind, ev.nbytes, ev.tag,
+                           ev.cls, ids.get(ev.eid),
+                           getattr(ev, "_free_block", True),
+                           attempts.pop(ev.eid, [])))
+        submit_in = eng.submit_swap_in
+
+        def rec_submit_in(src, tag="", free_block=True, cls=None):
+            ev = submit_in(src, tag, free_block, cls)
+            ids[ev.eid] = getattr(src, "eid", None)
+            if ev.done and ev.result is not None and getattr(
+                    src, "failed", False):            # a retained source
+                stream.append(("hbm_fallback", ev.eid, src.eid, tag))
+            return ev
+        eng._copy_once, eng._execute = rec_copy_once, rec_execute
+        eng.submit_swap_in = rec_submit_in
+        n_term = (_terminal_swap_ins(PORT, eng, "submit_swap_in",
+                                     lambda: tr.step == term)
+                  if term is not None else None)
+        should_probe, decide = lad.should_probe, lad.decide
+
+        def rec_probe(step):
+            p = should_probe(step)
+            stream.append(("probe?", step, p))
+            return p
+
+        def rec_decide(worst, step):
+            stream.append(("decide", step, worst))
+            return decide(worst, step)
+        lad.should_probe, lad.decide = rec_probe, rec_decide
+        note_pressure = eng.health.note_pressure
+
+        def rec_pressure(cls, severe=False):
+            stream.append(("pressure", cls, severe))
+            return note_pressure(cls, severe)
+        eng.health.note_pressure = rec_pressure
+        per_step = []
+
+        def hook(step):
+            per_step.append((_counters(eng), eng.health.worst()))
+            stream.append(("end", step))
+        plan = (PF.FaultPlan([PF.FaultSpec(**s) for s in specs], seed=1)
+                if specs else None)
+        with contextlib.ExitStack() as stack:
+            if plan is not None:
+                stack.enter_context(PF.injected(plan))
+            rep = tr.train(steps, fault_hook=hook)
+        tr.rt.close()
+        assert eng.pool.live_blocks == 0
+        eng.pool.check()
+        return SimpleNamespace(
+            rep=rep, stream=stream, per_step=per_step,
+            transitions=[(t["step"], t["to"], t["why"])
+                         for t in lad.transitions],
+            terminal=n_term[0] if n_term else None, term=term,
+            fired=plan.stats()["fired"] if plan else {}, cham=tr.cham)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _replay_on_reference(port, monkeypatch):
+    """The port run's copies, in the order they retired and with each
+    attempt's stall and failure, through the reference's engine (from the
+    reference's tier for the same ChameleonConfig) on ``_Clock``;
+    its health fed the same memory-pressure notes, and the reference's
+    ladder asked at the same points.  Returns per-step (counters, worst
+    health), the ladder's transitions and its probe answers."""
+    from repro.faults.ladder import DegradationLadder as RLadder
+    from repro.hostmem import engine as RE
+    from tests.test_torch_adapt_placements import _ref_cfg
+    clock = _Clock()
+    monkeypatch.setattr(RE, "time", clock)
+    rcfg = _ref_cfg(port.cham)
+    eng = RH.HostMemTier.from_chameleon(rcfg).engine
+    lad = RLadder(hold_iterations=rcfg.resilience.ladder_hold_iterations,
+                  probe_interval=rcfg.resilience.probe_interval)
+    script = []
+    copy_once = eng._copy_once
+
+    def scripted(ev):
+        stall, fails = script.pop(0)
+        clock.sleep(stall)
+        if fails:
+            raise RE.TransferError(f"replayed failure ({ev.tag!r})")
+        copy_once(ev)
+    eng._copy_once = scripted
+    events, per_step, probes = {}, [], []
+    for item in port.stream:
+        kind = item[0]
+        if kind == "copy":
+            _, eid, direction, nbytes, tag, cls, src, free, tries = item
+            script[:] = list(tries)
+            if direction == SWAP_OUT:
+                ev = eng.submit_swap_out(np.zeros(nbytes, np.uint8), tag, cls)
+            else:
+                ev = eng.submit_swap_in(events[src], tag, free, cls)
+            eng.wait(ev)
+            assert not script, (item, script)
+            events[eid] = ev
+        elif kind == "hbm_fallback":
+            _, eid, src, tag = item
+            ev = eng.submit_swap_in(events[src], tag)
+            assert ev.done and eng.n_hbm_fallback_in
+            events[eid] = ev
+        elif kind == "probe?":
+            probes.append((item[1], lad.should_probe(item[1])))
+        elif kind == "decide":
+            lad.decide(eng.health.worst(), item[1])
+        elif kind == "pressure":
+            eng.health.note_pressure(item[1], item[2])
+        else:
+            per_step.append((_counters(eng), eng.health.worst()))
+    return SimpleNamespace(per_step=per_step, probes=probes,
+                           transitions=[(t["step"], t["to"], t["why"])
+                                        for t in lad.transitions])
+
+
+def _ref_scenario(name, window, monkeypatch):
+    """The reference's own trainer under the scenario (the reference
+    test's chaos trainer, shortened as ``_chaos_trainer``), its engine and
+    trainer modules on ``_Clock``: the trainer the port starts from, and
+    its run."""
+    import repro.configs as RC
+    from repro.common.config import ChameleonConfig as RCham
+    from repro.common.config import TrainConfig as RTrainConfig
+    from repro.data.synthetic import SyntheticTokens as RTokens
+    from repro.hostmem import engine as RE
+    from repro.runtime import trainer as RTm
+    steps, res, specs, term = _scenario(name, window)
+    monkeypatch.setattr(RE, "time", _Clock())
+    monkeypatch.setattr(RTm, "time", _Clock(1e-3))
+    d = tempfile.mkdtemp()
+    try:
+        cfg = RC.get_reduced("llama2_paper")
+        tr = RTrainer(cfg, RTrainConfig(
+            steps=steps, checkpoint_every=0, checkpoint_dir=d,
+            eval_every=0, warmup_steps=2, learning_rate=1e-3),
+            RCham(enabled=True, hbm_budget_bytes=CHAOS_BUDGET,
+                  resilience=RResilienceConfig(**CHAOS_RESILIENCE, **res)),
+            data=RTokens(cfg.vocab_size, 64, 4, seed=0))
+        start = SimpleNamespace(params=tr.params, opt_state=tr.opt_state)
+        eng = tr.rt.hostmem.engine
+        n_term = (_terminal_swap_ins(REF, eng, "_execute",
+                                     lambda: tr.step == term)
+                  if term is not None else None)
+        per_step = []
+        plan = (RF.FaultPlan([RF.FaultSpec(**s) for s in specs], seed=1)
+                if specs else None)
+        with contextlib.ExitStack() as stack:
+            if plan is not None:
+                stack.enter_context(RF.injected(plan))
+            rep = tr.train(steps, fault_hook=lambda s: per_step.append(
+                _counters(eng)))
+        return start, SimpleNamespace(
+            rep=rep, per_step=per_step, terminal=n_term[0] if n_term else
+            None, fired=plan.stats()["fired"] if plan else {})
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+@pytest.mark.parametrize("name", ["swap_in_terminal", "copy_timeout"])
+def test_engine_faults_in_a_step_match_the_reference(twin, name,
+                                                     monkeypatch):
+    """ROADMAP 12d's drill scenarios on the reduced llama2-paper, run the
+    same way through both packages' trainers from the reference's initial
+    state: ``swap_in_terminal`` (every swap-in of the window's first step
+    fails for good after its swap-out staged, max_retries 1) and
+    ``copy_timeout`` (copies stalled 0.1 s, twice the timeout floor, at
+    0.3 over the window).  Neither crashes; the losses agree within the
+    trainer bar (``tests/test_torch_training.py``); in each, every
+    terminal swap-in is served by the synchronous fallback and every
+    timeout is a stalled copy.  The policies differ (the port profiles
+    storages), so the counters are held where the inputs are the same:
+    the port's copies, each with its stalls and failures, replayed in the
+    order they retired through the reference's engine and ladder give
+    the same fallback, timeout, retry and failure counts and the same
+    worst health after every step, and the same ladder moves at the same
+    steps (P9, and the health layer under faults)."""
+    from tests.test_torch_training import LOSS_TOL
+    start, ref = _ref_scenario(name, twin.window, monkeypatch)
+    port = _port_scenario(name, twin.window, start, monkeypatch)
+    rep = port.rep
+    assert not rep.failures and not ref.rep.failures
+    np.testing.assert_allclose(rep.losses, ref.rep.losses, **LOSS_TOL)
+    for side in (port, ref):
+        counts = [c if side is ref else c[0] for c in side.per_step]
+        if name == "swap_in_terminal":
+            k = side.term if side is port else twin.window["start"]
+            fallbacks = counts[k][0] - counts[k - 1][0]
+            assert side.terminal >= 1 and fallbacks == side.terminal, (
+                side.terminal, fallbacks)
+            assert counts[k][1] == counts[k - 1][1]     # no retained source
+        else:
+            stalls = side.fired.get("engine.transfer_stall", 0)
+            assert 0 < counts[-1][2] <= stalls, (counts[-1][2], stalls)
+    replay = _replay_on_reference(port, monkeypatch)
+    assert replay.per_step == port.per_step
+    assert replay.transitions == port.transitions
+    assert all(why in HEALTH_WHY for _, _, why in port.transitions)
+    assert replay.probes == [(s, p) for kind, s, p in
+                             (i for i in port.stream if i[0] == "probe?")]
+    if name == "swap_in_terminal":
+        assert port.transitions and port.transitions[0][:2] == (
+            port.term + 1, "trimmed")
+
+
+# ------------------------------------ checkpoints under the CLI's plan
+# chip_smoke.py's CHAOS_CLI_PLAN (store and checkpoint faults), its
+# checkpoint-write fault made certain: a write runs on the writer thread,
+# so the iteration a fault draw is keyed on is the host's timing; at 1.0
+# the first two shard writes fail and the third attempt lands
+CLI_PLAN = [dict(site="store.put", prob=0.5),
+            dict(site="store.load", prob=0.5),
+            dict(site="ckpt.write", prob=1.0, max_fires=2)]
+
+
+@pytest.mark.parametrize("writer", ["port", "ref"])
+def test_chaos_checkpoint_restores_in_the_other_package(writer, tmp_path):
+    """A reduced llama2-paper run under Chameleon with a policy store,
+    checkpointing every 3 of 6 steps under CLI_PLAN (store and
+    checkpoint-write faults, ``on_error="degrade"``: two shard writes
+    retried), in one package; the other package's trainer resumes from
+    its newest checkpoint: the step, the loss scale and every parameter
+    equal the writer's at its end."""
+    import jax
+    import repro.configs as RC
+    from repro.common.config import ChameleonConfig as RCham
+    from repro.common.config import TrainConfig as RTrainConfig
+    from repro.data.synthetic import SyntheticTokens as RTokens
+    from repro_torch.models import convert
+    ckpt, store = str(tmp_path / "ckpt"), str(tmp_path / "store")
+    kw = dict(steps=6, checkpoint_every=3, checkpoint_dir=ckpt,
+              eval_every=0, warmup_steps=2, learning_rate=1e-3)
+
+    def port_trainer():
+        cfg = PC.get_reduced("llama2_paper")
+        return Trainer(cfg, TrainConfig(**kw), ChameleonConfig(
+            enabled=True, hbm_budget_bytes=CHAOS_BUDGET,
+            policystore=PolicyStoreConfig(enabled=True, dir=store)),
+            data=SyntheticTokens(cfg.vocab_size, 64, 4, seed=0),
+            device="cpu")
+
+    def ref_trainer():
+        cfg = RC.get_reduced("llama2_paper")
+        return RTrainer(cfg, RTrainConfig(**kw), RCham(
+            enabled=True, hbm_budget_bytes=CHAOS_BUDGET,
+            policystore=RPolicyStoreConfig(enabled=True, dir=store)),
+            data=RTokens(cfg.vocab_size, 64, 4, seed=0))
+
+    side = PORT if writer == "port" else REF
+    plan = side.faults.FaultPlan(
+        [side.faults.FaultSpec(**s) for s in CLI_PLAN], seed=0)
+    with side.faults.injected(plan):
+        w = port_trainer() if writer == "port" else ref_trainer()
+        rep = w.train(6)
+    w.rt.close()
+    assert not rep.failures and plan.stats()["fired"]["ckpt.write"] == 2
+    assert w.ckpt.latest_step() == 6 and w.ckpt.n_write_failures == 0
+    if writer == "port":
+        want = convert.params_to_reference(w.model)
+        r = ref_trainer()
+        assert r.resume() and r.step == 6
+        got = jax.tree.map(np.asarray, r.params)
+        assert float(r.loss_scale.scale) == float(w.loss_scale.scale)
+        r.rt.close()
+    else:
+        want = jax.tree.map(np.asarray, w.params)
+        p = port_trainer()
+        assert p.resume() and p.step == 6
+        got = convert.params_to_reference(p.model)
+        assert float(p.loss_scale.scale) == float(w.loss_scale.scale)
+        p.rt.close()
+    flat = jax.tree_util.tree_flatten_with_path(want)[0]
+    assert flat
+    for path, leaf in flat:
+        node = got
+        for q in path:
+            node = node[q.key]
+        np.testing.assert_array_equal(np.asarray(node), leaf)

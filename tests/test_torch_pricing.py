@@ -122,8 +122,8 @@ def test_slow_apply_step_does_not_price_the_profile(mode, clock, tmpdir_):
     rt = tr.rt
     calls = _priced(rt)
     snaps, inner_snap = [], rt._snapshot
-    rt._snapshot = lambda args, t: snaps.append(inner_snap(args, t)) or \
-        snaps[-1]
+    rt._snapshot = lambda args, t, p: snaps.append(
+        inner_snap(args, t, p)) or snaps[-1]
     try:
         rep = tr.train(14)
         rt.service.drain()
@@ -142,10 +142,79 @@ def test_slow_apply_step_does_not_price_the_profile(mode, clock, tmpdir_):
                                    for v in rt.variants)
         assert rt.profile.t_iter < 1.0
     else:
-        assert snaps and all(s.t_iter < 1.0 for s in snaps)
-        assert all(s.profile.t_iter == s.t_iter for s in snaps)
+        # the profile is priced at the step's grad time, and the snapshot
+        # carries the step's own time, which paces the worker (P11)
+        assert snaps
         for s in snaps:
-            assert s.t_iter == rep.grad_times[s.step - 1]
+            assert s.profile.t_iter == rep.grad_times[s.step - 1]
+            assert s.t_iter == rep.times[s.step - 1]
+
+
+# a step's time on the card (llama2-paper, 8 layers, 2 x 3072 tokens):
+# the slowed optimizer step puts dt above the worker's pace_s and under
+# its cap, so the pace reads the step's time
+CARD_STEP_S = 0.3
+
+
+def test_worker_paces_by_the_iteration_time(clock, tmpdir_):
+    """P11: the async worker sleeps ``min(max(pace_s, snapshot.t_iter),
+    pace_cap_s)`` between variants, the reference's formula, and the
+    snapshot's ``t_iter`` is the iteration's time as in the reference,
+    while its profile stays priced at the grad time.  The reference's
+    service, given a snapshot of the same ``t_iter`` and the same knobs,
+    paces the same.  The trainer's clock is slowed, not the host: the
+    pipeline runs unpaced (its sleeps are not what is held here)."""
+    from repro.adapt import AdaptSnapshot as RSnapshot
+    from repro.adapt import AdaptationService as RService
+
+    tr = _trainer(tmpdir_, steps=14, mode="async")
+    inner = tr._apply.fn
+
+    def slow(*a, **k):
+        out = inner(*a, **k)
+        clock.offset += CARD_STEP_S
+        return out
+    tr._apply.fn = slow
+    rt = tr.rt
+    paced, run = [], rt.service.pipeline.run
+
+    def record(snap, *, pace_s=0.0):
+        paced.append((snap, pace_s))
+        return run(snap, pace_s=0.0)
+    rt.service.pipeline.run = record
+    try:
+        rep = tr.train(14)
+        assert rt.service.drain()
+    finally:
+        rt.close()
+    cfg = tr.cham.adapt
+    assert paced and cfg.pace_s < CARD_STEP_S < cfg.pace_cap_s
+    for snap, pace in paced:
+        assert snap.t_iter == rep.times[snap.step - 1]
+        assert snap.profile.t_iter == rep.grad_times[snap.step - 1]
+        assert snap.profile.t_iter < CARD_STEP_S < snap.t_iter
+        assert pace == min(max(cfg.pace_s, snap.t_iter), cfg.pace_cap_s)
+
+    class _Echo:                       # the reference's pipeline stand-in
+        def __init__(self):
+            self.paces = []
+
+        def run(self, snap, *, pace_s=0.0):
+            self.paces.append(pace_s)
+            raise RuntimeError("paced")   # published as a fallback
+
+    echo = _Echo()
+    ref = RService(echo, "async", pace_s=cfg.pace_s,
+                   pace_cap_s=cfg.pace_cap_s)
+    try:
+        for snap, _ in paced:
+            ref.submit(RSnapshot(t_iter=snap.t_iter, budget=BUDGET,
+                                 iter_exact=snap.iter_exact,
+                                 step=snap.step))
+            assert ref.drain()
+    finally:
+        ref.close()
+    assert echo.paces == [p for _, p in paced]
 
 
 def test_store_record_round_trips_its_price(clock, tmpdir_):
@@ -160,14 +229,14 @@ def test_store_record_round_trips_its_price(clock, tmpdir_):
     _slow_apply(tr, clock)
     rt = tr.rt
     snaps, inner_snap = [], rt._snapshot
-    rt._snapshot = lambda args, t: snaps.append(inner_snap(args, t)) or \
-        snaps[-1]
+    rt._snapshot = lambda args, t, p: snaps.append(
+        inner_snap(args, t, p)) or snaps[-1]
     try:
         rep = tr.train(14)
         rt.service.drain()
     finally:
         rt.close()
-    prices = {s.t_iter for s in snaps}
+    prices = {s.profile.t_iter for s in snaps}
     assert prices and all(p < 1.0 and p in rep.grad_times for p in prices)
     swapped = [r for r in rt.store.records() if r.policy_kind == "swap"]
     assert swapped, [r.policy_kind for r in rt.store.records()]
