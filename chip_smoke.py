@@ -174,9 +174,12 @@ Phases, each printing JSON lines:
               run's cell on fake cuda tensors: its peak within
               CHAM_PEAK_TOL of the allocator's, its roofline terms and the
               step's MFU against the measured p50; then the production
-              dry-run cell llama2_paper x train_4k x single (16 x 16, the
-              default rules) on fake cuda tensors: its peak per chip and
-              departures printed, comparable to the reference's.  Lines
+              dry-run cells DIST_DRYRUN_CELLS (llama2_paper, qwen2_7b and
+              mamba2_780m x train_4k x single: 16 x 16, the default rules)
+              on fake cuda tensors: each one's peak and flops per chip,
+              gathered weight bytes, collective bytes and departures
+              printed, each comparable to the reference's (qwen2_7b's 28
+              heads in runs of 2 and 1, mamba2's B / C split).  Lines
               ``distributed_*``.
 16. train_cli ``repro_torch.launch.train.main`` on the card, reduced
               llama2-paper (f32: the f32 paths of both K1 kernels), 3 steps;
@@ -351,11 +354,16 @@ Phases, each printing JSON lines:
               901-token prefill, K3 at its decode shape with ragged lens
               (a partial last block of query heads); qwen3-moe-30b-a3b's 32
               over 4 heads of 128 (both ways; K3); llama3.2-1b's 32 over 8
-              of 64 (a 901-token prefill; K3).  Each launched twice (bit-
-              equal; phases kernel, kernel_bwd and decode_kernel launch
-              every case twice) and held to K1's limits, timed warm and
-              cold beside SDPA (its backward for the backward) and the
-              bound.  Lines ``kernel``, ``kernel_cold``, ``kernel_bwd``,
+              of 64 (a 901-token prefill; K3); then K1 both ways at one
+              rank's heads where the production model dim (16) does not
+              divide them (LOCAL_K1_CASES: qwen2-7b's runs of 2 heads over
+              1 or 2 KV heads and of 1 over 1 at 2 x 2048, causal;
+              whisper's encoder's runs of 2 and 1 heads at 8 x 1500,
+              non-causal).  Each launched twice (bit-equal; phases kernel,
+              kernel_bwd and decode_kernel launch every case twice) and
+              held to K1's limits, timed warm and cold beside SDPA (its
+              backward for the backward) and the bound.  Lines
+              ``kernel``, ``kernel_cold``, ``kernel_bwd``,
               ``decode_kernel``.
 6d. kernel_cross  (run after 6c) K1's forward and backward at the second
               input path's shapes (CROSS_CASES: whisper's encoder and
@@ -527,8 +535,12 @@ DIST_MOE_TOKENS = (2, 1024)
 # The sharded and unsharded runs' allocator peak as first measured on the
 # H100 (PERF.md §6): the (1, 1) mesh hooks nothing, so both stay at it.
 DIST_PEAK = 35_858_673_152
-# The production dry-run cell the phase traces on fake cuda tensors.
-DIST_DRYRUN_CELL = ("llama2_paper", "train_4k", False)
+# The production dry-run cells the phase traces on fake cuda tensors: the
+# paper's model, a model dim that does not divide the query heads
+# (qwen2-7b's 28 over 16) and Mamba-2's B / C split over it.
+DIST_DRYRUN_CELLS = [("llama2_paper", "train_4k", False),
+                     ("qwen2_7b", "train_4k", False),
+                     ("mamba2_780m", "train_4k", False)]
 
 # The chameleon phase: the train phase's configuration (TRAIN_LAYERS,
 # TRAIN_BATCH x TRAIN_SEQ, TRAIN_LR), with an eval every CHAM_EVAL_EVERY
@@ -912,6 +924,15 @@ CONFIG_K1_CASES = [("qwen2-7b", TRAIN_BATCH, TRAIN_SEQ, True),
                    ("llama3.2-1b", 1, 901, False)]
 CONFIG_K3_CASES = [("qwen2-7b", (900, 101, 1024, 513)),
                    ("qwen3-moe-30b-a3b", None), ("llama3.2-1b", None)]
+# K1 both ways at the shapes one rank of the production mesh's model dim
+# (16) gives it where that dim does not divide the query heads: each
+# distinct (query heads, KV heads) of ``sharding.head_runs`` but the empty
+# run (a rank with no heads launches nothing).  qwen2-7b (28 over 4 heads of
+# 128: runs of 2 heads over 1 or 2 KV heads, and of 1 over 1) at the train
+# shape, causal; whisper's encoder (20 heads of 64: runs of 2 and 1) at its
+# 8 x 1500 frames, non-causal.  (arch, B, S, causal)
+LOCAL_K1_CASES = [("qwen2-7b", TRAIN_BATCH, TRAIN_SEQ, True),
+                  ("whisper-large-v3", 8, 1500, False)]
 # The config train phases: ZOO_TRAIN entries whose depth is cut (their
 # AdamW state at 16 B a parameter does not fit the card at full depth:
 # qwen2-7b's 7.6 B parameters would need 122 GB, qwen3-moe's 30.5 B 489
@@ -2989,21 +3010,24 @@ def phase_distributed(device) -> dict:
         problems.append(f"dry-run peak {peak} vs measured {up}: "
                         f"{peak_err:.3f} > {CHAM_PEAK_TOL}")
 
-    # ---- a production cell of the dry run, on fake cuda tensors
-    arch, shape_name, multi = DIST_DRYRUN_CELL
-    t0 = time.perf_counter()
-    rec = dryrun.run_cell(arch, shape_name, multi, "none", None,
-                          verbose=False, device=device.type,
-                          device_kind="h100_sxm")
-    dep = rec["departures"]
-    emit("distributed_dryrun_production", arch=arch, shape=shape_name,
-         mesh=rec["mesh_shape"], device=rec["device"],
-         wall_s=time.perf_counter() - t0, **rec["memory"], departures=dep,
-         bottleneck=rec["roofline"]["bottleneck"],
-         step_time_bound_ms=rec["roofline"]["step_time_bound_s"] * 1e3)
-    if not dep["comparable_to_reference"]:
-        problems.append(f"the {arch} x {shape_name} dry run departs from "
-                        f"the reference: {dep}")
+    # ---- the production cells of the dry run, on fake cuda tensors
+    for arch, shape_name, multi in DIST_DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape_name, multi, "none", None,
+                              verbose=False, device=device.type,
+                              device_kind="h100_sxm")
+        dep, r = rec["departures"], rec["roofline"]
+        emit("distributed_dryrun_production", arch=arch, shape=shape_name,
+             mesh=rec["mesh_shape"], device=rec["device"],
+             wall_s=time.perf_counter() - t0, **rec["memory"],
+             flops_per_chip=r["flops_per_chip"],
+             bytes_per_chip=r["bytes_per_chip"],
+             collectives=r["collectives"], departures=dep,
+             bottleneck=r["bottleneck"],
+             step_time_bound_ms=r["step_time_bound_s"] * 1e3)
+        if not dep["comparable_to_reference"]:
+            problems.append(f"the {arch} x {shape_name} dry run departs "
+                            f"from the reference: {dep}")
     emit("distributed", ok=not problems, problems=problems)
     if problems:
         raise AssertionError(f"distributed: {problems}")
@@ -3618,6 +3642,54 @@ def phase_kernel_configs(device) -> dict:
             len(lens), 1024, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
             lens, True)])
         torch.cuda.empty_cache()
+    out["local"] = phase_kernel_local(device)
+    return out
+
+
+def local_head_cases():
+    """LOCAL_K1_CASES as (name, B, S, H, Kh, D, causal): every distinct
+    (query heads, KV heads) of a non-empty run of ``sharding.head_runs`` on
+    the production mesh's model dim."""
+    import repro_torch.configs as C
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import mesh_config
+    mc = mesh_config(False)
+    tp = dict(zip(mc.axes, mc.shape))["model"]
+    out = []
+    for arch, B, S, causal in LOCAL_K1_CASES:
+        cfg = C.get_config(arch)
+        shapes = sorted({(r.count, len(r.kv)) for r in shd.head_runs(
+            cfg.num_heads, cfg.num_kv_heads, tp) if r.count}, reverse=True)
+        out += [(f"{arch} {H}/{Kh} {B}x{S}", B, S, H, Kh, cfg.head_dim,
+                 causal) for H, Kh in shapes]
+    return out
+
+
+def phase_kernel_local(device) -> dict:
+    """K1 forward and backward at ``local_head_cases``, bf16: the forward
+    through ``phase_kernel`` (two bit-equal launches against its plain
+    version, timed warm beside the plain version, SDPA and the bound) and
+    cold (``k1_cold_ms``), the backward through ``phase_kernel_bwd`` (two
+    bit-equal launches, timed warm and cold beside SDPA's backward and the
+    bound).  Returns {"fwd" | "bwd": {name: bf16 row}, "launches": the
+    forward's and the backward's launches in these checks}."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+
+    out = {"fwd": {}, "bwd": {}}
+    before = (ops.flash_attention.launches, ops.flash_attention_bwd.launches)
+    for name, B, S, H, Kh, D, causal in local_head_cases():
+        case = (B, S, S, H, Kh, D, causal, None, ("bfloat16",), True)
+        row = phase_kernel(device, [case])[(case, "bfloat16")]
+        cold = k1_cold_ms(B, S, H, Kh, D, TRAIN_LAYERS, device,
+                          causal=causal)
+        emit("kernel_cold", name="flash_attention_fwd", at=name, **cold)
+        out["fwd"][name] = dict(row, **cold)
+        torch.cuda.empty_cache()
+        out["bwd"][name] = phase_kernel_bwd(device, [case])
+        torch.cuda.empty_cache()
+    out["launches"] = (ops.flash_attention.launches - before[0],
+                       ops.flash_attention_bwd.launches - before[1])
     return out
 
 
@@ -6246,6 +6318,11 @@ def main(argv=None) -> int:
                             for a, n in serve_zoo.items()}},
         # the configurations' own shapes (CONFIG_K1_CASES), bf16
         "configs": {k: cross_summary(r) for k, r in configs["fwd"].items()},
+        # one rank's heads where the model dim does not divide them
+        # (LOCAL_K1_CASES), bf16, and the launches of those checks
+        "local_heads": {k: cross_summary(r)
+                        for k, r in configs["local"]["fwd"].items()},
+        "local_heads_check_launches": configs["local"]["launches"][0],
         # head dim 64 (zamba2 32 x 32 heads, granite 16 over 8), bf16
         "d64": {k: d64_summary(r) for k, r in d64["fwd"].items()},
         "d64_max_abs_err": d64["fwd_max_abs_err"],
@@ -6283,6 +6360,10 @@ def main(argv=None) -> int:
         "configs": {k: dict(cross_summary(r), max_abs_err=max(
             r[f"{g}_max_abs_err"] for g in ("dq", "dk", "dv")))
             for k, r in configs["bwd"].items()},
+        "local_heads": {k: dict(cross_summary(r), max_abs_err=max(
+            r[f"{g}_max_abs_err"] for g in ("dq", "dk", "dv")))
+            for k, r in configs["local"]["bwd"].items()},
+        "local_heads_check_launches": configs["local"]["launches"][1],
         "cross": {k: dict(cross_summary(r["bwd"]), max_abs_err=max(
             r["bwd"][f"{g}_max_abs_err"] for g in ("dq", "dk", "dv")))
             for k, r in cross.items()},

@@ -20,16 +20,22 @@ parameters a rank holds only its slice of along the ``model`` dim.  Model
 code marks each such block with ``tp_enter`` (identity forward, a sum over
 the model group backward) on its inputs and ``tp_exit`` (a sum over the
 model group forward, identity backward) on its partial output, Megatron's
-pair; both are no-ops for a block the plan does not hold.  Where the model
-dim does not divide the KV heads, ``kv_slice`` picks the KV heads of the
-rank's local query heads out of the whole projections.  The vocabulary
+pair; both are no-ops for a block the plan does not hold.  Attention
+splits by query heads (``head_runs``: a contiguous run a rank, the longer
+runs on the lower ranks, none where the model dim exceeds the heads).
+Where the model dim does not divide the KV heads, ``kv_slice`` picks the KV
+heads of the rank's query heads out of the whole projections; where it
+does not divide the query heads, ``q_slice`` picks the rank's heads out of
+the whole query and output projections.  The vocabulary
 (``vocab``: the embedding's rows, the unembedding's columns and the loss)
 and the Mamba-2 heads (``ssm``) are blocks of the plan too; their code
 reads the rank's share with ``tp_group`` / ``tp_rank`` / ``tp_size``, and
 ``tp_sum`` (a sum over the model group both ways) joins a reduction over a
-split dim, such as Mamba-2's gated norm over all of ``d_inner``.  So
-attention, the executor's saved-tensor hooks and the recorder see plain
-local tensors.
+split dim, such as Mamba-2's gated norm over all of ``d_inner``, and
+``tp_gather`` (an all-gather forward, a reduce-scatter backward) makes
+whole what each rank holds a slice of, such as Mamba-2's B and C channels
+after their convolution (``ssm_bc``).  So attention, the executor's
+saved-tensor hooks and the recorder see plain local tensors.
 """
 from __future__ import annotations
 
@@ -84,21 +90,61 @@ DP_ONLY_RULES = {
 }
 
 
+class HeadRun(NamedTuple):
+    """One model rank's share of the attention: its query heads ``first``
+    .. ``first + count - 1`` and the KV heads they read, in the order its
+    local KV heads take (``head_runs``)."""
+    first: int
+    count: int
+    kv: Tuple[int, ...]
+
+
 class TpPlan(NamedTuple):
     """The model dim as local compute: its process group and the blocks
-    (``attn``, ``mlp``, ``moe``, ``vocab``, ``ssm``) whose weights each rank
-    holds a slice of.  ``kv`` (first KV head, count) is set when the model
-    dim does not divide the KV heads: every rank holds the KV projections
-    whole and computes only the heads its local query heads use
-    (``kv_slice``).  ``kv_seq`` (the whole model's KV heads) is set when
-    the decode cache splits its positions over the model dim, every rank
-    holding all KV heads of its positions (``models.attention``)."""
+    (``attn``, ``mlp``, ``moe``, ``vocab``, ``ssm``, and ``ssm_bc`` where
+    Mamba-2's B / C channels split too) whose weights each rank holds a
+    slice of.  ``heads`` (every model rank's ``HeadRun``) is set when the
+    attention does not split as the plain slices of its weights, and then
+    ``kv`` is this rank's KV heads when the model dim does not divide the
+    KV heads (every rank holds the KV projections whole and computes only
+    those, ``kv_slice``), ``q`` this rank's (first query head, count) when
+    it does not divide the query heads (the query and output projections
+    are gathered whole at use and narrowed, ``q_slice``).  ``kv_seq`` (the
+    whole model's KV heads) is set when the decode cache splits its
+    positions over the model dim, every rank holding all KV heads of its
+    positions (``models.attention``)."""
     group: object
     size: int
     rank: int
     blocks: FrozenSet[str]
-    kv: Optional[Tuple[int, int]] = None
+    kv: Optional[Tuple[int, ...]] = None
     kv_seq: Optional[int] = None
+    q: Optional[Tuple[int, int]] = None
+    heads: Optional[Tuple[HeadRun, ...]] = None
+
+
+def head_runs(num_heads: int, num_kv_heads: int, tp: int
+              ) -> Tuple[HeadRun, ...]:
+    """Every model rank's run of query heads: ``num_heads // tp`` or one
+    more, the longer runs on the lower ranks (so rank 0 carries the most),
+    0 where ``tp`` exceeds the heads; the reference's padded split puts at
+    most as many on a chip.  A run's KV heads are those its query heads
+    read, each once where the local grouping the kernels use (local query
+    head i reads local KV head i // (count / KV heads)) picks them, else
+    one per query head (a KV head repeated)."""
+    base, extra = divmod(num_heads, tp)
+    group = num_heads // num_kv_heads
+    out, first = [], 0
+    for r in range(tp):
+        n = base + (r < extra)
+        reads = [h // group for h in range(first, first + n)]
+        kv = sorted(set(reads))
+        if not kv or n % len(kv) or any(
+                reads[i] != kv[i // (n // len(kv))] for i in range(n)):
+            kv = reads
+        out.append(HeadRun(first, n, tuple(kv)))
+        first += n
+    return tuple(out)
 
 
 class _Ctx(threading.local):
@@ -412,6 +458,31 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, this rank's piece of it along
+    ``dim`` (rank order; no autograd)."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    y = x.detach().movedim(dim, 0).contiguous()
+    out = torch.empty((y.shape[0] // n,) + tuple(y.shape[1:]),
+                      dtype=y.dtype, device=y.device)
+    dist.reduce_scatter_tensor(out, y, group=group)
+    return out.movedim(0, dim)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
 class _Sum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -482,14 +553,40 @@ def tp_enter(x: torch.Tensor, block: str) -> torch.Tensor:
 
 def kv_slice(w: torch.Tensor, head_dim: int) -> torch.Tensor:
     """The columns of a whole KV projection (or bias) that this rank's
-    local query heads use, under a plan with ``kv`` set; ``w`` otherwise.
-    Its gradient is then partial on each rank and is summed over the model
-    group (``ParamLayout.tp_sum``)."""
+    query heads read (``TpPlan.kv``, in order), under a plan with ``kv``
+    set; ``w`` otherwise.  Its gradient is then partial on each rank and is
+    summed over the model group (``ParamLayout.tp_sum``)."""
     plan = _CTX.tp
     if plan is None or plan.kv is None:
         return w
-    first, n = plan.kv
-    return w.narrow(-1, first * head_dim, n * head_dim)
+    heads = plan.kv
+    first = heads[0] if heads else 0
+    if heads == tuple(range(first, first + len(heads))):
+        return w.narrow(-1, first * head_dim, len(heads) * head_dim)
+    return torch.cat([w.narrow(-1, h * head_dim, head_dim) for h in heads],
+                     -1)
+
+
+def q_slice(w: torch.Tensor, head_dim: int, dim: int = -1) -> torch.Tensor:
+    """This rank's query heads' part (along ``dim``) of a query projection,
+    its bias or the output projection gathered whole at use, under a plan
+    with ``q`` set; ``w`` otherwise.  Its gradient is then whole-shaped and
+    partial on each rank, and is reduce-scattered over the model group to
+    the rank's piece at rest (``ParamLayout.tp_sum`` with ``gather_tp``)."""
+    plan = _CTX.tp
+    if plan is None or plan.q is None:
+        return w
+    first, n = plan.q
+    return w.narrow(dim, first * head_dim, n * head_dim)
+
+
+def tp_gather(x: torch.Tensor, dim: int, block: str) -> torch.Tensor:
+    """Every rank's ``x`` of the model group concatenated along ``dim`` (a
+    contiguous tensor), where the installed plan splits ``block``; the
+    backward reduce-scatters the ranks' partial gradients to each one's
+    piece.  ``x`` unchanged for a block the plan does not split."""
+    group = _plan_group(block)
+    return x if group is None else _Gather.apply(x, dim % x.dim(), group)
 
 
 def tp_exit(x: torch.Tensor, block: str) -> torch.Tensor:

@@ -48,16 +48,15 @@ the paper builds on), "sharding specs, not different math":
     attention (heads), MLP (``mlp``), MoE (``experts``), vocabulary
     (``vocab``: the embedding's rows, the unembedding's columns, a
     vocab-parallel loss) and Mamba-2 (``ssm``: its heads) weights and runs
-    the model code on them with a local config (``TpPlan``,
-    ``sharding.tp_enter`` / ``tp_exit`` / ``tp_sum``), so K1, K4, the
-    executor's hooks and the recorder see plain local tensors.  A weight
-    the rules split over ``model`` that a rank cannot compute a slice of
-    (the router; the attention of a model whose query heads the model dim
-    does not divide, where the fused ``q_dim`` divides) is held split at
-    rest and gathered at use, its compute whole on every rank.  Under the
-    default rules the decode cache splits its positions over ``model``
-    (``kv_seq``, ``models.attention``); ``make_prefill_step`` and
-    ``make_decode_step`` all-gather the logits over the vocabulary.
+    the model code on them with a local config, its own on each model rank
+    (``TpPlan``, ``sharding.tp_enter`` / ``tp_exit`` / ``tp_sum``), so K1,
+    K4, the executor's hooks and the recorder see plain local tensors.  A
+    weight the rules split over ``model`` that a rank cannot compute a
+    slice of (the router) is held split at rest and gathered at use, its
+    compute whole on every rank.  Under the default rules the decode cache
+    splits its positions over ``model`` (``kv_seq``, ``models.attention``);
+    ``make_prefill_step`` and ``make_decode_step`` all-gather the logits
+    over the vocabulary.
 
 Gather at use: the model code runs each unit (a block, the embedding, a
 final norm, whisper's root) through ``nn.Module.__call__``
@@ -70,17 +69,29 @@ gradient is accumulated it goes to its state's layout at once (sliced over
 reduce-scattered over the batch dims) and its weight is freed.  Nothing
 is hooked on a one-rank mesh.
 
-Layouts that differ from the rules (results equal): the KV projections
-shard with the query heads when the model dim divides the KV heads (the
-rules replicate them); when it does not, they stay whole on every rank
-and each rank computes the KV heads of its local query heads
-(``sharding.kv_slice``), their gradients summed over ``model``.  Where
-the reference's per-chip work is not matched (``ShardedModel.departures``,
-the dry run's record): attention computed whole where the query heads do
-not divide the model dim (qwen2-7b's 28, whisper's 20), and Mamba-2's B
-and C columns of the in-projection and their conv channels, whole on
-every rank because every head reads them (``ParamLayout.runs``).
-``ShardedModel.layouts`` holds what each parameter got.
+Attention splits by query heads, a contiguous run a model rank
+(``sharding.head_runs``: the longer runs on the lower ranks, none where
+the model dim exceeds the heads), as the reference's padded split of
+``act_heads`` puts at most as many on a chip.  Layouts that differ from
+the rules (results equal): the KV projections shard with the query heads
+when the model dim divides the KV heads (the rules replicate them); when
+it does not, they stay whole on every rank and each rank computes the KV
+heads its query heads read (``sharding.kv_slice``), their gradients summed
+over ``model``.  Where the model dim does not divide the query heads
+(qwen2-7b's 28, whisper's 20 over 16) the query and output projections
+stay split at rest as the rules split ``q_dim`` (evenly) and are gathered
+at use, a unit at a time; each rank narrows them to its heads
+(``sharding.q_slice``) and their whole-shaped partial gradients are
+reduce-scattered over ``model`` to the pieces at rest (the reference's
+route moves activations with an all-to-all instead; this keeps the
+weights' gather).  Mamba-2's B and C columns of the in-projection and
+their conv channels split over ``model`` where it divides 2 x
+``ssm_state`` (``ssm_bc``; all-gathered after the conv, ``models.ssm``).
+Where the reference's per-chip work is still not matched
+(``ShardedModel.departures``, the dry run's record): B and C whole on
+every rank where the model dim does not divide 2 x ``ssm_state``
+(``ParamLayout.runs``).  ``ShardedModel.layouts`` holds what each
+parameter got.
 """
 from __future__ import annotations
 
@@ -238,6 +249,7 @@ _TP_DIMS = {
             "dt_bias": 0, "D": 0, "norm_scale": 0, "out_proj": 0},
 }
 _KV_PARAMS = ("wk", "wv", "bk", "bv")
+_Q_PARAMS = ("wq", "bq", "wo")
 _BLOCKS = (("attn", "attn"), ("xattn", "attn"), ("mlp", "mlp"),
            ("moe", "moe"), ("ssm", "ssm"))
 
@@ -250,16 +262,18 @@ def _block_of(name: str) -> Optional[str]:
     return "vocab" if parts[0] == "embed" else None
 
 
-def _ssm_runs(cfg: ModelConfig, attr: str):
+def _ssm_runs(cfg: ModelConfig, attr: str, bc_split: bool):
     """(length, split) runs along the model dim of a Mamba-2 parameter
     under an ``ssm`` plan: z / x / dt columns and x channels split by
-    heads, the B / C columns and channels whole (every head reads them)."""
+    heads, the B / C columns and channels split too where the plan holds
+    ``ssm_bc`` (each rank convolves its own and all-gathers them), else
+    whole (every head reads them)."""
     di, ds = cfg.ssm_d_inner, cfg.ssm_state
+    bc = (2 * ds, bc_split)
     if attr == "in_proj":
-        return ((di, True), (di, True), (2 * ds, False),
-                (cfg.ssm_heads, True))
+        return ((di, True), (di, True), bc, (cfg.ssm_heads, True))
     if attr in ("conv_w", "conv_b"):
-        return ((di, True), (2 * ds, False))
+        return ((di, True), bc)
     return None
 
 
@@ -267,15 +281,17 @@ class ParamLayout(NamedTuple):
     """Where one parameter lives on the mesh: the partition specs of the
     stored parameter and of its optimizer state (global), the tensor dim
     it splits over the model dim, the dims it and its state split over the
-    batch dims, and whether each model rank's gradient is partial (a whole
-    KV projection of which each rank uses its own heads, ``TpPlan.kv``) and
-    is summed over the model dim.  ``gather_tp``: the rules split it over
-    the model dim on ``tp_dim`` but a rank computes it whole (the router;
-    attention whose query heads the model dim does not divide): held split
-    at rest and in its state, gathered at use, and the whole gradient each
-    model rank computes alike is sliced.  ``runs``: (length, split) runs
-    along ``tp_dim`` (Mamba-2's fused in-projection and conv): a split run
-    is divided over the model dim, a whole run is on every rank and its
+    batch dims, and whether each model rank's gradient is partial (a rank
+    computes its own heads of a whole KV projection, ``TpPlan.kv``, or of a
+    query / output projection gathered whole, ``TpPlan.q``) and is summed
+    over the model dim.  ``gather_tp``: the rules split it over the model
+    dim on ``tp_dim`` but a rank computes with it whole (the router) or
+    takes its heads out of it whole (attention whose query heads the model
+    dim does not divide): held split at rest and in its state, gathered at
+    use; the whole gradient each model rank computes alike is sliced, a
+    partial one (``tp_sum``) reduce-scattered.  ``runs``: (length, split)
+    runs along ``tp_dim`` (Mamba-2's fused in-projection and conv): a split
+    run is divided over the model dim, a whole run is on every rank and its
     partial gradients are summed over it; the specs then leave the model
     dim out."""
     param: tuple
@@ -288,18 +304,17 @@ class ParamLayout(NamedTuple):
     runs: Optional[tuple] = None
 
 
-def _kv_split(cfg: ModelConfig, tp: int, rank: int):
-    """How the model dim splits the attention: None when it does not (the
-    query heads do not divide, or a rank's query heads straddle KV heads),
-    ``"shard"`` when the KV heads divide too, else (first KV head, 1): the
-    one KV head this rank's query heads share."""
+def _attn_split(cfg: ModelConfig, tp: int):
+    """How the model dim splits the attention: None where there are no
+    heads, ``"shard"`` where it divides the query and the KV heads (each
+    rank's slices of every projection), else every rank's run of heads
+    (``sharding.head_runs``)."""
     H, Kh = cfg.num_heads, cfg.num_kv_heads
-    if not H or H % tp:
+    if not H:
         return None
-    if Kh % tp == 0:
+    if H % tp == 0 and Kh % tp == 0:
         return "shard"
-    local, group = H // tp, H // Kh
-    return (rank * local // group, 1) if group % local == 0 else None
+    return shd.head_runs(H, Kh, tp)
 
 
 def _on_model(logical: str) -> bool:
@@ -308,7 +323,7 @@ def _on_model(logical: str) -> bool:
 
 def _tp_blocks(cfg: ModelConfig, tp: int) -> frozenset:
     blocks = set()
-    if _kv_split(cfg, tp, 0) is not None:
+    if _attn_split(cfg, tp) is not None:
         blocks.add("attn")
     if cfg.d_ff and cfg.d_ff % tp == 0:
         blocks.add("mlp")
@@ -320,15 +335,23 @@ def _tp_blocks(cfg: ModelConfig, tp: int) -> frozenset:
     if (cfg.family in ("ssm", "hybrid") and cfg.ssm_heads % tp == 0
             and _on_model("ssm_heads") and _on_model("ssm_inner")):
         blocks.add("ssm")
+        if 2 * cfg.ssm_state % tp == 0:
+            blocks.add("ssm_bc")
     return frozenset(blocks)
 
 
-def _local_cfg(cfg: ModelConfig, blocks, tp: int, kv) -> ModelConfig:
+def _local_cfg(cfg: ModelConfig, blocks, tp: int, split, rank: int
+               ) -> ModelConfig:
+    """The config model rank ``rank`` runs: its heads (none where the model
+    dim exceeds them) and its share of the MLP."""
     kw = {}
     if "attn" in blocks:
-        kw.update(num_heads=cfg.num_heads // tp,
-                  num_kv_heads=cfg.num_kv_heads // tp if kv is None
-                  else kv[1])
+        if split == "shard":
+            kw.update(num_heads=cfg.num_heads // tp,
+                      num_kv_heads=cfg.num_kv_heads // tp)
+        else:
+            kw.update(num_heads=split[rank].count,
+                      num_kv_heads=len(split[rank].kv))
     if "mlp" in blocks:
         kw["d_ff"] = cfg.d_ff // tp
     return cfg.replace(**kw) if kw else cfg
@@ -554,12 +577,14 @@ class ShardedModel:
     # ---------------------------------------------------- gradients
     def grad_to_state(self, n: str, g: torch.Tensor) -> torch.Tensor:
         """A rank's gradient of ``n`` -> its state's layout: sliced over the
-        model dim (``gather_tp``), partial parts summed over it, then
-        reduce-scattered (or averaged) over the batch dims."""
-        import torch.distributed as dist
+        model dim (``gather_tp``; reduce-scattered where it is partial),
+        partial parts summed over it, then reduce-scattered (or averaged)
+        over the batch dims."""
         lay, plan = self.layouts[n], self.plan
         if plan.size > 1:
-            if lay.gather_tp:
+            if lay.gather_tp and lay.tp_sum:
+                g = shd.reduce_scatter(g, lay.tp_dim, plan.group)
+            elif lay.gather_tp:
                 g = _split(g, lay.tp_dim, plan.rank, plan.size).clone(
                     memory_format=torch.contiguous_format)
             elif lay.tp_sum:
@@ -571,12 +596,7 @@ class ShardedModel:
                     run.copy_(shd.all_sum(run, plan.group))
         if self.dp > 1:
             if lay.dp_opt is not None:
-                x = g.movedim(lay.dp_opt, 0).contiguous()
-                out = torch.empty((x.shape[0] // self.dp,)
-                                  + tuple(x.shape[1:]),
-                                  dtype=x.dtype, device=x.device)
-                dist.reduce_scatter_tensor(out, x, group=self.dp_group)
-                g = out.movedim(0, lay.dp_opt)
+                g = shd.reduce_scatter(g, lay.dp_opt, self.dp_group)
             else:
                 g = shd.all_sum(g, self.dp_group)
             g = g / self.dp
@@ -686,12 +706,13 @@ class ShardedModel:
         where the reference's rules split it (the module doc): {block:
         bytes} of the weights gathered whole for compute (the router's
         excepted: the reference's expert-parallel layer takes it whole
-        too), and the bytes of Mamba-2's whole B / C runs per chip."""
+        too; a weight of which a rank computes only its heads is not), and
+        the bytes of Mamba-2's whole B / C runs per chip."""
         whole: Dict[str, int] = {}
         bc = 0
         for n, lay in self.layouts.items():
             p = self._params[n]
-            if lay.gather_tp and self.plan.size > 1 \
+            if lay.gather_tp and not lay.tp_sum and self.plan.size > 1 \
                     and not n.endswith(".router"):
                 blk = _block_of(n) or n.rpartition(".")[2]
                 whole[blk] = whole.get(blk, 0) + p.numel() * p.element_size()
@@ -722,12 +743,16 @@ def shard_model(cfg: ModelConfig, model: nn.Module, mesh,
         tp_rank, tp = (shd.coordinate(mesh, (tp_axis,)) if tp_axis
                        else (0, 1))
         blocks = _tp_blocks(cfg, tp) if tp_axis else frozenset()
-        kv = _kv_split(cfg, tp, tp_rank) if "attn" in blocks else None
-        kv = kv if isinstance(kv, tuple) else None
+        split = _attn_split(cfg, tp) if "attn" in blocks else None
+        heads = split if isinstance(split, tuple) else None
+        kv = heads[tp_rank].kv if heads else None
+        q = (heads[tp_rank][:2] if heads and cfg.num_heads % tp
+             else None)
         kv_seq = (cfg.num_kv_heads if tp_axis and cfg.num_kv_heads
                   and _on_model("kv_seq") else None)
         plan = shd.TpPlan(shd.group_of(mesh, (tp_axis,)) if tp_axis
-                          else None, tp, tp_rank, blocks, kv, kv_seq)
+                          else None, tp, tp_rank, blocks, kv, kv_seq, q,
+                          heads)
         full = dict(model.named_parameters())
         axes = param_axes(cfg)
         zero3 = zero_stage >= 3
@@ -738,13 +763,18 @@ def shard_model(cfg: ModelConfig, model: nn.Module, mesh,
     for n, t in full.items():
         blk = _block_of(n)
         attr = n.rpartition(".")[2]
-        tp_sum = blk == "attn" and kv is not None and attr in _KV_PARAMS
+        # a rank computes its heads out of the whole weight: the gradient
+        # is partial; the KV projections stay whole on every rank, the
+        # query and output projections are held as the rules split them
+        kv_whole = blk == "attn" and kv is not None and attr in _KV_PARAMS
+        tp_sum = kv_whole or (blk == "attn" and q is not None
+                              and attr in _Q_PARAMS)
         tp_dim = (_TP_DIMS[blk].get(attr)
                   if blk in blocks and not tp_sum else None)
-        runs = (_ssm_runs(cfg, attr) if blk == "ssm" and tp_dim is not None
-                else None)
+        runs = (_ssm_runs(cfg, attr, "ssm_bc" in blocks)
+                if blk == "ssm" and tp_dim is not None else None)
         gather_tp = False
-        if tp_dim is None and tp_axis is not None and not tp_sum:
+        if tp_dim is None and tp_axis is not None and not kv_whole:
             tp_dim = _model_dim(p_spec[n], tp_axis)
             gather_tp = tp_dim is not None
         spec_dim = None if runs else tp_dim
@@ -755,7 +785,7 @@ def shard_model(cfg: ModelConfig, model: nn.Module, mesh,
                                       f"different dims over the batch")
         layouts[n] = ParamLayout(ps, os_, tp_dim, dp_p, dp_o, tp_sum,
                                  gather_tp, runs)
-    lcfg = _local_cfg(cfg, blocks, tp, kv)
+    lcfg = _local_cfg(cfg, blocks, tp, split, tp_rank)
     module = _model_class(lcfg)(lcfg, generator=None,
                                 device=torch.device("meta"))
     sm = ShardedModel(cfg, module, lcfg, mesh, merged, plan, layouts, batch)

@@ -27,11 +27,16 @@ allocated.
     reference rescales a global-shape profile by each site's sharding.
   * Roofline: ``launch.roofline.step_cost`` over the same step.
   * ``departures``: where the cell's layout holds or runs more per chip
-    than the reference's: attention computed whole where the model dim
-    does not divide the query heads (its weights gathered at use, their
-    bytes), and Mamba-2's B / C columns whole on every rank (their bytes);
-    with any, ``comparable_to_reference`` is false and the cell's memory
-    and roofline numbers are the port's own, not the reference's.
+    than the reference's: a block whose weights a rank gathers whole for
+    compute (none under the default rules: attention splits by head runs
+    even where the model dim does not divide the query heads), and
+    Mamba-2's B / C columns whole on every rank where the model dim does
+    not divide 2 x ``ssm_state`` (their bytes); with any,
+    ``comparable_to_reference`` is false and the cell's memory and
+    roofline numbers are the port's own, not the reference's.  The
+    collective bytes (``roofline.collectives``) include the attention
+    weights' gathers at use and their gradients' reduce-scatters, and
+    the B / C all-gathers and their backward's reduce-scatters.
   * ``fits_hbm`` (the reference's ``fits_16g``) compares the peak with the
     port's ``ChameleonConfig.hbm_budget_bytes``, recorded beside it;
     ``device_peak_est`` is the reference's ``device_peak_est_tpu``.
@@ -143,10 +148,10 @@ def _resident_bytes(*trees) -> int:
 def _departures(sm) -> dict:
     """Where this cell's layout computes or holds more per chip than the
     reference's (``distributed.steps``' module doc): the blocks whose
-    weights a rank gathers whole for compute (attention whose query heads
-    the model dim does not divide) with their bytes, and the bytes of
-    Mamba-2's B / C runs held whole on every rank.  A cell with any is not
-    comparable to the reference's memory and roofline numbers."""
+    weights a rank gathers whole for compute with their bytes, and the
+    bytes of Mamba-2's B / C runs held whole on every rank (where the model
+    dim does not divide them).  A cell with any is not comparable to the
+    reference's memory and roofline numbers."""
     dep = sm.departures()
     whole = dep["computed_whole"]
     return {"computed_whole_over_model": sorted(whole),

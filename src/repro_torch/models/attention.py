@@ -23,15 +23,23 @@ flash-decode kernel, which computes exactly that attention.  The
 reference computes decode cross-attention on its chunked path, outside
 any kernel: the routing to the decode kernel is the port's.
 
+Under a plan that splits the attention over the model dim each rank
+computes its run of query heads (``sharding.head_runs``) and the KV heads
+they read: from its slices of the projections where the model dim divides
+the heads, else out of whole weights (``sharding.kv_slice``,
+``sharding.q_slice``); a rank with no heads launches no kernel
+(``_NoHeads``) and its share of the output projection's sum is zero.
+
 Under a plan whose decode cache splits positions over the model dim
 (``TpPlan.kv_seq``: the reference's cache spec ``("batch", "kv_seq",
 "act_kv_heads", None)``), rank r holds positions ``[r * S/tp, (r+1) *
 S/tp)`` of every KV head (``init_kv_cache``, ``fill_cache``).  A decode
 step gathers every query head and the new K/V row of every KV head over
-the model group (a few KB), writes the row on the rank that owns its
-position, attends its own positions for every head through the decode
-kernel with each row's log-sum-exp, merges the ranks' (o, lse) by weights
-exp(lse - max), and keeps its own heads for ``wo``.
+the model group (a few KB; runs of unequal length padded), writes the row
+on the rank that owns its position, attends its own positions for every
+head through the decode kernel with each row's log-sum-exp, merges the
+ranks' (o, lse) by weights exp(lse - max), and keeps its own heads for
+``wo``.
 """
 from __future__ import annotations
 
@@ -71,15 +79,20 @@ class Attention(nn.Module):
 
 
 def _project_q(cfg: ModelConfig, p: Attention, x):
-    q = shd.tp_enter(x, "attn") @ p.wq
+    """This rank's query heads (B,S,H_local,D) of ``x``, which has entered
+    the block (``sharding.tp_enter``: its gradient summed over the model
+    group once, for the query and the KV projections of the same input)."""
+    D = cfg.head_dim
+    q = x @ shd.q_slice(p.wq, D)
     if cfg.qkv_bias:
-        q = q + p.bq.to(q.dtype)
+        q = q + shd.q_slice(p.bq, D).to(q.dtype)
     B, S = q.shape[:2]
     return q.reshape(B, S, cfg.num_heads, cfg.head_dim)
 
 
 def _project_kv(cfg: ModelConfig, p: Attention, x):
-    x = shd.tp_enter(x, "attn")
+    """The KV heads (B,S,Kh_local,D) this rank's query heads read, of
+    ``x``, which has entered the block (``_project_q``)."""
     D = cfg.head_dim
     k = x @ shd.kv_slice(p.wk, D)
     v = x @ shd.kv_slice(p.wv, D)
@@ -175,8 +188,28 @@ def _chunked_attention_raw(cfg: ModelConfig, q, k, v, causal: bool,
     return ctx.reshape(B, Sq, H, D).to(q.dtype)
 
 
+class _NoHeads(torch.autograd.Function):
+    """The attention of a model rank that holds no query heads (the model
+    dim exceeds them, ``sharding.head_runs``): an empty context and no
+    kernel; the backward gives the empty q, k and v their empty gradients,
+    so the projections are reached, and their gradients' collectives
+    issued, as on every other rank."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.metas = [(t.shape, t.dtype) for t in (q, k, v)]
+        return q.new_empty(q.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(g.new_empty(shape, dtype=dtype)
+                     for shape, dtype in ctx.metas)
+
+
 def _attend(cfg: ModelConfig, q, k, v, *, causal: bool, q_offset: int = 0,
             kv_len=None):
+    if q.shape[2] == 0:
+        return _NoHeads.apply(q, k, v)
     if cfg.attn_impl == "flash":
         from repro_torch.kernels.flash_attention import ops as fa_ops
         if kv_len is None and q.shape[1] > 1:
@@ -196,6 +229,7 @@ def self_attention(cfg: ModelConfig, p: Attention, x, positions, *,
 
     With ``return_kv`` it also returns the rope'd (k, v) it attended over,
     which is what ``transformer.prefill`` stores in the decode cache."""
+    x = shd.tp_enter(x, "attn")
     q = _project_q(cfg, p, x)
     k, v = _project_kv(cfg, p, x)
     if cfg.pos_embedding == "rope":
@@ -214,7 +248,8 @@ def self_attention(cfg: ModelConfig, p: Attention, x, positions, *,
 
 def _out_proj(cfg: ModelConfig, p: Attention, ctx):
     B, S = ctx.shape[:2]
-    out = shd.tp_exit(ctx.reshape(B, S, cfg.q_dim) @ p.wo, "attn")
+    wo = shd.q_slice(p.wo, cfg.head_dim, 0)
+    out = shd.tp_exit(ctx.reshape(B, S, cfg.q_dim) @ wo, "attn")
     out = shd.constrain(out, ("batch", "seq", "act_embed"))
     return tag(out, "attn_out")
 
@@ -227,9 +262,10 @@ def cross_attention(cfg: ModelConfig, p: Attention, x,
     length, routes a decode step's one query row to the flash-decode
     kernel under ``flash``; every other case attends as the reference
     does."""
-    q = tag(_project_q(cfg, p, x), "qkv_proj")
+    q = tag(_project_q(cfg, p, shd.tp_enter(x, "attn")), "qkv_proj")
     k, v = kv_cache
-    if cfg.attn_impl == "flash" and mem_lens is not None and q.shape[1] == 1:
+    if (cfg.attn_impl == "flash" and mem_lens is not None
+            and q.shape[1] == 1 and q.shape[2]):
         from repro_torch.kernels.flash_attention import ops as fa_ops
         ctx = fa_ops.flash_decode(q, k, v, mem_lens)
     else:
@@ -241,7 +277,7 @@ def cross_attention(cfg: ModelConfig, p: Attention, x,
 def project_cross_kv(cfg: ModelConfig, p: Attention, memory):
     """Precompute cross-attention K/V (B,T_mem,Kh,D) from the encoder
     output or the image embeddings (B,T_mem,d)."""
-    k, v = _project_kv(cfg, p, memory)
+    k, v = _project_kv(cfg, p, shd.tp_enter(memory, "attn"))
     return tag(k, "cross_kv"), tag(v, "cross_kv")
 
 
@@ -290,6 +326,7 @@ def decode_self_attention(cfg: ModelConfig, p: Attention, x, layer_cache,
     ck, cv = layer_cache
     ck = shd.constrain(ck, ("batch", "kv_seq", "act_kv_heads", None))
     cv = shd.constrain(cv, ("batch", "kv_seq", "act_kv_heads", None))
+    x = shd.tp_enter(x, "attn")
     q = _project_q(cfg, p, x)
     k_new, v_new = _project_kv(cfg, p, x)
     if cfg.pos_embedding == "rope":
@@ -324,15 +361,26 @@ def decode_self_attention(cfg: ModelConfig, p: Attention, x, layer_cache,
 def _every_head(cfg: ModelConfig, plan, t, kv: bool):
     """q (B,1,H_local,D) or a new K/V row (B,1,Kh_local,D) with every head
     of the model, gathered over the model group where the plan splits the
-    attention (a rank under ``TpPlan.kv`` holds one KV head, which several
-    ranks share: the first of them gives it)."""
+    attention.  Where the ranks' runs differ (``TpPlan.heads``) each pads
+    its heads to the longest run's before the gather; a KV head that
+    several ranks hold is taken from the first of them."""
     if "attn" not in plan.blocks:
         return t
-    t = shd.all_gather(t, 2, plan.group)
-    if not kv or plan.kv is None:
-        return t
-    group = cfg.num_heads * plan.size // plan.kv_seq   # query heads a KV head
-    return t[:, :, [h * group // cfg.num_heads for h in range(plan.kv_seq)]]
+    if plan.heads is None:
+        return shd.all_gather(t, 2, plan.group)
+    width = max(len(r.kv) if kv else r.count for r in plan.heads)
+    t = shd.all_gather(torch.nn.functional.pad(
+        t, (0, 0, 0, width - t.shape[2])), 2, plan.group)
+    if kv:
+        where = {}
+        for r, run in enumerate(plan.heads):
+            for i, h in enumerate(run.kv):
+                where.setdefault(h, r * width + i)
+        pick = [where[h] for h in range(plan.kv_seq)]
+    else:
+        pick = [r * width + i for r, run in enumerate(plan.heads)
+                for i in range(run.count)]
+    return t[:, :, pick]
 
 
 def _merged(cfg: ModelConfig, plan, q, ck, cv, lens):
@@ -350,7 +398,9 @@ def _merged(cfg: ModelConfig, plan, q, ck, cv, lens):
     w = torch.exp(lses - lses.amax(dim=0))
     ctx = ((w * os_).sum(0) / w.sum(0)).to(q.dtype)
     if "attn" in plan.blocks:
-        ctx = ctx.narrow(2, plan.rank * cfg.num_heads, cfg.num_heads)
+        first = (plan.heads[plan.rank].first if plan.heads is not None
+                 else plan.rank * cfg.num_heads)
+        ctx = ctx.narrow(2, first, cfg.num_heads)
     return ctx
 
 

@@ -55,8 +55,9 @@ def dense_init(in_dim: int, out_dim: int, cfg: ModelConfig, *,
                generator: Optional[torch.Generator],
                device: torch.device) -> nn.Parameter:
     """``N(0, 1) / sqrt(in_dim)`` of shape ``(in_dim, out_dim)``, drawn in
-    f32 on ``device`` and cast to the parameter dtype."""
-    return _normal((in_dim, out_dim), 1.0 / math.sqrt(in_dim), cfg,
+    f32 on ``device`` and cast to the parameter dtype (empty where a model
+    rank holds none of ``in_dim``)."""
+    return _normal((in_dim, out_dim), 1.0 / math.sqrt(max(in_dim, 1)), cfg,
                    generator=generator, device=device)
 
 

@@ -12,12 +12,18 @@ PyTorch as in the reference, which has no kernel for it.
 Under a plan that splits the SSM heads over the model dim (``ssm``, the
 reference's ``ssm_heads`` / ``ssm_inner`` on ``model``), each rank holds
 its heads' z, x and dt columns of ``in_proj``, their conv channels,
-``A_log`` / ``dt_bias`` / ``D``, ``norm_scale`` and rows of ``out_proj``;
-the B and C columns and their conv channels are whole on every rank (every
-head reads them).  ``_dims`` gives the rank's sizes; the scan runs on its
-heads, the gated norm sums its squares over the model group (``tp_sum``)
-and the out-projection ends in ``tp_exit``.  The decode state holds the
-rank's x channels with the whole B / C, and its heads' SSD state.
+``A_log`` / ``dt_bias`` / ``D``, ``norm_scale`` and rows of ``out_proj``.
+Where the model dim divides 2 x ``ssm_state`` (``ssm_bc``) each rank also
+holds its slice of the B / C columns and their conv channels, convolves
+them (the conv is depthwise) and all-gathers the result over the model
+group before the scan, every head reading all of B and C
+(``sharding.tp_gather``; the backward reduce-scatters their partial
+gradients); elsewhere B / C are whole on every rank.  ``_dims`` /
+``_bc_width`` give the rank's sizes; the scan runs on its heads, the gated
+norm sums its squares over the model group (``tp_sum``) and the
+out-projection ends in ``tp_exit``.  The decode state holds the rank's x
+and B / C channels as it holds their columns, and its heads' SSD state; the
+one-token step gathers B / C after its conv as the full sequence does.
 """
 from __future__ import annotations
 
@@ -70,9 +76,25 @@ def _dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
             cfg.ssm_head_dim)
 
 
+def _bc_width(cfg: ModelConfig) -> int:
+    """The B / C channels this rank holds: its slice under an ``ssm_bc``
+    plan, all 2 x ``ssm_state`` otherwise."""
+    return 2 * cfg.ssm_state // shd.tp_size("ssm_bc")
+
+
 def _split_proj(cfg: ModelConfig, proj):
+    di = _dims(cfg)[0]
+    ch = di + _bc_width(cfg)
+    return proj[..., :di], proj[..., di:di + ch], proj[..., di + ch:]
+
+
+def _whole_bc(cfg: ModelConfig, conv_out):
+    """(x channels, B, C) of a conv output (..., di + this rank's B / C),
+    B and C gathered whole over the model group under an ``ssm_bc``
+    plan."""
     di, ds = _dims(cfg)[:2]
-    return proj[..., :di], proj[..., di:2 * di + 2 * ds], proj[..., 2 * di + 2 * ds:]
+    bc = shd.tp_gather(conv_out[..., di:], -1, "ssm_bc")
+    return conv_out[..., :di], bc[..., :ds], bc[..., ds:]
 
 
 def _causal_conv(cfg: ModelConfig, p: Ssm, xbc):
@@ -100,7 +122,7 @@ def _gated_norm(cfg: ModelConfig, p: Ssm, y, z, dtype):
 
 
 class SSMState(NamedTuple):
-    conv: torch.Tensor   # (L, B, W-1, di + 2*ds) in the activation dtype
+    conv: torch.Tensor   # (L, B, W-1, di + B / C channels), activation dtype
     ssd: torch.Tensor    # (L, B, H, P, N) f32
 
 
@@ -109,7 +131,7 @@ def init_ssm_state(cfg: ModelConfig, batch: int, *,
     di, ds, nh, hp = _dims(cfg)
     L = cfg.num_layers
     return SSMState(
-        torch.zeros((L, batch, cfg.ssm_conv_width - 1, di + 2 * ds),
+        torch.zeros((L, batch, cfg.ssm_conv_width - 1, di + _bc_width(cfg)),
                     dtype=torch_dtype(cfg.dtype), device=device),
         torch.zeros((L, batch, nh, hp, ds),
                     dtype=torch.float32, device=device))
@@ -120,13 +142,12 @@ def apply_ssm(cfg: ModelConfig, p: Ssm, x, *, return_state: bool = False):
     ``return_state`` also the (conv (B,W-1,ch), ssd (B,H,P,N) f32) state
     after the last token, which is what ``prefill`` stores."""
     B, S, _ = x.shape
-    di, ds, nh, hp = _dims(cfg)
+    di, _, nh, hp = _dims(cfg)
     proj = tag(shd.tp_enter(x, "ssm") @ p.in_proj, "ssm_in")
     z, xbc_raw, dt_raw = _split_proj(cfg, proj)
     xbc = tag(_causal_conv(cfg, p, xbc_raw), "ssm_conv")
-    xs = xbc[..., :di].reshape(B, S, nh, hp)       # views: the kernel takes strides
-    Bm = xbc[..., di:di + ds]
-    Cm = xbc[..., di + ds:]
+    xs, Bm, Cm = _whole_bc(cfg, xbc)    # views: the kernel takes strides
+    xs = xs.reshape(B, S, nh, hp)
     dt = F.softplus(dt_raw.float() + p.dt_bias)
     A = -torch.exp(p.A_log)
     xs = shd.constrain(xs, ("batch", "seq", "ssm_heads", None))
@@ -149,7 +170,7 @@ def decode_ssm(cfg: ModelConfig, p: Ssm, x, state: Tuple[torch.Tensor,
     """One-token decode.  x (B,1,d); state (conv (B,W-1,ch), ssd (B,H,P,N)).
     Returns (out (B,1,d), (new conv, new ssd)); the state is not modified."""
     B = x.shape[0]
-    di, ds, nh, hp = _dims(cfg)
+    di, _, nh, hp = _dims(cfg)
     conv_state, ssd_state = state
     proj = shd.tp_enter(x, "ssm") @ p.in_proj
     z, xbc, dt_raw = _split_proj(cfg, proj)
@@ -158,9 +179,8 @@ def decode_ssm(cfg: ModelConfig, p: Ssm, x, state: Tuple[torch.Tensor,
     conv_out = torch.einsum("bwc,wc->bc", window.float(), p.conv_w.float())
     conv_out = F.silu(conv_out + p.conv_b.float())
     new_conv = window[:, 1:]
-    xs = conv_out[..., :di].reshape(B, nh, hp)
-    Bm = conv_out[..., di:di + ds]
-    Cm = conv_out[..., di + ds:]
+    xs, Bm, Cm = _whole_bc(cfg, conv_out)
+    xs = xs.reshape(B, nh, hp)
     dt = F.softplus(dt_raw[:, 0].float() + p.dt_bias)           # (B, nh)
     dA = torch.exp(dt * -torch.exp(p.A_log)[None, :])
     new_ssd = (ssd_state * dA[:, :, None, None]

@@ -118,11 +118,12 @@ from repro_torch.distributed import sharding as shd, steps as S
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import convert
 from repro_torch.optim.adamw import adamw_init
-cfg = C.get_reduced(ARCH)
+cfg = C.get_reduced(ARCH).replace(**OVER)
 ref = dict(np.load(os.path.join(OUT, "ref.npz")))
 params = {k[2:]: v for k, v in ref.items() if k.startswith("p/")}
-batch = {k: torch.as_tensor(ref["b/" + k], dtype=torch.int64)
-         for k in ("tokens", "labels")}
+batch = {k[2:]: torch.as_tensor(v, dtype=torch.int64 if k != "b/memory"
+                                else torch.float32)
+         for k, v in ref.items() if k.startswith("b/")}
 tcfg = TrainConfig(warmup_steps=0)
 
 def fresh():
@@ -180,6 +181,10 @@ if RANK == 0:
                    "split_model": attrs(lambda lay: lay.tp_dim is not None),
                    "local_shapes": {n: list(p.shape) for n, p in
                                     sm.module.named_parameters()},
+                   "q_run": sm.plan.q,
+                   "kv_run": sm.plan.kv,
+                   "local_heads": [sm.local_cfg.num_heads,
+                                   sm.local_cfg.num_kv_heads],
                    "peak_gathered": sm.peak_gathered_bytes,
                    "gathered_now": sm.gathered_bytes,
                    "unit_max": max(unit_bytes),
@@ -187,16 +192,25 @@ if RANK == 0:
 '''
 
 # case -> (arch, mesh, axes, ZeRO stage, rules, global batch, tokens a
-# row); "kv_slice": reduced qwen2_7b's 2 KV heads (and their biases) under a
-# model dim of 4, each rank computing the one KV head its query head uses;
-# "vocab": llama2_paper's 512 rows of ``tok`` and columns of ``unembed``,
-# 128 a rank; "ssm_tp": reduced mamba2_780m (tied) with its 8 SSM heads 2 a
-# rank, at 8 tokens (F5: the reference's scan has NaN gradients from 16);
-# "router": reduced granite-moe on (1, 4), its router split at rest over
-# ``model`` and gathered at use (one data rank: the expert-parallel layer
-# routes, drops and balances over the local tokens, as the reference's
-# does, so only there is it the single-device step); "heads_whole": reduced qwen2_7b on (1, 8), where 4 query
-# heads do not divide 8 but the fused q_dim (64) does
+# row[, config fields replaced in both packages]); "kv_slice": reduced
+# qwen2_7b's 2 KV heads (and their biases) under a model dim of 4, each rank
+# computing the one KV head its query head uses; "vocab": llama2_paper's
+# 512 rows of ``tok`` and columns of ``unembed``, 128 a rank; "ssm_tp":
+# reduced mamba2_780m (tied) with its 8 SSM heads 2 a rank and its 2 x 16
+# B / C channels 8 a rank, at 8 tokens (F5: the reference's scan has NaN
+# gradients from 16); "ssm_bc_whole": 6 SSM heads 2 a rank on (1, 3), where
+# 2 x 4 B / C channels do not split over 3 and stay whole; "router":
+# reduced granite-moe on (1, 4), its router split at rest over ``model``
+# and gathered at use (one data rank: the expert-parallel layer routes,
+# drops and balances over the local tokens, as the reference's does, so
+# only there is it the single-device step); "heads_whole": reduced qwen2_7b
+# on (1, 8), where 4 query heads do not divide 8 but the fused q_dim (64)
+# does: ranks 0-3 a head each, 4-7 none; "heads_straddle": 6 query heads
+# over 2 KV heads on (1, 4), runs of 2, 2, 1, 1 (rank 1's two heads read
+# both KV heads); "heads_repeat": 9 over 3 on (2, 2) under ZeRO 3, runs of
+# 5 and 4 whose KV heads repeat (0, 0, 0, 1, 1 and 1, 2, 2, 2); "whisper":
+# reduced whisper with 6 heads on (1, 4) (encoder, decoder and
+# cross-attention; every xgate open)
 _MESHES = {
     "zero2": ("llama2_paper", (2, 4), ("data", "model"), 2, None, 4, 32),
     "kv_slice": ("qwen2_7b", (2, 4), ("data", "model"), 2, None, 4, 32),
@@ -210,29 +224,58 @@ _MESHES = {
     "router": ("granite_moe_1b_a400m", (1, 4), ("data", "model"), 2, None,
                4, 32),
     "heads_whole": ("qwen2_7b", (1, 8), ("data", "model"), 2, None, 2, 32),
+    "heads_straddle": ("qwen2_7b", (1, 4), ("data", "model"), 2, None, 2,
+                       32, {"num_heads": 6, "num_kv_heads": 2}),
+    "heads_repeat": ("qwen2_7b", (2, 2), ("data", "model"), 3, None, 4, 32,
+                     {"num_heads": 9, "num_kv_heads": 3}),
+    "whisper": ("whisper_large_v3", (1, 4), ("data", "model"), 2, None, 2,
+                16, {"num_heads": 6, "num_kv_heads": 6}),
+    "ssm_bc_whole": ("mamba2_780m", (1, 3), ("data", "model"), 2, None, 3,
+                     8, {"d_model": 48, "ssm_state": 4}),
 }
+_QKV = ["bk", "bq", "bv", "wk", "wo", "wq", "wv"]
+_Q_GATHERED = ["bq", "wo", "wq"]
 # what each case's layouts split over ``model``: (TP blocks, attributes
 # gathered at use, attributes with whole runs, attributes summed over it)
 _SPLITS = {
     "kv_slice": (["attn", "mlp", "vocab"], [], [], ["bk", "bv", "wk", "wv"]),
-    "ssm_tp": (["ssm", "vocab"], [], ["conv_b", "conv_w", "in_proj"], []),
+    "ssm_tp": (["ssm", "ssm_bc", "vocab"], [],
+               ["conv_b", "conv_w", "in_proj"], []),
+    "ssm_bc_whole": (["ssm"], [], ["conv_b", "conv_w", "in_proj"], []),
     "router": (["attn", "mlp", "moe", "vocab"], ["router"], [],
                ["wk", "wv"]),
-    "heads_whole": (["mlp", "vocab"], ["bq", "wo", "wq"], [], []),
+    "heads_whole": (["attn", "mlp", "vocab"], _Q_GATHERED, [], _QKV),
+    "heads_straddle": (["attn", "mlp", "vocab"], _Q_GATHERED, [], _QKV),
+    "heads_repeat": (["attn", "mlp", "vocab"], _Q_GATHERED, [], _QKV),
+    "whisper": (["attn", "mlp", "vocab"], _Q_GATHERED, [], _QKV),
 }
 
 
-def _reference_step(arch: str, batch_size: int, seq: int = 32):
-    """The reference's jitted single-device step: (initial params, batch,
-    new params, loss, grad norm)."""
-    cfg = RC.get_reduced(arch)
-    params, _ = ref_get_api(cfg).init(cfg, jax.random.PRNGKey(0))
+def _open_gates(params):
+    """The reference's parameter tree with every ``xgate`` set off its init
+    (0 shuts the cross-attention out of the output and its gradients)."""
+    return jax.tree_util.tree_map_with_path(
+        lambda path, a: (jnp.full_like(a, 0.6)
+                         if getattr(path[-1], "key", None) == "xgate"
+                         else a), params)
+
+
+def _reference_step(arch: str, batch_size: int, seq: int = 32,
+                    over: dict = None):
+    """The reference's jitted single-device step on the reduced ``arch``
+    with ``over`` replaced: (initial params, batch, new params, loss, grad
+    norm).  An encdec batch carries ``memory`` and its gates are open."""
+    cfg = RC.get_reduced(arch).replace(**(over or {}))
+    params = _open_gates(ref_get_api(cfg).init(cfg, jax.random.PRNGKey(0))[0])
     opt = ref_adamw_init(params)
-    k1, k2 = jax.random.split(jax.random.PRNGKey(1))
+    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(1), 3)
     batch = {"tokens": jax.random.randint(k1, (batch_size, seq), 0,
                                           cfg.vocab_size),
              "labels": jax.random.randint(k2, (batch_size, seq), 0,
                                           cfg.vocab_size)}
+    if cfg.family == "encdec":
+        batch["memory"] = jax.random.normal(
+            k3, (batch_size, cfg.encoder_seq, cfg.d_model), jnp.float32)
     step = RS.make_train_step(cfg, RTrainConfig(warmup_steps=0))
     p1, _, m1 = jax.jit(step)(params, opt, batch, jnp.float32(1.0))
     return (_np(params), _np(batch), _np(p1), float(m1["loss"]),
@@ -241,9 +284,10 @@ def _reference_step(arch: str, batch_size: int, seq: int = 32):
 
 @pytest.mark.parametrize("case", sorted(_MESHES))
 def test_sharded_train_step_matches_unsharded_and_reference(tmp_path, case):
-    arch, shape, axes, zero, rules, B, seq = _MESHES[case]
-    params, batch, ref_new, ref_loss, ref_gnorm = _reference_step(arch, B,
-                                                                  seq)
+    arch, shape, axes, zero, rules, B, seq = _MESHES[case][:7]
+    over = _MESHES[case][7] if len(_MESHES[case]) > 7 else {}
+    params, batch, ref_new, ref_loss, ref_gnorm = _reference_step(
+        arch, B, seq, over)
     flat = {}
 
     def walk(node, prefix):
@@ -257,6 +301,7 @@ def test_sharded_train_step_matches_unsharded_and_reference(tmp_path, case):
              **{f"b/{k}": v for k, v in batch.items()})
     code = (_STEP.replace("SHAPE", repr(shape)).replace("AXES", repr(axes))
             .replace("ZERO", str(zero)).replace("ARCH", repr(arch))
+            .replace("OVER", repr(over))
             .replace("RULES", f"shd.{rules}" if rules else "None"))
     run_ranks(code, int(np.prod(shape)), tmp_path)
     with open(tmp_path / "out.json") as f:
@@ -283,21 +328,31 @@ def test_sharded_train_step_matches_unsharded_and_reference(tmp_path, case):
     assert info["blocks"] == blocks
     assert info["gather_tp"] == gather and info["runs"] == runs
     assert sorted({n.rpartition(".")[2] for n in info["tp_sum"]}) == summed
+    cfg = RC.get_reduced(arch).replace(**over)
+    tp = shape[-1]
     if "vocab" in blocks:
-        tp = shape[-1]
         assert {"tok", "unembed"} & set(info["split_model"])
-        assert info["local_shapes"]["embed.tok"][0] == (
-            RC.get_reduced(arch).vocab_size // tp)
-    if case == "ssm_tp":
-        cfg = RC.get_reduced(arch)
-        ch = cfg.ssm_expand * cfg.d_model // 4
-        assert info["local_shapes"]["blocks.0.ssm.conv_w"][1] == (
-            ch + 2 * cfg.ssm_state)
+        assert info["local_shapes"]["embed.tok"][0] == cfg.vocab_size // tp
+    if "ssm" in blocks:
+        # each rank its heads' x channels, and its slice of B / C where
+        # the model dim divides them
+        ch = cfg.ssm_expand * cfg.d_model // tp
+        bc = 2 * cfg.ssm_state // (tp if "ssm_bc" in blocks else 1)
+        assert info["local_shapes"]["blocks.0.ssm.conv_w"][1] == ch + bc
         assert info["local_shapes"]["blocks.0.ssm.A_log"] == [
-            cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim // 4]
+            cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim // tp]
+    if info["q_run"] is not None:
+        # rank 0 computes the longest run of query heads and the KV heads
+        # they read: ceil(H / tp) of the model's H, where the model dim does
+        # not divide them
+        H, Kh = cfg.num_heads, cfg.num_kv_heads
+        assert H % tp
+        assert info["q_run"] == [0, -(-H // tp)]
+        assert info["local_heads"] == [-(-H // tp), len(info["kv_run"])]
+        assert info["kv_run"] == sorted(info["kv_run"])
     # ZeRO 3 gathers at use, a unit at a time: never more alive than the
     # largest unit's weights and one more unit's, and none after the step
-    assert (info["dp_rest"] > 0) == (case in ("zero3", "dp_only"))
+    assert (info["dp_rest"] > 0) == (zero >= 3 or rules is not None)
     assert info["gathered_now"] == 0
     if info["dp_rest"] or gather:
         assert 0 < info["peak_gathered"] <= 2 * info["unit_max"], info
@@ -726,9 +781,9 @@ import jax, jax.numpy as jnp, numpy as np
 import repro.configs as C
 from repro.distributed import sharding as shd
 from repro.launch.mesh import make_test_mesh
-from repro.models import transformer as T
+from repro.models import transformer as T, whisper as W
 d = np.load('{path}')
-cfg = C.get_reduced('{arch}')
+cfg = C.get_reduced('{arch}').replace(**{over})
 params = {{}}
 for k in d.files:
     if k.startswith('p/'):
@@ -737,11 +792,20 @@ for k in d.files:
         for q in parts[:-1]:
             node = node.setdefault(q, {{}})
         node[parts[-1]] = jnp.asarray(d[k])
+tokens = jnp.asarray(d['tokens'])
 mesh = make_test_mesh((1, 4))
 with shd.use_mesh(mesh):
-    pre = jax.jit(lambda p, t: T.prefill(cfg, p, t, {max_len}))
-    dec = jax.jit(lambda p, t, s: T.decode_step(cfg, p, t, s))
-    logits, state = pre(params, jnp.asarray(d['tokens']))
+    if cfg.family == 'encdec':    # no batched prefill: the prompt by steps
+        dec = jax.jit(lambda p, t, s: W.decode_step(cfg, p, t, s))
+        state = jax.jit(lambda p, m: W.init_decode_state(
+            cfg, tokens.shape[0], {max_len}, memory=m, params=p))(
+                params, jnp.asarray(d['memory']))
+        for t in range(tokens.shape[1]):
+            logits, state = dec(params, tokens[:, t:t + 1], state)
+    else:
+        pre = jax.jit(lambda p, t: T.prefill(cfg, p, t, {max_len}))
+        dec = jax.jit(lambda p, t, s: T.decode_step(cfg, p, t, s))
+        logits, state = pre(params, tokens)
     toks = []
     for _ in range({steps}):
         tok = jnp.argmax(logits[:, -1], -1)
@@ -754,9 +818,9 @@ _PORT_DECODE = '''
 import repro_torch.configs as C
 from repro_torch.distributed import steps as S
 from repro_torch.launch.mesh import make_test_mesh
-from repro_torch.models import convert, transformer as T
+from repro_torch.models import convert, transformer as T, whisper as W
 d = np.load(os.path.join(OUT, "in.npz"))
-cfg = C.get_reduced(ARCH)
+cfg = C.get_reduced(ARCH).replace(**OVER)
 tree = {}
 for k in d.files:
     if k.startswith("p/"):
@@ -770,14 +834,19 @@ mesh = make_test_mesh((1, 4))
 sm, _ = S.shard_model(cfg, model, mesh, zero_stage=0)
 tokens = S.shard_batch({"t": torch.as_tensor(d["tokens"])}, mesh)["t"]
 with torch.no_grad(), sm.context():
-    logits, state = T.prefill(sm.local_cfg, sm.module, tokens, MAXLEN)
+    if cfg.family == "encdec":
+        logits, state = W.prefill(sm.local_cfg, sm.module, tokens, MAXLEN,
+                                  memory=torch.as_tensor(d["memory"]))
+    else:
+        logits, state = T.prefill(sm.local_cfg, sm.module, tokens, MAXLEN)
 logits = S._whole_logits(sm, logits)
 if state.attn_k is not None:
     assert tuple(state.attn_k.shape[2:4]) == (MAXLEN // 4, cfg.num_kv_heads)
 else:                                   # Mamba-2: this rank's heads
     assert state.ssm_ssd.shape[2] == cfg.ssm_heads // 4
+    bc = 2 * cfg.ssm_state
     assert state.ssm_conv.shape[3] == (cfg.ssm_d_inner // 4
-                                       + 2 * cfg.ssm_state)
+                                       + (bc // 4 if bc % 4 == 0 else bc))
 step = S.make_decode_step(cfg)
 toks, lgs = [], []
 for _ in range(STEPS):
@@ -788,22 +857,42 @@ for _ in range(STEPS):
 if mesh.get_coordinate()[1] == 0:
     np.savez(os.path.join(OUT, f"dp{mesh.get_coordinate()[0]}.npz"),
              toks=torch.stack(toks, 1).numpy(),
-             logits=torch.stack(lgs, 1).numpy())
+             logits=torch.stack(lgs, 1).numpy(),
+             heads=np.array([sm.local_cfg.num_heads]))
 '''
 
+# case -> (reduced arch, config fields replaced in both packages)
+_DECODES = {
+    "llama2_paper": ("llama2_paper", {}),
+    "qwen2_7b": ("qwen2_7b", {}),
+    "mamba2_780m": ("mamba2_780m", {}),
+    "qwen2_7b_6_heads": ("qwen2_7b", {"num_heads": 6, "num_kv_heads": 2}),
+    "whisper_6_heads": ("whisper_large_v3", {"num_heads": 6,
+                                             "num_kv_heads": 6}),
+    "mamba2_bc_whole": ("mamba2_780m", {"ssm_state": 5}),
+}
 
-@pytest.mark.parametrize("arch", ["llama2_paper", "qwen2_7b", "mamba2_780m"])
+
+@pytest.mark.parametrize("arch", list(_DECODES))
 def test_kv_seq_decode_matches_unsharded_and_reference(tmp_path, arch):
     """Greedy decode on (1, 4) under the default rules, the cache split by
     positions over ``model`` (4 of 32 a rank's 8, every KV head; qwen2_7b's
     2 KV heads are each computed by one rank of two): a 12-token prompt
     and 8 steps, so positions reach the third rank's slice and the fourth
-    holds none.  Reduced mamba2_780m decodes its 8 SSM heads 2 a rank (its
-    conv state this rank's x channels and the whole B / C).  The tokens
-    equal the unsharded port's and the reference's decode under its own
-    mesh; the logits are within 1e-4 of the unsharded port's."""
-    cfg = RC.get_reduced(arch)
-    params, _ = ref_get_api(cfg).init(cfg, jax.random.PRNGKey(0))
+    holds none.  Query heads the model dim does not divide: qwen2_7b with 6
+    over 2 KV heads (runs of 2, 2, 1, 1; rank 1's read both KV heads) and
+    whisper with 6 (its prompt fed step by step, as the reference serves
+    it; the encoder and every cross-attention on the rank's heads, the
+    gates open).  Reduced mamba2_780m decodes its 8 SSM heads 2 a rank (its
+    conv state this rank's x channels and its 8 of the 32 B / C channels,
+    gathered after the conv); with ``ssm_state`` 5 the 10 B / C channels
+    stay whole.  The tokens equal the unsharded port's and the reference's
+    decode under its own mesh; the logits are within 1e-4 of the unsharded
+    port's."""
+    name, over = arch, _DECODES[arch][1]
+    arch = _DECODES[name][0]
+    cfg = RC.get_reduced(arch).replace(**over)
+    params = _open_gates(ref_get_api(cfg).init(cfg, jax.random.PRNGKey(0))[0])
     flat = {}
 
     def walk(node, prefix):
@@ -815,27 +904,40 @@ def test_kv_seq_decode_matches_unsharded_and_reference(tmp_path, arch):
     walk(params, "")
     rs = np.random.RandomState(0)
     tokens = rs.randint(0, cfg.vocab_size, (2, 12)).astype(np.int64)
-    np.savez(tmp_path / "in.npz", tokens=tokens, **flat)
+    memory = rs.randn(2, cfg.encoder_seq, cfg.d_model).astype(np.float32)
+    np.savez(tmp_path / "in.npz", tokens=tokens, memory=memory, **flat)
     run_child(_REF_DECODE.format(path=tmp_path / "in.npz", arch=arch,
-                                 max_len=32, steps=8,
+                                 over=repr(over), max_len=32, steps=8,
                                  out=tmp_path / "ref.npy"), devices=4)
     run_ranks(_PORT_DECODE.replace("ARCH", repr(arch))
+              .replace("OVER", repr(over))
               .replace("MAXLEN", "32").replace("STEPS", "8"), 4, tmp_path)
     import torch
     import repro_torch.configs as C
-    from repro_torch.models import convert as conv, transformer as T
-    tcfg = C.get_reduced(arch)
+    from repro_torch.models import convert as conv, whisper as W
+    from repro_torch.models.registry import get_api
+    tcfg = C.get_reduced(arch).replace(**over)
     model = conv.params_from_reference(tcfg, _np(params), device="cpu")
+    api = get_api(tcfg)
     with torch.no_grad():
-        logits, state = T.prefill(tcfg, model, torch.as_tensor(tokens), 32)
+        if tcfg.family == "encdec":
+            logits, state = W.prefill(tcfg, model, torch.as_tensor(tokens),
+                                      32, memory=torch.as_tensor(memory))
+        else:
+            from repro_torch.models import transformer as T
+            logits, state = T.prefill(tcfg, model, torch.as_tensor(tokens),
+                                      32)
         toks, lgs = [], []
         for _ in range(8):
             tok = logits[:, -1].argmax(-1)
             toks.append(tok)
             lgs.append(logits[:, -1])
-            logits, state = T.decode_step(tcfg, model, tok[:, None], state)
+            logits, state = api.decode_step(tcfg, model, tok[:, None], state)
     want = torch.stack(toks, 1).numpy()
     got = [np.load(tmp_path / "dp0.npz")]
+    if cfg.num_heads:
+        # rank 0 computes the longest run of query heads
+        assert int(got[0]["heads"][0]) == -(-cfg.num_heads // 4)
     np.testing.assert_array_equal(np.concatenate([g["toks"] for g in got]),
                                   want)
     np.testing.assert_array_equal(np.load(tmp_path / "ref.npy"), want)

@@ -351,15 +351,16 @@ def test_abstract_state_allocates_nothing():
 
 @pytest.mark.parametrize("arch,mesh,whole,bc", [
     ("llama2_paper", (2, 4), [], False),
-    ("qwen2_7b", (1, 8), ["attn"], False),
+    ("qwen2_7b", (1, 8), [], False),
     ("mamba2_780m", (2, 4), [], True),
 ])
 def test_dryrun_departures_name_what_remains(arch, mesh, whole, bc):
-    """Under the default rules only two departures remain, each with its
-    bytes: attention computed whole where the model dim does not divide
-    the query heads (reduced qwen2_7b's 4 over 8: wq, wo and bq of every
-    layer, gathered at use), and Mamba-2's B / C runs (reduced mamba2's 2
-    x 16 of each layer's in-projection columns and conv channels)."""
+    """Under the default rules no departure remains where the model dim
+    divides Mamba-2's 2 x ``ssm_state`` (``bc``: reduced mamba2's 32 over
+    4): attention splits by head runs even where the model dim does not
+    divide the query heads (reduced qwen2_7b's 4 over 8: ranks 0-3 a head
+    each, wq, wo and bq still gathered at use), and the B / C channels split
+    and are all-gathered after their convolution."""
     cfg = C.get_reduced(arch)
     rec = dryrun.run_cell(arch, "train_4k", False, "none", None,
                           verbose=False, cfg=cfg, shape=TRAIN,
@@ -367,20 +368,59 @@ def test_dryrun_departures_name_what_remains(arch, mesh, whole, bc):
                           device="cpu")
     dep = rec["departures"]
     assert dep["computed_whole_over_model"] == whole
-    assert dep["comparable_to_reference"] == (not whole and not bc)
-    params = S.abstract_params(cfg)
-    if whole:
-        want = sum(p.numel() * p.element_size() for n, p in params.items()
-                   if ".attn." in n
-                   and n.rpartition(".")[2] in ("wq", "wo", "bq"))
-        assert dep["computed_whole_over_model_bytes"] == want
+    assert dep["computed_whole_over_model_bytes"] == 0
+    assert dep["ssm_bc_whole_bytes"] == 0
+    assert dep["comparable_to_reference"]
+    if cfg.num_heads % mesh[1]:
         assert rec["memory"]["gathered_peak_bytes"] > 0
     if bc:
-        per_layer = 2 * cfg.ssm_state * (cfg.d_model + cfg.ssm_conv_width
-                                         + 1) * 4
-        assert dep["ssm_bc_whole_bytes"] == cfg.num_layers * per_layer
-    else:
-        assert dep["ssm_bc_whole_bytes"] == 0
+        assert rec["roofline"]["collectives"]["all-gather"] > 0
+
+
+def test_dryrun_departure_remains_where_bc_do_not_split():
+    """Reduced mamba2 with ``ssm_state`` 5 on (2, 4): 2 x 5 B / C channels
+    do not split over 4, so they stay whole on every rank, and the record
+    names their bytes (each layer's in-projection columns and conv
+    channels) and is not comparable."""
+    cfg = C.get_reduced("mamba2_780m").replace(ssm_state=5)
+    rec = dryrun.run_cell("mamba2_780m", "train_4k", False, "none", None,
+                          verbose=False, cfg=cfg, shape=TRAIN,
+                          mesh_shape=MESH, device="cpu")
+    dep = rec["departures"]
+    per_layer = 2 * cfg.ssm_state * (cfg.d_model + cfg.ssm_conv_width + 1) * 4
+    assert dep["ssm_bc_whole_bytes"] == cfg.num_layers * per_layer
+    assert dep["computed_whole_over_model"] == []
+    assert not dep["comparable_to_reference"]
+
+
+def test_dryrun_flops_follow_the_heads_a_rank_computes():
+    """Reduced qwen2_7b (4 query over 2 KV heads) on (1, 8): rank 0, the
+    rank traced, computes ceil(4 / 8) = 1 query head and the 1 KV head it
+    reads, and an eighth of everything else (the MLP, the vocabulary).  Its
+    flops equal the unsharded cell's with the work that scales with the
+    query heads (a) and with the KV heads (b) taken out, divided by the
+    chips, and 1 head of each added back; a and b come from unsharded
+    cells with 8 query heads and with 4 KV heads."""
+    base = C.get_reduced("qwen2_7b")
+
+    def flops(chips, **over):
+        rec = dryrun.run_cell("qwen2_7b", "train_4k", False, "none", None,
+                              verbose=False, cfg=base.replace(**over),
+                              shape=TRAIN, device="cpu",
+                              mesh_shape=MeshConfig((1, chips),
+                                                    ("data", "model")))
+        return rec["roofline"]["flops_per_chip"]
+
+    H, Kh, tp = base.num_heads, base.num_kv_heads, 8
+    one = flops(1)
+    a = (flops(1, num_heads=2 * H) - one) / H
+    b = (flops(1, num_kv_heads=2 * Kh) - one) / Kh
+    assert a > 0 and b > 0
+    want = (one - a * H - b * Kh) / tp + a * -(-H // tp) + b * 1
+    assert flops(tp) == pytest.approx(want, rel=1e-9)
+    # against the model dim dividing the heads' share evenly: rank 0 does
+    # ceil(H / tp) * tp / H times its even share of the query heads' work
+    assert flops(tp) > (one - b * Kh) / tp
 
 
 @pytest.mark.parametrize("rules", ["default", "dp_only"])
