@@ -281,6 +281,9 @@ class AdaptationService:
         # pure-Python stretch of policy generation
         prev_switch = sys.getswitchinterval()
         sys.setswitchinterval(min(prev_switch, SEARCH_SWITCH_INTERVAL_S))
+        # in the profiler's trace this thread's ranges are the worker's, so
+        # a gap on the training thread is never put down to it
+        obs.tracer().set_thread_prefix("adapt.worker")
         try:
             with obs.tracer().span(obs.LANE_ADAPT,
                                    "adapt_worker" if not job.speculative

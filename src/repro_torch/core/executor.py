@@ -90,7 +90,10 @@ built from ``torch.autograd.graph.saved_tensors_hooks``, the host tier's
     ``released_late`` the swap-outs not retired at their release op (still
     copying, or queued behind one that is), and
     ``settle_s`` the host time of the books after the step (below).  On
-    the CPU, where every copy is synchronous, the copy stall is 0.
+    the CPU, where every copy is synchronous, the copy stall is 0.  While
+    ``torch.profiler`` records, the hooks are ranges of its trace:
+    ``exec.pack``, ``exec.unpack`` and ``exec.on_op`` (the release ops
+    and the swap-ins' issue; ``obs.profiler_range``).
   * **Remat** (``applied.remat``).  A site whose ``tag`` carries a
     recompute recipe (``ffn_act``: ``silu(gate) * up``) is not held
     across the forward: the pack hook keeps the recipe, with its inputs
@@ -148,13 +151,14 @@ import torch
 from torch.utils._python_dispatch import (_disable_current_modes,
                                           _get_current_dispatch_mode_stack)
 
+from repro_torch import obs
 from repro_torch.common.config import ChameleonConfig
 from repro_torch.core import sites
 from repro_torch.core.memtrace import build_timeline
 from repro_torch.core.policy import SwapPolicy
 from repro_torch.core.profiler import MIN_TRACK_BYTES, ProfileData
 from repro_torch.core.sites import OFFLOAD_SITES, base_site
-from repro_torch.core.tokenizer import DETACH, HOOK_NEVER, CountingMode
+from repro_torch.core.tokenizer import HOOK_NEVER, CountingMode, not_an_op
 
 # Sites that are cheap to recompute from their saved neighbors (elementwise):
 # the beyond-paper 3-way save/offload/remat decision drops these from the
@@ -381,7 +385,7 @@ class _OpCounter(CountingMode):
         return self.n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func is DETACH:
+        if not_an_op(func):
             return func(*args, **(kwargs or {}))
         n = self.n
         self.n = n + 1
@@ -608,7 +612,8 @@ class Execution:
         i = n - self._base
         t0 = time.perf_counter()
         st = self._last
-        with self._lock, _disable_current_modes():
+        with obs.profiler_range("exec.on_op"), self._lock, \
+                _disable_current_modes():
             rel = self._release_ops
             if self._rel_i < len(rel) and rel[self._rel_i] <= i:
                 while self._rel_i < len(rel) and rel[self._rel_i] <= i:
@@ -659,7 +664,8 @@ class Execution:
     # ------------------------------------------------------ pack / unpack
     def _pack_hook(self, t: torch.Tensor):
         t0 = time.perf_counter()
-        out = self._pack(t)
+        with obs.profiler_range("exec.pack"):
+            out = self._pack(t)
         dt = time.perf_counter() - t0
         self._last["hook_s"] += dt
         self._last["pack_s"] += dt
@@ -667,7 +673,8 @@ class Execution:
 
     def _unpack_hook(self, h):
         t0 = time.perf_counter()
-        out = self._unpack(h)
+        with obs.profiler_range("exec.unpack"):
+            out = self._unpack(h)
         self._last["hook_s"] += time.perf_counter() - t0
         return out
 

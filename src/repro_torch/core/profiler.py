@@ -42,7 +42,7 @@ import torch
 from repro_torch.common.device import resolve_device
 from repro_torch.core import sites
 from repro_torch.core.sites import base_site
-from repro_torch.core.tokenizer import (DETACH, GLOBAL_VOCAB, CountingMode,
+from repro_torch.core.tokenizer import (GLOBAL_VOCAB, CountingMode,
                                         OpTokens, OpVocab, TokenBuffer)
 
 MIN_TRACK_BYTES = 1 << 10
@@ -244,10 +244,10 @@ class _DetailedMode(CountingMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if func is DETACH:
-            return func(*args, **kwargs)
         rec = self.rec
         tok = rec.tokens(func)
+        if not tok:
+            return func(*args, **kwargs)
         n = rec.buf.append(tok)
         if n > self.hook_at:
             self.hook(n - 1)

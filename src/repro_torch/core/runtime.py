@@ -86,6 +86,17 @@ What eager PyTorch changes:
   * The executor's own copies and recomputation are invisible to both the
     recorder and the profile, so an applied policy never reads as a
     sequence change.
+
+``obs`` spans of the iteration's books: ``monitor.record_dispatch``,
+``monitor.signature`` (the signature update and Algo 1's
+``machine.observe``), ``monitor.release_sweep``, ``obs.close_window``
+and ``adapt.poll`` (the async result's install), beside ``adapt.prepare``,
+``adapt.genpolicy_step`` and ``adapt.select_best``.  ``stats()`` gives
+two parts of ``profiling_overhead_s``: ``recorder_s``, the recorder's own
+time (``OpStreamRecorder.overhead_s``), and ``obs_close_s``, the time of
+``_close_obs_window``.  On a CUDA device the window's overlap efficiency
+reads the tracer's device records (``obs.overlap``), resolved when the
+window closes.
 """
 from __future__ import annotations
 
@@ -206,6 +217,7 @@ class ChameleonRuntime:
         self.history: List[dict] = []
         self.profiling_overhead_s = 0.0      # steady-state Lightweight mode
         self.adaptation_overhead_s = 0.0     # episodic (GenPolicy/store/fit)
+        self.obs_close_s = 0.0               # _close_obs_window, a part
         # ---- policystore: persistent fingerprint-keyed adaptation cache
         self.store: Optional[PolicyStore] = None
         self.drift: Optional[DriftClassifier] = None
@@ -473,15 +485,17 @@ class ChameleonRuntime:
                 f"record_dispatch({name!r}): the function did not run under "
                 "the recorder; dispatch through rt.step_fn() or "
                 "rt.recorded(fn)")
-        self._iter_streams.append(stream)
-        fn.last_stream = None
-        # the recorder's own bookkeeping during the dispatch
-        rec_s = self.recorder.overhead_s
-        self.profiling_overhead_s += rec_s - self._recorder_seen_s
-        self._recorder_seen_s = rec_s
-        if name == "train":
-            self._last_train_args = args
-            self._train_shape = self._args_key(args)   # shapes/dtypes only
+        with obs.tracer().span(obs.LANE_MONITOR, "record_dispatch",
+                               arg=name):
+            self._iter_streams.append(stream)
+            fn.last_stream = None
+            # the recorder's own bookkeeping during the dispatch
+            rec_s = self.recorder.overhead_s
+            self.profiling_overhead_s += rec_s - self._recorder_seen_s
+            self._recorder_seen_s = rec_s
+            if name == "train":
+                self._last_train_args = args
+                self._train_shape = self._args_key(args)  # shapes/dtypes
         self.profiling_overhead_s += time.perf_counter() - t0
 
     def end_iteration(self, t_iter: float,
@@ -490,15 +504,17 @@ class ChameleonRuntime:
         the grad dispatch's own (module doc), which prices the detailed
         profile; without it the profile is priced at ``t_iter``."""
         t0 = time.perf_counter()
+        tracer = obs.tracer()
         t_price = t_iter if t_grad is None else t_grad
         # the policy that *this* iteration executed — _genpolicy_step /
         # _select_best may replace self.applied for the next one below
         ran = self.applied
-        sig = self._sig_acc.update(self._iter_streams)
-        self._iter_streams = []
-        self._last_sig = sig
-        prev_stage = self.machine.stage
-        stage = self.machine.observe(sig, self.step_idx)
+        with tracer.span(obs.LANE_MONITOR, "signature", arg=self.step_idx):
+            sig = self._sig_acc.update(self._iter_streams)
+            self._iter_streams = []
+            self._last_sig = sig
+            prev_stage = self.machine.stage
+            stage = self.machine.observe(sig, self.step_idx)
         # shape drift (same op stream, different shapes -> different memory
         # profile): Algo 1 cannot see it, so re-enter WarmUp ourselves; the
         # policystore keys buckets separately (per-site byte aggregates) so
@@ -554,24 +570,16 @@ class ChameleonRuntime:
         # sweep any planned release still queued (the iteration's op
         # stream has fully executed) and reset the op cursor
         if self.hostmem is not None and ran.release_plan:
-            eng = self.hostmem.engine
-            eng.advance_op(max(ran.release_plan.values()))
-            eng.begin_iteration()
+            with tracer.span(obs.LANE_MONITOR, "release_sweep"):
+                eng = self.hostmem.engine
+                eng.advance_op(max(ran.release_plan.values()))
+                eng.begin_iteration()
         # async swap-in point: only after the executed policy's planned
         # releases were swept may a worker result replace self.applied
         if self.machine.stage is Stage.ADAPTING:
             t_install = time.perf_counter()
-            res = self.service.poll()
-            if res is not None:
-                self._install_result(res, "adapt-installed")
-            elif self.service.watchdog(self.cfg.resilience.adapt_timeout_s):
-                # hung or lost worker: supersede its epoch (a late result
-                # can never install) and un-wedge the stage machine; the
-                # current policy keeps serving (it fit before the drift)
-                self.service.invalidate("worker-timeout")
-                self.machine.complete_adapting(self.step_idx,
-                                               "adapt-timeout")
-                self._finish_adaptation("timeout")
+            with tracer.span(obs.LANE_ADAPT, "poll", arg=self.step_idx):
+                self._poll_adaptation()
             self.adaptation_overhead_s += time.perf_counter() - t_install
         # degradation ladder (repro_torch.faults): react to link health
         # after this iteration's transfers; GenPolicy iterations are
@@ -584,19 +592,37 @@ class ChameleonRuntime:
         self.history.append({"step": self.step_idx, "stage": stage.value,
                              "policy": self.applied.fingerprint,
                              "t_iter": t_iter, "t_grad": t_grad})
-        self._close_obs_window(ran)
+        t_close = time.perf_counter()
+        with tracer.span(obs.LANE_OBS, "close_window", arg=self.step_idx):
+            self._close_obs_window(ran)
+        self.obs_close_s += time.perf_counter() - t_close
         self.profiling_overhead_s += (time.perf_counter() - t0) - adapt_dt
         return stage
 
+    def _poll_adaptation(self) -> None:
+        res = self.service.poll()
+        if res is not None:
+            self._install_result(res, "adapt-installed")
+        elif self.service.watchdog(self.cfg.resilience.adapt_timeout_s):
+            # hung or lost worker: supersede its epoch (a late result
+            # can never install) and un-wedge the stage machine; the
+            # current policy keeps serving (it fit before the drift)
+            self.service.invalidate("worker-timeout")
+            self.machine.complete_adapting(self.step_idx, "adapt-timeout")
+            self._finish_adaptation("timeout")
+
     def _close_obs_window(self, ran: Optional[AppliedPolicy] = None) -> None:
         """Per-iteration overlap efficiency: how much of this window's
-        engine transfer time was hidden under compute spans.  Then close
-        the memory ledger's window for the policy that ran: realized-peak
-        replay, the predicted-vs-realized scoreboard, byte conservation,
-        and budget-headroom feedback into the health FSM."""
+        engine transfer time was hidden under compute (on a CUDA device
+        the tracer's device records, resolved first: ``obs.overlap``).
+        Then close the memory ledger's window for the policy that ran:
+        realized-peak replay, the predicted-vs-realized scoreboard, byte
+        conservation, and budget-headroom feedback into the health FSM."""
+        obs.tracer().resolve()
         t1 = time.perf_counter()
         eff, transfer_s, hidden_s = obs.window_efficiency(
-            obs.tracer(), self._iter_t0, t1)
+            obs.tracer(), self._iter_t0, t1,
+            device=self.device.type == "cuda")
         if transfer_s > 0.0:
             self.overlap_history.append({
                 "step": self.step_idx, "t": t1,
@@ -880,6 +906,9 @@ class ChameleonRuntime:
             "contention_s": (self.best.swap.contention_s
                              if self.best and self.best.swap else 0.0),
             "profiling_overhead_s": self.profiling_overhead_s,
+            # two parts of it: the recorder's own time, the window close
+            "recorder_s": self.recorder.overhead_s,
+            "obs_close_s": self.obs_close_s,
             "adaptation_overhead_s": self.adaptation_overhead_s,
             "replays": self.replays,
             "ladder": self.ladder.stats() if self.ladder else None,

@@ -131,7 +131,8 @@ def op_name(func) -> str:
 
 
 class OpTokens:
-    """Op object -> token, naming each new op once."""
+    """Op object -> token, naming each new op once; 0 for what is no
+    operator of the program (:func:`not_an_op`)."""
 
     __slots__ = ("vocab", "_tok")
 
@@ -142,7 +143,8 @@ class OpTokens:
     def __call__(self, func) -> int:
         tok = self._tok.get(func)
         if tok is None:
-            tok = self._tok[func] = self.vocab.id(op_name(func))
+            tok = self._tok[func] = (0 if not_an_op(func)
+                                     else self.vocab.id(op_name(func)))
         return tok
 
 
@@ -179,6 +181,15 @@ HOOK_NEVER = 1 << 62
 DETACH = torch.ops.aten.detach.default
 
 
+def not_an_op(func) -> bool:
+    """``detach`` (above), and the ``profiler`` namespace's ops: a
+    ``record_function`` range dispatches its enter and exit through every
+    active dispatch mode, with the profiler on or off, so a range opened
+    inside a recorded dispatch would add tokens and shift every later op
+    index of a swap plan.  No counting mode records either."""
+    return func is DETACH or func.namespace == "profiler"
+
+
 class CountingMode(TorchDispatchMode):
     """A dispatch mode that numbers the ops it records: the recorder's
     Lightweight mode and the profiler's Detailed mode.  The executor
@@ -207,11 +218,12 @@ class _RecordingMode(CountingMode):
         return self.rec._buf.n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func is DETACH:
-            return func(*args, **(kwargs or {}))
         t0 = time.perf_counter()
         rec = self.rec
-        n = rec._buf.append(rec._tokens(func))
+        tok = rec._tokens(func)
+        if not tok:
+            return func(*args, **(kwargs or {}))
+        n = rec._buf.append(tok)
         rec.overhead_s += time.perf_counter() - t0
         if n > self.hook_at:
             self.hook(n - 1)

@@ -933,18 +933,27 @@ def _run(policy):
     return policy.run() if policy is not None else contextlib.nullcontext()
 
 
+def _mark(on_mark, phase: str) -> None:
+    if on_mark is not None:
+        on_mark(phase)
+
+
 def _backward(loss_fn, model, batch, loss_scale, policy=None,
-              fill: bool = True):
+              fill: bool = True, on_mark=None):
     """Scaled loss and its backward, under ``policy``; returns (loss,
     {name: param}, metrics) with each parameter's ``.grad`` filled (with
     ``fill``, zeros where the loss does not reach it) and the loss's parts
-    (``xent``, ``aux``) detached."""
+    (``xent``, ``aux``) detached.  ``on_mark``, if given, is called with
+    ``"fwd"`` once the loss is launched and ``"bwd"`` once the backward
+    is."""
     params = dict(model.named_parameters())
     for p in params.values():
         p.grad = None
     with _run(policy):
         scaled, (loss, m) = loss_fn(model, batch, loss_scale)
+        _mark(on_mark, "fwd")
         scaled.backward()
+        _mark(on_mark, "bwd")
     for p in params.values():
         if fill and p.grad is None:
             p.grad = torch.zeros_like(p)
@@ -953,18 +962,23 @@ def _backward(loss_fn, model, batch, loss_scale, policy=None,
 
 def make_grad_step(cfg: ModelConfig, tcfg: TrainConfig, policy=None,
                    on_parts: Optional[Callable[[Dict[str, torch.Tensor]],
-                                               None]] = None) -> Callable:
+                                               None]] = None,
+                   on_mark: Optional[Callable[[str], None]] = None
+                   ) -> Callable:
     """(model, batch, loss_scale) -> (loss, grads, finite): grads unscaled
     (f32) keyed by parameter name, ``finite`` a 0-d bool tensor.  The
     parameters' ``.grad`` are released.  ``on_parts``, if given, takes each
-    call's loss parts (``xent``, ``aux``), detached."""
+    call's loss parts (``xent``, ``aux``), detached.  ``on_mark``, if
+    given, is called with the name of each phase as its work is launched:
+    ``fwd`` (to the loss), ``bwd`` (the backward) and ``unscale`` (to the
+    finiteness check)."""
     loss_fn = make_loss_fn(cfg)
 
     def grad_step(model: nn.Module, batch, loss_scale
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                              torch.Tensor]:
         loss, params, parts = _backward(loss_fn, model, batch, loss_scale,
-                                        policy)
+                                        policy, on_mark=on_mark)
         if on_parts is not None:
             on_parts(parts)
         scale = torch.tensor(loss_scale, dtype=torch.float32)
@@ -972,19 +986,26 @@ def make_grad_step(cfg: ModelConfig, tcfg: TrainConfig, policy=None,
         for n, p in params.items():
             grads[n] = p.grad.float().div_(scale.to(p.device))
             p.grad = None
-        return loss, grads, check_finite(grads)
+        finite = check_finite(grads)
+        _mark(on_mark, "unscale")
+        return loss, grads, finite
 
     return grad_step
 
 
-def make_apply_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
+def make_apply_step(cfg: ModelConfig, tcfg: TrainConfig,
+                    on_mark: Optional[Callable[[str], None]] = None
+                    ) -> Callable:
     """(model, opt_state, grads) -> (model, opt_state, metrics): clip by the
-    global norm, the warmup-cosine lr at the state's step, AdamW in place."""
+    global norm, the warmup-cosine lr at the state's step, AdamW in place.
+    ``on_mark``, as ``make_grad_step``'s: ``clip`` and ``adamw_update``."""
     def apply_step(model: nn.Module, opt_state: AdamWState, grads):
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+        _mark(on_mark, "clip")
         lr = warmup_cosine(opt_state.step, tcfg.learning_rate,
                            tcfg.warmup_steps, tcfg.steps)
         opt_state = adamw_update(model, grads, opt_state, tcfg, lr)
+        _mark(on_mark, "adamw_update")
         return model, opt_state, {"grad_norm": gnorm, "lr": lr}
 
     return apply_step

@@ -87,6 +87,17 @@ so steady-state traffic keeps the measured curve fresh; the simulator can
 price link *contention* from the live per-class backlog via
 :meth:`queued_delay`.
 
+Where a copy lies in the trace: on a CUDA device, once the tracer's
+device clock is anchored (the trainer anchors it at each grad dispatch),
+each retired copy is a ``device`` record of its class's lane, from its
+start event to its done event on the device's timeline
+(``obs.tracer``), with (tag, bytes, queue wait) as its ``arg``, the
+queue wait running from its submission on the host to its start on the
+device; the memory ledger notes it at its done event's time.  Otherwise
+(the CPU, or a card with no anchor) it is a host span from its issue to
+its issue plus its time, the queue wait from its submission to its
+issue.
+
 The engine is thread-safe (one re-entrant lock around queue mutation).
 """
 from __future__ import annotations
@@ -717,12 +728,21 @@ class TransferEngine:
         t0 = ev._t_issue
         t1 = t0 + ev.seconds
         # trace lane == traffic class: one Chrome-trace row per stream.
-        # submit→start is the queue wait; start→done is the copy itself.
-        obs.tracer().record(
-            ev.cls, "swap_out" if ev.kind == SWAP_OUT else "swap_in",
-            t0, t1,
-            arg=(ev.tag, ev.nbytes,
-                 round(max(t0 - ev.t_submit, 0.0), 6) if ev.t_submit else 0.0))
+        # start→done is the copy itself; the queue wait is submit→start,
+        # on a card to the copy's start on its stream (module doc)
+        tr = obs.tracer()
+        name = "swap_out" if ev.kind == SWAP_OUT else "swap_in"
+        if ev._cuda is not None and tr.anchored:
+            start, done = ev._cuda
+            t1 = tr.device_time(done)
+            wait = max(tr.device_time(start) - ev.t_submit, 0.0)
+            tr.record_device(ev.cls, name, start, done,
+                             arg=(ev.tag, ev.nbytes, round(wait, 6)))
+        else:
+            tr.record(ev.cls, name, t0, t1,
+                      arg=(ev.tag, ev.nbytes,
+                           round(max(t0 - ev.t_submit, 0.0), 6)
+                           if ev.t_submit else 0.0))
         obs.ledger().note_transfer(ev.kind, ev.cls, ev.tag, ev.nbytes,
                                    release_op=ev.release_op, t=t1)
         cc = self.by_class[ev.cls]

@@ -2,7 +2,9 @@
 audit log and the memory ledger.
 
 The port's copy of the reference ``repro.obs`` core: the ring-buffered
-:class:`SpanTracer` over five fixed lanes with Chrome-trace export, the
+:class:`SpanTracer` over eight fixed lanes with Chrome-trace export (the
+reference's five, and the port's ``trainer``, ``monitor`` and ``obs``
+host lanes), its device clock and its ranges in the profiler's trace, the
 :class:`MetricsRegistry` that ``stats()`` providers register into, the
 :class:`AuditLog` of structured events (fault injection, link-health
 transitions, engine retries and fallbacks) and the :class:`MemoryLedger`
@@ -24,8 +26,10 @@ from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.overlap import (interval_union, overlap_efficiency,
                                      window_efficiency)
 from repro_torch.obs.tracer import (LANE_ADAPT, LANE_CHECKPOINT, LANE_COMPUTE,
-                                    LANE_ID, LANE_KV_SPILL, LANE_POLICY_SWAP,
-                                    LANES, SpanTracer, export_chrome_trace)
+                                    LANE_ID, LANE_KV_SPILL, LANE_MONITOR,
+                                    LANE_OBS, LANE_POLICY_SWAP, LANE_TRAINER,
+                                    LANES, SpanTracer, export_chrome_trace,
+                                    mark_seconds, profiler_range)
 from repro_torch.obs.validate import (validate_chrome_trace,
                                       validate_metrics_jsonl)
 
@@ -33,7 +37,8 @@ __all__ = [
     "AuditLog", "MemoryLedger", "MetricsRegistry", "SpanTracer",
     "LEDGER_TRACKS",
     "LANES", "LANE_ID", "LANE_COMPUTE", "LANE_POLICY_SWAP", "LANE_KV_SPILL",
-    "LANE_CHECKPOINT", "LANE_ADAPT", "export_chrome_trace",
+    "LANE_CHECKPOINT", "LANE_ADAPT", "LANE_TRAINER", "LANE_MONITOR",
+    "LANE_OBS", "export_chrome_trace", "mark_seconds", "profiler_range",
     "interval_union", "overlap_efficiency", "window_efficiency",
     "validate_chrome_trace", "validate_metrics_jsonl",
     "tracer", "metrics", "audit", "ledger",

@@ -16,13 +16,16 @@ The computation is numpy interval arithmetic over the tracer's ring
 buffer: O(n log n) in retained spans, run once per iteration boundary on
 bounded input, so it honors the always-on budget.
 
-On a CUDA device the efficiency is not a device measurement yet: the
-transfer engine records each copy's span on the host clock, from the
-issue time plus the copy's CUDA-event duration, and the compute spans are
-the trainer's host-clock dispatch spans, which end only when the host
-has waited for the device.  How far the copies really overlapped the
-kernels on the card needs device-side timestamps for both (ROADMAP.md
-queue 1 item 9).
+On a CUDA device the efficiency is a device measurement: the runtime
+asks for the tracer's ``device`` records (``window_efficiency(...,
+device=True)``), which lie on the device's timeline put on the tracer's
+clock (``obs.tracer``'s module doc).  The compute records are the
+trainer's dispatch phases, from CUDA events on the compute stream (the
+forward, the backward, the unscale, the clip and the update); the
+transfer records are the engine's copies, from the start and done events
+around each on its class's stream.  On the CPU, where every copy runs at
+its issue, the compute and transfer spans of the host clock are used, as
+the reference does.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from repro_torch.obs.tracer import LANE_COMPUTE, TRANSFER_LANES, SpanTracer
+from repro_torch.obs.tracer import (_KIND_DEVICE, _KIND_SPAN, LANE_COMPUTE,
+                                    TRANSFER_LANES, SpanTracer)
 
 
 def interval_union(spans: np.ndarray) -> np.ndarray:
@@ -86,13 +90,16 @@ def overlap_efficiency(compute: np.ndarray,
     return hidden / total, total, hidden
 
 
-def window_efficiency(tracer: SpanTracer, t0: float, t1: float
+def window_efficiency(tracer: SpanTracer, t0: float, t1: float,
+                      device: bool = False
                       ) -> Tuple[Optional[float], float, float]:
     """Overlap efficiency over the wall-clock window [t0, t1): transfer
     spans are clipped to the window; compute spans crossing the boundary
-    still hide what they cover inside it."""
-    compute = tracer.spans(lanes=(LANE_COMPUTE,))
-    transfer = tracer.spans(lanes=TRANSFER_LANES)
+    still hide what they cover inside it.  ``device``: the tracer's
+    device records of those lanes in place of its spans (module doc)."""
+    kinds = (_KIND_DEVICE,) if device else (_KIND_SPAN,)
+    compute = tracer.spans(lanes=(LANE_COMPUTE,), kinds=kinds)
+    transfer = tracer.spans(lanes=TRANSFER_LANES, kinds=kinds)
     if transfer.size:
         m = (transfer[:, 1] > t0) & (transfer[:, 0] < t1)
         transfer = np.clip(transfer[m], t0, t1)

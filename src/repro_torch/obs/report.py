@@ -84,6 +84,8 @@ def build_report(trace: Optional[dict], snapshots: Optional[List[dict]],
             "counters": summary["counters"],
             "ledger_tracks_present": [t for t in LEDGER_TRACKS
                                       if summary["counters"].get(t)],
+            # the port's device process (obs.validate), where there is one
+            "device_lanes": summary.get("device_lanes"),
         }
     else:
         rep["trace"] = None
@@ -163,6 +165,10 @@ def render_markdown(rep: dict) -> str:
         L.append(f"- {tr['n_spans']} spans over lanes "
                  + ", ".join(f"{k}:{v}" for k, v in
                              sorted(tr["span_lanes"].items())))
+        if tr["device_lanes"]:
+            L.append("- device records over lanes "
+                     + ", ".join(f"{k}:{v}" for k, v in
+                                 sorted(tr["device_lanes"].items())))
         L.append("- counter tracks: "
                  + ", ".join(f"{k}({v})" for k, v in
                              sorted(tr["counters"].items())))

@@ -4,7 +4,11 @@ Port of ``repro/obs/validate.py``: proves that an exported
 ``*.trace.json`` loads as a Chrome trace (Perfetto /
 ``chrome://tracing``), covers the expected lanes and carries the
 expected counter tracks, and that a metrics JSONL holds registry
-snapshots with the expected providers:
+snapshots with the expected providers.  The port's traces may hold a
+second process, ``device`` (``tracer.DEVICE_PID``), of device records:
+its complete events are counted apart (``device_spans`` and
+``device_lanes`` in the summary, which has those keys only then), and
+``--require-lanes`` asks for host spans:
 
     PYTHONPATH=src python -m repro_torch.obs.validate out.trace.json \
         --require-lanes compute,policy_swap,kv_spill,checkpoint,adapt \
@@ -23,7 +27,7 @@ import sys
 from typing import Dict, Iterable, Optional
 
 from repro_torch.obs.metrics import SNAPSHOT_KEYS
-from repro_torch.obs.tracer import LANES
+from repro_torch.obs.tracer import DEVICE_PID, LANES
 
 _REQUIRED_EVENT_KEYS = {"name", "ph", "pid"}
 _PHASES_WITH_TS = {"X", "i", "C"}
@@ -42,8 +46,9 @@ def validate_chrome_trace(obj: dict, *,
         raise ValueError("'traceEvents' must be a non-empty list")
     lanes_named: Dict[int, str] = {}
     span_lanes: Dict[str, int] = {}
+    device_lanes: Dict[str, int] = {}
     counters: Dict[str, int] = {}
-    n_spans = n_instants = 0
+    n_spans = n_instants = n_device = 0
     for k, e in enumerate(events):
         if not isinstance(e, dict) or not _REQUIRED_EVENT_KEYS <= set(e):
             raise ValueError(f"event {k} missing required keys "
@@ -51,16 +56,22 @@ def validate_chrome_trace(obj: dict, *,
         ph = e["ph"]
         if ph in _PHASES_WITH_TS and not isinstance(e.get("ts"), (int, float)):
             raise ValueError(f"event {k} (ph={ph!r}) has no numeric 'ts'")
+        device = e["pid"] == DEVICE_PID
         if ph == "M" and e["name"] == "thread_name":
-            lanes_named[e.get("tid", -1)] = e["args"]["name"]
+            if not device:
+                lanes_named[e.get("tid", -1)] = e["args"]["name"]
         elif ph == "X":
             dur = e.get("dur")
             if not isinstance(dur, (int, float)) or dur < 0:
                 raise ValueError(f"event {k} ('{e['name']}') has bad dur "
                                  f"{dur!r}")
             lane = e.get("cat", lanes_named.get(e.get("tid"), "?"))
-            span_lanes[lane] = span_lanes.get(lane, 0) + 1
-            n_spans += 1
+            if device:
+                device_lanes[lane] = device_lanes.get(lane, 0) + 1
+                n_device += 1
+            else:
+                span_lanes[lane] = span_lanes.get(lane, 0) + 1
+                n_spans += 1
         elif ph == "i":
             n_instants += 1
         elif ph == "C":
@@ -83,9 +94,12 @@ def validate_chrome_trace(obj: dict, *,
         if counters.get(cname, 0) == 0:
             raise ValueError(f"no '{cname}' counter events "
                              f"(got {sorted(counters)})")
-    return {"n_events": len(events), "n_spans": n_spans,
-            "n_instants": n_instants, "span_lanes": span_lanes,
-            "counters": counters}
+    out = {"n_events": len(events), "n_spans": n_spans,
+           "n_instants": n_instants, "span_lanes": span_lanes,
+           "counters": counters}
+    if n_device:
+        out.update(device_spans=n_device, device_lanes=device_lanes)
+    return out
 
 
 def validate_metrics_jsonl(path: str, *,
@@ -147,7 +161,10 @@ def main(argv=None) -> int:
         require_counter=args.require_counter,
         require_counters=split(args.require_counters))
     print(f"{args.trace}: OK — {summary['n_spans']} spans over lanes "
-          f"{summary['span_lanes']}, counters {summary['counters']}")
+          f"{summary['span_lanes']}, counters {summary['counters']}"
+          + (f"; {summary['device_spans']} device records over lanes "
+             f"{summary['device_lanes']}" if "device_spans" in summary
+             else ""))
     if args.metrics:
         ms = validate_metrics_jsonl(
             args.metrics, require_gauges=split(args.require_gauges),

@@ -24,8 +24,22 @@ an emergency checkpoint when an iteration raises, recorded after the step
 is counted so ``resume()`` does not replay an applied update; ``resume()``
 from the latest step, sample-exact through the data cursor; straggler
 detection on the step wall times; ``faults.tick`` at the top of every
-iteration for armed fault plans; ``obs`` spans ``train_step``,
-``apply_step`` and ``eval_step``.
+iteration for armed fault plans.
+
+``obs``: the spans ``compute.train_step``, ``compute.apply_step`` and
+``compute.eval_step`` around the dispatches, and on the ``trainer`` lane
+the host work between them: ``step`` (one iteration), ``batch`` (the next
+batch to the device), ``settle`` (the execution's books) and
+``train_end`` (the checkpoint wait and the stats at the end of
+``train()``).  Each dispatch's phases are marked as their work is
+launched (``distributed.steps``' ``on_mark``): ``fwd``, ``bwd`` and
+``unscale`` in the grad dispatch, ``clip`` and ``adamw_update`` in the
+apply, ``eval``.  Once the dispatch has synchronised, each phase is a
+device record of the ``compute`` lane, and ``report.device_phases`` keeps
+its seconds, the step's ``dispatch_s`` their sum; the grad dispatch's
+start event anchors the tracer's device clock (``obs.tracer``).  With
+Chameleon off the trainer stamps the tracer's iteration (the runtime
+does with it on).
 """
 from __future__ import annotations
 
@@ -69,6 +83,10 @@ class TrainReport:
     # the grad dispatch per step, from its start to its synchronised end,
     # less its measured copy stall (Chameleon prices its profile at it)
     grad_times: List[float] = field(default_factory=list)
+    # per step, the device seconds of each dispatch phase (``fwd``,
+    # ``bwd``, ``unscale``; ``clip`` and ``adamw_update`` where the update
+    # ran; ``eval``) and ``dispatch_s``, their sum (host seconds on the CPU)
+    device_phases: List[Dict[str, float]] = field(default_factory=list)
     skipped_steps: List[int] = field(default_factory=list)
     eval_losses: Dict[int, float] = field(default_factory=dict)
     # Chameleon's stage per step (empty with Chameleon off)
@@ -134,14 +152,17 @@ class Trainer:
         self.straggler = StragglerDetector(on_straggler=self._on_straggler)
         self.report = TrainReport()
         self._parts = None             # the last grad step's loss parts
-        self._grad = S.make_grad_step(cfg, tcfg, on_parts=self._take_parts)
-        self._apply = S.make_apply_step(cfg, tcfg)
+        self._marks: Optional[list] = None   # the open dispatch's phases
+        self._grad = S.make_grad_step(cfg, tcfg, on_parts=self._take_parts,
+                                      on_mark=self._mark)
+        self._apply = S.make_apply_step(cfg, tcfg, on_mark=self._mark)
         self._eval = S.make_eval_step(cfg)
         self.rt: Optional[ChameleonRuntime] = None
         if self.cham.enabled:
             self.rt = ChameleonRuntime(
                 self.cham, lambda policy: S.make_grad_step(
-                    cfg, tcfg, policy, on_parts=self._take_parts),
+                    cfg, tcfg, policy, on_parts=self._take_parts,
+                    on_mark=self._mark),
                 device=self.device)
             # every dispatch of the iteration runs under the recorder
             self._apply = self.rt.recorded(self._apply)
@@ -207,6 +228,35 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _next_batch(self):
+        with obs.tracer().span(obs.LANE_TRAINER, "batch"):
+            return self._device_batch(self.data.get())
+
+    def _mark(self, phase: str) -> None:
+        """``phase`` of the open dispatch is launched (``on_mark``); a
+        replay of the grad dispatch outside the trainer's marks none."""
+        if self._marks is not None:
+            self._marks.append((phase, obs.tracer().mark(self.device)))
+
+    def _dispatch(self, fn, args, first):
+        """``fn(*args)`` with its phases marked from ``first``: (its
+        output, the marks)."""
+        self._marks = [("", first)]
+        try:
+            return fn(*args), self._marks
+        finally:
+            self._marks = None
+
+    @staticmethod
+    def _phases(marks, out: Dict[str, float]) -> None:
+        """Each phase, from the mark before it to its own, once the
+        dispatch has synchronised: a device record, its seconds into
+        ``out``."""
+        tr = obs.tracer()
+        for (_, a), (phase, b) in zip(marks, marks[1:]):
+            tr.record_device(obs.LANE_COMPUTE, phase, a, b)
+            out[phase] = obs.mark_seconds(a, b)
+
     # ------------------------------------------------------------ resume
     def _templates(self):
         """Reference-layout templates of the checkpointed trees: meta
@@ -249,24 +299,27 @@ class Trainer:
               fault_hook: Optional[Callable[[int], None]] = None
               ) -> TrainReport:
         steps = steps if steps is not None else self.tcfg.steps
-        batch = self._device_batch(self.data.get())
+        tracer = obs.tracer()
+        batch = self._next_batch()
         if self.rt is not None and not self._prepared:
             self.rt.prepare((self.model, batch, self.loss_scale.scale))
             self._prepared = True
         end = self.step + steps
         while self.step < end:
             try:
-                self._one_step(batch, fault_hook)
-                batch = self._device_batch(self.data.get())
+                with tracer.span(obs.LANE_TRAINER, "step", arg=self.step):
+                    self._one_step(batch, fault_hook)
+                batch = self._next_batch()
             except (KeyboardInterrupt, Exception) as e:  # noqa: BLE001
                 self.report.failures.append(f"step {self.step}: {e!r}")
                 self.ckpt.wait()
                 self._checkpoint(block=True)   # emergency checkpoint
                 raise
-        self.ckpt.wait()
-        if self.rt is not None:
-            self.report.policystore = self.rt.policystore_stats()
-            self.report.adapt = self.rt.service.stats()
+        with tracer.span(obs.LANE_TRAINER, "train_end"):
+            self.ckpt.wait()
+            if self.rt is not None:
+                self.report.policystore = self.rt.policystore_stats()
+                self.report.adapt = self.rt.service.stats()
         return self.report
 
     def _take_parts(self, parts) -> None:
@@ -275,29 +328,36 @@ class Trainer:
     def _one_step(self, batch, fault_hook=None):
         faults.tick(self.step)   # armed fault plans key off the iteration
         rt = self.rt
+        tracer = obs.tracer()
+        if rt is None:
+            tracer.set_iteration(self.step)
+        phases: Dict[str, float] = {}
         t0 = time.perf_counter()
         args = (self.model, batch, self.loss_scale.scale)
         fn = rt.step_fn(args) if rt is not None else self._grad
-        with obs.tracer().span(obs.LANE_COMPUTE, "train_step",
-                               arg=self.step):
+        with tracer.span(obs.LANE_COMPUTE, "train_step", arg=self.step):
             tg = time.perf_counter()
-            loss, grads, finite = fn(*args)
+            (loss, grads, finite), marks = self._dispatch(
+                fn, args, tracer.anchor(self.device))
             parts = self._parts              # before any replay of fn
             finite_h = bool(finite)          # waits for the device
             t_grad = time.perf_counter() - tg
+            self._phases(marks, phases)
         ex = getattr(fn, "execution", None)
         if ex is not None:
-            ex.settle()                      # after the sync above: on a
+            with tracer.span(obs.LANE_TRAINER, "settle"):
+                ex.settle()                  # after the sync above: on a
             # card the grad dispatch left the policy's books open
             t_grad = max(t_grad - ex.last["copy_stall_s"], 0.0)
         if rt is not None:
             rt.record_dispatch("train", fn, args)
         if finite_h:
-            with obs.tracer().span(obs.LANE_COMPUTE, "apply_step",
-                                   arg=self.step):
-                self.model, self.opt_state, _m = self._apply(
-                    self.model, self.opt_state, grads)
+            with tracer.span(obs.LANE_COMPUTE, "apply_step", arg=self.step):
+                (self.model, self.opt_state, _m), marks = self._dispatch(
+                    self._apply, (self.model, self.opt_state, grads),
+                    tracer.mark(self.device))
                 self._sync()
+                self._phases(marks, phases)
             if rt is not None:
                 rt.record_dispatch("apply", self._apply,
                                    (self.model, self.opt_state, grads))
@@ -310,12 +370,17 @@ class Trainer:
                 and self.step > 0
                 and self.step % self.tcfg.eval_every == 0):
             ebatch = self._device_batch(self.eval_data.next_batch())
-            with obs.tracer().span(obs.LANE_COMPUTE, "eval_step",
-                                   arg=self.step):
-                el = float(self._eval(self.model, ebatch))
+            with tracer.span(obs.LANE_COMPUTE, "eval_step", arg=self.step):
+                e0 = tracer.mark(self.device)
+                el = self._eval(self.model, ebatch)
+                marks = [("", e0), ("eval", tracer.mark(self.device))]
+                el = float(el)
+                self._phases(marks, phases)
             if rt is not None:
                 rt.record_dispatch("eval", self._eval, (self.model, ebatch))
             self.report.eval_losses[self.step] = el
+        tracer.resolve()
+        phases["dispatch_s"] = sum(phases.values())
 
         dt = time.perf_counter() - t0
         if rt is not None:
@@ -330,6 +395,7 @@ class Trainer:
         self.report.aux.append(float(parts["aux"]))
         self.report.times.append(dt)
         self.report.grad_times.append(t_grad)
+        self.report.device_phases.append(phases)
         self.report.wall_times.append(wall)
         self.step += 1
         # step is incremented BEFORE any failure can be raised for this
